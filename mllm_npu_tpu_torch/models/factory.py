@@ -1,0 +1,159 @@
+"""Builders targeted by the port's YAML configs (twins of
+``mllm_npu_tpu/models/factory.py`` :123, :149, :231, :264, :291).
+
+Component builders return a :class:`ModelSpec` (config plus constructor)
+and build nothing; :func:`build_mllm` builds the assembly once, on the
+``meta`` device, then allocates it on the target device in the parameter
+dtype and fills it from a seeded generator on that device. So a full-width
+build never runs 8B parameters through a CPU initializer.
+
+Weights are drawn from the seed: loading the reference's checkpoints is
+not ported yet, and a configured checkpoint path that exists raises rather
+than being silently replaced. A path that does not exist (the repository
+ships none) means seeded weights. ``DEBUG_FLAG=True`` swaps every
+component for its tiny config, as in the reference.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from pathlib import Path
+from typing import Any, Callable, Optional
+
+import torch
+from torch import nn
+
+from mllm_npu_tpu_torch.models.language_models.llama import (
+    LlamaConfig, LlamaForCausalLM, RMSNorm)
+from mllm_npu_tpu_torch.models.mllm import GeneralizedMultimodalModel
+from mllm_npu_tpu_torch.models.multimodal_encoder.siglip_vit import (
+    SigLIPConfig, SigLIPVisionEncoder)
+from mllm_npu_tpu_torch.models.multimodal_projector.attention_resampler \
+    import AttentionResampler
+from mllm_npu_tpu_torch.utils.device import resolve_device
+
+def _debug() -> bool:
+    return os.environ.get("DEBUG_FLAG", "False") == "True"
+
+
+def _no_checkpoint(path) -> None:
+    if path and not _debug() and Path(str(path)).exists():
+        raise NotImplementedError(
+            f"checkpoint {path!r} exists, but loading reference checkpoints "
+            "into the port is not implemented yet")
+
+
+@dataclasses.dataclass
+class ModelSpec:
+    """A component to build: its config, compute dtype and a no-argument
+    constructor."""
+    config: Any
+    dtype: torch.dtype
+    make: Callable[[], nn.Module]
+
+
+def _llama_spec(cfg: LlamaConfig, dtype) -> ModelSpec:
+    return ModelSpec(cfg, dtype, lambda: LlamaForCausalLM(cfg, dtype=dtype))
+
+
+def build_llama3(pretrained_model_name_or_path=None, vocab_size=None,
+                 dtype=torch.bfloat16, **kw) -> ModelSpec:
+    _no_checkpoint(pretrained_model_name_or_path)
+    if _debug():
+        cfg = LlamaConfig.tiny(vocab_size=vocab_size or 1024, **kw)
+    else:
+        cfg = LlamaConfig.llama3_8b(**kw)
+        if vocab_size is not None:
+            cfg = dataclasses.replace(cfg, vocab_size=vocab_size)
+    return _llama_spec(cfg, dtype)
+
+
+def get_peft_model_with_resize_embedding(model: ModelSpec = None,
+                                         peft_config=None, vocab_size=None,
+                                         **kw) -> ModelSpec:
+    """LoRA on the configured targets and the vocabulary resized. The
+    adapters' dropout is a training setting and is not kept."""
+    cfg = model.config
+    r, alpha, targets = 32, 32.0, cfg.lora_targets
+    if isinstance(peft_config, dict):
+        r = peft_config.get("r", r)
+        alpha = float(peft_config.get("lora_alpha", alpha))
+        targets = tuple(peft_config.get("target_modules", targets))
+    cfg = dataclasses.replace(cfg, lora_rank=r, lora_alpha=alpha,
+                              lora_targets=targets,
+                              vocab_size=vocab_size or cfg.vocab_size)
+    return _llama_spec(cfg, model.dtype)
+
+
+def build_siglip(pretrained_model_name_or_path=None, hidden_dim=1152,
+                 output_dim=4096, dtype=torch.bfloat16, **kw) -> ModelSpec:
+    _no_checkpoint(pretrained_model_name_or_path)
+    cfg = SigLIPConfig.tiny() if _debug() else SigLIPConfig.so400m_384()
+    return ModelSpec(cfg, dtype,
+                     lambda: SigLIPVisionEncoder(cfg, dtype=dtype))
+
+
+def build_attention_resampler(grid_size: int, embed_dim: int,
+                              num_heads: int, kv_dim: Optional[int] = None,
+                              dtype=torch.bfloat16, **kw) -> ModelSpec:
+    if _debug():
+        grid_size, embed_dim, num_heads = 2, 128, 4
+        kv_dim = None if kv_dim is None else 64
+    return ModelSpec(None, dtype, lambda: AttentionResampler(
+        grid_size=grid_size, embed_dim=embed_dim, num_heads=num_heads,
+        kv_dim=kv_dim, dtype=dtype))
+
+
+def init_random_(module: nn.Module, seed: int = 0, std: float = 0.02
+                 ) -> nn.Module:
+    """Fill every parameter from one seeded generator on its device:
+    normal(0, std) for weights (LoRA B included, so adapters compute),
+    zeros for biases, ones for norm scales."""
+    dev = next(module.parameters()).device
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+            else:
+                p.normal_(0.0, std, generator=g)
+        for m in module.modules():
+            if isinstance(m, (RMSNorm, nn.LayerNorm)):
+                m.weight.fill_(1.0)
+    return module
+
+
+def materialize(make: Callable[[], nn.Module], *, device=None,
+                param_dtype=torch.bfloat16, seed: int = 0) -> nn.Module:
+    """Build on ``meta``, allocate on ``device`` (``cuda`` unless named)
+    in ``param_dtype``, and fill from ``seed``."""
+    device = resolve_device(device)
+    with torch.device("meta"):
+        module = make()
+    module = module.to(param_dtype).to_empty(device=device)
+    return init_random_(module, seed)
+
+
+def build_mllm(language_model: ModelSpec = None,
+               vision_encoder: ModelSpec = None,
+               projector: ModelSpec = None, freeze_vision_encoder=True,
+               lm_loss_scale=1.0, add_patch_pos=False,
+               pretrained_model_name_or_path=None,
+               pretrained_model_path=None, *, device=None,
+               param_dtype=torch.bfloat16, seed: int = 0,
+               **kw) -> GeneralizedMultimodalModel:
+    """The comprehension assembly with seeded weights on ``device``
+    (``freeze_vision_encoder`` and ``lm_loss_scale`` are training settings
+    and unused here)."""
+    _no_checkpoint(pretrained_model_name_or_path or pretrained_model_path)
+
+    def make():
+        return GeneralizedMultimodalModel(
+            language_model.make(), vision_encoder.make(), projector.make(),
+            add_patch_pos=add_patch_pos,
+            patch_pos_dim=language_model.config.hidden_size)
+
+    return materialize(make, device=device, param_dtype=param_dtype,
+                       seed=seed)

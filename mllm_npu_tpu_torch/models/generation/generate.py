@@ -1,0 +1,113 @@
+"""End-to-end greedy generation for the comprehension assembly (twin of
+``MLLMGenerator.generate``, ``mllm_npu_tpu/models/generation/generate.py:50-307``).
+
+One call: embed the prompt and scatter the image tokens; a causal prefill
+over the right-padded prompt with segment ids from ``prompt_mask`` (K1 on
+the GPU) that fills the KV cache; the first token from the last real
+position's logits; then a greedy read-only-cache decode with the image
+ladder. Eager PyTorch takes the place of ``jit``. Speculative decode,
+int8/int4 weights, projection fusion and layer unrolling are not ported
+yet.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import torch
+
+from mllm_npu_tpu_torch.models.generation.sampler import (ImageTokenLadder,
+                                                          SamplingConfig,
+                                                          _sample,
+                                                          apply_image_ladder,
+                                                          decode_loop)
+from mllm_npu_tpu_torch.models.language_models.llama import init_cache
+from mllm_npu_tpu_torch.ops import SegmentIds
+
+CACHE_DTYPE = torch.bfloat16
+
+
+class MLLMGenerator:
+    """Greedy generation for one ``GeneralizedMultimodalModel``.
+
+    Every fp32 parameter is stored in bf16 (the modules still compute in
+    their own dtype), as the reference's serving default, and the KV cache
+    is bf16.
+    ``last_timings`` holds the wall times of the last call, each ending in
+    a device synchronisation: the embedding (vision tower, projector and
+    scatter), the prefill with the first token, their sum (time to first
+    token) and the decode loop.
+    """
+
+    def __init__(self, model, *, sampling: SamplingConfig = SamplingConfig(),
+                 ladder: Optional[ImageTokenLadder] = None):
+        for p in model.parameters():
+            if p.dtype == torch.float32:
+                p.data = p.data.to(torch.bfloat16)
+        self.model = model
+        self.lm_config = model.language_model.config
+        self.sampling = sampling
+        self.ladder = ladder
+        self.last_timings: dict = {}
+
+    @torch.inference_mode()
+    def generate(self, input_ids, *, prompt_mask=None, images=None,
+                 embeds_cmp_mask=None, ids_cmp_mask=None,
+                 patch_positions=None) -> dict:
+        """input_ids [B, Sp] (right-padded when ``prompt_mask`` is given);
+        returns {"generate_ids": [B, max_new_tokens]}."""
+        model, cfg = self.model, self.sampling
+        lm = model.language_model
+        if input_ids.ndim == 1:
+            input_ids = input_ids[None]
+        B, Sp = input_ids.shape
+        dev = input_ids.device
+        sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+        t0 = time.perf_counter()
+        inputs_embeds, _ = model.embed_and_scatter(
+            input_ids, images, embeds_cmp_mask, ids_cmp_mask,
+            patch_positions)
+        sync()
+        t_embed = time.perf_counter()
+        max_len = Sp + cfg.max_new_tokens
+        cache = init_cache(self.lm_config, B, max_len, dtype=CACHE_DTYPE,
+                           device=dev)
+        pm = (torch.ones((B, Sp), dtype=torch.int32, device=dev)
+              if prompt_mask is None else prompt_mask.to(torch.int32))
+        row_len = pm.sum(dim=-1)                                   # [B]
+        positions = (torch.cumsum(pm, dim=-1) - 1).clamp(min=0)
+        hidden, cache = lm(inputs_embeds=inputs_embeds, positions=positions,
+                           cache=cache, segment_ids=SegmentIds(q=pm, kv=pm),
+                           prefill=True)
+        idx_last = (row_len - 1).long()
+        rows = torch.arange(B, device=dev)
+        last_logits = lm.logits(hidden[rows, idx_last]).float()
+        if self.ladder is not None:
+            last_logits = apply_image_ladder(
+                last_logits, input_ids[rows, idx_last], self.ladder)
+        first_token = _sample(last_logits)
+
+        # keys valid over the whole cache: the real prompt tokens and
+        # everything decoded after position Sp
+        base_valid = torch.cat(
+            [pm.bool(), torch.ones((B, max_len - Sp), dtype=torch.bool,
+                                   device=dev)], dim=1)
+        decode_am = base_valid[:, None, None, :]
+        sync()
+        t1 = time.perf_counter()
+
+        def step(tok, cache):
+            pos_t = (row_len + (cache["pos"] - Sp))[:, None]
+            h, cache = lm(tok, positions=pos_t, cache=cache,
+                          attn_mask=decode_am)
+            return lm.logits(h[:, -1]).float(), cache
+
+        tokens, _, steps = decode_loop(step, cache, first_token, cfg,
+                                       ladder=self.ladder)
+        sync()
+        t2 = time.perf_counter()
+        self.last_timings = {"embed_s": t_embed - t0,
+                             "prefill_s": t1 - t_embed, "ttft_s": t1 - t0,
+                             "decode_s": t2 - t1, "decode_steps": steps}
+        return {"generate_ids": tokens}

@@ -1,0 +1,77 @@
+"""LLaVA-style comprehension assembly (twin of the
+``GeneralizedMultimodalModel`` of ``mllm_npu_tpu/models/mllm.py``):
+vision encoder → projector → projected image tokens scattered into the
+token embeddings at ``ids_cmp_mask`` → LLM. The reference's static-shape
+gathers become their eager equivalents; the data contract (images,
+embeds_cmp_mask, ids_cmp_mask, patch_positions) is unchanged.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+def compact_selected(x: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """Rows with ``sel`` True moved to the front in order; the rest zero."""
+    out = torch.zeros_like(x)
+    picked = x[sel]
+    out[:picked.shape[0]] = picked
+    return out
+
+
+def scatter_image_embeds(input_embeds: torch.Tensor,   # [B, S, D]
+                         ids_mask: torch.Tensor,        # [B, S] bool
+                         image_embeds: torch.Tensor,    # [N, nq, D]
+                         ) -> torch.Tensor:
+    """``input_embeds[ids_mask] = image_embeds.reshape(-1, D)`` in row-major
+    order; slots past the last image row repeat it, as the reference's
+    clipped gather does."""
+    D = input_embeds.shape[-1]
+    flat = image_embeds.reshape(-1, D).to(input_embeds.dtype)
+    m = ids_mask.reshape(-1).long()
+    slot = (torch.cumsum(m, 0) - m).clamp(0, flat.shape[0] - 1)
+    gathered = flat[slot].reshape(input_embeds.shape)
+    return torch.where(ids_mask[..., None], gathered, input_embeds)
+
+
+def _patch_pos_bias(patch_positions: torch.Tensor,
+                    table: torch.Tensor) -> torch.Tensor:
+    """[N, 2] normalized tile centers × [4, D] corner table → [N, 1, D]."""
+    rel = torch.cat([patch_positions, 1 - patch_positions], dim=-1) / 2
+    return (rel.to(table.dtype) @ table)[:, None, :]
+
+
+class GeneralizedMultimodalModel(nn.Module):
+    def __init__(self, language_model, vision_encoder, projector, *,
+                 add_patch_pos: bool = False, patch_pos_dim: int = 4096):
+        super().__init__()
+        self.language_model = language_model
+        self.vision_encoder = vision_encoder
+        self.projector = projector
+        self.add_patch_pos = add_patch_pos
+        if add_patch_pos:
+            self.patch_pos_embed = nn.Parameter(torch.empty(4, patch_pos_dim))
+
+    def project_images(self, image_embeds, patch_positions=None):
+        out = self.projector(image_embeds)
+        if self.add_patch_pos and patch_positions is not None:
+            out = out + _patch_pos_bias(patch_positions,
+                                        self.patch_pos_embed.to(out.dtype))
+        return out
+
+    def embed_and_scatter(self, input_ids, images, embeds_cmp_mask,
+                          ids_cmp_mask, patch_positions):
+        """Token embeddings with the selected images' projected tokens in
+        place; returns (input_embeds, encoder tokens or None)."""
+        input_embeds = self.language_model.embed(input_ids)
+        if images is None:
+            return input_embeds, None
+        image_embeds = self.vision_encoder(images)
+        proj_in = compact_selected(image_embeds, embeds_cmp_mask)
+        pp = None
+        if patch_positions is not None:
+            pp = compact_selected(patch_positions, embeds_cmp_mask)
+        image_embeds_lm = self.project_images(proj_in, pp)
+        return (scatter_image_embeds(input_embeds, ids_cmp_mask,
+                                     image_embeds_lm), image_embeds)

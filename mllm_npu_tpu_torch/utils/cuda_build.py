@@ -1,0 +1,63 @@
+"""Build the hand-written CUDA kernels under ``csrc/`` at first use.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, ``build/lib<name>-<hash>.so``
+at the repository root (git-ignored), and loaded with ``ctypes``. The
+hash of the source names the library, so an edited source is rebuilt.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_loaded: dict = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: CUDA kernels are built on the GPU "
+                       "machine (CUDA_HOME or /usr/local/cuda)")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless its library is current. Returns
+    nvcc's report (empty when nothing was built); raises if nvcc fails."""
+    out = library_path(name)
+    if out.exists():
+        return ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+    os.replace(tmp, out)
+    return proc.stdout
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library for ``csrc/<name>.cu``, built if needed."""
+    if name not in _loaded:
+        build(name)
+        _loaded[name] = ctypes.CDLL(str(library_path(name)))
+    return _loaded[name]

@@ -1,0 +1,216 @@
+"""The slice as a whole on the CPU: the tiny port engine against the JAX
+``InferenceEngine`` with the same weights, image and question (greedy ids
+and text must be identical), the weight round trip through the
+reference's converter, the port's import hygiene, and the device rule of
+its entry points."""
+
+import ast
+import base64
+import io
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from mllm_npu_tpu.data.processor import ImageProcessor as JProc
+from mllm_npu_tpu.serve.engine import InferenceEngine as JEngine
+from mllm_npu_tpu.utils.fake_tokenizer import FakeTokenizer as JTok
+from mllm_npu_tpu.utils.testing import (TinySpec as JSpec,
+                                        build_tiny_mllm as j_build,
+                                        synthetic_batch)
+from mllm_npu_tpu.utils.weights import torch_to_flax_assembly
+from mllm_npu_tpu_torch.data.processor import ImageProcessor
+from mllm_npu_tpu_torch.serve.engine import InferenceEngine
+from mllm_npu_tpu_torch.utils.fake_tokenizer import FakeTokenizer
+from mllm_npu_tpu_torch.utils.testing import TinySpec, build_tiny_mllm
+from mllm_npu_tpu_torch.utils.weights import from_jax_params
+
+REPO = Path(__file__).resolve().parents[1]
+COMMON = dict(resolution_grids=("1x1", "1x2", "2x1", "2x2"),
+              base_resolution=448, num_img_in_tokens=4,
+              num_img_out_tokens=4, max_new_tokens=10)
+
+
+def _png_b64(w, h, seed=0):
+    rs = np.random.RandomState(seed)
+    buf = io.BytesIO()
+    Image.fromarray((rs.rand(h, w, 3) * 255).astype(np.uint8)).save(
+        buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+@pytest.fixture(scope="module")
+def reference_tree():
+    spec = JSpec(batch=1, seq=64, image_size=56, nq=4)
+    jm, jl, _ = j_build(spec, llama_kw=dict(lora_rank=8))
+    params = jm.init(jax.random.PRNGKey(0),
+                     **synthetic_batch(spec, cmp_images=1))
+    rs = np.random.RandomState(1)
+
+    def fix(path, x):   # non-zero adapters, so the LoRA path is exercised
+        x = np.asarray(x)
+        if path[-1].key == "lora_b":
+            return rs.normal(0, 0.05, x.shape).astype(np.float32)
+        return x
+    tree = jax.tree_util.tree_map_with_path(fix, params["params"])
+    return jm, jl, tree
+
+
+@pytest.fixture(scope="module")
+def engines(reference_tree):
+    """Both engines with the reference's serving defaults: parameters
+    cast to bf16, a bf16 KV cache."""
+    jm, jl, tree = reference_tree
+    je = JEngine(model=jm, lm_config=jl, params={"params": tree},
+                 tokenizer=JTok(), image_transform=JProc(height=56, width=56),
+                 **COMMON)
+    tm, _, _ = build_tiny_mllm(TinySpec(), device="cpu",
+                               llama_kw=dict(lora_rank=8))
+    tm.load_state_dict(from_jax_params(tree), strict=True)
+    te = InferenceEngine(model=tm, tokenizer=FakeTokenizer(),
+                         image_transform=ImageProcessor(height=56, width=56),
+                         device="cpu", **COMMON)
+    return je, te
+
+
+def _reference_ids(je, q, b64):
+    """Greedy ids of the JAX engine, as its ``comprehension`` makes them."""
+    import jax.numpy as jnp
+    ids, patches, pos, cmp = je._prepare_comprehension(q, b64)
+    if patches is None:
+        out = je.generator.generate(jnp.asarray(ids[None]))
+    else:
+        n = patches.shape[0]
+        out = je.generator.generate(
+            jnp.asarray(ids[None]), images=jnp.asarray(patches),
+            embeds_cmp_mask=jnp.ones((n,), bool),
+            ids_cmp_mask=jnp.asarray(cmp[None]),
+            patch_positions=jnp.asarray(pos))
+    return np.asarray(out["generate_ids"][0])
+
+
+@pytest.mark.parametrize("image", ["896x896", "384x1152", "none"])
+def test_comprehension_identical_to_reference(engines, image):
+    je, te = engines
+    b64 = "" if image == "none" else _png_b64(*map(int, image.split("x")))
+    q = "what is shown in this picture?"
+    ids, patches, _, _ = te._prepare_comprehension(q, b64)
+    np.testing.assert_array_equal(ids, je._prepare_comprehension(q, b64)[0])
+    if image == "896x896":
+        assert patches.shape[0] == 5          # 2×2 grid + thumbnail
+    got = te.generate_ids(q, b64)
+    assert got.shape == (COMMON["max_new_tokens"],)
+    np.testing.assert_array_equal(got, _reference_ids(je, q, b64))
+    assert te.comprehension(q, b64) == je.comprehension(q, b64)
+
+
+def test_generate_right_padded_batch_identical_to_reference(engines):
+    """Two prompts of different lengths, right-padded into one batch: the
+    prompt mask becomes segment ids and positions in both generators."""
+    je, te = engines
+    import jax.numpy as jnp
+    tok = te.tokenizer
+    rows = [[tok.bos_token_id] + tok.encode(f"Question: {q}\nAnswer:")
+            for q in ("what is the colour of the sky today?", "hi")]
+    Sp = max(map(len, rows))
+    ids = np.zeros((2, Sp), np.int32)
+    mask = np.zeros((2, Sp), np.int32)
+    for i, r in enumerate(rows):
+        ids[i, :len(r)], mask[i, :len(r)] = r, 1
+    assert mask[1].sum() < Sp
+    ref = je.generator.generate(jnp.asarray(ids),
+                                prompt_mask=jnp.asarray(mask))
+    got = te.generator.generate(torch.from_numpy(ids).long(),
+                                prompt_mask=torch.from_numpy(mask))
+    np.testing.assert_array_equal(got["generate_ids"].numpy(),
+                                  np.asarray(ref["generate_ids"]))
+
+
+def test_weight_round_trip(reference_tree):
+    """from_jax_params → port state_dict → the reference's
+    torch_to_flax_assembly reproduces the JAX tree exactly."""
+    jm, jl, tree = reference_tree
+    sd = from_jax_params(tree)
+    back = torch_to_flax_assembly(sd, lm_config=jl,
+                                  vision_config=jm.vision_encoder.config,
+                                  vision_kind="siglip")
+    flat_a = jax.tree_util.tree_leaves_with_path(tree)
+    flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(flat_a) == len(flat_b)
+    for path, leaf in flat_a:
+        np.testing.assert_array_equal(np.asarray(flat_b[path]),
+                                      np.asarray(leaf), err_msg=str(path))
+
+
+def test_port_imports_no_jax_and_no_reference():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import mllm_npu_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "'mllm_npu_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'mllm_npu_tpu' or m.startswith('mllm_npu_tpu.')]\n"
+        "assert len(names) > 20, names\n"
+        "print('BAD', bad)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "BAD []" in res.stdout, res.stdout
+
+
+def test_chip_smoke_imports_no_jax_and_no_reference():
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            mods.add(node.module)
+    assert mods, "chip_smoke.py imports nothing?"
+    for m in mods:
+        root = m.split(".")[0]
+        assert root not in ("jax", "jaxlib", "flax", "mllm_npu_tpu"), m
+    assert "mllm_npu_tpu_torch" in {m.split(".")[0] for m in mods}
+
+
+def test_entry_points_raise_without_gpu(monkeypatch):
+    """No device named and no GPU: the entry points raise instead of
+    running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from mllm_npu_tpu_torch.demo_img2txt import build_engine
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_tiny_mllm(TinySpec())
+    tm, _, _ = build_tiny_mllm(TinySpec(), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InferenceEngine(model=tm, tokenizer=FakeTokenizer(),
+                        image_transform=ImageProcessor(56, 56), **COMMON)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_engine()
+
+
+def test_yaml_builds_and_serves_tiny_on_cpu(monkeypatch):
+    """The port's YAML resolves through its own instantiate; under
+    DEBUG_FLAG every component is tiny, and the demo entry serves a
+    request on the CPU when asked to."""
+    monkeypatch.setenv("DEBUG_FLAG", "True")
+    from mllm_npu_tpu_torch.demo_img2txt import build_engine
+    eng = build_engine(device="cpu", max_new_tokens=3)
+    model = eng.generator.model
+    assert model.language_model.config.lora_rank == 32
+    assert model.language_model.config.vocab_size == 128587
+    assert model.projector.num_queries == 4
+    assert next(model.parameters()).device.type == "cpu"
+    text = eng.comprehension("hi", _png_b64(500, 300))
+    assert isinstance(text, str)
+
+
+def test_existing_checkpoint_path_is_not_replaced(tmp_path):
+    from mllm_npu_tpu_torch.models.factory import build_siglip
+    with pytest.raises(NotImplementedError):
+        build_siglip(pretrained_model_name_or_path=str(tmp_path))
