@@ -8,20 +8,32 @@ Run from the root of a checkout. It imports only the port
 exits non-zero. Phases, in order:
 
 1. header: the card (``nvidia-smi`` name and power limit) and the build of
-   every kernel of the path from ``mllm_npu_tpu_torch/csrc`` with ``nvcc``;
+   every kernel of the paths from ``mllm_npu_tpu_torch/csrc`` with
+   ``nvcc``, one process per source, all started together: K1
+   (``flash_fwd.cu``), K4 and K5 (``quant_matmul.cu``);
 2. the full-width model: the port's ``mllm_llama3_8b_siglip_vit.yaml``
    (Llama-3-8B with r32 LoRA, SigLIP-so400m, attention resampler), bf16,
    weights drawn from a seed, ``FakeTokenizer`` at vocab 128587;
 3. K1 (flash forward) against its plain PyTorch version on the card at
    the path's own shapes, with times of the kernel, the plain version,
-   ``scaled_dot_product_attention`` as a yardstick, and the bound;
-4. the main path: ``InferenceEngine.comprehension`` on an 896×896 image
+   ``scaled_dot_product_attention`` as a yardstick, and the bound; then
+   K4 (int8) and K5 (int4) against theirs at the Llama's decode (M = 1)
+   and prefill (M = 339) shapes, with ``F.linear`` on the weight
+   dequantized to bf16 as the yardstick;
+4. the bf16 path: ``InferenceEngine.comprehension`` on an 896×896 image
    (2×2 grid + thumbnail), a 384×1152 image and a text-only question,
-   with K1's launch count set to 0 before and asserted after each request;
+   with every kernel's launch count set to 0 before and asserted after
+   each request;
 5. the first image request's prefill logits with K1 against the same
    forward with K1's plain version in every attention;
 6. the text-only request once more under ``torch.profiler``: the share
-   of its wall time the device is busy, and the kernels that take most.
+   of its wall time the device is busy, and the kernels that take most;
+7. the int8 and the int4 paths (``build_engine(quantize_int8=True)``, then
+   ``quantize_int4=True``; same seed, so the same weights before
+   quantization), each on the 896×896 image and the text-only question,
+   with K1's, K4's and K5's counts asserted per request, and the image
+   prefill logits with K4 (K5) against the same forward with its plain
+   version in every quantized linear.
 
 The last lines are the kernels' JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -43,6 +55,13 @@ BF16_ATOL, BF16_RTOL = 1e-2, 1e-2
 H100_BF16_FLOPS = 989e12
 H100_BYTES_PER_S = 3.35e12
 MAX_NEW_TOKENS = 32
+# K4/K5 vs their fp32 plain versions on the same bf16 inputs: the output
+# is rounded to bf16 (2^-9 relative) and the fp32 sums run in another
+# order, so |err| <= QUANT_RTOL·|plain| + QUANT_ATOL_FRAC·max|plain|
+QUANT_RTOL, QUANT_ATOL_FRAC = 1e-2, 1e-3
+# weight copies cycled through when timing K4/K5, so that each call finds
+# its weights outside the 50 MB L2, as every projection of a forward does
+COLD_BYTES = 150e6
 
 
 def fail(msg: str):
@@ -70,6 +89,16 @@ def png_b64(w: int, h: int, seed: int) -> str:
     Image.fromarray((rs.rand(h, w, 3) * 255).astype(np.uint8)).save(
         buf, format="PNG")
     return base64.b64encode(buf.getvalue()).decode()
+
+
+def cycling(fns):
+    """One callable that calls ``fns`` in turn."""
+    state = {"i": 0}
+
+    def call():
+        fns[state["i"] % len(fns)]()
+        state["i"] += 1
+    return call
 
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -166,6 +195,97 @@ def kernel_case(name, B, Sq, Sk, Hq, Hkv, D, causal, pad_rows=None, seed=0):
     return row
 
 
+def quant_case(bits, M, K, N, group=256, seed=0):
+    """K4 (bits 8) or K5 (bits 4) against its plain version at one shape,
+    on bf16 x and a weight quantized from a seeded bf16 matrix; returns the
+    row for the JSON line."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from mllm_npu_tpu_torch.ops import quant as tq
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    w = (torch.randn(N, K, device=dev, generator=g) * 0.02).bfloat16()
+    x = torch.randn(M, K, device=dev, generator=g).bfloat16()
+    if bits == 8:
+        qt = tq.quantize_int8(w)
+        kernel, plain = tq.int8_matmul, tq.int8_matmul_reference
+        w_deq = tq.dequantize_int8(qt)
+    else:
+        qt = tq.quantize_int4(w, group)
+        kernel, plain = tq.int4_matmul, tq.int4_matmul_reference
+        w_deq = tq.dequantize_int4(qt)
+    del w
+    name = f"{kernel.__name__} M{M} K{K} N{N}"
+    out = kernel(x, *qt)
+    torch.cuda.synchronize()
+    ref = plain(x, *qt).float()
+    diff = (out.float() - ref).abs()
+    err = diff.max().item()
+    check(torch.isfinite(out.float()).all().item(), f"{name}: non-finite")
+    check(bool((diff <= QUANT_RTOL * ref.abs()
+                + QUANT_ATOL_FRAC * ref.abs().max()).all()),
+          f"{name}: max abs err {err} beyond {QUANT_RTOL}·|plain| + "
+          f"{QUANT_ATOL_FRAC}·max|plain|")
+    del out, ref, diff
+
+    w_bytes = qt.values.numel() + 4 * qt.scale.numel()
+    flops = 2 * M * N * K
+    nbytes = 2 * M * K + w_bytes + 2 * M * N
+    t_c, t_m = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    copies = [qt] + [type(qt)(qt.values.clone(), qt.scale.clone())
+                     for _ in range(math.ceil(COLD_BYTES / w_bytes) - 1)]
+    lib_copies = [w_deq] + [w_deq.clone() for _ in range(
+        math.ceil(COLD_BYTES / (2 * N * K)) - 1)]
+    row = {
+        "shape": name, "M": M, "K": K, "N": N,
+        "group": group if bits == 4 else None,
+        "max_abs_err": err,
+        "ms": time_ms(cycling([lambda c=c: kernel(x, *c) for c in copies])),
+        "plain_ms": time_ms(cycling([lambda c=c: plain(x, *c)
+                                     for c in copies]), iters=5),
+        "library_ms": time_ms(cycling([lambda c=c: F.linear(x, c)
+                                       for c in lib_copies])),
+        "library": "F.linear on the weight dequantized to bf16 once, "
+                   "outside the timed region",
+        "bound_ms": max(t_c, t_m) * 1e3,
+        "bound_by": "operations" if t_c >= t_m else "bytes",
+        "flops": flops, "bytes": nbytes,
+    }
+    print(f"[K{4 if bits == 8 else 5}] {name}: err {err:.3e}  kernel "
+          f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  F.linear on "
+          f"dequantized bf16 {row['library_ms']:.4f} ms  bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+    del copies, lib_copies, w_deq
+    torch.cuda.empty_cache()
+    return row
+
+
+def quant_rows(lm_cfg, s_img):
+    """K4 and K5 at the Llama's projection shapes: decode (M = 1, the
+    lm_head included) and the image prefill (M = prompt length)."""
+    hs, inter = lm_cfg.hidden_size, lm_cfg.intermediate_size
+    kv = lm_cfg.num_key_value_heads * lm_cfg.head_dim
+    proj = [(hs, hs), (hs, kv), (hs, inter), (inter, hs)]
+    shapes = ([(1, k, n) for k, n in proj + [(hs, lm_cfg.vocab_size)]]
+              + [(s_img, k, n) for k, n in proj])
+    return {bits: [quant_case(bits, m, k, n, lm_cfg.quant_group_size)
+                   for m, k, n in shapes] for bits in (8, 4)}
+
+
+def quant_mix(lm_cfg):
+    """Launches of each (K, N) per forward: 32 layers of q, k, v, o, gate,
+    up, down, and the lm_head once."""
+    hs, inter = lm_cfg.hidden_size, lm_cfg.intermediate_size
+    kv = lm_cfg.num_key_value_heads * lm_cfg.head_dim
+    L = lm_cfg.num_hidden_layers
+    return {(hs, hs): 2 * L, (hs, kv): 2 * L, (hs, inter): 2 * L,
+            (inter, hs): L, (hs, lm_cfg.vocab_size): 1}
+
+
 def prefill_logits(model, prep):
     """Last-position logits of one image request's prefill (vision tower,
     resampler, scatter, causal Llama prefill with segment ids)."""
@@ -215,6 +335,56 @@ def profile_request(engine, request):
     return wall_ms, busy_us / 1e3, top
 
 
+def serve(engine, requests, preps, label, lm_cfg, vis_cfg):
+    """Each request once, with every kernel's count set to 0 just before
+    and read just after; asserts K1's count and, for a quantized engine,
+    K4's or K5's: 225 per forward (7 projections × 32 layers + lm_head) ×
+    (1 + decode steps), the other quantized kernel never. Returns the
+    launches summed over the requests and the last request's steps."""
+    import torch
+
+    from mllm_npu_tpu_torch.ops import quant as tq
+    from mllm_npu_tpu_torch.ops.flash_attention import flash_attention
+    counters = {"flash_fwd": flash_attention, "int8_matmul": tq.int8_matmul,
+                "int4_matmul": tq.int4_matmul}
+    quant = engine.generator.model.language_model.config.quantization
+    per_forward = 7 * lm_cfg.num_hidden_layers + 1
+    total = dict.fromkeys(counters, 0)
+    for i, ((q, b64), prep) in enumerate(zip(requests, preps), 1):
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        text = engine.comprehension(q, b64)
+        wall = time.perf_counter() - t0
+        got = {k: fn.launches for k, fn in counters.items()}
+        tm = engine.generator.last_timings
+        steps = tm["decode_steps"]
+        expect = {k: 0 for k in counters}
+        expect["flash_fwd"] = lm_cfg.num_hidden_layers + (
+            vis_cfg.num_hidden_layers + 1 if b64 else 0)
+        if quant != "none":
+            expect[f"{quant}_matmul"] = per_forward * (1 + steps)
+        print(f"[{label}] request {i} ({'image' if b64 else 'text'}, prompt "
+              f"{len(prep[0])} tokens): launches K1 {got['flash_fwd']}, K4 "
+              f"{got['int8_matmul']}, K5 {got['int4_matmul']} (expected "
+              f"{expect['flash_fwd']}, {expect['int8_matmul']}, "
+              f"{expect['int4_matmul']}); vision+projector "
+              f"{tm['embed_s'] * 1e3:.1f} ms; prefill "
+              f"{tm['prefill_s'] * 1e3:.1f} ms; ttft "
+              f"{tm['ttft_s'] * 1e3:.1f} ms; decode {steps} steps, "
+              f"{tm['decode_s'] * 1e3 / max(steps, 1):.2f} ms/token; wall "
+              f"{wall:.2f} s; peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; text "
+              f"{text[:60]!r}", flush=True)
+        check(isinstance(text, str), "comprehension returned no text")
+        check(got == expect, f"{label} request {i}: launches {got}, "
+              f"expected {expect}")
+        for k in total:
+            total[k] += got[k]
+    return total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -227,26 +397,29 @@ def main():
 
     import mllm_npu_tpu_torch.ops as port_ops
     from mllm_npu_tpu_torch.demo_img2txt import build_engine
+    from mllm_npu_tpu_torch.ops import quant as tq
     from mllm_npu_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_reference)
-    from mllm_npu_tpu_torch.utils.cuda_build import build
+    from mllm_npu_tpu_torch.utils.cuda_build import build_all
 
     # fp32 reference products in full fp32 (the plain K1 is an fp32
     # einsum; cuDNN would run an fp32 conv in TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # -- 1. header and kernel build ------------------------------------
+    # -- 1. header and kernel builds, all started together --------------
     smi = nvidia_smi()
     print(f"[card] {smi}")
     print(f"[card] torch.cuda.get_device_name: {torch.cuda.get_device_name(0)}"
           f"  torch {torch.__version__}  cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    log = build("flash_fwd")
-    print(f"[build] nvcc flash_fwd.cu: {time.perf_counter() - t0:.1f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] flash_fwd: {line.strip()}")
+    builds = build_all(["flash_fwd", "quant_matmul"])
+    print(f"[build] all kernels: {time.perf_counter() - t0:.1f} s")
+    for name, (secs, log) in builds.items():
+        print(f"[build] nvcc {name}.cu: {secs:.1f} s")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"[build] {name}: {line.strip()}")
 
     # -- 2. full-width model ------------------------------------------
     t0 = time.perf_counter()
@@ -271,7 +444,7 @@ def main():
     s_img, n_tiles = len(preps[0][0]), preps[0][1].shape[0]
     print(f"[model] request 1: prompt {s_img} tokens, {n_tiles} tiles")
 
-    # -- 3. K1 against its plain version at the path's shapes ---------
+    # -- 3. K1, K4 and K5 against their plain versions at the path's shapes
     H, Hkv, D = (lm_cfg.num_attention_heads, lm_cfg.num_key_value_heads,
                  lm_cfg.head_dim)
     vh = vis_cfg.num_attention_heads
@@ -291,32 +464,10 @@ def main():
         kernel_case("tiny_llama_d32", 1, 77, 77, 4, 2, 32, True,
                     pad_rows={}),
     ]
+    qrows = quant_rows(lm_cfg, s_img)
 
-    # -- 4. the main path, counts set to 0 before each request ---------
-    total_launches = 0
-    for i, ((q, b64), prep) in enumerate(zip(requests, preps), 1):
-        expect = lm_cfg.num_hidden_layers + (
-            vis_cfg.num_hidden_layers + 1 if b64 else 0)
-        torch.cuda.reset_peak_memory_stats()
-        flash_attention.launches = 0
-        t0 = time.perf_counter()
-        text = engine.comprehension(q, b64)
-        wall = time.perf_counter() - t0
-        launches = flash_attention.launches
-        total_launches += launches
-        tm = engine.generator.last_timings
-        steps = tm["decode_steps"]
-        print(f"[path] request {i} ({'image' if b64 else 'text'}, prompt "
-              f"{len(prep[0])} tokens): K1 launches {launches} (expected "
-              f"{expect}); vision+projector {tm['embed_s'] * 1e3:.1f} ms; "
-              f"prefill {tm['prefill_s'] * 1e3:.1f} ms; ttft "
-              f"{tm['ttft_s'] * 1e3:.1f} ms; decode {steps} steps, "
-              f"{tm['decode_s'] * 1e3 / max(steps, 1):.2f} ms/token; wall "
-              f"{wall:.2f} s; peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-              f" GiB; text {text[:60]!r}", flush=True)
-        check(isinstance(text, str), "comprehension returned no text")
-        check(launches == expect,
-              f"request {i}: K1 launched {launches} times, expected {expect}")
+    # -- 4. the bf16 path, counts set to 0 before each request ---------
+    launches = serve(engine, requests, preps, "bf16", lm_cfg, vis_cfg)
 
     # -- 5. the image request's prefill with K1 against the same forward
     #       with K1's plain version in every attention (SigLIP, resampler,
@@ -346,6 +497,7 @@ def main():
     check(bool(torch.isfinite(k1).all()), "non-finite logits")
     check(tuple(k1.shape) == (1, lm_cfg.vocab_size), "logits shape")
     check(cos >= 0.99, f"K1 and plain-attention logits disagree (cos {cos})")
+    bf16_logits = k1
 
     # -- 6. how busy the device is during a text-only request ----------
     wall_ms, busy_ms, top = profile_request(engine, requests[2])
@@ -357,17 +509,68 @@ def main():
     else:
         print("[profile] torch.profiler recorded no device activity: the "
               "busy share is not measured")
+    del engine, model, logits, k1, plain
+    torch.cuda.empty_cache()
+
+    # -- 7. the int8 and int4 paths: the image and the text request each,
+    #       then the image prefill with K4 (K5) against the same forward
+    #       with its plain version in every quantized linear
+    for bits in (8, 4):
+        label = f"int{bits}"
+        t0 = time.perf_counter()
+        engine = build_engine(device="cuda", seed=0, fake_tokenizer=True,
+                              max_new_tokens=MAX_NEW_TOKENS,
+                              **{f"quantize_int{bits}": True})
+        torch.cuda.synchronize()
+        model = engine.generator.model
+        print(f"[{label}] engine built and quantized in "
+              f"{time.perf_counter() - t0:.1f} s: "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident")
+        got = serve(engine, [requests[0], requests[2]], [preps[0], preps[2]],
+                    label, lm_cfg, vis_cfg)
+        for k in launches:
+            launches[k] += got[k]
+
+        kernel = getattr(tq, f"{label}_matmul")
+        qlogits = {}
+        for which, fn in ((label, kernel),
+                          ("plain", getattr(tq, f"{label}_matmul_reference"))):
+            setattr(tq, f"{label}_matmul", fn)
+            kernel.launches = 0
+            try:
+                qlogits[which] = prefill_logits(model, preps[0])
+            finally:
+                setattr(tq, f"{label}_matmul", kernel)
+            expect = 7 * lm_cfg.num_hidden_layers + 1 if which == label else 0
+            check(kernel.launches == expect,
+                  f"{which} prefill launched {label}_matmul "
+                  f"{kernel.launches} times, expected {expect}")
+        ql, qp = qlogits[label], qlogits["plain"]
+        cos = torch.nn.functional.cosine_similarity(ql, qp).item()
+        cos_bf16 = torch.nn.functional.cosine_similarity(
+            ql, bf16_logits).item()
+        print(f"[check] full-width {label} image prefill logits, kernel vs "
+              f"plain quantized linears: cos {cos:.6f}, max abs diff "
+              f"{(ql - qp).abs().max().item():.4f}, argmax "
+              f"{ql.argmax().item()} vs {qp.argmax().item()}; against the "
+              f"bf16 engine's logits (information only): cos {cos_bf16:.6f}")
+        check(bool(torch.isfinite(ql).all()), f"non-finite {label} logits")
+        check(tuple(ql.shape) == (1, lm_cfg.vocab_size), "logits shape")
+        check(cos >= 0.99,
+              f"{label} kernel and plain logits disagree (cos {cos})")
+        del engine, model, qlogits, ql, qp
+        torch.cuda.empty_cache()
 
     by = {c["shape"]: c for c in cases}
     mix = {"llama_prefill": lm_cfg.num_hidden_layers,
            "siglip": vis_cfg.num_hidden_layers, "resampler": 1}
     agg = {key: sum(by[s][key] * n for s, n in mix.items())
            for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
-    kernels = {"kernels": [{
+    rows = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "mllm_npu_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "mllm_npu_tpu/ops/flash_attention.py:100",
-        "launches": total_launches,
+        "launches": launches["flash_fwd"],
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         **agg,
         "bound_by": ("operations" if sum(by[s]["flops"] * n for s, n in
@@ -377,8 +580,33 @@ def main():
         "ms_basis": "one 896x896 request: the launch mix "
                     + ", ".join(f"{n} x {s}" for s, n in mix.items()),
         "shapes": cases,
-    }]}
-    print(json.dumps(kernels))
+    }]
+    qmix = quant_mix(lm_cfg)
+    for bits, replaces in ((8, "mllm_npu_tpu/ops/quant.py:50"),
+                           (4, "mllm_npu_tpu/ops/quant.py:330")):
+        decode = [r for r in qrows[bits] if r["M"] == 1]
+        n_of = {(r["K"], r["N"]): qmix[(r["K"], r["N"])] for r in decode}
+        agg = {key: sum(r[key] * n_of[(r["K"], r["N"])] for r in decode)
+               for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        t_c = sum(r["flops"] * n_of[(r["K"], r["N"])]
+                  for r in decode) / H100_BF16_FLOPS
+        t_m = sum(r["bytes"] * n_of[(r["K"], r["N"])]
+                  for r in decode) / H100_BYTES_PER_S
+        rows.append({
+            "name": f"int{bits}_matmul", "route": "cuda",
+            "source": "mllm_npu_tpu_torch/csrc/quant_matmul.cu",
+            "replaces": replaces,
+            "launches": launches[f"int{bits}_matmul"],
+            "max_abs_err": max(r["max_abs_err"] for r in qrows[bits]),
+            **agg,
+            "bound_by": "operations" if t_c >= t_m else "bytes",
+            "ms_basis": "one decode token (M=1): the launch mix "
+                        + ", ".join(f"{n} x K{k} N{nn}"
+                                    for (k, nn), n in n_of.items()),
+            "library": "F.linear on the weight dequantized to bf16",
+            "shapes": qrows[bits],
+        })
+    print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

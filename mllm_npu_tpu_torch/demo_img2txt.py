@@ -7,6 +7,8 @@
 Builds the model from the port's YAML with weights drawn from ``--seed``
 (checkpoint loading is not ported yet) on ``--device`` (default ``cuda``;
 ``--device cpu`` with ``DEBUG_FLAG=True`` runs the tiny stack on a CPU).
+``build_engine(quantize_int8=True)`` (or ``quantize_int4=True``) serves
+the Llama's weights in int8 (int4).
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ DEFAULT_CONFIG = "models/mllm_llama3_8b_siglip_vit.yaml"
 
 
 def build_engine(config: str = DEFAULT_CONFIG, *, device=None, seed: int = 0,
-                 fake_tokenizer: bool = True, max_new_tokens: int = 120):
+                 fake_tokenizer: bool = True, max_new_tokens: int = 120,
+                 quantize_int8: bool = False, quantize_int4: bool = False):
     from mllm_npu_tpu_torch.configs import instantiate, load_config
     from mllm_npu_tpu_torch.serve.engine import InferenceEngine
     from mllm_npu_tpu_torch.utils.device import resolve_device
@@ -38,7 +41,9 @@ def build_engine(config: str = DEFAULT_CONFIG, *, device=None, seed: int = 0,
     return InferenceEngine(model=model, tokenizer=tokenizer,
                            image_transform=instantiate(cfg["processor"]),
                            num_img_in_tokens=nq, num_img_out_tokens=nq,
-                           max_new_tokens=max_new_tokens, device=device)
+                           max_new_tokens=max_new_tokens, device=device,
+                           quantize_int8=quantize_int8,
+                           quantize_int4=quantize_int4)
 
 
 def main(argv=None):

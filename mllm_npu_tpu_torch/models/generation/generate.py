@@ -5,9 +5,11 @@ One call: embed the prompt and scatter the image tokens; a causal prefill
 over the right-padded prompt with segment ids from ``prompt_mask`` (K1 on
 the GPU) that fills the KV cache; the first token from the last real
 position's logits; then a greedy read-only-cache decode with the image
-ladder. Eager PyTorch takes the place of ``jit``. Speculative decode,
-int8/int4 weights, projection fusion and layer unrolling are not ported
-yet.
+ladder. Eager PyTorch takes the place of ``jit``. The Llama's weights may
+be served in int8 or int4 (``quantize_int8`` / ``quantize_int4``, K4 / K5
+on the GPU). Speculative decode and projection fusion are not ported yet;
+the reference's ``unroll_layers`` needs no port, as the port's layers are
+already a Python loop.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from mllm_npu_tpu_torch.models.generation.sampler import (ImageTokenLadder,
                                                           decode_loop)
 from mllm_npu_tpu_torch.models.language_models.llama import init_cache
 from mllm_npu_tpu_torch.ops import SegmentIds
+from mllm_npu_tpu_torch.utils.weights import merge_lora_, quantize_llama_
 
 CACHE_DTYPE = torch.bfloat16
 
@@ -33,7 +36,13 @@ class MLLMGenerator:
 
     Every fp32 parameter is stored in bf16 (the modules still compute in
     their own dtype), as the reference's serving default, and the KV cache
-    is bf16.
+    is bf16. ``quantize_int8`` / ``quantize_int4`` serve the Llama's
+    projections and ``lm_head`` in int8 / int4. The model is changed in
+    place, in the reference's order (``generate.py:71-113``): LoRA
+    adapters are merged in their dtype (fp32 where loaded so) when
+    ``merge_lora`` or a quantization asks for it, then the fp32 parameters
+    are cast to bf16, then the Llama is quantized from those bf16 values.
+    The scales are fp32 buffers, which the cast does not reach.
     ``last_timings`` holds the wall times of the last call, each ending in
     a device synchronisation: the embedding (vision tower, projector and
     scatter), the prefill with the first token, their sum (time to first
@@ -41,10 +50,21 @@ class MLLMGenerator:
     """
 
     def __init__(self, model, *, sampling: SamplingConfig = SamplingConfig(),
-                 ladder: Optional[ImageTokenLadder] = None):
+                 ladder: Optional[ImageTokenLadder] = None,
+                 quantize_int8: bool = False, quantize_int4: bool = False,
+                 merge_lora: bool = False):
+        if quantize_int8 and quantize_int4:
+            raise ValueError("pick one of quantize_int8 / quantize_int4")
+        lm = model.language_model
+        if lm.config.lora_rank > 0 and (merge_lora or quantize_int8
+                                        or quantize_int4):
+            merge_lora_(lm)
         for p in model.parameters():
             if p.dtype == torch.float32:
                 p.data = p.data.to(torch.bfloat16)
+        if quantize_int8 or quantize_int4:
+            quantize_llama_(lm, bits=4 if quantize_int4 else 8,
+                            group_size=lm.config.quant_group_size)
         self.model = model
         self.lm_config = model.language_model.config
         self.sampling = sampling

@@ -11,9 +11,11 @@ read-only plus its own key/value as a virtual column, then writes that
 column for all layers at once (:func:`write_decode_column`).
 
 Served here: the prefill (causal, segment ids, K1 on the GPU) and the
-single-token read-only-cache decode. The reference's multi-token verify
-and eager branches, fused projections and quantized bases are not ported
-yet.
+single-token read-only-cache decode, with bf16, int8 (K4) or int4 (K5)
+weights (``LlamaConfig.quantization``; every projection and the
+``lm_head``, as the reference). The reference's multi-token verify and
+eager branches, fused projections and LoRA over a quantized base are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from torch import nn
 
 from mllm_npu_tpu_torch import ops
 from mllm_npu_tpu_torch.models.layers import Linear
+from mllm_npu_tpu_torch.ops.quant import Int4Linear, Int8Linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +49,11 @@ class LlamaConfig:
     lora_alpha: float = 32.0
     lora_targets: tuple = ("q_proj", "k_proj", "v_proj", "o_proj",
                            "gate_proj", "up_proj", "down_proj")
+    # weight-only serving: "none" | "int8" | "int4" (every projection and
+    # the lm_head; utils.weights.quantize_llama_ converts a float model)
+    quantization: str = "none"
+    # int4 group size along K (falls back to K where it does not divide)
+    quant_group_size: int = 256
 
     @property
     def head_dim(self) -> int:
@@ -92,8 +100,24 @@ class LoRALinear(nn.Module):
         return y + self.lora_B(self.lora_A(x)) * self.scale
 
 
+def quantized_linear(cfg: LlamaConfig, in_f: int, out_f: int, dtype):
+    """An empty Int8Linear / Int4Linear for ``cfg.quantization``."""
+    if cfg.quantization == "int8":
+        return Int8Linear(in_f, out_f, dtype)
+    if cfg.quantization == "int4":
+        return Int4Linear(in_f, out_f, cfg.quant_group_size, dtype)
+    raise ValueError(f"unknown quantization {cfg.quantization!r}")
+
+
 def _dense(cfg: LlamaConfig, name: str, in_f: int, out_f: int, dtype):
-    if cfg.lora_rank > 0 and name in cfg.lora_targets:
+    lora = cfg.lora_rank > 0 and name in cfg.lora_targets
+    if cfg.quantization != "none":
+        if lora:
+            raise NotImplementedError(
+                "LoRA over a quantized base is not ported yet: merge the "
+                "adapters before quantizing")
+        return quantized_linear(cfg, in_f, out_f, dtype)
+    if lora:
         return LoRALinear(in_f, out_f, cfg.lora_rank, cfg.lora_alpha, dtype)
     return Linear(in_f, out_f, bias=False, dtype=dtype)
 
@@ -264,8 +288,12 @@ class LlamaForCausalLM(nn.Module):
         super().__init__()
         self.config = cfg
         self.model = LlamaModel(cfg, dtype)
-        self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
-                              dtype=dtype)
+        if cfg.quantization != "none":
+            self.lm_head = quantized_linear(cfg, cfg.hidden_size,
+                                            cfg.vocab_size, dtype)
+        else:
+            self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size,
+                                  bias=False, dtype=dtype)
 
     def embed(self, input_ids):
         return self.model.embed(input_ids)

@@ -31,14 +31,17 @@ DEFAULT_RESOLUTION_GRIDS = ("1x1", "1x2", "1x3", "2x1", "3x1", "1x4",
 
 class InferenceEngine:
     """``model`` is a ``GeneralizedMultimodalModel``; it is moved to
-    ``device`` (``cuda`` unless the caller names another)."""
+    ``device`` (``cuda`` unless the caller names another).
+    ``quantize_int8`` / ``quantize_int4`` serve its Llama with int8 / int4
+    weights (``MLLMGenerator``), converted in place on ``device``."""
 
     def __init__(self, *, model, tokenizer, image_transform,
                  resolution_grids=DEFAULT_RESOLUTION_GRIDS,
                  base_resolution: int = 448,
                  num_img_in_tokens: int = NUM_IMG_TOKENS,
                  num_img_out_tokens: int = NUM_IMG_TOKENS,
-                 max_new_tokens: int = 512, device=None):
+                 max_new_tokens: int = 512, device=None,
+                 quantize_int8: bool = False, quantize_int4: bool = False):
         self.device = resolve_device(device)
         self.tokenizer = tokenizer
         self.image_transform = image_transform
@@ -57,7 +60,8 @@ class InferenceEngine:
                 max_new_tokens=max_new_tokens,
                 eos_token_id=eos if eos is not None else -1,
                 pad_token_id=getattr(tokenizer, "pad_token_id", 0) or 0),
-            ladder=ladder_from_tokenizer(tokenizer, num_img_out_tokens))
+            ladder=ladder_from_tokenizer(tokenizer, num_img_out_tokens),
+            quantize_int8=quantize_int8, quantize_int4=quantize_int4)
 
     def _prepare_comprehension(self, input_text: str, image_b64: str):
         """b64 image + question → (prompt ids, anyres tiles NHWC, tile

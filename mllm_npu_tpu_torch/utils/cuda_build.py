@@ -4,6 +4,7 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, ``build/lib<name>-<hash>.so``
 at the repository root (git-ignored), and loaded with ``ctypes``. The
 hash of the source names the library, so an edited source is rebuilt.
+:func:`build_all` starts one nvcc per source, all at once.
 """
 
 from __future__ import annotations
@@ -13,7 +14,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -38,21 +41,40 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def build_all(names) -> Dict[str, Tuple[float, str]]:
+    """Compile each ``csrc/<name>.cu`` whose library is not current, one
+    nvcc per source, all started together. Returns {name: (seconds,
+    nvcc's report)} (0 and "" where nothing was built); raises if any nvcc
+    fails, after all have ended."""
+    started = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        started[name] = (proc, tmp, out, time.perf_counter())
+    result = {name: (0.0, "") for name in names}
+    failed = []
+    for name, (proc, tmp, out, t0) in started.items():
+        log, _ = proc.communicate()
+        result[name] = (time.perf_counter() - t0, log)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return result
+
+
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless its library is current. Returns
     nvcc's report (empty when nothing was built); raises if nvcc fails."""
-    out = library_path(name)
-    if out.exists():
-        return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
-    os.replace(tmp, out)
-    return proc.stdout
+    return build_all([name])[name][1]
 
 
 def load(name: str) -> ctypes.CDLL:

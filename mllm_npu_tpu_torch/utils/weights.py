@@ -12,15 +12,31 @@ it. It undoes:
   ``lora_A.weight [r, in]`` and ``lora_b [r, out]`` → ``lora_B.weight``;
 - HWIO → OIHW for the patch conv;
 - split q/k/v/out projections → ``nn.MultiheadAttention``'s fused
-  ``in_proj_weight``/``in_proj_bias`` for the resampler.
+  ``in_proj_weight``/``in_proj_bias`` for the resampler;
+- quantized Llama leaves (``quantize_llama_params``): ``kernel_q`` [K, N]
+  (int8) or [K/2, N] (packed int4) → ``weight_q`` [N, K] or [N, K/2], its
+  transpose; ``scale`` [N] and ``scale_g`` [K/G, N] as they are.
+
+It also holds the port's serving transforms, :func:`merge_lora_` and
+:func:`quantize_llama_` (twins of ``merge_lora_params`` and
+``quantize_llama_params``). Unlike the reference's pure tree functions,
+they change the model in place and free each replaced weight as they go,
+so a full-width model is never held twice.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import numpy as np
 import torch
+from torch import nn
+
+from mllm_npu_tpu_torch.models.language_models.llama import (LlamaConfig,
+                                                             LoRALinear)
+from mllm_npu_tpu_torch.models.layers import Linear
+from mllm_npu_tpu_torch.ops.quant import Int4Linear, Int8Linear
 
 
 def _t(x) -> torch.Tensor:
@@ -31,14 +47,32 @@ def _dense_T(x) -> torch.Tensor:
     return _t(np.asarray(x).T)
 
 
+def linear_from_jax(node: dict, key: str, i=None
+                     ) -> Dict[str, torch.Tensor]:
+    """A bias-free Dense, Int8Dense or Int4Dense node (layer ``i`` of a
+    scan-stacked one) → the port's Linear / Int8Linear / Int4Linear."""
+    def pick(x):
+        x = np.asarray(x)
+        return x if i is None else x[i]
+    if "kernel_q" not in node:
+        return {f"{key}.weight": _dense_T(pick(node["kernel"]))}
+    sd = {f"{key}.weight_q": torch.from_numpy(
+        np.ascontiguousarray(pick(node["kernel_q"]).T))}
+    for name in ("scale", "scale_g"):
+        if name in node:
+            sd[f"{key}.{name}"] = _t(pick(node[name]))
+    return sd
+
+
 def llama_from_jax(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
-    """``LlamaForCausalLM`` params (scan-stacked layers) → state_dict."""
+    """``LlamaForCausalLM`` params (scan-stacked layers, float or
+    quantized) → state_dict."""
     sd = {}
     m = tree["model"]
     sd[f"{prefix}model.embed_tokens.weight"] = _t(
         m["embed_tokens"]["embedding"])
     sd[f"{prefix}model.norm.weight"] = _t(m["norm"]["weight"])
-    sd[f"{prefix}lm_head.weight"] = _dense_T(tree["lm_head"]["kernel"])
+    sd.update(linear_from_jax(tree["lm_head"], f"{prefix}lm_head"))
     layers = m["layers"]
     L = np.asarray(layers["input_layernorm"]["weight"]).shape[0]
     for i in range(L):
@@ -56,7 +90,7 @@ def llama_from_jax(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
                     sd[f"{key}.lora_A.weight"] = _dense_T(node["lora_a"][i])
                     sd[f"{key}.lora_B.weight"] = _dense_T(node["lora_b"][i])
                 else:
-                    sd[f"{key}.weight"] = _dense_T(node["kernel"][i])
+                    sd.update(linear_from_jax(node, key, i))
     return sd
 
 
@@ -127,3 +161,67 @@ def from_jax_params(tree: dict) -> Dict[str, torch.Tensor]:
     if "patch_pos_embed" in tree:
         sd["patch_pos_embed"] = _t(tree["patch_pos_embed"])
     return sd
+
+
+def _set_llama_config(lm: nn.Module, **changes) -> None:
+    """Replace the config held by ``lm`` and each of its submodules."""
+    cfg = dataclasses.replace(lm.config, **changes)
+    for mod in lm.modules():
+        if isinstance(getattr(mod, "config", None), LlamaConfig):
+            mod.config = cfg
+
+
+def _swap(root: nn.Module, name: str, new: nn.Module) -> None:
+    parent, _, child = name.rpartition(".")
+    setattr(root.get_submodule(parent), child, new)
+
+
+@torch.no_grad()
+def merge_lora_(lm: nn.Module) -> None:
+    """In place: fold every LoRA adapter of the Llama ``lm`` into its base,
+    W + (α/r)·B·A computed in fp32 and cast back to W's dtype (peft
+    ``merge_and_unload``; twin of ``merge_lora_params``). Each
+    ``LoRALinear`` becomes a plain ``Linear`` and ``lora_rank`` becomes 0."""
+    names = [n for n, m in lm.named_modules() if isinstance(m, LoRALinear)]
+    for name in names:
+        mod = lm.get_submodule(name)
+        w = mod.weight
+        delta = (mod.lora_B.weight.float() @ mod.lora_A.weight.float()
+                 ) * mod.scale
+        with torch.device("meta"):
+            merged = Linear(w.shape[1], w.shape[0], bias=False,
+                            dtype=mod.compute_dtype)
+        merged.weight = nn.Parameter((w.float() + delta).to(w.dtype),
+                                     requires_grad=w.requires_grad)
+        _swap(lm, name, merged)
+        del mod, w, delta   # the old weight goes before the next is merged
+    _set_llama_config(lm, lora_rank=0)
+
+
+@torch.no_grad()
+def quantize_llama_(lm: nn.Module, bits: int = 8,
+                    group_size: int = 256) -> None:
+    """In place: swap every bias-free ``Linear`` of the Llama ``lm`` (the
+    seven projections of each layer and the ``lm_head``; paths with
+    ``embed`` are skipped, as the reference) for an ``Int8Linear`` or
+    ``Int4Linear`` quantized from its current values on its device (twin of
+    ``quantize_llama_params``). Each float weight is freed once its
+    replacement exists. Merge LoRA adapters first (:func:`merge_lora_`)."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    if any(isinstance(m, LoRALinear) for m in lm.modules()):
+        raise ValueError("merge the LoRA adapters (merge_lora_) before "
+                         "quantizing")
+    names = [n for n, m in lm.named_modules()
+             if isinstance(m, Linear) and m.bias is None and "embed" not in n]
+    for name in names:
+        mod = lm.get_submodule(name)
+        if bits == 8:
+            new = Int8Linear.from_weight(mod.weight, mod.compute_dtype)
+        else:
+            new = Int4Linear.from_weight(mod.weight, group_size,
+                                         mod.compute_dtype)
+        _swap(lm, name, new)
+        del mod   # the float weight goes before the next is quantized
+    _set_llama_config(lm, quantization=f"int{bits}",
+                      quant_group_size=group_size)

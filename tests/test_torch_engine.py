@@ -1,8 +1,8 @@
-"""The slice as a whole on the CPU: the tiny port engine against the JAX
-``InferenceEngine`` with the same weights, image and question (greedy ids
-and text must be identical), the weight round trip through the
-reference's converter, the port's import hygiene, and the device rule of
-its entry points."""
+"""The slices as a whole on the CPU: the tiny port engine against the JAX
+``InferenceEngine`` with the same weights, image and question, in bf16 and
+with int8 and int4 weights (greedy ids and text must be identical), the
+weight round trip through the reference's converter, the port's import
+hygiene, and the device rule of its entry points."""
 
 import ast
 import base64
@@ -107,6 +107,48 @@ def test_comprehension_identical_to_reference(engines, image):
     assert got.shape == (COMMON["max_new_tokens"],)
     np.testing.assert_array_equal(got, _reference_ids(je, q, b64))
     assert te.comprehension(q, b64) == je.comprehension(q, b64)
+
+
+@pytest.fixture(scope="module", params=[8, 4], ids=["int8", "int4"])
+def quantized_engines(reference_tree, request):
+    """Both engines serving the same LoRA tree with ``quantize_int8`` or
+    ``quantize_int4``: each merges the adapters in fp32, casts to bf16 and
+    quantizes the Llama's projections and lm_head."""
+    jm, jl, tree = reference_tree
+    flag = {f"quantize_int{request.param}": True}
+    je = JEngine(model=jm, lm_config=jl, params={"params": tree},
+                 tokenizer=JTok(), image_transform=JProc(height=56, width=56),
+                 **COMMON, **flag)
+    tm, _, _ = build_tiny_mllm(TinySpec(), device="cpu",
+                               llama_kw=dict(lora_rank=8))
+    tm.load_state_dict(from_jax_params(tree), strict=True)
+    te = InferenceEngine(model=tm, tokenizer=FakeTokenizer(),
+                         image_transform=ImageProcessor(height=56, width=56),
+                         device="cpu", **COMMON, **flag)
+    lm = te.generator.model.language_model
+    assert lm.config.quantization == f"int{request.param}"
+    assert lm.config.lora_rank == 0
+    return je, te
+
+
+@pytest.mark.parametrize("image", ["896x896", "none"])
+def test_quantized_comprehension_identical_to_reference(quantized_engines,
+                                                        image):
+    je, te = quantized_engines
+    b64 = "" if image == "none" else _png_b64(896, 896)
+    q = "what is shown in this picture?"
+    got = te.generate_ids(q, b64)
+    assert got.shape == (COMMON["max_new_tokens"],)
+    np.testing.assert_array_equal(got, _reference_ids(je, q, b64))
+    assert te.comprehension(q, b64) == je.comprehension(q, b64)
+
+
+def test_both_quantizations_raise():
+    tm, _, _ = build_tiny_mllm(TinySpec(), device="cpu")
+    with pytest.raises(ValueError, match="one of"):
+        InferenceEngine(model=tm, tokenizer=FakeTokenizer(),
+                        image_transform=ImageProcessor(56, 56), device="cpu",
+                        quantize_int8=True, quantize_int4=True, **COMMON)
 
 
 def test_generate_right_padded_batch_identical_to_reference(engines):
