@@ -10,7 +10,8 @@ exits non-zero. Phases, in order:
 1. header: the card (``nvidia-smi`` name and power limit) and the build of
    every kernel of the paths from ``mllm_npu_tpu_torch/csrc`` with
    ``nvcc``, one process per source, all started together: K1
-   (``flash_fwd.cu``), K4 and K5 (``quant_matmul.cu``);
+   (``flash_fwd.cu``), K2 and K3 (``flash_bwd.cu``), K4 and K5
+   (``quant_matmul.cu``);
 2. the full-width model: the port's ``mllm_llama3_8b_siglip_vit.yaml``
    (Llama-3-8B with r32 LoRA, SigLIP-so400m, attention resampler), bf16,
    weights drawn from a seed, ``FakeTokenizer`` at vocab 128587;
@@ -33,18 +34,39 @@ exits non-zero. Phases, in order:
    quantization), each on the 896×896 image and the text-only question,
    with K1's, K4's and K5's counts asserted per request, and the image
    prefill logits with K4 (K5) against the same forward with its plain
-   version in every quantized linear.
+   version in every quantized linear;
+8. training: ``mllm_npu_tpu_torch.train.train.main`` at full width (the
+   same YAML, LoRA dropout 0.05, remat ``dots``, the chunked CE) on a
+   webdataset tar of seeded JPEGs and captions through the caption entry of
+   the pretrain mixture (``configs/dataset/caption_data.yaml``: max_length
+   600, 64 image tokens, anyres over its grids at base 448), at the largest
+   batch of 28, 16, 8 or 4 that fits, for a few steps on one repeated
+   batch, with a checkpoint at the end. Every step's K1, K2 and K3 counts
+   are asserted and its loss must be finite, and the loss must fall. Then
+   one step and its forward taken apart on the host clock, one step under
+   ``torch.profiler``, and one step's LoRA and projector gradients with the
+   kernels against the same step with the plain attention forward and
+   backward (cos ≥ 0.99);
+9. K1 with its LSE, K2 and K3 against their plain versions at the training
+   shapes (the Llama layer at the training batch, S = 600, causal, two
+   packed segments and a padded tail; the resampler over the batch's image
+   slots; SigLIP's D = 72; a tiny D = 32), with the backward of
+   ``scaled_dot_product_attention`` as the yardstick.
 
 The last lines are the kernels' JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
 import base64
+import gc
 import io
 import json
 import os
+import signal
 import subprocess
 import sys
+import tarfile
+import tempfile
 import time
 from pathlib import Path
 
@@ -62,6 +84,19 @@ QUANT_RTOL, QUANT_ATOL_FRAC = 1e-2, 1e-3
 # weight copies cycled through when timing K4/K5, so that each call finds
 # its weights outside the 50 MB L2, as every projection of a forward does
 COLD_BYTES = 150e6
+# K2/K3 vs their fp32 plain versions on the same bf16 inputs: dS and P are
+# rounded to bf16 before their products (2^-9 relative each, summed over
+# the sequence in another order) and the output to bf16, so
+# |err| <= BWD_RTOL·|plain| + BWD_ATOL_FRAC·max|plain|
+BWD_RTOL, BWD_ATOL_FRAC = 2e-2, 1e-2
+# K1's LSE against the plain version's (fp32 from the same scores)
+LSE_ATOL = 1e-3
+# training: the recipe's batch first, then smaller ones until one fits
+TRAIN_BATCHES = (28, 16, 8, 4)
+TRAIN_STEPS = 5
+CE_CHUNK = 128
+# the kernel and the plain attention give one step's gradients this close
+GRAD_COS = 0.99
 
 
 def fail(msg: str):
@@ -307,18 +342,18 @@ def prefill_logits(model, prep):
         return lm.logits(h[:, -1]).float()
 
 
-def profile_request(engine, request):
-    """One request under ``torch.profiler``: wall ms, device busy ms (the
-    union of the device activity intervals) and the five kernels with the
-    most device time. The profiler's own host cost slows the host, so the
-    busy share it gives is a lower bound."""
+def profile_call(fn):
+    """``fn()`` under ``torch.profiler``: wall ms, device busy ms (the union
+    of the device activity intervals) and the five kernels with the most
+    device time. The profiler's own host cost slows the host, so the busy
+    share it gives is a lower bound."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.comprehension(*request)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -335,6 +370,417 @@ def profile_request(engine, request):
     return wall_ms, busy_us / 1e3, top
 
 
+def print_profile(label, wall_ms, busy_ms, top):
+    if busy_ms > 0:
+        print(f"[profile] {label} under torch.profiler: wall "
+              f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+              f"({100 * busy_ms / wall_ms:.1f}%); most device time: "
+              + "; ".join(f"{n[:70]} {t / 1e3:.2f} ms" for n, t in top),
+              flush=True)
+    else:
+        print(f"[profile] {label}: torch.profiler recorded no device "
+              "activity: the busy share is not measured", flush=True)
+
+
+def kernel_counters():
+    """name → the wrapper whose ``launches`` counts that kernel."""
+    from mllm_npu_tpu_torch.ops import quant as tq
+    from mllm_npu_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_bwd_dkv, flash_bwd_dq)
+    return {"flash_fwd": flash_attention, "flash_bwd_dq": flash_bwd_dq,
+            "flash_bwd_dkv": flash_bwd_dkv, "int8_matmul": tq.int8_matmul,
+            "int4_matmul": tq.int4_matmul}
+
+
+def bwd_case(name, B, Sq, Sk, Hq, Hkv, D, causal, segments=False, seed=0):
+    """K1 with its LSE, K2 and K3 against their plain versions at one
+    shape; returns {kernel: row}. ``segments`` packs two segments per row
+    and pads the last row's tail (segment 0)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mllm_npu_tpu_torch.ops.flash_attention import (
+        SegmentIds, attention_delta, flash_attention,
+        flash_attention_reference, flash_bwd_dkv, flash_bwd_dkv_reference,
+        flash_bwd_dq, flash_bwd_dq_reference)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    q, do = (torch.randn(B, Sq, Hq, D, device=dev, generator=g).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(B, Sk, Hkv, D, device=dev, generator=g).bfloat16()
+            for _ in range(2))
+    seg = None
+    if segments:
+        if Sq != Sk:
+            fail("segment case needs Sq == Sk")
+        pm = torch.ones(B, Sq, dtype=torch.int32, device=dev)
+        pm[:, Sq // 2:] = 2
+        pm[-1, Sq - Sq // 6:] = 0
+        seg = SegmentIds(q=pm, kv=pm)
+    kw = dict(causal=causal, segment_ids=seg)
+
+    o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    ro, rlse = flash_attention_reference(q, k, v, return_lse=True, **kw)
+    lse_err = (lse - rlse).abs().max().item()
+    o_diff = (o.float() - ro.float()).abs()
+    check(bool(torch.isfinite(lse).all()) and lse_err <= LSE_ATOL,
+          f"{name}: K1 LSE err {lse_err} beyond {LSE_ATOL}")
+    check(bool((o_diff <= BF16_ATOL + BF16_RTOL * ro.float().abs()).all()),
+          f"{name}: K1 output with LSE disagrees")
+    delta = attention_delta(o, do)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    rdq = flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw)
+    rdk, rdv = flash_bwd_dkv_reference(q, k, v, do, lse, delta, **kw)
+    errs = {}
+    for label, got, ref in (("dq", dq, rdq), ("dk", dk, rdk),
+                            ("dv", dv, rdv)):
+        diff = (got.float() - ref.float()).abs()
+        errs[label] = diff.max().item()
+        check(bool(torch.isfinite(got.float()).all()),
+              f"{name}: {label} non-finite")
+        check(bool((diff <= BWD_RTOL * ref.float().abs()
+                    + BWD_ATOL_FRAC * ref.float().abs().max()).all()),
+              f"{name}: {label} max abs err {errs[label]} beyond "
+              f"{BWD_RTOL}·|plain| + {BWD_ATOL_FRAC}·max|plain|")
+    del rdq, rdk, rdv, ro
+
+    mask = torch.ones(B, Sq, Sk, dtype=torch.bool, device=dev)
+    if causal:
+        mask &= torch.ones(Sq, Sk, dtype=torch.bool, device=dev).tril()
+    if seg is not None:
+        mask &= seg.q[:, :, None] == seg.kv[:, None, :]
+    pairs = int(mask.sum().item()) * Hq
+    # each input read once, each output written once
+    in_bytes = 2 * (2 * B * Sq * Hq * D + 2 * B * Sk * Hkv * D) \
+        + 4 * 2 * B * Hq * Sq + (4 * B * (Sq + Sk) if seg is not None else 0)
+    work = {"flash_bwd_dq": (3 * 2 * pairs * D, in_bytes + 2 * B * Sq * Hq * D),
+            "flash_bwd_dkv": (4 * 2 * pairs * D,
+                              in_bytes + 2 * 2 * B * Sk * Hkv * D)}
+
+    G = Hq // Hkv
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt = k.transpose(1, 2).repeat_interleave(G, 1).detach().requires_grad_()
+    vt = v.transpose(1, 2).repeat_interleave(G, 1).detach().requires_grad_()
+    if seg is not None:
+        out = F.scaled_dot_product_attention(qt, kt, vt,
+                                             attn_mask=mask[:, None])
+    else:
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    dot = do.transpose(1, 2)
+    lib_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                 retain_graph=True))
+    del out, qt, kt, vt
+    times = {
+        "flash_bwd_dq": (
+            time_ms(lambda: flash_bwd_dq(q, k, v, do, lse, delta, **kw)),
+            time_ms(lambda: flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                   **kw), iters=3)),
+        "flash_bwd_dkv": (
+            time_ms(lambda: flash_bwd_dkv(q, k, v, do, lse, delta, **kw)),
+            time_ms(lambda: flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                    **kw), iters=3)),
+    }
+    lse_ms = time_ms(lambda: flash_attention(q, k, v, return_lse=True, **kw))
+    rows = {}
+    for kernel, (flops, nbytes) in work.items():
+        t_c, t_m = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+        rows[kernel] = {
+            "shape": name, "B": B, "Sq": Sq, "Sk": Sk, "Hq": Hq, "Hkv": Hkv,
+            "D": D, "causal": causal, "segments": seg is not None,
+            "max_abs_err": (errs["dq"] if kernel == "flash_bwd_dq"
+                            else max(errs["dk"], errs["dv"])),
+            "ms": times[kernel][0], "plain_ms": times[kernel][1],
+            "library_ms": lib_ms, "bound_ms": max(t_c, t_m) * 1e3,
+            "bound_by": "operations" if t_c >= t_m else "bytes",
+            "flops": flops, "bytes": nbytes}
+    rows["lse"] = {"shape": name, "lse_max_abs_err": lse_err,
+                   "k1_with_lse_ms": lse_ms}
+    print(f"[K1/K2/K3] {name}: K1+LSE {lse_ms:.4f} ms (LSE err "
+          f"{lse_err:.2e}); K2 {times['flash_bwd_dq'][0]:.4f} ms (plain "
+          f"{times['flash_bwd_dq'][1]:.3f}, bound "
+          f"{rows['flash_bwd_dq']['bound_ms']:.4f} "
+          f"{rows['flash_bwd_dq']['bound_by']}, err {errs['dq']:.2e}); K3 "
+          f"{times['flash_bwd_dkv'][0]:.4f} ms (plain "
+          f"{times['flash_bwd_dkv'][1]:.3f}, bound "
+          f"{rows['flash_bwd_dkv']['bound_ms']:.4f} "
+          f"{rows['flash_bwd_dkv']['bound_by']}, err "
+          f"{max(errs['dk'], errs['dv']):.2e}); SDPA backward "
+          f"{lib_ms:.4f} ms", flush=True)
+    return rows
+
+
+WORDS = ("a photo of the small large red blue green old new city street "
+         "river dog cat man woman child tree house car boat sky cloud sun "
+         "night morning near under beside with on in at holding running "
+         "standing sitting bright dark view").split()
+
+
+def caption_tar(path, n, seed=0):
+    """A webdataset tar of ``n`` JPEGs of seeded sizes (each side 448 to
+    1400 pixels, so the anyres grids vary) and pixels, with the caption in
+    the JSON metadata, as LAION-COCO's shards hold it."""
+    import numpy as np
+    from PIL import Image
+    rs = np.random.RandomState(seed)
+    with tarfile.open(path, "w") as tar:
+        for i in range(n):
+            w, h = (int(x) for x in rs.randint(448, 1401, 2))
+            buf = io.BytesIO()
+            Image.fromarray((rs.rand(h, w, 3) * 255).astype(np.uint8)).save(
+                buf, format="JPEG", quality=85)
+            caption = " ".join(rs.choice(WORDS, int(rs.randint(8, 20))))
+            meta = json.dumps({"caption": caption, "similarity": 0.3})
+            for ext, data in ((".jpg", buf.getvalue()),
+                              (".json", meta.encode())):
+                info = tarfile.TarInfo(f"{i:06d}{ext}")
+                info.size = len(data)
+                tar.addfile(info, io.BytesIO(data))
+
+
+def forward_parts(model, batch, grad):
+    """The training forward of ``batch`` taken apart on the host clock, each
+    part ending in a synchronize: the frozen vision tower, the rest of the
+    embedding and scatter (compaction, resampler, scatter), the Llama stack
+    (with ``grad``: autograd and remat's caching mode), the loss."""
+    import torch
+
+    from mllm_npu_tpu_torch.models.language_models.llama import (
+        packed_positions)
+    from mllm_npu_tpu_torch.ops import SegmentIds
+    parts = {}
+    with torch.set_grad_enabled(grad):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.forward_images(batch["images"])
+        torch.cuda.synchronize()
+        parts["vision_tower"] = time.perf_counter() - t
+        t = time.perf_counter()
+        emb, _ = model.embed_and_scatter(
+            batch["input_ids"], batch["images"], batch["embeds_cmp_mask"],
+            batch["ids_cmp_mask"], batch["patch_positions"])
+        torch.cuda.synchronize()
+        parts["embed_and_scatter_less_tower"] = (time.perf_counter() - t
+                                                 - parts["vision_tower"])
+        t = time.perf_counter()
+        seg = batch["attention_mask"].to(torch.int32)
+        h, _ = model.language_model(inputs_embeds=emb,
+                                    positions=packed_positions(seg),
+                                    segment_ids=SegmentIds(q=seg, kv=seg))
+        torch.cuda.synchronize()
+        parts["llama_layers"] = time.perf_counter() - t
+        t = time.perf_counter()
+        model.compute_losses(h, batch["labels"])
+        torch.cuda.synchronize()
+        parts["loss"] = time.perf_counter() - t
+    return parts
+
+
+def train_phase(workdir):
+    """Phase 8; returns what the JSON line and phase 9 need."""
+    import torch
+    import yaml
+
+    import mllm_npu_tpu_torch.ops as port_ops
+    from mllm_npu_tpu_torch.models.language_models.llama import (
+        set_lora_dropout_seed)
+    from mllm_npu_tpu_torch.ops.flash_attention import (
+        flash_attention_reference)
+    from mllm_npu_tpu_torch.train import train as trainer
+    from mllm_npu_tpu_torch.train.train_state import (compute_grads,
+                                                      make_train_step)
+    from mllm_npu_tpu_torch.utils.weights import set_llama_config
+
+    model_yaml = (ROOT / "mllm_npu_tpu_torch" / "configs" / "models"
+                  / "mllm_llama3_8b_siglip_vit.yaml")
+    ds = yaml.safe_load((ROOT / "mllm_npu_tpu_torch" / "configs" / "dataset"
+                         / "caption_data.yaml").read_text())
+    counters = kernel_counters()
+    run, per_step, B = None, [], None
+    for B in TRAIN_BATCHES:
+        data_dir = workdir / f"data_b{B}"
+        data_dir.mkdir()
+        caption_tar(data_dir / "shard-000000.tar", B, seed=0)
+        node = ds["datapipes"][0]
+        # one batch's worth of samples, every one an image-first
+        # (comprehension) sample, so every step sees the same batch
+        node.update(data_dir=[str(data_dir)], batch_size=B,
+                    img_first_ratio=1.0, cycle_count=100000)
+        data_yaml = workdir / f"data_b{B}.yaml"
+        data_yaml.write_text(yaml.safe_dump(ds))
+        argv = ["--model", str(model_yaml), "--train_dataset", str(data_yaml),
+                "--output_dir", str(workdir / f"out_b{B}"),
+                "--max_steps", str(TRAIN_STEPS), "--save_steps", "1000000",
+                "--log_steps", "1", "--learning_rate", "3e-4",
+                "--lr_scheduler_type", "constant", "--warmup_steps", "0",
+                "--ce_loss_chunk", str(CE_CHUNK), "--fake_tokenizer",
+                "--device", "cuda", "--seed", "0"]
+        per_step = []
+
+        def on_step(rec):
+            got = {k: fn.launches for k, fn in counters.items()}
+            for fn in counters.values():
+                fn.launches = 0
+            per_step.append((rec, got))
+            print(f"[train] B{B} step {rec['step']}: loss {rec['loss']:.4f}, "
+                  f"grad_norm {rec['grad_norm']:.4f}, sec/step "
+                  f"{rec['sec/step']:.3f}, tokens/s {rec['tokens/s']:.0f}, "
+                  f"images/s {rec['images/s']:.1f}; launches K1 "
+                  f"{got['flash_fwd']}, K2 {got['flash_bwd_dq']}, K3 "
+                  f"{got['flash_bwd_dkv']}", flush=True)
+
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            run = trainer.main(argv, on_step=on_step)
+        except torch.cuda.OutOfMemoryError:
+            print(f"[train] batch {B} does not fit in "
+                  f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}"
+                  f" GiB (out of memory at step {len(per_step) + 1}); "
+                  "trying a smaller one", flush=True)
+            run = None
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)   # drop the closure
+        gc.collect()
+        torch.cuda.empty_cache()
+        if run is not None:
+            break
+    check(run is not None, "no training batch fits")
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    model = run.model
+    lm_cfg = model.language_model.config
+    n_vis = model.vision_encoder.config.num_hidden_layers
+    L = lm_cfg.num_hidden_layers
+    # the frozen tower's layers (no gradient: K1 alone), the resampler and
+    # each Llama layer (K1 with LSE, K2, K3), whose forward remat re-runs
+    expect = {k: 0 for k in counters}
+    expect.update(flash_fwd=n_vis + 1 + (2 if lm_cfg.remat else 1) * L,
+                  flash_bwd_dq=L + 1, flash_bwd_dkv=L + 1)
+    check(len(per_step) == TRAIN_STEPS, f"{len(per_step)} steps ran")
+    import math
+    for rec, got in per_step:
+        check(got == expect, f"train step {rec['step']}: launches {got}, "
+              f"expected {expect}")
+        check(math.isfinite(rec["loss"]), f"step {rec['step']}: loss "
+              f"{rec['loss']}")
+    losses = [rec["loss"] for rec, _ in per_step]
+    check(losses[-1] < losses[0], f"the loss did not fall on a repeated "
+          f"batch: {losses}")
+    ckpt = workdir / f"out_b{B}" / f"checkpoint_{TRAIN_STEPS}"
+    check((ckpt / "state.pt").is_file(), f"no checkpoint at {ckpt}")
+    ckpt_gib = (ckpt / "state.pt").stat().st_size / 2**30
+    batch = run.last_batches
+    n_images = int(batch[0]["images"].shape[0])
+    seq = int(batch[0]["input_ids"].shape[1])
+    steady = per_step[1:]
+    summary = {
+        "batch": B, "cut_from": TRAIN_BATCHES[0], "seq": seq,
+        "images": n_images, "steps": TRAIN_STEPS, "losses": losses,
+        "sec_per_step": sum(r["sec/step"] for r, _ in steady) / len(steady),
+        "tokens_per_s": sum(r["tokens/s"] for r, _ in steady) / len(steady),
+        "images_per_s": sum(r["images/s"] for r, _ in steady) / len(steady),
+        "peak_gib": peak, "wall_s": wall, "checkpoint_gib": ckpt_gib,
+        "launches": {k: sum(g[k] for _, g in per_step) for k in counters},
+        "trainable_m": sum(p.numel() for p in model.parameters()
+                           if p.requires_grad) / 1e6,
+    }
+    print(f"[train] batch {B} (the recipe's {TRAIN_BATCHES[0]} cut to fit), "
+          f"S {seq}, {n_images} image slots: {TRAIN_STEPS} steps in "
+          f"{wall:.1f} s with the build; steps 2-{TRAIN_STEPS}: "
+          f"{summary['sec_per_step']:.3f} sec/step, "
+          f"{summary['tokens_per_s']:.0f} tokens/s, "
+          f"{summary['images_per_s']:.1f} images/s; peak "
+          f"{peak:.2f} GiB; {summary['trainable_m']:.1f} M trainable; "
+          f"losses {[round(x, 4) for x in losses]}; checkpoint "
+          f"{ckpt_gib:.2f} GiB", flush=True)
+    import shutil
+    shutil.rmtree(workdir / f"out_b{B}", ignore_errors=True)
+
+    # one step taken apart on the host clock, each part ending in a
+    # synchronize: forward, backward, optimizer (the batch is already on
+    # the card, so the rest of the loop's sec/step is data and logging)
+    parts = {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = trainer.mllm_loss(model, batch[0])
+    torch.cuda.synchronize()
+    parts["forward"] = time.perf_counter() - t
+    t = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    parts["backward"] = time.perf_counter() - t
+    t = time.perf_counter()
+    run.optimizer.step()
+    torch.cuda.synchronize()
+    parts["optimizer"] = time.perf_counter() - t
+    summary["step_parts_s"] = parts
+    print(f"[train] one step at batch {B} taken apart: " + ", ".join(
+        f"{k} {v * 1e3:.1f} ms" for k, v in parts.items())
+        + f"; sum {sum(parts.values()) * 1e3:.1f} ms against "
+        f"{summary['sec_per_step'] * 1e3:.1f} ms per step in the loop",
+        flush=True)
+    del loss
+    summary["forward_parts_s"] = {
+        mode: forward_parts(model, batch[0], grad=(mode == "training"))
+        for mode in ("training", "no_grad")}
+    for mode, fp in summary["forward_parts_s"].items():
+        print(f"[train] the forward taken apart ({mode}): " + ", ".join(
+            f"{k} {v * 1e3:.1f} ms" for k, v in fp.items()), flush=True)
+
+    # one step (gradients and the update) under the profiler
+    step = make_train_step(model, trainer.mllm_loss, run.optimizer)
+    summary["profile"] = profile_call(lambda: step(batch))
+    print_profile(f"one training step at batch {B}", *summary["profile"])
+
+    # one step's gradients with the kernels against the plain attention
+    # forward and backward; dropout off, and remat 'nothing' for both so
+    # the plain attention's saved logits do not stay for all 32 layers
+    run.optimizer = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    set_lora_dropout_seed(model, None)
+    set_llama_config(model.language_model, remat_policy="nothing")
+    grads = {}
+    for route in ("kernels", "plain"):
+        fns = (port_ops.flash_attention, port_ops.flash_attention_trainable)
+        if route == "plain":
+            port_ops.flash_attention = flash_attention_reference
+            port_ops.flash_attention_trainable = flash_attention_reference
+        try:
+            compute_grads(model, trainer.mllm_loss, batch)
+        finally:
+            port_ops.flash_attention, port_ops.flash_attention_trainable = \
+                fns
+        grads[route] = {
+            part: torch.cat([p.grad.float().flatten()
+                             for n, p in model.named_parameters()
+                             if p.requires_grad and part in n])
+            for part in ("lora_", "projector.")}
+        for p in model.parameters():
+            p.grad = None
+    summary["grad_cos"] = {}
+    for part in ("lora_", "projector."):
+        a, b = grads["kernels"][part], grads["plain"][part]
+        cos = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+        summary["grad_cos"][part] = cos
+        print(f"[check] one training step's {part.rstrip('._')} gradients "
+              f"({a.numel() / 1e6:.1f} M), K1/K2/K3 vs plain attention: cos "
+              f"{cos:.6f}, |g| {a.norm().item():.4e} vs "
+              f"{b.norm().item():.4e}", flush=True)
+        check(cos >= GRAD_COS, f"{part} gradients disagree (cos {cos})")
+    del grads, run, model, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
 def serve(engine, requests, preps, label, lm_cfg, vis_cfg):
     """Each request once, with every kernel's count set to 0 just before
     and read just after; asserts K1's count and, for a quantized engine,
@@ -343,10 +789,7 @@ def serve(engine, requests, preps, label, lm_cfg, vis_cfg):
     launches summed over the requests and the last request's steps."""
     import torch
 
-    from mllm_npu_tpu_torch.ops import quant as tq
-    from mllm_npu_tpu_torch.ops.flash_attention import flash_attention
-    counters = {"flash_fwd": flash_attention, "int8_matmul": tq.int8_matmul,
-                "int4_matmul": tq.int4_matmul}
+    counters = kernel_counters()
     quant = engine.generator.model.language_model.config.quantization
     per_forward = 7 * lm_cfg.num_hidden_layers + 1
     total = dict.fromkeys(counters, 0)
@@ -366,7 +809,8 @@ def serve(engine, requests, preps, label, lm_cfg, vis_cfg):
         if quant != "none":
             expect[f"{quant}_matmul"] = per_forward * (1 + steps)
         print(f"[{label}] request {i} ({'image' if b64 else 'text'}, prompt "
-              f"{len(prep[0])} tokens): launches K1 {got['flash_fwd']}, K4 "
+              f"{len(prep[0])} tokens): launches K1 {got['flash_fwd']}, K2/K3 "
+              f"{got['flash_bwd_dq']}/{got['flash_bwd_dkv']}, K4 "
               f"{got['int8_matmul']}, K5 {got['int4_matmul']} (expected "
               f"{expect['flash_fwd']}, {expect['int8_matmul']}, "
               f"{expect['int4_matmul']}); vision+projector "
@@ -386,6 +830,9 @@ def serve(engine, requests, preps, label, lm_cfg, vis_cfg):
 
 
 def main():
+    # the training phase runs near the card's memory: let the allocator grow
+    # segments instead of fragmenting (read when CUDA initialises)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
@@ -413,7 +860,7 @@ def main():
     print(f"[card] torch.cuda.get_device_name: {torch.cuda.get_device_name(0)}"
           f"  torch {torch.__version__}  cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    builds = build_all(["flash_fwd", "quant_matmul"])
+    builds = build_all(["flash_fwd", "flash_bwd", "quant_matmul"])
     print(f"[build] all kernels: {time.perf_counter() - t0:.1f} s")
     for name, (secs, log) in builds.items():
         print(f"[build] nvcc {name}.cu: {secs:.1f} s")
@@ -449,6 +896,9 @@ def main():
                  lm_cfg.head_dim)
     vh = vis_cfg.num_attention_heads
     n_vis = vis_cfg.num_patches
+    n_queries = model.projector.num_queries
+    res_heads = model.projector.attn.num_heads
+    res_d = model.projector.embed_dim // res_heads
     cases = [
         kernel_case("llama_prefill", 1, s_img, s_img, H, Hkv, D, True,
                     pad_rows={}),
@@ -456,11 +906,8 @@ def main():
                     True, pad_rows={1: s_img - 57}),
         kernel_case("siglip", n_tiles, n_vis, n_vis, vh, vh,
                     vis_cfg.hidden_size // vh, False),
-        kernel_case("resampler", n_tiles, model.projector.num_queries, n_vis,
-                    model.projector.attn.num_heads,
-                    model.projector.attn.num_heads,
-                    model.projector.embed_dim
-                    // model.projector.attn.num_heads, False),
+        kernel_case("resampler", n_tiles, n_queries, n_vis, res_heads,
+                    res_heads, res_d, False),
         kernel_case("tiny_llama_d32", 1, 77, 77, 4, 2, 32, True,
                     pad_rows={}),
     ]
@@ -500,15 +947,8 @@ def main():
     bf16_logits = k1
 
     # -- 6. how busy the device is during a text-only request ----------
-    wall_ms, busy_ms, top = profile_request(engine, requests[2])
-    if busy_ms > 0:
-        print(f"[profile] text request under torch.profiler: wall "
-              f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-              f"({100 * busy_ms / wall_ms:.1f}%); most device time: "
-              + "; ".join(f"{n[:70]} {t / 1e3:.2f} ms" for n, t in top))
-    else:
-        print("[profile] torch.profiler recorded no device activity: the "
-              "busy share is not measured")
+    print_profile("text request", *profile_call(
+        lambda: engine.comprehension(*requests[2])))
     del engine, model, logits, k1, plain
     torch.cuda.empty_cache()
 
@@ -561,6 +1001,23 @@ def main():
         del engine, model, qlogits, ql, qp
         torch.cuda.empty_cache()
 
+    # -- 8. training at full width, the counts set to 0 before each step
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        train = train_phase(Path(tmp))
+    for k in launches:
+        launches[k] += train["launches"][k]
+
+    # -- 9. K1 with its LSE, K2 and K3 at the training shapes ------------
+    S, B = train["seq"], train["batch"]
+    bwd = [
+        bwd_case("llama_train", B, S, S, H, Hkv, D, True, segments=True),
+        bwd_case("resampler_train", train["images"], n_queries, n_vis,
+                 res_heads, res_heads, res_d, False),
+        bwd_case("siglip_d72", n_tiles, n_vis, n_vis, vh, vh,
+                 vis_cfg.hidden_size // vh, False),
+        bwd_case("tiny_d32", 1, 77, 77, 4, 2, 32, True, segments=True),
+    ]
+
     by = {c["shape"]: c for c in cases}
     mix = {"llama_prefill": lm_cfg.num_hidden_layers,
            "siglip": vis_cfg.num_hidden_layers, "resampler": 1}
@@ -580,7 +1037,35 @@ def main():
         "ms_basis": "one 896x896 request: the launch mix "
                     + ", ".join(f"{n} x {s}" for s, n in mix.items()),
         "shapes": cases,
+        "lse_shapes": [b["lse"] for b in bwd],
     }]
+    tmix = {"llama_train": lm_cfg.num_hidden_layers, "resampler_train": 1}
+    tby = {b["flash_bwd_dq"]["shape"]: b for b in bwd}
+    for name, symbol, replaces in (
+            ("flash_bwd_dq", "K2", "mllm_npu_tpu/ops/flash_attention.py:333"),
+            ("flash_bwd_dkv", "K3",
+             "mllm_npu_tpu/ops/flash_attention.py:407")):
+        agg = {key: sum(tby[s][name][key] * n for s, n in tmix.items())
+               for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        t_c = sum(tby[s][name]["flops"] * n
+                  for s, n in tmix.items()) / H100_BF16_FLOPS
+        t_m = sum(tby[s][name]["bytes"] * n
+                  for s, n in tmix.items()) / H100_BYTES_PER_S
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "mllm_npu_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": max(b[name]["max_abs_err"] for b in bwd),
+            **agg,
+            "bound_by": "operations" if t_c >= t_m else "bytes",
+            "ms_basis": f"one training step at batch {B}: the launch mix "
+                        + ", ".join(f"{n} x {s}" for s, n in tmix.items()),
+            "library": "torch.autograd.grad of scaled_dot_product_attention "
+                       "with K/V repeated for GQA (dq, dk and dv together; "
+                       "the forward excluded)",
+            "shapes": [b[name] for b in bwd],
+        })
     qmix = quant_mix(lm_cfg)
     for bits, replaces in ((8, "mllm_npu_tpu/ops/quant.py:50"),
                            (4, "mllm_npu_tpu/ops/quant.py:330")):
@@ -606,6 +1091,8 @@ def main():
             "library": "F.linear on the weight dequantized to bf16",
             "shapes": qrows[bits],
         })
+    print("[train] summary " + json.dumps(
+        {k: v for k, v in train.items() if k != "profile"}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

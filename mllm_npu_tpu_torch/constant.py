@@ -7,6 +7,8 @@ BOP_TOKEN = "<patch>"
 EOP_TOKEN = "</patch>"
 IMG_TOKEN = "<img_{:05d}>"
 
+IGNORE_INDEX = -100
+
 # number of learnable image tokens emitted/consumed per image span
 NUM_IMG_TOKENS = 64
 

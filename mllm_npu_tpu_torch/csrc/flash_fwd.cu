@@ -33,8 +33,11 @@
 //    k-granule of 16 (72 → 80); the pad columns are zeroed once. Any
 //    D % 8 == 0 up to 128 runs natively; no 128-lane padding in memory.
 //  * layout [B, S, H, D] through strides, so no transposes.
-//  * room for the training slice: the LSE output (m + log l, natural log)
-//    is the running max and sum this kernel already keeps per row.
+//  * the training forward also writes each row's log-sum-exp (fp32
+//    [B, Hq, Sq], natural log: m + log l from the running max and sum the
+//    softmax keeps anyway, 0 for a row whose keys are all masked, as the
+//    reference's `_finish`). K2 and K3 (flash_bwd.cu) recompute P from
+//    it. Serving passes a null pointer and writes none.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,6 +57,7 @@ struct Params {
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
+  float* lse;       // [B, Hq, Sq] or null
   const int* qseg;  // [B, Sq] or null
   const int* kseg;  // [B, Sk] or null
   int B, Sq, Sk, Hq, Hkv, D;
@@ -304,6 +308,12 @@ __global__ void __launch_bounds__(THREADS)
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float i0 = l0 > 0.f ? 1.f / l0 : 0.f;
   const float i1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  if (p.lse != nullptr && t == 0) {
+    // natural-log LSE of the scaled logits: m and l are in base 2
+    float* lg = p.lse + ((long long)b * p.Hq + h) * p.Sq;
+    if (r0 < p.Sq) lg[r0] = l0 > 0.f ? (m0 + log2f(l0)) * 0.6931471805599453f : 0.f;
+    if (r1 < p.Sq) lg[r1] = l1 > 0.f ? (m1 + log2f(l1)) * 0.6931471805599453f : 0.f;
+  }
   __nv_bfloat16* og = p.o + b * p.o_sb + h * p.o_sh;
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
@@ -344,9 +354,11 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success). Pointers are
-// device pointers; strides are in elements; q_seg/kv_seg may be null.
+// device pointers; strides are in elements; lse and q_seg/kv_seg may be
+// null.
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
-                              void* o, const void* q_seg, const void* kv_seg,
+                              void* o, void* lse, const void* q_seg,
+                              const void* kv_seg,
                               int B, int Sq, int Sk, int Hq, int Hkv, int D,
                               long long q_sb, long long q_ss, long long q_sh,
                               long long k_sb, long long k_ss, long long k_sh,
@@ -358,6 +370,7 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = static_cast<float*>(lse);
   p.qseg = static_cast<const int*>(q_seg);
   p.kseg = static_cast<const int*>(kv_seg);
   p.B = B; p.Sq = Sq; p.Sk = Sk; p.Hq = Hq; p.Hkv = Hkv; p.D = D;

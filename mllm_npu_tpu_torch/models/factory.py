@@ -11,7 +11,17 @@ Weights are drawn from the seed: loading the reference's checkpoints is
 not ported yet, and a configured checkpoint path that exists raises rather
 than being silently replaced. A path that does not exist (the repository
 ships none) means seeded weights. ``DEBUG_FLAG=True`` swaps every
-component for its tiny config, as in the reference.
+component for its tiny config, as in the reference, and at full width the
+Llama builders default to ``remat=True, remat_policy="dots"``
+(reference ``factory.py:130-131``).
+
+``build_mllm(train=True)`` is the training build: the parameters that
+train (everything but the vision tower when it is frozen, and every LoRA
+base) are held in fp32 and require a gradient; the frozen ones are held
+in their component's compute dtype (bf16 at full width) and do not. The
+reference keeps every parameter in fp32 but casts frozen ones to the
+compute dtype before each product, so the results are the same, and at
+8B the port holds about 14 GiB less.
 """
 
 from __future__ import annotations
@@ -25,7 +35,7 @@ import torch
 from torch import nn
 
 from mllm_npu_tpu_torch.models.language_models.llama import (
-    LlamaConfig, LlamaForCausalLM, RMSNorm)
+    LlamaConfig, LlamaForCausalLM, LoRALinear, RMSNorm)
 from mllm_npu_tpu_torch.models.mllm import GeneralizedMultimodalModel
 from mllm_npu_tpu_torch.models.multimodal_encoder.siglip_vit import (
     SigLIPConfig, SigLIPVisionEncoder)
@@ -63,6 +73,8 @@ def build_llama3(pretrained_model_name_or_path=None, vocab_size=None,
     if _debug():
         cfg = LlamaConfig.tiny(vocab_size=vocab_size or 1024, **kw)
     else:
+        kw.setdefault("remat", True)
+        kw.setdefault("remat_policy", "dots")
         cfg = LlamaConfig.llama3_8b(**kw)
         if vocab_size is not None:
             cfg = dataclasses.replace(cfg, vocab_size=vocab_size)
@@ -72,16 +84,17 @@ def build_llama3(pretrained_model_name_or_path=None, vocab_size=None,
 def get_peft_model_with_resize_embedding(model: ModelSpec = None,
                                          peft_config=None, vocab_size=None,
                                          **kw) -> ModelSpec:
-    """LoRA on the configured targets and the vocabulary resized. The
-    adapters' dropout is a training setting and is not kept."""
+    """LoRA on the configured targets, with the adapters' dropout, and the
+    vocabulary resized."""
     cfg = model.config
-    r, alpha, targets = 32, 32.0, cfg.lora_targets
+    r, alpha, targets, dropout = 32, 32.0, cfg.lora_targets, 0.0
     if isinstance(peft_config, dict):
         r = peft_config.get("r", r)
         alpha = float(peft_config.get("lora_alpha", alpha))
         targets = tuple(peft_config.get("target_modules", targets))
+        dropout = float(peft_config.get("lora_dropout", dropout))
     cfg = dataclasses.replace(cfg, lora_rank=r, lora_alpha=alpha,
-                              lora_targets=targets,
+                              lora_targets=targets, lora_dropout=dropout,
                               vocab_size=vocab_size or cfg.vocab_size)
     return _llama_spec(cfg, model.dtype)
 
@@ -125,14 +138,39 @@ def init_random_(module: nn.Module, seed: int = 0, std: float = 0.02
     return module
 
 
+def frozen_parameter_names(model: nn.Module,
+                           freeze_vision_encoder: bool = True) -> set:
+    """The parameters a training run holds fixed: every LoRA base (the
+    reference's ``lora_frozen_patterns``, ``llama.py:210``) and, when it is
+    frozen, the whole vision tower (``train.py:224-236``)."""
+    names = {f"{n}.weight" for n, m in model.named_modules()
+             if isinstance(m, LoRALinear)}
+    if freeze_vision_encoder:
+        names |= {n for n, _ in model.named_parameters()
+                  if n.startswith("vision_encoder.")}
+    return names
+
+
 def materialize(make: Callable[[], nn.Module], *, device=None,
-                param_dtype=torch.bfloat16, seed: int = 0) -> nn.Module:
+                param_dtype=torch.bfloat16, seed: int = 0,
+                frozen: Optional[Callable[[nn.Module], set]] = None
+                ) -> nn.Module:
     """Build on ``meta``, allocate on ``device`` (``cuda`` unless named)
-    in ``param_dtype``, and fill from ``seed``."""
+    in ``param_dtype``, and fill from ``seed``. With ``frozen`` (the model
+    → the names it holds fixed), those parameters stay in ``param_dtype``
+    and need no gradient, and every other one is held in fp32."""
     device = resolve_device(device)
     with torch.device("meta"):
         module = make()
-    module = module.to(param_dtype).to_empty(device=device)
+    module = module.to(param_dtype)
+    if frozen is not None:
+        names = frozen(module)
+        for name, p in module.named_parameters():
+            if name in names:
+                p.requires_grad_(False)
+            else:
+                p.data = p.data.float()
+    module = module.to_empty(device=device)
     return init_random_(module, seed)
 
 
@@ -143,17 +181,24 @@ def build_mllm(language_model: ModelSpec = None,
                pretrained_model_name_or_path=None,
                pretrained_model_path=None, *, device=None,
                param_dtype=torch.bfloat16, seed: int = 0,
+               train: bool = False, ce_loss_chunk: int = 0,
                **kw) -> GeneralizedMultimodalModel:
-    """The comprehension assembly with seeded weights on ``device``
-    (``freeze_vision_encoder`` and ``lm_loss_scale`` are training settings
-    and unused here)."""
+    """The comprehension assembly with seeded weights on ``device``; with
+    ``train`` the training build (fp32 trainable parameters, frozen ones
+    in ``param_dtype`` without gradients)."""
     _no_checkpoint(pretrained_model_name_or_path or pretrained_model_path)
 
     def make():
         return GeneralizedMultimodalModel(
             language_model.make(), vision_encoder.make(), projector.make(),
             add_patch_pos=add_patch_pos,
-            patch_pos_dim=language_model.config.hidden_size)
+            patch_pos_dim=language_model.config.hidden_size,
+            freeze_vision_encoder=freeze_vision_encoder,
+            lm_loss_scale=lm_loss_scale, ce_loss_chunk=ce_loss_chunk)
 
+    frozen = None
+    if train:
+        def frozen(model):
+            return frozen_parameter_names(model, freeze_vision_encoder)
     return materialize(make, device=device, param_dtype=param_dtype,
-                       seed=seed)
+                       seed=seed, frozen=frozen)

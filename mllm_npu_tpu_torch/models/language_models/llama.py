@@ -13,21 +13,29 @@ column for all layers at once (:func:`write_decode_column`).
 Served here: the prefill (causal, segment ids, K1 on the GPU) and the
 single-token read-only-cache decode, with bf16, int8 (K4) or int4 (K5)
 weights (``LlamaConfig.quantization``; every projection and the
-``lm_head``, as the reference). The reference's multi-token verify and
-eager branches, fused projections and LoRA over a quantized base are not
-ported yet.
+``lm_head``, as the reference). Trained here: LoRA with adapter dropout,
+per-segment positions (:func:`packed_positions`), the dense and chunked
+causal-LM losses, and per-layer remat (``remat_policy`` ``nothing`` or
+``dots``); attention then runs K1 with its LSE forward and K2/K3
+backward. The reference's multi-token verify and eager branches, fused
+projections, LoRA over a quantized base and the ``dots_no_batch``,
+``dots_lite`` and ``hoist_attn`` policies are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from mllm_npu_tpu_torch import ops
+from mllm_npu_tpu_torch.constant import IGNORE_INDEX
 from mllm_npu_tpu_torch.models.layers import Linear
 from mllm_npu_tpu_torch.ops.quant import Int4Linear, Int8Linear
 
@@ -47,6 +55,9 @@ class LlamaConfig:
     rope_scaling_factor: float = 1.0
     lora_rank: int = 0
     lora_alpha: float = 32.0
+    # adapter-input dropout, active in training once a dropout seed is set
+    # (set_lora_dropout_seed; the reference's 'dropout' rng)
+    lora_dropout: float = 0.0
     lora_targets: tuple = ("q_proj", "k_proj", "v_proj", "o_proj",
                            "gate_proj", "up_proj", "down_proj")
     # weight-only serving: "none" | "int8" | "int4" (every projection and
@@ -54,6 +65,10 @@ class LlamaConfig:
     quantization: str = "none"
     # int4 group size along K (falls back to K where it does not divide)
     quant_group_size: int = 256
+    # per-layer activation checkpointing in training: 'nothing' saves only
+    # each layer's input, 'dots' also every matmul output
+    remat: bool = False
+    remat_policy: str = "nothing"
 
     @property
     def head_dim(self) -> int:
@@ -82,22 +97,57 @@ class LlamaConfig:
 
 
 class LoRALinear(nn.Module):
-    """Bias-free Linear plus a low-rank adapter: ``W x + (B A x)·α/r``.
-    Inference only (the reference's adapter dropout is a training path)."""
+    """Bias-free Linear plus a low-rank adapter: ``W x + (B A x')·α/r``,
+    where ``x'`` is ``x`` under dropout at rate ``dropout`` while the
+    module is training and a dropout seed is set, and ``x`` otherwise
+    (peft ``lora_dropout``; the reference's ``LoRADense``). The mask is a
+    function of (seed, ``dropout_key``) alone, so a layer re-run by
+    activation checkpointing draws the same mask."""
 
     def __init__(self, in_features: int, out_features: int, rank: int,
-                 alpha: float, dtype: torch.dtype):
+                 alpha: float, dtype: torch.dtype, dropout: float = 0.0):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.lora_A = Linear(in_features, rank, bias=False, dtype=dtype)
         self.lora_B = Linear(rank, out_features, bias=False, dtype=dtype)
         self.scale = alpha / rank
         self.compute_dtype = dtype
+        self.dropout = dropout
+        self.dropout_key = 0        # set per layer and projection
+        self.dropout_seed = None    # set per step (set_lora_dropout_seed)
+
+    def _dropout(self, x):
+        if not (self.training and self.dropout > 0
+                and self.dropout_seed is not None):
+            return x
+        g = torch.Generator(device=x.device)
+        g.manual_seed(_mix(self.dropout_seed, self.dropout_key))
+        keep = 1.0 - self.dropout
+        mask = torch.rand(x.shape, generator=g, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
 
     def forward(self, x):
         x = x.to(self.compute_dtype)
         y = F.linear(x, self.weight.to(self.compute_dtype))
-        return y + self.lora_B(self.lora_A(x)) * self.scale
+        return y + self.lora_B(self.lora_A(self._dropout(x))) * self.scale
+
+
+def _mix(seed: int, key: int) -> int:
+    """A 63-bit generator seed from (seed, key) (splitmix64's finalizer)."""
+    z = (seed * 0x9E3779B97F4A7C15 + key + 1) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    return (z ^ (z >> 31)) >> 1
+
+
+def set_lora_dropout_seed(module: nn.Module, seed: Optional[int]) -> None:
+    """Seed (or, with None, switch off) every LoRA adapter's dropout under
+    ``module``; the trainer sets one seed per step (the twin of the
+    reference's ``fold_in(PRNGKey(17), step)``)."""
+    for m in module.modules():
+        if isinstance(m, LoRALinear):
+            m.dropout_seed = seed
 
 
 def quantized_linear(cfg: LlamaConfig, in_f: int, out_f: int, dtype):
@@ -118,8 +168,94 @@ def _dense(cfg: LlamaConfig, name: str, in_f: int, out_f: int, dtype):
                 "adapters before quantizing")
         return quantized_linear(cfg, in_f, out_f, dtype)
     if lora:
-        return LoRALinear(in_f, out_f, cfg.lora_rank, cfg.lora_alpha, dtype)
+        return LoRALinear(in_f, out_f, cfg.lora_rank, cfg.lora_alpha, dtype,
+                          dropout=cfg.lora_dropout)
     return Linear(in_f, out_f, bias=False, dtype=dtype)
+
+
+def packed_positions(segment_ids: torch.Tensor) -> torch.Tensor:
+    """Per-segment position ids: positions restart at 0 wherever the
+    segment id changes. [B, S] int → [B, S] long (twin of ``:222``)."""
+    B, S = segment_ids.shape
+    idx = torch.arange(S, device=segment_ids.device).expand(B, S)
+    is_start = torch.ones_like(segment_ids, dtype=torch.bool)
+    is_start[:, 1:] = segment_ids[:, 1:] != segment_ids[:, :-1]
+    start = torch.where(is_start, idx, torch.zeros_like(idx))
+    return idx - torch.cummax(start, dim=1).values
+
+
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+                   ignore_index: int = IGNORE_INDEX) -> torch.Tensor:
+    """Shifted next-token CE in fp32, the mean over targets that are not
+    ``ignore_index`` (twin of ``:935``)."""
+    logits = logits[:, :-1].float()
+    targets = labels[:, 1:]
+    mask = targets != ignore_index
+    safe = torch.where(mask, targets, torch.zeros_like(targets)).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    nll = torch.where(mask, nll, torch.zeros_like(nll))
+    return nll.sum() / mask.sum().clamp(min=1)
+
+
+def _ce_piece(hc, tc, w, ignore_index):
+    logits = (hc.to(w.dtype) @ w.t()).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    mask = tc != ignore_index
+    safe = torch.where(mask, tc, torch.zeros_like(tc)).long()
+    picked = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = torch.where(mask, lse - picked, torch.zeros_like(lse))
+    return nll.sum(), mask.sum()
+
+
+def chunked_causal_lm_loss(h: torch.Tensor, weight: torch.Tensor,
+                           labels: torch.Tensor, *, chunk: int = 256,
+                           compute_dtype=torch.bfloat16,
+                           ignore_index: int = IGNORE_INDEX) -> torch.Tensor:
+    """Fused-linear CE (twin of ``:951``): the head product and softmax-CE
+    per sequence chunk of ``chunk`` positions, each under activation
+    checkpointing, so the [B, S, V] logits never exist at once and the
+    backward recomputes each chunk's. ``weight`` is the head's [V, D]; the
+    product runs in ``compute_dtype``, the log-sum-exp in fp32. Equal to
+    :func:`causal_lm_loss` up to summation order."""
+    hp, tg = h[:, :-1], labels[:, 1:]
+    w = weight.to(compute_dtype)
+    total = h.new_zeros((), dtype=torch.float32)
+    count = torch.zeros((), dtype=torch.long, device=h.device)
+    for i in range(0, hp.shape[1], chunk):
+        s, c = checkpoint(_ce_piece, hp[:, i:i + chunk], tg[:, i:i + chunk],
+                          w, ignore_index, use_reentrant=False)
+        total = total + s
+        count = count + c
+    return total / count.clamp(min=1)
+
+
+_DOT_OPS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy that keeps every matmul's output (the
+    twin of ``jax.checkpoint_policies.checkpoint_dots``)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_layer(layer: nn.Module, policy: str, h, **kw):
+    """``layer(h, **kw)`` under activation checkpointing (twin of the
+    ``nn.remat`` in ``:599-626``). Non-reentrant, so LoRA dropout's seeded
+    masks and the flash kernels' saved tensors are rebuilt by the replay;
+    the flash forward (K1) therefore runs twice per layer per step."""
+    if policy == "nothing":
+        return checkpoint(layer, h, use_reentrant=False, **kw)
+    if policy == "dots":
+        return checkpoint(layer, h, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _save_dots), **kw)
+    raise NotImplementedError(
+        f"remat_policy {policy!r} is not ported yet (ported: 'nothing', "
+        "'dots')")
 
 
 def init_cache(config: LlamaConfig, batch_size: int, max_len: int,
@@ -241,6 +377,11 @@ class LlamaModel(nn.Module):
         self.layers = nn.ModuleList(LlamaDecoderLayer(cfg, dtype)
                                     for _ in range(cfg.num_hidden_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
+        for i, layer in enumerate(self.layers):
+            adapters = [m for m in layer.modules()
+                        if isinstance(m, LoRALinear)]
+            for j, m in enumerate(adapters):
+                m.dropout_key = i * 64 + j
 
     def embed(self, input_ids):
         # table cast first, then gather (the reference's numerics)
@@ -259,11 +400,18 @@ class LlamaModel(nn.Module):
             positions = (torch.arange(S, device=h.device)[None]
                          + (cache_pos or 0)).expand(B, S)
         cols = []
+        remat = (self.config.remat and cache is None
+                 and torch.is_grad_enabled())
         for i, layer in enumerate(self.layers):
             lc = None if cache is None else (cache["k"][i], cache["v"][i])
-            h, col = layer(h, positions=positions, layer_cache=lc,
-                           cache_pos=cache_pos, segment_ids=segment_ids,
-                           attn_mask=attn_mask, prefill=prefill)
+            kw = dict(positions=positions, layer_cache=lc,
+                      cache_pos=cache_pos, segment_ids=segment_ids,
+                      attn_mask=attn_mask, prefill=prefill)
+            if remat:
+                h, col = remat_layer(layer, self.config.remat_policy, h,
+                                     **kw)
+            else:
+                h, col = layer(h, **kw)
             if col is not None:
                 cols.append(col)
         h = self.norm(h)
@@ -300,6 +448,16 @@ class LlamaForCausalLM(nn.Module):
 
     def logits(self, h):
         return self.lm_head(h)
+
+    def loss_from_hidden(self, h, labels, *, chunk: int,
+                         ignore_index: int = IGNORE_INDEX):
+        """Causal-LM loss from the final hidden states without the full
+        [B, S, V] logits (:func:`chunked_causal_lm_loss`; twin of
+        ``:812``)."""
+        return chunked_causal_lm_loss(
+            h, self.lm_head.weight, labels, chunk=chunk,
+            compute_dtype=self.lm_head.compute_dtype,
+            ignore_index=ignore_index)
 
     def forward(self, input_ids=None, **kw):
         return self.model(input_ids, **kw)

@@ -11,6 +11,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from mllm_npu_tpu_torch.models.language_models.llama import (
+    causal_lm_loss, packed_positions)
+from mllm_npu_tpu_torch.ops import SegmentIds
+
 
 def compact_selected(x: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     """Rows with ``sel`` True moved to the front in order; the rest zero."""
@@ -44,14 +48,26 @@ def _patch_pos_bias(patch_positions: torch.Tensor,
 
 class GeneralizedMultimodalModel(nn.Module):
     def __init__(self, language_model, vision_encoder, projector, *,
-                 add_patch_pos: bool = False, patch_pos_dim: int = 4096):
+                 add_patch_pos: bool = False, patch_pos_dim: int = 4096,
+                 freeze_vision_encoder: bool = True,
+                 lm_loss_scale: float = 1.0, ce_loss_chunk: int = 0):
         super().__init__()
         self.language_model = language_model
         self.vision_encoder = vision_encoder
         self.projector = projector
         self.add_patch_pos = add_patch_pos
+        self.freeze_vision_encoder = freeze_vision_encoder
+        self.lm_loss_scale = lm_loss_scale
+        # > 0: the chunked (fused-linear) CE over this many positions
+        self.ce_loss_chunk = ce_loss_chunk
         if add_patch_pos:
             self.patch_pos_embed = nn.Parameter(torch.empty(4, patch_pos_dim))
+
+    def forward_images(self, images):
+        if self.freeze_vision_encoder:
+            with torch.no_grad():
+                return self.vision_encoder(images)
+        return self.vision_encoder(images)
 
     def project_images(self, image_embeds, patch_positions=None):
         out = self.projector(image_embeds)
@@ -67,7 +83,7 @@ class GeneralizedMultimodalModel(nn.Module):
         input_embeds = self.language_model.embed(input_ids)
         if images is None:
             return input_embeds, None
-        image_embeds = self.vision_encoder(images)
+        image_embeds = self.forward_images(images)
         proj_in = compact_selected(image_embeds, embeds_cmp_mask)
         pp = None
         if patch_positions is not None:
@@ -75,3 +91,33 @@ class GeneralizedMultimodalModel(nn.Module):
         image_embeds_lm = self.project_images(proj_in, pp)
         return (scatter_image_embeds(input_embeds, ids_cmp_mask,
                                      image_embeds_lm), image_embeds)
+
+    def _lm_loss(self, last_hidden, labels):
+        """Dense CE over the head's logits, or the chunked fused-linear CE
+        from the hidden states when ``ce_loss_chunk`` is set."""
+        lm = self.language_model
+        if self.ce_loss_chunk:
+            return lm.loss_from_hidden(last_hidden, labels,
+                                       chunk=self.ce_loss_chunk)
+        return causal_lm_loss(lm.logits(last_hidden), labels)
+
+    def compute_losses(self, last_hidden, labels):
+        lm_loss = self._lm_loss(last_hidden, labels)
+        return {"total_loss": self.lm_loss_scale * lm_loss,
+                "lm_loss": lm_loss}
+
+    def forward(self, input_ids, images, attention_mask, labels,
+                embeds_gen_mask=None, embeds_cmp_mask=None,
+                ids_gen_mask=None, ids_cmp_mask=None, patch_positions=None):
+        input_embeds, _ = self.embed_and_scatter(
+            input_ids, images, embeds_cmp_mask, ids_cmp_mask,
+            patch_positions)
+        seg = positions = segment_ids = None
+        if attention_mask is not None:
+            seg = attention_mask.to(torch.int32)
+            positions = packed_positions(seg)
+            segment_ids = SegmentIds(q=seg, kv=seg)
+        h, _ = self.language_model(inputs_embeds=input_embeds,
+                                   positions=positions,
+                                   segment_ids=segment_ids)
+        return self.compute_losses(h, labels)

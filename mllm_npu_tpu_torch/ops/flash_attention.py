@@ -1,20 +1,34 @@
-"""K1: flash-attention forward, a hand-written CUDA kernel for Hopper.
+"""Flash attention on the GPU: K1 (forward), K2 and K3 (backward), hand-
+written CUDA kernels for Hopper.
 
-Replaces ``mllm_npu_tpu/ops/flash_attention.py:100 _fwd_kernel`` (launched
-by ``_fwd`` :211, API ``flash_attention`` :697). It computes
+K1 replaces ``mllm_npu_tpu/ops/flash_attention.py:100 _fwd_kernel``
+(launched by ``_fwd`` :211, API ``flash_attention`` :697). It computes
 ``O = softmax(scale·QKᵀ + mask)·V`` with GQA (query head h reads KV head
 ``h·Hkv/Hq``), an optional causal mask (top-left aligned, as the
 reference) and an optional segment-id mask (``q_seg == kv_seg``). A fully
-masked row gives 0. Layout is the reference's public ``[B, S, H, D]``,
-read through strides.
+masked row gives 0. With ``return_lse`` it also writes each row's
+natural-log log-sum-exp (0 for a fully masked row), which the backward
+needs. Layout is the reference's public ``[B, S, H, D]``, read through
+strides.
 
-The kernel lives in ``csrc/flash_fwd.cu``; its design notes (bound on the
-H100 and what the design does about it) are at the top of that file.
-:func:`flash_attention` launches it for CUDA tensors and counts the launch
-in ``flash_attention.launches``; for CPU tensors it computes the same
-function with :func:`flash_attention_reference`, the plain version. There
-is no fallback for CUDA tensors: a shape or type the kernel does not take
-raises.
+K2 (``flash_bwd_dq``) and K3 (``flash_bwd_dkv``) replace ``_bwd_dq_kernel``
+(:333) and ``_bwd_dkv_kernel`` (:407), launched by ``_bwd`` (:502): they
+recompute P from the saved LSE and return dQ, and dK/dV summed over each
+KV head's query heads. :class:`FlashAttention` ties the three together as
+an autograd Function, the twin of ``_flash`` with its ``custom_vjp`` rules
+(:672-694): the forward launches K1 with the LSE, the backward computes
+δ = rowsum(dO∘O) in fp32 as a plain op (the reference does so outside its
+kernels, :513) and launches K2 and K3.
+
+The kernels live in ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``; their
+design notes (bound on the H100 and what the design does about it) are at
+the top of each file. Each wrapper launches its kernel for CUDA tensors
+and counts the launch (``flash_attention.launches``,
+``flash_bwd_dq.launches``, ``flash_bwd_dkv.launches``); for CPU tensors it
+computes the same function with its plain fp32 version
+(:func:`flash_attention_reference`, :func:`flash_bwd_dq_reference`,
+:func:`flash_bwd_dkv_reference`). There is no fallback for CUDA tensors: a
+shape or type a kernel does not take raises.
 """
 
 from __future__ import annotations
@@ -33,17 +47,12 @@ class SegmentIds(NamedTuple):
     kv: torch.Tensor  # int [B, Sk]
 
 
-def flash_attention_reference(q, k, v, *, causal: bool = False,
-                              segment_ids: Optional[SegmentIds] = None,
-                              scale: Optional[float] = None) -> torch.Tensor:
-    """The plain version of K1, in fp32: same masks, same GQA mapping, and
-    0 for a fully masked row. Returns q's dtype."""
+def _masked_logits(q, k, causal, segment_ids, scale):
+    """fp32 logits [B, Hkv, G, Sq, Sk] with -inf where masked, and the
+    mask [B|1, 1, 1, Sq, Sk]."""
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
-    G = Hq // Hkv
-    if scale is None:
-        scale = D ** -0.5
-    qf = q.float().reshape(B, Sq, Hkv, G, D)
+    qf = q.float().reshape(B, Sq, Hkv, Hq // Hkv, D)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
     mask = torch.ones((1, Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:
@@ -51,31 +60,109 @@ def flash_attention_reference(q, k, v, *, causal: bool = False,
                        >= torch.arange(Sk, device=q.device)[None, :])
     if segment_ids is not None:
         mask = mask & (segment_ids.q[:, :, None] == segment_ids.kv[:, None, :])
-    mask = mask[:, None, None]                       # [B|1, 1, 1, Sq, Sk]
-    logits = logits.masked_fill(~mask, float("-inf"))
+    mask = mask[:, None, None]
+    return logits.masked_fill(~mask, float("-inf")), mask
+
+
+def flash_attention_reference(q, k, v, *, causal: bool = False,
+                              segment_ids: Optional[SegmentIds] = None,
+                              scale: Optional[float] = None,
+                              return_lse: bool = False):
+    """The plain version of K1, in fp32: same masks, same GQA mapping, and
+    0 for a fully masked row. Returns q's dtype; with ``return_lse`` also
+    the fp32 [B, Hq, Sq] natural-log LSE (0 for a fully masked row)."""
+    B, Sq, Hq, D = q.shape
+    if scale is None:
+        scale = D ** -0.5
+    logits, _ = _masked_logits(q, k, causal, segment_ids, scale)
     m = logits.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(logits - m)
     l = p.sum(dim=-1, keepdim=True)
     p = p / torch.where(l > 0, l, torch.ones_like(l))
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return out.reshape(B, Sq, Hq, D).to(q.dtype)
+    out = out.reshape(B, Sq, Hq, D).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l > 0, m + torch.log(torch.where(l > 0, l, 1.0)), 0.0)
+    return out, lse.reshape(B, Hq, Sq)
 
 
-def _check(q, k, v, segment_ids):
+def _probs(q, k, lse, causal, segment_ids, scale):
+    """P [B, Hkv, G, Sq, Sk] recomputed from the LSE, 0 where masked."""
+    B, Sq, Hq, _ = q.shape
+    Hkv = k.shape[2]
+    logits, mask = _masked_logits(q, k, causal, segment_ids, scale)
+    p = torch.exp(logits - lse.float().reshape(B, Hkv, Hq // Hkv, Sq, 1))
+    return p.masked_fill(~mask, 0.0)
+
+
+def _dscores(q, k, v, do, lse, delta, causal, segment_ids, scale):
+    """(P, dS = P∘(dO·Vᵀ − δ)), both [B, Hkv, G, Sq, Sk] fp32."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    p = _probs(q, k, lse, causal, segment_ids, scale)
+    dof = do.float().reshape(B, Sq, Hkv, Hq // Hkv, D)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, v.float())
+    ds = p * (dp - delta.float().reshape(B, Hkv, Hq // Hkv, Sq, 1))
+    return p, ds
+
+
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, *, causal: bool = False,
+                           segment_ids: Optional[SegmentIds] = None,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """The plain version of K2, in fp32: dQ = scale·dS·K. Returns q's
+    dtype."""
+    B, Sq, Hq, D = q.shape
+    if scale is None:
+        scale = D ** -0.5
+    _, ds = _dscores(q, k, v, do, lse, delta, causal, segment_ids, scale)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * scale
+    return dq.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def flash_bwd_dkv_reference(q, k, v, do, lse, delta, *,
+                            causal: bool = False,
+                            segment_ids: Optional[SegmentIds] = None,
+                            scale: Optional[float] = None):
+    """The plain version of K3, in fp32: dK = scale·Σ dSᵀ·Q and
+    dV = Σ Pᵀ·dO over each KV head's query heads. Returns k's and v's
+    dtypes."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    if scale is None:
+        scale = D ** -0.5
+    p, ds = _dscores(q, k, v, do, lse, delta, causal, segment_ids, scale)
+    qf = q.float().reshape(B, Sq, Hkv, Hq // Hkv, D)
+    dof = do.float().reshape(B, Sq, Hkv, Hq // Hkv, D)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """δ = rowsum(dO∘O) in fp32, [B, Hq, Sq] (the reference's ``di``)."""
+    return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, *,
+                                  causal: bool = False,
+                                  segment_ids: Optional[SegmentIds] = None,
+                                  scale: Optional[float] = None):
+    """The plain twin of K2 + K3: (dq, dk, dv) from the forward's output
+    and LSE, with P recomputed from the LSE."""
+    kw = dict(causal=causal, segment_ids=segment_ids, scale=scale)
+    delta = attention_delta(o, do)
+    dq = flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_bwd_dkv_reference(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv
+
+
+def _check(q, k, v, segment_ids, name="flash_attention"):
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("flash_attention: q, k, v must all be on the GPU")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash_attention kernel takes bf16, got "
-                            f"{name}.dtype={t.dtype}")
-        if t.ndim != 4 or t.stride(3) != 1:
-            raise ValueError(f"{name} must be [B, S, H, D] with unit "
-                             f"last stride, got {tuple(t.shape)} "
-                             f"strides {t.stride()}")
-        if any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(f"{name}: strides must be multiples of 8 and "
-                             "the base 16-byte aligned (16-byte tile loads)")
+        raise ValueError(f"{name}: q, k, v must all be on the GPU")
+    for nm, t in (("q", q), ("k", k), ("v", v)):
+        _check_bshd(t, nm, name)
     B, Sq, Hq, D = q.shape
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"shape mismatch q{tuple(q.shape)} "
@@ -92,58 +179,211 @@ def _check(q, k, v, segment_ids):
             raise ValueError("segment ids must be [B, Sq] and [B, Sk]")
 
 
-_kernel_fn = None
+def _check_bshd(t, nm, name):
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"{name} kernel takes bf16, got {nm}.dtype={t.dtype}")
+    if t.ndim != 4 or t.stride(3) != 1:
+        raise ValueError(f"{nm} must be [B, S, H, D] with unit last stride, "
+                         f"got {tuple(t.shape)} strides {t.stride()}")
+    if any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
+        raise ValueError(f"{nm}: strides must be multiples of 8 and the base "
+                         "16-byte aligned (16-byte tile loads)")
 
 
-def _library():
-    """The kernel's C entry point, built, loaded and typed on first use."""
-    global _kernel_fn
-    if _kernel_fn is None:
+def _segments(segment_ids, device):
+    """int32 contiguous (q, kv) segment ids, or (None, None)."""
+    if segment_ids is None:
+        return None, None
+    return (segment_ids.q.to(device=device, dtype=torch.int32).contiguous(),
+            segment_ids.kv.to(device=device, dtype=torch.int32).contiguous())
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+_entry: dict = {}
+
+
+def _fn(library: str, symbol: str, argtypes):
+    """A kernel's C entry point, built, loaded and typed on first use."""
+    key = (library, symbol)
+    if key not in _entry:
         from mllm_npu_tpu_torch.utils.cuda_build import load
-        fn = load(KERNEL).flash_fwd_bf16
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 12
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn = getattr(load(library), symbol)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _kernel_fn = fn
-    return _kernel_fn
+        _entry[key] = fn
+    return _entry[key]
+
+
+_FWD_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+             + [ctypes.c_longlong] * 12
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
                     segment_ids: Optional[SegmentIds] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None,
+                    return_lse: bool = False):
     """GQA flash attention forward; q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D]
-    → [B, Sq, Hq, D]. ``scale`` defaults to ``D ** -0.5``."""
+    → [B, Sq, Hq, D], and with ``return_lse`` also the fp32 [B, Hq, Sq]
+    LSE. ``scale`` defaults to ``D ** -0.5``."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal,
                                          segment_ids=segment_ids,
-                                         scale=scale)
+                                         scale=scale, return_lse=return_lse)
     _check(q, k, v, segment_ids)
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
-    if B == 0 or Sq == 0:
-        return out
-    qseg = kseg = None
-    if segment_ids is not None:
-        qseg = segment_ids.q.to(device=q.device, dtype=torch.int32)
-        kseg = segment_ids.kv.to(device=q.device, dtype=torch.int32)
-        qseg, kseg = qseg.contiguous(), kseg.contiguous()
-    err = _library()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        0 if qseg is None else qseg.data_ptr(),
-        0 if kseg is None else kseg.data_ptr(),
-        B, Sq, Sk, Hq, Hkv, D,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3],
-        float(scale), int(bool(causal)),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_fwd_bf16 launch failed: CUDA error {err}")
-    flash_attention.launches += 1
-    return out
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if B and Sq:
+        qseg, kseg = _segments(segment_ids, q.device)
+        err = _fn(KERNEL, "flash_fwd_bf16", _FWD_ARGS)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _ptr(lse), _ptr(qseg), _ptr(kseg),
+            B, Sq, Sk, Hq, Hkv, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3],
+            float(scale), int(bool(causal)),
+            torch.cuda.current_stream(q.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"flash_fwd_bf16 launch failed: CUDA error "
+                               f"{err}")
+        flash_attention.launches += 1
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+
+BWD_KERNEL = "flash_bwd"
+_BWD_DQ_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                   ctypes.c_int, ctypes.c_void_p])
+_BWD_DKV_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                    ctypes.c_int, ctypes.c_void_p])
+
+
+def _check_bwd(q, k, v, do, lse, delta, segment_ids, name):
+    _check(q, k, v, segment_ids, name)
+    _check_bshd(do, "do", name)
+    if do.shape != q.shape or not do.is_cuda:
+        raise ValueError(f"{name}: do must be a GPU tensor shaped like q")
+    B, Sq, Hq, _ = q.shape
+    for nm, t in (("lse", lse), ("delta", delta)):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (B, Hq, Sq)
+                or not t.is_contiguous() or not t.is_cuda):
+            raise ValueError(f"{name}: {nm} must be a contiguous fp32 GPU "
+                             f"tensor [B, Hq, Sq] = {(B, Hq, Sq)}")
+
+
+def _bwd_launch(symbol, argtypes, q, k, v, do, lse, delta, outs, causal,
+                segment_ids, scale):
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    dq = outs[0] if len(outs) == 1 else None
+    dk, dv = (outs if len(outs) == 2 else (None, None))
+    strides = []
+    for t in (q, k, v, do, dq, dk, dv):
+        strides += list(t.stride()[:3]) if t is not None else [0, 0, 0]
+    qseg, kseg = _segments(segment_ids, q.device)
+    err = _fn(BWD_KERNEL, symbol, argtypes)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), _ptr(qseg), _ptr(kseg),
+        *[t.data_ptr() for t in outs],
+        B, Sq, Sk, Hq, Hkv, D, (ctypes.c_longlong * 21)(*strides),
+        float(scale), int(bool(causal)),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,
+                 segment_ids: Optional[SegmentIds] = None,
+                 scale: Optional[float] = None) -> torch.Tensor:
+    """K2: dQ [B, Sq, Hq, D] from q, k, v, dO, the forward's LSE and
+    δ = rowsum(dO∘O) (fp32 [B, Hq, Sq] each)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    kw = dict(causal=causal, segment_ids=segment_ids, scale=scale)
+    if q.device.type == "cpu":
+        return flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw)
+    _check_bwd(q, k, v, do, lse, delta, segment_ids, "flash_bwd_dq")
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if q.shape[0] and q.shape[1]:
+        _bwd_launch("flash_bwd_dq_bf16", _BWD_DQ_ARGS, q, k, v, do, lse,
+                    delta, (dq,), **kw)
+        flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
+                  segment_ids: Optional[SegmentIds] = None,
+                  scale: Optional[float] = None):
+    """K3: (dK, dV) [B, Sk, Hkv, D], each summed over the KV head's query
+    heads, from the same inputs as :func:`flash_bwd_dq`."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    kw = dict(causal=causal, segment_ids=segment_ids, scale=scale)
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, **kw)
+    _check_bwd(q, k, v, do, lse, delta, segment_ids, "flash_bwd_dkv")
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    if k.shape[0] and k.shape[1]:
+        if q.shape[1]:
+            _bwd_launch("flash_bwd_dkv_bf16", _BWD_DKV_ARGS, q, k, v, do,
+                        lse, delta, (dk, dv), **kw)
+            flash_bwd_dkv.launches += 1
+        else:
+            dk.zero_()
+            dv.zero_()
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its gradient (twin of ``_flash`` and its
+    ``custom_vjp`` rules): K1 with the LSE forward, K2 and K3 backward on
+    CUDA tensors; the plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, segment_ids, scale):
+        o, lse = flash_attention(q, k, v, causal=causal,
+                                 segment_ids=segment_ids, scale=scale,
+                                 return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.segment_ids, ctx.scale = causal, segment_ids, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        # autograd may hand over a strided or expanded gradient
+        do = do.to(q.dtype).contiguous()
+        delta = attention_delta(o, do)
+        kw = dict(causal=ctx.causal, segment_ids=ctx.segment_ids,
+                  scale=ctx.scale)
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_trainable(q, k, v, *, causal: bool = False,
+                              segment_ids: Optional[SegmentIds] = None,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """:class:`FlashAttention` with keyword arguments; ``scale`` defaults
+    to ``D ** -0.5``."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return FlashAttention.apply(q, k, v, causal, segment_ids, float(scale))

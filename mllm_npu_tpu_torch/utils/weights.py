@@ -163,7 +163,7 @@ def from_jax_params(tree: dict) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def _set_llama_config(lm: nn.Module, **changes) -> None:
+def set_llama_config(lm: nn.Module, **changes) -> None:
     """Replace the config held by ``lm`` and each of its submodules."""
     cfg = dataclasses.replace(lm.config, **changes)
     for mod in lm.modules():
@@ -195,7 +195,7 @@ def merge_lora_(lm: nn.Module) -> None:
                                      requires_grad=w.requires_grad)
         _swap(lm, name, merged)
         del mod, w, delta   # the old weight goes before the next is merged
-    _set_llama_config(lm, lora_rank=0)
+    set_llama_config(lm, lora_rank=0)
 
 
 @torch.no_grad()
@@ -223,5 +223,5 @@ def quantize_llama_(lm: nn.Module, bits: int = 8,
                                          mod.compute_dtype)
         _swap(lm, name, new)
         del mod   # the float weight goes before the next is quantized
-    _set_llama_config(lm, quantization=f"int{bits}",
+    set_llama_config(lm, quantization=f"int{bits}",
                       quant_group_size=group_size)

@@ -1,5 +1,5 @@
-"""K1, K4 and K5 on the GPU against their plain versions (skipped without
-a CUDA card).
+"""K1 (with and without its LSE), K2, K3, K4 and K5 on the GPU against
+their plain versions (skipped without a CUDA card).
 
 Run on the GPU machine with
 ``python -m pytest --noconftest tests/test_torch_cuda.py`` (the suite's
@@ -7,6 +7,10 @@ Run on the GPU machine with
 Tolerances on the same bf16 inputs:
 - K1 rounds P (before PV) and O to bf16, so
   |K1 − plain| ≤ 1e-2 + 1e-2·|plain|;
+- K1's LSE is fp32 from the same fp32 scores, |err| ≤ 1e-3;
+- K2 and K3 round dS and P to bf16 before their products with K, Q and dO
+  (2^-9 relative each, summed over the sequence in another order) and the
+  output to bf16, so |kernel − plain| ≤ 2e-2·|plain| + 1e-2·max|plain|;
 - K4 and K5 round their output to bf16 (2^-9 relative) and sum in fp32 in
   another order, so |kernel − plain| ≤ 1e-2·|plain| + 1e-3·max|plain|.
 """
@@ -14,10 +18,13 @@ Tolerances on the same bf16 inputs:
 import pytest
 import torch
 
+import mllm_npu_tpu_torch.ops as port_ops
+
 from mllm_npu_tpu_torch.ops import quant as tq
-from mllm_npu_tpu_torch.ops.flash_attention import (SegmentIds,
-                                                    flash_attention,
-                                                    flash_attention_reference)
+from mllm_npu_tpu_torch.ops.flash_attention import (
+    FlashAttention, SegmentIds, attention_delta, flash_attention,
+    flash_attention_reference, flash_bwd_dkv, flash_bwd_dkv_reference,
+    flash_bwd_dq, flash_bwd_dq_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -74,6 +81,172 @@ def test_k1_rejects_what_it_does_not_take(cuda):
     qb = torch.randn(1, 8, 2, 256, device=cuda).bfloat16()
     with pytest.raises(ValueError):
         flash_attention(qb, qb, qb)                    # D > 128
+
+
+def _bwd_inputs(dev, B, Sq, Sk, Hq, Hkv, D, seg_kind, seed=0):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    q, do = (torch.randn(B, Sq, Hq, D, device=dev, generator=g).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(B, Sk, Hkv, D, device=dev, generator=g).bfloat16()
+            for _ in range(2))
+    seg = None
+    if seg_kind is not None:
+        qs = torch.ones(B, Sq, dtype=torch.int32, device=dev)
+        ks = torch.ones(B, Sk, dtype=torch.int32, device=dev)
+        if seg_kind == "packed":            # two segments and a padded tail
+            qs[:, Sq // 2:] = 2
+            qs[-1, Sq - Sq // 5:] = 0
+            ks = qs.clone()
+        elif seg_kind == "masked_row":      # rows whose keys are all masked
+            qs[0, [1, Sq // 2]] = 9
+        seg = SegmentIds(q=qs, kv=ks)
+    return q, k, v, do, seg
+
+
+def _close(out, ref, rtol, atol_frac):
+    out, ref = out.float(), ref.float()
+    diff = (out - ref).abs()
+    assert torch.isfinite(out).all()
+    assert (diff <= rtol * ref.abs() + atol_frac * ref.abs().max()).all(), \
+        diff.max().item()
+
+
+BWD_CASES = [
+    (2, 600, 600, 32, 8, 128, True, "packed"),   # the Llama training layer
+    (3, 64, 729, 32, 32, 128, False, None),      # the resampler
+    (2, 729, 729, 16, 16, 72, False, None),      # SigLIP, unfrozen
+    (1, 77, 77, 4, 2, 32, True, "packed"),       # tiny, D=32
+    (2, 100, 130, 8, 2, 104, False, None),       # ragged S, Sq != Sk
+    (1, 70, 70, 8, 1, 64, True, "masked_row"),   # fully masked rows, G=8
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,seg_kind", BWD_CASES)
+def test_k1_lse_matches_plain(cuda, B, Sq, Sk, Hq, Hkv, D, causal, seg_kind):
+    q, k, v, _, seg = _bwd_inputs(cuda, B, Sq, Sk, Hq, Hkv, D, seg_kind)
+    kw = dict(causal=causal, segment_ids=seg)
+    before = flash_attention.launches
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref, ref_lse = flash_attention_reference(q, k, v, return_lse=True, **kw)
+    assert lse.shape == (B, Hq, Sq) and lse.dtype == torch.float32
+    assert torch.isfinite(lse).all()
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    _close(out, ref, 1e-2, 1e-2)
+    if seg_kind == "masked_row":
+        assert (lse[0, :, 1] == 0).all()
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,seg_kind", BWD_CASES)
+def test_k2_k3_match_plain(cuda, B, Sq, Sk, Hq, Hkv, D, causal, seg_kind):
+    q, k, v, do, seg = _bwd_inputs(cuda, B, Sq, Sk, Hq, Hkv, D, seg_kind)
+    kw = dict(causal=causal, segment_ids=seg)
+    o, lse = flash_attention_reference(q, k, v, return_lse=True, **kw)
+    delta = attention_delta(o, do)
+    n2, n3 = flash_bwd_dq.launches, flash_bwd_dkv.launches
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == (n2 + 1,
+                                                               n3 + 1)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    rdq = flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw)
+    rdk, rdv = flash_bwd_dkv_reference(q, k, v, do, lse, delta, **kw)
+    for got, ref in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        _close(got, ref, 2e-2, 1e-2)
+    if seg_kind == "masked_row":
+        assert (dq[0, 1] == 0).all() and (dq[0, Sq // 2] == 0).all()
+
+
+def test_flash_function_gradients_match_plain(cuda):
+    """FlashAttention (K1 with LSE, K2, K3) against autograd through the
+    plain forward, on a strided (non-contiguous) dO."""
+    q, k, v, do, seg = _bwd_inputs(cuda, 2, 300, 300, 8, 2, 128, "packed")
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    n = (flash_attention.launches, flash_bwd_dq.launches,
+         flash_bwd_dkv.launches)
+    o = FlashAttention.apply(*leaves, True, seg, 128 ** -0.5)
+    do_strided = do.transpose(1, 2).contiguous().transpose(1, 2)
+    o.backward(do_strided)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_bwd_dq.launches,
+            flash_bwd_dkv.launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
+    plain = [x.clone().float().requires_grad_() for x in (q, k, v)]
+    ref = flash_attention_reference(*plain, causal=True, segment_ids=seg)
+    ref.backward(do.float())
+    _close(o, ref, 1e-2, 1e-2)
+    for a, b in zip(leaves, plain):
+        _close(a.grad, b.grad, 2e-2, 1e-2)
+
+
+def test_k2_k3_reject_what_they_do_not_take(cuda):
+    q, k, v, do, _ = _bwd_inputs(cuda, 1, 64, 64, 4, 2, 64, None)
+    o, lse = flash_attention_reference(q, k, v, return_lse=True)
+    delta = attention_delta(o, do)
+    n = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    with pytest.raises(TypeError):
+        flash_bwd_dq(q.float(), k, v, do, lse, delta)       # fp32 q
+    with pytest.raises(ValueError):
+        flash_bwd_dkv(q, k, v, do, lse.double(), delta)     # fp64 lse
+    with pytest.raises(ValueError):
+        flash_bwd_dq(q, k, v, do, lse[:, :, :32], delta)    # short lse
+    wide = torch.zeros(1, 64, 4, 256, device=cuda).bfloat16()
+    with pytest.raises(ValueError):
+        flash_bwd_dkv(wide, wide[:, :, :2], wide[:, :, :2], wide,
+                      lse, delta)                           # D > 128
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == n
+
+
+def test_tiny_train_step_kernels_match_plain(cuda):
+    """One training step's gradients of a tiny bf16 assembly (LoRA, remat
+    'dots', segment ids from a padded row) with K1/K2/K3 against the same
+    step with the plain attention forward and backward: cos ≥ 0.99 over
+    the LoRA and the projector gradients, and the launch counts."""
+    from mllm_npu_tpu_torch.train.train import batch_to_device, mllm_loss
+    from mllm_npu_tpu_torch.train.train_state import (compute_grads,
+                                                      trainable_parameters)
+    from mllm_npu_tpu_torch.utils.testing import (TinySpec, build_tiny_mllm,
+                                                  synthetic_batch)
+    spec = TinySpec(dtype=torch.bfloat16)
+    model, lm_cfg, vis_cfg = build_tiny_mllm(
+        spec, device=cuda, train=True, llama_kw=dict(
+            lora_rank=4, lora_alpha=8.0, remat=True, remat_policy="dots"))
+    model.train()
+    batch = synthetic_batch(spec, batch=2, seq=96, max_images=2,
+                            cmp_images=2)
+    batch["attention_mask"][1, 70:] = 0
+    batch = batch_to_device(batch, cuda)
+    grads = {}
+    for route in ("kernels", "plain"):
+        fns = (flash_attention, port_ops.flash_attention_trainable)
+        if route == "plain":
+            port_ops.flash_attention = flash_attention_reference
+            port_ops.flash_attention_trainable = flash_attention_reference
+        n = (flash_attention.launches, flash_bwd_dq.launches,
+             flash_bwd_dkv.launches)
+        try:
+            loss, _ = compute_grads(model, mllm_loss, [batch])
+        finally:
+            port_ops.flash_attention, port_ops.flash_attention_trainable = fns
+        torch.cuda.synchronize()
+        got = (flash_attention.launches - n[0], flash_bwd_dq.launches - n[1],
+               flash_bwd_dkv.launches - n[2])
+        L = lm_cfg.num_hidden_layers
+        expect = ((vis_cfg.num_hidden_layers + 1 + 2 * L, L + 1, L + 1)
+                  if route == "kernels" else (0, 0, 0))
+        assert got == expect, (route, got, expect)
+        assert torch.isfinite(loss)
+        grads[route] = {k: p.grad.float().clone()
+                        for k, p in trainable_parameters(model)}
+    for part in ("lora_", "projector."):
+        a = torch.cat([g.flatten() for k, g in grads["kernels"].items()
+                       if part in k])
+        b = torch.cat([g.flatten() for k, g in grads["plain"].items()
+                       if part in k])
+        cos = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+        assert cos >= 0.99, (part, cos)
 
 
 # K4 / K5: decode (M ≤ 16: 1, 5) and prefill (M > 16: 17, 339) regimes,

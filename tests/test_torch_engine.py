@@ -199,6 +199,11 @@ def test_port_imports_no_jax_and_no_reference():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'mllm_npu_tpu' or m.startswith('mllm_npu_tpu.')]\n"
         "assert len(names) > 20, names\n"
+        "for m in ('train.train', 'train.train_state', 'train.checkpoint',"
+        " 'train.scheduler', 'train.trackers', 'data.streams',"
+        " 'data.datapipes', 'data.dataloader', 'data.data_utils',"
+        " 'data.tasks.image_caption'):\n"
+        "    assert 'mllm_npu_tpu_torch.' + m in names, m\n"
         "print('BAD', bad)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
