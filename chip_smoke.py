@@ -17,9 +17,13 @@ exits non-zero. Phases, in order:
    weights drawn from a seed, ``FakeTokenizer`` at vocab 128587;
 3. K1 (flash forward) against its plain PyTorch version on the card at
    the path's own shapes, with times of the kernel, the plain version,
-   ``scaled_dot_product_attention`` as a yardstick, and the bound; then
-   K4 (int8) and K5 (int4) against theirs at the Llama's decode (M = 1)
-   and prefill (M = 339) shapes, with ``F.linear`` on the weight
+   ``scaled_dot_product_attention`` as a yardstick (with the dense mask,
+   and where every segment id is 1 also ``is_causal`` alone: the faster
+   counts), the bound, TFLOP/s and the share of the bound; a sweep over
+   the edges of K1's design (head dims 8 to 128, lengths off the tile,
+   causal Sq != Sk, GQA, segments inside a tile, fused strided q/k/v);
+   then K4 (int8) and K5 (int4) against theirs at the Llama's decode
+   (M = 1) and prefill (M = 339) shapes, with ``F.linear`` on the weight
    dequantized to bf16 as the yardstick;
 4. the bf16 path: ``InferenceEngine.comprehension`` on an 896×896 image
    (2×2 grid + thumbnail), a 384×1152 image and a text-only question,
@@ -164,7 +168,7 @@ def kernel_case(name, B, Sq, Sk, Hq, Hkv, D, causal, pad_rows=None, seed=0):
     import torch.nn.functional as F
 
     from mllm_npu_tpu_torch.ops.flash_attention import (
-        SegmentIds, flash_attention, flash_attention_reference)
+        SegmentIds, flash_attention, flash_attention_reference, k1_block_q)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
@@ -206,28 +210,119 @@ def kernel_case(name, B, Sq, Sk, Hq, Hkv, D, causal, pad_rows=None, seed=0):
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     kt = kt.repeat_interleave(Hq // Hkv, dim=1)
     vt = vt.repeat_interleave(Hq // Hkv, dim=1)
+    # SDPA on the same function: with segment ids a dense boolean mask,
+    # which keeps it off its flash backend; where every id is 1 the mask is
+    # the causal one alone, so is_causal without the mask is timed too and
+    # the faster of the two is the yardstick
+    libs = {}
     if seg is not None:
-        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, attn_mask=mask[:, None])
-    else:
-        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=causal)
+        libs["SDPA with the dense mask"] = time_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   attn_mask=mask[:, None]))
+    if seg is None or bool((seg.q == 1).all() and (seg.kv == 1).all()):
+        libs[f"SDPA, is_causal={causal}"] = time_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=causal))
+    library = min(libs, key=libs.get)
+    ms = time_ms(lambda: flash_attention(q, k, v, **kw))
     row = {
         "shape": name, "B": B, "Sq": Sq, "Sk": Sk, "Hq": Hq, "Hkv": Hkv,
         "D": D, "causal": causal, "segments": seg is not None,
+        "block_q": k1_block_q(B, Sq, Hq, torch.cuda.get_device_properties(
+            0).multi_processor_count),
         "max_abs_err": err,
-        "ms": time_ms(lambda: flash_attention(q, k, v, **kw)),
+        "ms": ms,
         "plain_ms": time_ms(lambda: flash_attention_reference(q, k, v, **kw),
                             iters=5),
-        "library_ms": time_ms(lib),
+        "library_ms": libs[library], "library": library,
+        "library_all_ms": libs,
         "bound_ms": bound_ms,
         "bound_by": "operations" if t_c >= t_m else "bytes",
+        "bound_share": bound_ms / ms,
+        "tflops": flops / ms / 1e9,
         "flops": flops, "bytes": nbytes,
     }
-    print(f"[K1] {name}: err {err:.3e}  kernel {row['ms']:.4f} ms  "
-          f"plain {row['plain_ms']:.4f} ms  sdpa {row['library_ms']:.4f} ms"
-          f"  bound {bound_ms:.4f} ms ({row['bound_by']})", flush=True)
+    print(f"[K1] {name} (block_q {row['block_q']}): err {err:.3e}  kernel "
+          f"{ms:.4f} ms ({row['tflops']:.0f} TFLOP/s, "
+          f"{100 * row['bound_share']:.1f}% of the bound)  plain "
+          f"{row['plain_ms']:.4f} ms  "
+          + "  ".join(f"{k} {v:.4f} ms" for k, v in libs.items())
+          + f"  bound {bound_ms:.4f} ms ({row['bound_by']})", flush=True)
     return row
+
+
+def k1_edge_sweep():
+    """K1 against its plain version (output and LSE) at the edges of its
+    Hopper design: head dims from 8 to 128 (TMA's zero fill past D, the
+    128-byte / 32-byte swizzle split), lengths below and off the tile,
+    causal with Sq != Sk, GQA 32/8 and 8/1, segments that change inside a
+    tile with right-padded rows that see no key, and q, k, v as strided
+    views of one fused [B, S, 3, H, D] tensor. Any disagreement fails."""
+    import torch
+
+    from mllm_npu_tpu_torch.ops.flash_attention import (
+        SegmentIds, flash_attention, flash_attention_reference)
+    dev = torch.device("cuda")
+    cases = [  # B, Sq, Sk, Hq, Hkv, D, causal, segments, fused
+        (1, 129, 129, 8, 1, 8, True, False, False),
+        (1, 129, 129, 8, 1, 16, False, False, False),
+        (2, 65, 65, 8, 1, 24, True, True, False),
+        (1, 729, 729, 4, 4, 72, False, False, False),
+        (2, 63, 65, 32, 8, 80, False, False, False),
+        (1, 1, 1, 4, 1, 128, True, False, False),
+        (2, 65, 63, 32, 8, 128, True, False, False),
+        (2, 129, 729, 32, 8, 128, True, False, False),
+        (1, 729, 129, 8, 1, 64, True, False, False),
+        (2, 300, 300, 32, 8, 128, True, True, False),
+        (2, 200, 200, 8, 8, 72, True, True, True),
+    ]
+    worst = 0.0
+    for i, (B, Sq, Sk, Hq, Hkv, D, causal, segs, fused) in enumerate(cases):
+        g = torch.Generator(device=dev)
+        g.manual_seed(100 + i)
+        if fused:
+            q, k, v = torch.randn(B, Sq, 3, Hq, D, device=dev,
+                                  generator=g).bfloat16().unbind(2)
+        else:
+            q = torch.randn(B, Sq, Hq, D, device=dev, generator=g).bfloat16()
+            k, v = (torch.randn(B, Sk, Hkv, D, device=dev,
+                                generator=g).bfloat16() for _ in range(2))
+        seg = None
+        if segs:
+            # segments of 5 to 40 tokens; the last row's tail padded, its
+            # queries and keys in segments of their own
+            qs = torch.zeros(B, Sq, dtype=torch.int64)
+            lens = torch.randint(5, 41, (B, Sq), generator=torch.Generator(
+                ).manual_seed(i))
+            for b in range(B):
+                qs[b] = torch.repeat_interleave(
+                    torch.arange(1, Sq + 1), lens[b])[:Sq]
+            ks = qs[:, :Sk].clone()
+            qs[-1, Sq - Sq // 5:] = -1
+            ks[-1, Sk - Sk // 5:] = -2
+            seg = SegmentIds(q=qs.to(dev, torch.int32),
+                             kv=ks.to(dev, torch.int32))
+        kw = dict(causal=causal, segment_ids=seg)
+        out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        ref, rlse = flash_attention_reference(q, k, v, return_lse=True, **kw)
+        diff = (out.float() - ref.float()).abs()
+        name = (f"K1 edge B{B} Sq{Sq} Sk{Sk} H{Hq}/{Hkv} D{D}"
+                f"{' causal' if causal else ''}{' segments' if segs else ''}"
+                f"{' fused' if fused else ''}")
+        check(bool(torch.isfinite(out.float()).all()), f"{name}: non-finite")
+        check(bool((diff <= BF16_ATOL + BF16_RTOL * ref.float().abs()).all()),
+              f"{name}: max abs err {diff.max().item()} beyond {BF16_ATOL} + "
+              f"{BF16_RTOL}·|plain|")
+        lse_err = (lse - rlse).abs().max().item()
+        check(lse_err <= LSE_ATOL, f"{name}: LSE err {lse_err}")
+        if segs:
+            check(bool((out[-1, Sq - Sq // 5:] == 0).all()),
+                  f"{name}: a row with no visible key is not 0")
+        worst = max(worst, diff.max().item())
+    print(f"[K1] edge sweep: {len(cases)} shapes agree with the plain "
+          f"version, max abs err {worst:.3e}", flush=True)
+    return {"shapes": len(cases), "max_abs_err": worst}
 
 
 def quant_case(bits, M, K, N, group=256, seed=0):
@@ -911,6 +1006,7 @@ def main():
         kernel_case("tiny_llama_d32", 1, 77, 77, 4, 2, 32, True,
                     pad_rows={}),
     ]
+    edges = k1_edge_sweep()
     qrows = quant_rows(lm_cfg, s_img)
 
     # -- 4. the bf16 path, counts set to 0 before each request ---------
@@ -1024,19 +1120,22 @@ def main():
     agg = {key: sum(by[s][key] * n for s, n in mix.items())
            for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
     rows = [{
-        "name": "flash_fwd", "route": "cuda",
+        "name": "flash_fwd", "route": "cuda", "design": "wgmma+tma",
         "source": "mllm_npu_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "mllm_npu_tpu/ops/flash_attention.py:100",
         "launches": launches["flash_fwd"],
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         **agg,
+        "bound_share": agg["bound_ms"] / agg["ms"],
         "bound_by": ("operations" if sum(by[s]["flops"] * n for s, n in
                                           mix.items()) / H100_BF16_FLOPS
                      >= sum(by[s]["bytes"] * n for s, n in mix.items())
                      / H100_BYTES_PER_S else "bytes"),
         "ms_basis": "one 896x896 request: the launch mix "
                     + ", ".join(f"{n} x {s}" for s, n in mix.items()),
+        "library": "SDPA per shape, the faster of its calls (see shapes)",
         "shapes": cases,
+        "edge_sweep": edges,
         "lse_shapes": [b["lse"] for b in bwd],
     }]
     tmix = {"llama_train": lm_cfg.num_hidden_layers, "resampler_train": 1}

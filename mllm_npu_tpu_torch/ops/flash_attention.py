@@ -22,8 +22,13 @@ kernels, :513) and launches K2 and K3.
 
 The kernels live in ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``; their
 design notes (bound on the H100 and what the design does about it) are at
-the top of each file. Each wrapper launches its kernel for CUDA tensors
-and counts the launch (``flash_attention.launches``,
+the top of each file. K1 is a Hopper kernel (TMA into an mbarrier ring,
+wgmma, a producer warp and consumer warpgroups); the Python side of its
+design is here: the tile shape (:func:`k1_block_q`), the split of the head
+dim between the two swizzles of its tensor maps (:func:`k1_head_split`)
+and, mirrored for the tests, which tiles the kernel masks
+(:func:`k1_kv_tiles`, :func:`k1_needs_mask`). Each wrapper launches its
+kernel for CUDA tensors and counts the launch (``flash_attention.launches``,
 ``flash_bwd_dq.launches``, ``flash_bwd_dkv.launches``); for CPU tensors it
 computes the same function with its plain fp32 version
 (:func:`flash_attention_reference`, :func:`flash_bwd_dq_reference`,
@@ -187,7 +192,7 @@ def _check_bshd(t, nm, name):
                          f"got {tuple(t.shape)} strides {t.stride()}")
     if any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
         raise ValueError(f"{nm}: strides must be multiples of 8 and the base "
-                         "16-byte aligned (16-byte tile loads)")
+                         "16-byte aligned (16-byte loads, TMA tensor maps)")
 
 
 def _segments(segment_ids, device):
@@ -219,7 +224,75 @@ def _fn(library: str, symbol: str, argtypes):
 
 _FWD_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 12
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+# K1's two tile shapes: query rows per block, which are also the keys per
+# K/V tile (64 rows for each consumer warpgroup)
+K1_BLOCK_Q = (64, 128)
+K1_WARP_ROWS = 16   # query rows per consumer warp
+
+
+def k1_block_q(B: int, Sq: int, Hq: int, num_sms: int) -> int:
+    """K1's tile shape for a call: 128 query rows per block (two consumer
+    warpgroups, one block per SM, 128-key tiles) where that grid fills the
+    card's SMs, else 64 (one warpgroup, two blocks per SM, 64-key tiles),
+    so that a short or narrow call still spreads over the card."""
+    if Sq > 64 and B * Hq * -(-Sq // 128) >= num_sms:
+        return 128
+    return 64
+
+
+def k1_head_split(D: int):
+    """(hi, lo): the head-dim columns K1 loads in 64-column boxes under the
+    128-byte swizzle and in 16-column boxes under the 32-byte swizzle.
+    ``hi + lo`` is D rounded up to 16, the wgmma k-granule; TMA fills the
+    columns past D with zeros (72 → 64 + 16)."""
+    dp = -(-D // 16) * 16
+    return dp // 64 * 64, dp % 64
+
+
+def k1_kv_tiles(q0: int, block_q: int, Sq: int, Sk: int,
+                causal: bool) -> int:
+    """K/V tiles a block of query rows [q0, q0 + block_q) loads: all of
+    them, or with ``causal`` up to the one that holds the diagonal of its
+    last row."""
+    n = -(-Sk // block_q)
+    if causal:
+        n = min(n, (min(q0 + block_q, Sq) - 1) // block_q + 1)
+    return n
+
+
+def k1_needs_mask(row0: int, k0: int, block_k: int, Sk: int, causal: bool,
+                  q_ids: Optional[torch.Tensor] = None,
+                  kv_ids: Optional[torch.Tensor] = None) -> bool:
+    """Whether K1 runs the elementwise mask for one warp's query rows
+    [row0, row0 + 16) on the K/V tile [k0, k0 + block_k): the tile holds
+    keys past Sk, crosses the causal diagonal of the warp's rows, or (with
+    segment ids: ``q_ids`` of the warp's rows below Sq, ``kv_ids`` of the
+    tile's keys below Sk) holds any segment but the warp's single one. The
+    mirror of the test in ``csrc/flash_fwd.cu``; every other tile takes
+    the unmasked path."""
+    if k0 + block_k > Sk or (causal and k0 + block_k - 1 > row0):
+        return True
+    if q_ids is None:
+        return False
+    if q_ids.numel() == 0:
+        return True
+    lo = int(q_ids.min())
+    return not (lo == int(q_ids.max()) == int(kv_ids.min())
+                == int(kv_ids.max()))
+
+
+_num_sms: dict = {}
+
+
+def _sms(device) -> int:
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if index not in _num_sms:
+        _num_sms[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _num_sms[index]
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
@@ -241,7 +314,11 @@ def flash_attention(q, k, v, *, causal: bool = False,
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    if B and Sq:
+    if B and Sq and not Sk:         # no key: every row is fully masked
+        out.zero_()
+        if lse is not None:
+            lse.zero_()
+    elif B and Sq:
         qseg, kseg = _segments(segment_ids, q.device)
         err = _fn(KERNEL, "flash_fwd_bf16", _FWD_ARGS)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -250,6 +327,7 @@ def flash_attention(q, k, v, *, causal: bool = False,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3],
             float(scale), int(bool(causal)),
+            k1_block_q(B, Sq, Hq, _sms(q.device)),
             torch.cuda.current_stream(q.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"flash_fwd_bf16 launch failed: CUDA error "

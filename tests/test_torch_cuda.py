@@ -3,7 +3,8 @@ their plain versions (skipped without a CUDA card).
 
 Run on the GPU machine with
 ``python -m pytest --noconftest tests/test_torch_cuda.py`` (the suite's
-``conftest.py`` imports JAX, which that machine need not have).
+``conftest.py`` imports JAX, which that machine need not have). K1's cases
+run under both of its tile shapes (64 and 128 query rows per block).
 Tolerances on the same bf16 inputs:
 - K1 rounds P (before PV) and O to bf16, so
   |K1 − plain| ≤ 1e-2 + 1e-2·|plain|;
@@ -18,6 +19,8 @@ Tolerances on the same bf16 inputs:
 import pytest
 import torch
 
+import importlib
+
 import mllm_npu_tpu_torch.ops as port_ops
 
 from mllm_npu_tpu_torch.ops import quant as tq
@@ -25,6 +28,8 @@ from mllm_npu_tpu_torch.ops.flash_attention import (
     FlashAttention, SegmentIds, attention_delta, flash_attention,
     flash_attention_reference, flash_bwd_dkv, flash_bwd_dkv_reference,
     flash_bwd_dq, flash_bwd_dq_reference)
+
+fa = importlib.import_module("mllm_npu_tpu_torch.ops.flash_attention")
 
 pytestmark = pytest.mark.cuda
 
@@ -36,33 +41,90 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,pad", [
-    (1, 341, 341, 32, 8, 128, True, None),
-    (2, 341, 341, 32, 8, 128, True, 284),
-    (5, 729, 729, 16, 16, 72, False, None),
-    (5, 64, 729, 32, 32, 128, False, None),
-    (1, 77, 77, 4, 2, 32, True, 50),
-    (2, 100, 130, 8, 2, 104, False, None),
-])
-def test_k1_matches_plain(cuda, B, Sq, Sk, Hq, Hkv, D, causal, pad):
-    g = torch.Generator(device=cuda)
-    g.manual_seed(0)
-    q = torch.randn(B, Sq, Hq, D, device=cuda, generator=g).bfloat16()
-    k = torch.randn(B, Sk, Hkv, D, device=cuda, generator=g).bfloat16()
-    v = torch.randn(B, Sk, Hkv, D, device=cuda, generator=g).bfloat16()
-    seg = None
-    if pad is not None:
-        pm = torch.ones(B, Sq, dtype=torch.int32, device=cuda)
-        pm[-1, pad:] = 0
-        seg = SegmentIds(q=pm, kv=pm)
+@pytest.fixture(params=fa.K1_BLOCK_Q, ids=lambda bq: f"block_q{bq}")
+def block_q(request, monkeypatch):
+    """Each K1 case under both tile shapes, whatever the call would pick."""
+    monkeypatch.setattr(fa, "k1_block_q", lambda *a, **k: request.param)
+    return request.param
+
+
+def _k1_inputs(dev, B, Sq, Sk, Hq, Hkv, D, seg, layout="bshd", seed=0):
+    """q, k, v (``layout`` "fused": q, k and v strided views of one
+    [B, S, 3, H, D] tensor) and segment ids: None; an int n, the last row
+    right-padded from n (queries and keys of the padding in segments of
+    their own, so those rows are fully masked); "packed", segments of 5 to
+    40 tokens that change inside tiles and a padded tail."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    if layout == "fused":
+        qkv = torch.randn(B, Sq, 3, Hq, D, device=dev, generator=g).bfloat16()
+        q, k, v = qkv.unbind(2)
+    else:
+        q = torch.randn(B, Sq, Hq, D, device=dev, generator=g).bfloat16()
+        k = torch.randn(B, Sk, Hkv, D, device=dev, generator=g).bfloat16()
+        v = torch.randn(B, Sk, Hkv, D, device=dev, generator=g).bfloat16()
+    if seg is None:
+        return q, k, v, None
+    qs = torch.ones(B, Sq, dtype=torch.int32)
+    if seg == "packed":
+        gen = torch.Generator().manual_seed(seed)
+        for b in range(B):
+            pos, sid = 0, 1
+            while pos < Sq:
+                n = int(torch.randint(5, 41, (1,), generator=gen))
+                qs[b, pos:pos + n] = sid
+                pos, sid = pos + n, sid + 1
+        qs[-1, Sq - Sq // 7:] = 0
+        ks = qs.clone()
+    else:
+        qs[-1, seg:] = 0
+        ks = torch.ones(B, Sk, dtype=torch.int32)
+        ks[-1, seg:] = -1
+    return q, k, v, SegmentIds(q=qs.to(dev), kv=ks.to(dev))
+
+
+# the paths' shapes, then the edges of the Hopper design: D from 8 to 128
+# (TMA's zero fill of the columns past D, the 128-byte / 32-byte swizzle
+# split), lengths below one tile and off the tile (1, 63, 65, 129, 729),
+# causal with Sq != Sk, GQA 32/8 and 8/1, segments that change inside a
+# tile, right-padded rows, and q, k, v as strided views of a fused tensor
+K1_CASES = [
+    (1, 341, 341, 32, 8, 128, True, None, "bshd"),
+    (2, 341, 341, 32, 8, 128, True, 284, "bshd"),
+    (5, 729, 729, 16, 16, 72, False, None, "bshd"),
+    (5, 64, 729, 32, 32, 128, False, None, "bshd"),
+    (1, 77, 77, 4, 2, 32, True, 50, "bshd"),
+    (2, 100, 130, 8, 2, 104, False, None, "bshd"),
+    (1, 129, 129, 8, 1, 8, True, None, "bshd"),
+    (1, 129, 129, 8, 1, 16, False, None, "bshd"),
+    (2, 65, 65, 8, 1, 24, True, 40, "bshd"),
+    (1, 129, 129, 32, 8, 80, False, None, "bshd"),
+    (1, 1, 1, 4, 1, 128, True, None, "bshd"),
+    (1, 1, 729, 4, 4, 72, False, None, "bshd"),
+    (2, 63, 65, 8, 2, 72, False, None, "bshd"),
+    (2, 65, 63, 8, 2, 128, True, None, "bshd"),
+    (2, 129, 729, 32, 8, 128, True, None, "bshd"),
+    (1, 729, 129, 8, 1, 64, True, None, "bshd"),
+    (2, 600, 600, 32, 8, 128, True, "packed", "bshd"),
+    (2, 200, 200, 8, 8, 72, True, "packed", "fused"),
+    (1, 300, 300, 4, 4, 128, False, None, "fused"),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,seg,layout", K1_CASES)
+def test_k1_matches_plain(cuda, block_q, B, Sq, Sk, Hq, Hkv, D, causal, seg,
+                          layout):
+    q, k, v, sids = _k1_inputs(cuda, B, Sq, Sk, Hq, Hkv, D, seg, layout)
     before = flash_attention.launches
-    out = flash_attention(q, k, v, causal=causal, segment_ids=seg)
+    out = flash_attention(q, k, v, causal=causal, segment_ids=sids)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     ref = flash_attention_reference(q, k, v, causal=causal,
-                                    segment_ids=seg).float()
+                                    segment_ids=sids).float()
     assert torch.isfinite(out.float()).all()
     assert ((out.float() - ref).abs() <= 1e-2 + 1e-2 * ref.abs()).all()
+    if isinstance(seg, int):
+        assert (out[-1, seg:] == 0).all()       # fully masked rows give 0
 
 
 def test_k1_fully_masked_row_is_zero(cuda):
@@ -75,12 +137,21 @@ def test_k1_fully_masked_row_is_zero(cuda):
 
 
 def test_k1_rejects_what_it_does_not_take(cuda):
+    n = flash_attention.launches
     q = torch.randn(1, 8, 2, 64, device=cuda)
     with pytest.raises(TypeError):
         flash_attention(q, q, q)                       # fp32
     qb = torch.randn(1, 8, 2, 256, device=cuda).bfloat16()
     with pytest.raises(ValueError):
         flash_attention(qb, qb, qb)                    # D > 128
+    flat = torch.randn(2 * 8 * 2 * 64 + 8, device=cuda).bfloat16()
+    shifted = flat[1:1 + 2 * 8 * 2 * 64].view(2, 8, 2, 64)
+    with pytest.raises(ValueError):
+        flash_attention(shifted, shifted, shifted)     # base not 16-byte
+    wide = torch.randn(1, 8, 2, 68, device=cuda).bfloat16()[..., :64]
+    with pytest.raises(ValueError):
+        flash_attention(wide, wide, wide)              # stride 68, not 8k
+    assert flash_attention.launches == n
 
 
 def _bwd_inputs(dev, B, Sq, Sk, Hq, Hkv, D, seg_kind, seed=0):
@@ -123,7 +194,8 @@ BWD_CASES = [
 
 
 @pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,seg_kind", BWD_CASES)
-def test_k1_lse_matches_plain(cuda, B, Sq, Sk, Hq, Hkv, D, causal, seg_kind):
+def test_k1_lse_matches_plain(cuda, block_q, B, Sq, Sk, Hq, Hkv, D, causal,
+                              seg_kind):
     q, k, v, _, seg = _bwd_inputs(cuda, B, Sq, Sk, Hq, Hkv, D, seg_kind)
     kw = dict(causal=causal, segment_ids=seg)
     before = flash_attention.launches
