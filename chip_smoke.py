@@ -23,8 +23,9 @@ exits non-zero. Phases, in order:
    the edges of K1's design (head dims 8 to 128, lengths off the tile,
    causal Sq != Sk, GQA, segments inside a tile, fused strided q/k/v);
    then K4 (int8) and K5 (int4) against theirs at the Llama's decode
-   (M = 1) and prefill (M = 339) shapes, with ``F.linear`` on the weight
-   dequantized to bf16 as the yardstick;
+   (M = 1) and prefill (M = 339) shapes and at the batched worker's
+   prefill chunks (M = 128 and 512, q and gate shapes), with ``F.linear``
+   on the weight dequantized to bf16 as the yardstick;
 4. the bf16 path: ``InferenceEngine.comprehension`` on an 896×896 image
    (2×2 grid + thumbnail), a 384×1152 image and a text-only question,
    with every kernel's launch count set to 0 before and asserted after
@@ -36,9 +37,11 @@ exits non-zero. Phases, in order:
 7. the int8 and the int4 paths (``build_engine(quantize_int8=True)``, then
    ``quantize_int4=True``; same seed, so the same weights before
    quantization), each on the 896×896 image and the text-only question,
-   with K1's, K4's and K5's counts asserted per request, and the image
-   prefill logits with K4 (K5) against the same forward with its plain
-   version in every quantized linear;
+   with K1's, K4's and K5's counts asserted per request (of them, 224 per
+   image prefill in the prefill regime, M > 16), and the image prefill
+   logits with K4 (K5) against the same forward with its plain version in
+   every quantized linear, with each side's top-2 logits and margin, then
+   that prefill under ``torch.profiler``;
 8. training: ``mllm_npu_tpu_torch.train.train.main`` at full width (the
    same YAML, LoRA dropout 0.05, remat ``dots``, the chunked CE) on a
    webdataset tar of seeded JPEGs and captions through the caption entry of
@@ -81,6 +84,8 @@ BF16_ATOL, BF16_RTOL = 1e-2, 1e-2
 H100_BF16_FLOPS = 989e12
 H100_BYTES_PER_S = 3.35e12
 MAX_NEW_TOKENS = 32
+# the batched worker's prefill chunk lengths, at which K4/K5 are also timed
+CHUNK_M = (128, 512)
 # K4/K5 vs their fp32 plain versions on the same bf16 inputs: the output
 # is rounded to bf16 (2^-9 relative) and the fp32 sums run in another
 # order, so |err| <= QUANT_RTOL·|plain| + QUANT_ATOL_FRAC·max|plain|
@@ -396,24 +401,52 @@ def quant_case(bits, M, K, N, group=256, seed=0):
 
 def quant_rows(lm_cfg, s_img):
     """K4 and K5 at the Llama's projection shapes: decode (M = 1, the
-    lm_head included) and the image prefill (M = prompt length)."""
+    lm_head included), the image prefill (M = prompt length) and the
+    batched worker's prefill chunks (M = 128 and 512) at the q and gate
+    shapes. Each row says its regime."""
     hs, inter = lm_cfg.hidden_size, lm_cfg.intermediate_size
     kv = lm_cfg.num_key_value_heads * lm_cfg.head_dim
     proj = [(hs, hs), (hs, kv), (hs, inter), (inter, hs)]
-    shapes = ([(1, k, n) for k, n in proj + [(hs, lm_cfg.vocab_size)]]
-              + [(s_img, k, n) for k, n in proj])
-    return {bits: [quant_case(bits, m, k, n, lm_cfg.quant_group_size)
-                   for m, k, n in shapes] for bits in (8, 4)}
+    shapes = ([("decode", 1, k, n)
+               for k, n in proj + [(hs, lm_cfg.vocab_size)]]
+              + [("prefill", s_img, k, n) for k, n in proj]
+              + [("chunk", m, k, n) for m in CHUNK_M
+                 for k, n in [(hs, hs), (hs, inter)]])
+    return {bits: [dict(quant_case(bits, m, k, n, lm_cfg.quant_group_size),
+                        regime=regime)
+                   for regime, m, k, n in shapes] for bits in (8, 4)}
 
 
-def quant_mix(lm_cfg):
+def quant_mix(lm_cfg, lm_head=True):
     """Launches of each (K, N) per forward: 32 layers of q, k, v, o, gate,
-    up, down, and the lm_head once."""
+    up, down, and the lm_head once (a prefill runs it on the last row
+    only, in the decode regime: ``lm_head=False`` gives the prefill
+    regime's 224)."""
     hs, inter = lm_cfg.hidden_size, lm_cfg.intermediate_size
     kv = lm_cfg.num_key_value_heads * lm_cfg.head_dim
     L = lm_cfg.num_hidden_layers
-    return {(hs, hs): 2 * L, (hs, kv): 2 * L, (hs, inter): 2 * L,
-            (inter, hs): L, (hs, lm_cfg.vocab_size): 1}
+    mix = {(hs, hs): 2 * L, (hs, kv): 2 * L, (hs, inter): 2 * L,
+           (inter, hs): L}
+    if lm_head:
+        mix[(hs, lm_cfg.vocab_size)] = 1
+    return mix
+
+
+def quant_row_mix(rows, mix):
+    """The K4/K5 rows of one regime summed over a forward's launch mix:
+    ms, plain_ms, bound_ms, library_ms, bound_by and the basis."""
+    n_of = {(r["K"], r["N"]): mix[(r["K"], r["N"])] for r in rows}
+    agg = {key: sum(r[key] * n_of[(r["K"], r["N"])] for r in rows)
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    t_c = sum(r["flops"] * n_of[(r["K"], r["N"])]
+              for r in rows) / H100_BF16_FLOPS
+    t_m = sum(r["bytes"] * n_of[(r["K"], r["N"])]
+              for r in rows) / H100_BYTES_PER_S
+    agg["bound_by"] = "operations" if t_c >= t_m else "bytes"
+    agg["bound_share"] = agg["bound_ms"] / agg["ms"]
+    agg["launch_mix"] = ", ".join(f"{n} x K{k} N{nn}"
+                                  for (k, nn), n in n_of.items())
+    return agg
 
 
 def prefill_logits(model, prep):
@@ -880,18 +913,23 @@ def serve(engine, requests, preps, label, lm_cfg, vis_cfg):
     """Each request once, with every kernel's count set to 0 just before
     and read just after; asserts K1's count and, for a quantized engine,
     K4's or K5's: 225 per forward (7 projections × 32 layers + lm_head) ×
-    (1 + decode steps), the other quantized kernel never. Returns the
-    launches summed over the requests and the last request's steps."""
+    (1 + decode steps), the other quantized kernel never, and of those 224
+    in the prefill regime (M > 16) where the prompt is longer than 16
+    tokens. Returns the launches summed over the requests, and the
+    prefill-regime launches of K4 and K5 summed likewise."""
     import torch
 
+    from mllm_npu_tpu_torch.ops import quant as tq
     counters = kernel_counters()
     quant = engine.generator.model.language_model.config.quantization
     per_forward = 7 * lm_cfg.num_hidden_layers + 1
     total = dict.fromkeys(counters, 0)
+    prefill_total = {8: 0, 4: 0}
     for i, ((q, b64), prep) in enumerate(zip(requests, preps), 1):
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
             fn.launches = 0
+        tq.int8_matmul.prefill_launches = tq.int4_matmul.prefill_launches = 0
         t0 = time.perf_counter()
         text = engine.comprehension(q, b64)
         wall = time.perf_counter() - t0
@@ -901,14 +939,26 @@ def serve(engine, requests, preps, label, lm_cfg, vis_cfg):
         expect = {k: 0 for k in counters}
         expect["flash_fwd"] = lm_cfg.num_hidden_layers + (
             vis_cfg.num_hidden_layers + 1 if b64 else 0)
+        prefill_got = (tq.int8_matmul.prefill_launches,
+                       tq.int4_matmul.prefill_launches)
+        prefill_expect = [0, 0]
         if quant != "none":
             expect[f"{quant}_matmul"] = per_forward * (1 + steps)
+            # the prefill's 224 products at M = prompt length run the
+            # prefill kernel where the prompt is longer than 16 tokens;
+            # the lm_head (last row) and every decode step run the decode
+            # kernel
+            if len(prep[0]) > tq.DECODE_MAX_M:
+                prefill_expect[0 if quant == "int8" else 1] = \
+                    per_forward - 1
         print(f"[{label}] request {i} ({'image' if b64 else 'text'}, prompt "
               f"{len(prep[0])} tokens): launches K1 {got['flash_fwd']}, K2/K3 "
               f"{got['flash_bwd_dq']}/{got['flash_bwd_dkv']}, K4 "
-              f"{got['int8_matmul']}, K5 {got['int4_matmul']} (expected "
+              f"{got['int8_matmul']}, K5 {got['int4_matmul']}, of them in the "
+              f"prefill regime {prefill_got[0]}/{prefill_got[1]} (expected "
               f"{expect['flash_fwd']}, {expect['int8_matmul']}, "
-              f"{expect['int4_matmul']}); vision+projector "
+              f"{expect['int4_matmul']}, {prefill_expect[0]}/"
+              f"{prefill_expect[1]}); vision+projector "
               f"{tm['embed_s'] * 1e3:.1f} ms; prefill "
               f"{tm['prefill_s'] * 1e3:.1f} ms; ttft "
               f"{tm['ttft_s'] * 1e3:.1f} ms; decode {steps} steps, "
@@ -919,9 +969,14 @@ def serve(engine, requests, preps, label, lm_cfg, vis_cfg):
         check(isinstance(text, str), "comprehension returned no text")
         check(got == expect, f"{label} request {i}: launches {got}, "
               f"expected {expect}")
+        check(list(prefill_got) == prefill_expect,
+              f"{label} request {i}: prefill-regime launches of K4/K5 "
+              f"{prefill_got}, expected {prefill_expect}")
         for k in total:
             total[k] += got[k]
-    return total
+        prefill_total[8] += prefill_got[0]
+        prefill_total[4] += prefill_got[1]
+    return total, prefill_total
 
 
 def main():
@@ -1010,7 +1065,8 @@ def main():
     qrows = quant_rows(lm_cfg, s_img)
 
     # -- 4. the bf16 path, counts set to 0 before each request ---------
-    launches = serve(engine, requests, preps, "bf16", lm_cfg, vis_cfg)
+    launches, quant_prefill = serve(engine, requests, preps, "bf16",
+                                    lm_cfg, vis_cfg)
 
     # -- 5. the image request's prefill with K1 against the same forward
     #       with K1's plain version in every attention (SigLIP, resampler,
@@ -1062,17 +1118,19 @@ def main():
         print(f"[{label}] engine built and quantized in "
               f"{time.perf_counter() - t0:.1f} s: "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident")
-        got = serve(engine, [requests[0], requests[2]], [preps[0], preps[2]],
-                    label, lm_cfg, vis_cfg)
+        got, got_prefill = serve(engine, [requests[0], requests[2]],
+                                 [preps[0], preps[2]], label, lm_cfg, vis_cfg)
         for k in launches:
             launches[k] += got[k]
+        for b in quant_prefill:
+            quant_prefill[b] += got_prefill[b]
 
         kernel = getattr(tq, f"{label}_matmul")
         qlogits = {}
         for which, fn in ((label, kernel),
                           ("plain", getattr(tq, f"{label}_matmul_reference"))):
             setattr(tq, f"{label}_matmul", fn)
-            kernel.launches = 0
+            kernel.launches = kernel.prefill_launches = 0
             try:
                 qlogits[which] = prefill_logits(model, preps[0])
             finally:
@@ -1081,19 +1139,38 @@ def main():
             check(kernel.launches == expect,
                   f"{which} prefill launched {label}_matmul "
                   f"{kernel.launches} times, expected {expect}")
+            # all but the lm_head (last row, decode regime) at M = 339
+            expect = 7 * lm_cfg.num_hidden_layers if which == label else 0
+            check(kernel.prefill_launches == expect,
+                  f"{which} prefill launched {label}_matmul's prefill kernel "
+                  f"{kernel.prefill_launches} times, expected {expect}")
         ql, qp = qlogits[label], qlogits["plain"]
         cos = torch.nn.functional.cosine_similarity(ql, qp).item()
         cos_bf16 = torch.nn.functional.cosine_similarity(
             ql, bf16_logits).item()
+        # random weights give flat logits: the top two and their margin on
+        # each side tell a near-tie flip of the argmax from a kernel error
+        tops = {}
+        for which, lg in (("kernel", ql), ("plain", qp)):
+            v, i = lg[0].topk(2)
+            tops[which] = (i.tolist(), v.tolist(), (v[0] - v[1]).item())
         print(f"[check] full-width {label} image prefill logits, kernel vs "
               f"plain quantized linears: cos {cos:.6f}, max abs diff "
               f"{(ql - qp).abs().max().item():.4f}, argmax "
-              f"{ql.argmax().item()} vs {qp.argmax().item()}; against the "
-              f"bf16 engine's logits (information only): cos {cos_bf16:.6f}")
+              f"{ql.argmax().item()} vs {qp.argmax().item()}; top-2 "
+              + "; ".join(f"{w} ids {t[0]} logits {t[1][0]:.4f}, "
+                          f"{t[1][1]:.4f} (margin {t[2]:.4f})"
+                          for w, t in tops.items())
+              + f"; against the bf16 engine's logits (information only): "
+              f"cos {cos_bf16:.6f}")
         check(bool(torch.isfinite(ql).all()), f"non-finite {label} logits")
         check(tuple(ql.shape) == (1, lm_cfg.vocab_size), "logits shape")
         check(cos >= 0.99,
               f"{label} kernel and plain logits disagree (cos {cos})")
+        # the image prefill once more under the profiler: how much of it
+        # the device is busy, and K4's (K5's) share of the device time
+        print_profile(f"{label} image prefill", *profile_call(
+            lambda: prefill_logits(model, preps[0])))
         del engine, model, qlogits, ql, qp
         torch.cuda.empty_cache()
 
@@ -1165,28 +1242,34 @@ def main():
                        "the forward excluded)",
             "shapes": [b[name] for b in bwd],
         })
-    qmix = quant_mix(lm_cfg)
     for bits, replaces in ((8, "mllm_npu_tpu/ops/quant.py:50"),
                            (4, "mllm_npu_tpu/ops/quant.py:330")):
-        decode = [r for r in qrows[bits] if r["M"] == 1]
-        n_of = {(r["K"], r["N"]): qmix[(r["K"], r["N"])] for r in decode}
-        agg = {key: sum(r[key] * n_of[(r["K"], r["N"])] for r in decode)
-               for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
-        t_c = sum(r["flops"] * n_of[(r["K"], r["N"])]
-                  for r in decode) / H100_BF16_FLOPS
-        t_m = sum(r["bytes"] * n_of[(r["K"], r["N"])]
-                  for r in decode) / H100_BYTES_PER_S
+        dec = quant_row_mix([r for r in qrows[bits]
+                             if r["regime"] == "decode"], quant_mix(lm_cfg))
+        pre = quant_row_mix([r for r in qrows[bits]
+                             if r["regime"] == "prefill"],
+                            quant_mix(lm_cfg, lm_head=False))
         rows.append({
             "name": f"int{bits}_matmul", "route": "cuda",
             "source": "mllm_npu_tpu_torch/csrc/quant_matmul.cu",
             "replaces": replaces,
             "launches": launches[f"int{bits}_matmul"],
+            "prefill_launches": quant_prefill[bits],
             "max_abs_err": max(r["max_abs_err"] for r in qrows[bits]),
-            **agg,
-            "bound_by": "operations" if t_c >= t_m else "bytes",
+            **{k: dec[k] for k in ("ms", "plain_ms", "bound_ms",
+                                   "library_ms", "bound_by")},
             "ms_basis": "one decode token (M=1): the launch mix "
-                        + ", ".join(f"{n} x K{k} N{nn}"
-                                    for (k, nn), n in n_of.items()),
+                        + dec["launch_mix"],
+            "design": "decode: mma.sync, weights streamed from memory",
+            "prefill": {
+                **{k: pre[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "library_ms", "bound_by",
+                                       "bound_share")},
+                "ms_basis": f"one image prefill (M={s_img}): the launch mix "
+                            + pre["launch_mix"],
+                "design": "tma+wgmma: persistent blocks, TMA ring, weight "
+                          "converted to wgmma's register A operand, split-K",
+            },
             "library": "F.linear on the weight dequantized to bf16",
             "shapes": qrows[bits],
         })

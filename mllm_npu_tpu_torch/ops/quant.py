@@ -16,8 +16,10 @@ does not divide falls back to one group of G = K.
 
 :func:`int8_matmul` (K4, replaces ``quant.py:50 _matmul_kernel``) and
 :func:`int4_matmul` (K5, replaces ``quant.py:330 _matmul4_kernel``)
-launch ``csrc/quant_matmul.cu`` for CUDA tensors and count the launch;
-for CPU tensors they compute the same function with their plain versions.
+launch ``csrc/quant_matmul.cu`` for CUDA tensors and count the launch
+(``launches``; ``prefill_launches`` those with M > 16, which run the
+prefill kernel on the plan :func:`prefill_plan` makes); for CPU tensors
+they compute the same function with their plain versions.
 There is no shape fallback for CUDA tensors (the reference's ``aligned``
 tests were TPU tiling limits): what the kernel does not take raises.
 """
@@ -30,8 +32,32 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from mllm_npu_tpu_torch.ops.flash_attention import _sms
+
 KERNEL = "quant_matmul"
 INT4_GROUP_MULTIPLE = 128   # the kernel's unit along K for int4 groups
+
+# The prefill regime (M > DECODE_MAX_M) of K4/K5: a block owns PREFILL_BN
+# weight rows (two consumer warpgroups of 64) and one tile of ``bx`` rows
+# of X, and walks K in ring stages of 64 weight bytes a row (64 k for
+# int8, 128 for int4). The kernel instantiates the tile widths in
+# PREFILL_BX.
+DECODE_MAX_M = 16
+PREFILL_BN = 128
+PREFILL_BX = {8: (64, 128, 176, 256), 4: (64, 128)}
+PREFILL_MAX_SPLITS = 8
+PREFILL_MIN_SPLIT_STAGES = 4    # a split walks at least this many stages
+# The plan's cost model. One ring stage of a unit takes a fixed time (the
+# conversion of its 128 × 64 weight bytes, its barriers and the wait for
+# its products) plus a time per X row of the tile (the products and the
+# X bytes streamed from L2): seconds, fitted to the prefill kernel's
+# stage times on an H100 80GB HBM3 at 700 W (bench_quant_prefill.py
+# --sweep times the plans around the chosen one). The split sums pay the
+# workspace's bytes at the memory rate and a second launch.
+_STAGE_S = {8: (0.35e-6, 0.0019e-6), 4: (0.50e-6, 0.0035e-6)}
+_BYTES_PER_S = 3.35e12
+_FILL_STAGES = 2
+_REDUCE_LAUNCH_S = 2e-6
 
 
 class QuantizedTensor(NamedTuple):
@@ -134,6 +160,79 @@ def int4_matmul_reference(x: torch.Tensor, values: torch.Tensor,
     return y.reshape(*lead, -1).to(x.dtype)
 
 
+# -- the prefill plan --------------------------------------------------------
+
+class PrefillPlan(NamedTuple):
+    """How K4/K5's prefill kernel covers Y [M, N]: ``n_tiles`` × ``x_tiles``
+    output tiles of PREFILL_BN weight rows by ``bx`` rows of X, each cut
+    along K into ``splits`` runs of ``split_stages`` ring stages (the last
+    run may be shorter; for int4 every run starts on a group boundary).
+    Work unit u is (n tile, split, x tile) with the x tile fastest, so the
+    blocks that read one weight tile run together and share it in L2. With more than one split each unit writes its fp32
+    partial to a workspace [splits, M, N] and a second kernel sums the
+    splits in order 0, 1, ...: the same bits on every run."""
+    bits: int
+    bx: int
+    x_tiles: int
+    n_tiles: int
+    stages: int
+    splits: int
+    split_stages: int
+
+    @property
+    def units(self) -> int:
+        return self.n_tiles * self.splits * self.x_tiles
+
+    def unit(self, u: int):
+        """→ (n tile, x tile, split, first stage, end stage) of unit u, as
+        the kernel's ``unit_of`` decodes it."""
+        x = u % self.x_tiles
+        r = u // self.x_tiles
+        s = r % self.splits
+        c0 = s * self.split_stages
+        return (r // self.splits, x, s, c0,
+                min(self.stages, c0 + self.split_stages))
+
+
+def prefill_plan(bits: int, M: int, N: int, K: int, G: int = 0,
+                 num_sms: int = 132) -> PrefillPlan:
+    """The tile width, x tiles and split of K for a prefill call, chosen by
+    a cost model: the units the busiest of ``num_sms`` persistent blocks
+    walks × (stages a unit walks + the ring's fill) × one stage's time,
+    plus, with splits, the workspace traffic of the split sums and their
+    launch. Splits fall on int4 group boundaries and walk at least
+    PREFILL_MIN_SPLIT_STAGES stages."""
+    if M <= DECODE_MAX_M:
+        raise ValueError(f"M={M} is the decode regime (M <= {DECODE_MAX_M})")
+    if bits == 8:
+        stages, step = -(-K // 64), 1
+    else:
+        if G % INT4_GROUP_MULTIPLE or K % G:
+            raise ValueError(f"int4 prefill needs G % 128 == 0 and K % G "
+                             f"== 0, got K={K}, G={G}")
+        stages, step = K // 128, G // 128
+    n_tiles = -(-N // PREFILL_BN)
+    fixed, per_row = _STAGE_S[bits]
+    best = None
+    for bx in PREFILL_BX[bits]:
+        x_tiles = -(-M // bx)
+        stage_s = fixed + per_row * bx
+        for s in range(1, PREFILL_MAX_SPLITS + 1):
+            per = -(-(-(-stages // s)) // step) * step
+            if -(-stages // per) != s:
+                continue        # the same runs as a smaller count
+            if s > 1 and per < PREFILL_MIN_SPLIT_STAGES:
+                break
+            waves = -(-(n_tiles * x_tiles * s) // num_sms)
+            t = waves * (per + _FILL_STAGES) * stage_s
+            if s > 1:
+                t += (8 * s + 2) * M * N / _BYTES_PER_S + _REDUCE_LAUNCH_S
+            if best is None or t < best[0]:
+                best = (t, PrefillPlan(bits, bx, x_tiles, n_tiles, stages,
+                                       s, per))
+    return best[1]
+
+
 # -- K4 / K5 ----------------------------------------------------------------
 
 def _check(name, x, values, scale, kw):
@@ -174,17 +273,39 @@ def _library(bits: int):
     if bits not in _kernel_fns:
         from mllm_npu_tpu_torch.utils.cuda_build import load
         lib = load(KERNEL)
-        if bits == 8:
-            fn = lib.int8_matmul_bf16
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                           + [ctypes.c_longlong, ctypes.c_void_p])
-        else:
-            fn = lib.int4_matmul_bf16
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                           + [ctypes.c_longlong, ctypes.c_void_p])
+        # x, w, scale, y, ws; M, N, K (and G); ldx; the plan; the stream
+        n_int = 3 if bits == 8 else 4
+        fn = getattr(lib, f"int{bits}_matmul_bf16")
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * n_int
+                       + [ctypes.c_longlong] + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _kernel_fns[bits] = fn
     return _kernel_fns[bits]
+
+
+def _launch(fn, bits, x2, values, scale, y, M, N, K, G):
+    """One call of the C entry for ``bits``: the decode kernel for
+    M <= DECODE_MAX_M, else the prefill kernel on its plan, with the split
+    workspace allocated here. Raises on a refused launch; returns whether
+    it was the prefill regime."""
+    plan_args, ws = [0, 0, 0, 0], None
+    prefill = M > DECODE_MAX_M
+    if prefill:
+        plan = prefill_plan(bits, M, N, K, G, _sms(x2.device))
+        plan_args = [plan.bx, plan.x_tiles, plan.splits, plan.split_stages]
+        if plan.splits > 1:
+            ws = torch.empty(plan.splits * M * N, dtype=torch.float32,
+                             device=x2.device)
+    shape = [M, N, K] + ([G] if bits == 4 else [])
+    err = fn(x2.data_ptr(), values.data_ptr(), scale.data_ptr(),
+             y.data_ptr(), None if ws is None else ws.data_ptr(), *shape,
+             x2.stride(0), *plan_args,
+             torch.cuda.current_stream(x2.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"int{bits}_matmul_bf16 launch failed: CUDA error "
+                           f"{err}")
+    return prefill
 
 
 def int8_matmul(x: torch.Tensor, values: torch.Tensor,
@@ -204,16 +325,14 @@ def int8_matmul(x: torch.Tensor, values: torch.Tensor,
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return y.reshape(*lead, N)
-    err = _library(8)(x2.data_ptr(), values.data_ptr(), scale.data_ptr(),
-                      y.data_ptr(), M, N, K, x2.stride(0),
-                      torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"int8_matmul_bf16 launch failed: CUDA error {err}")
+    prefill = _launch(_library(8), 8, x2, values, scale, y, M, N, K, 0)
     int8_matmul.launches += 1
+    int8_matmul.prefill_launches += prefill
     return y.reshape(*lead, N)
 
 
 int8_matmul.launches = 0
+int8_matmul.prefill_launches = 0   # of those, the prefill regime (M > 16)
 
 
 def int4_matmul(x: torch.Tensor, values: torch.Tensor,
@@ -241,16 +360,14 @@ def int4_matmul(x: torch.Tensor, values: torch.Tensor,
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return y.reshape(*lead, N)
-    err = _library(4)(x2.data_ptr(), values.data_ptr(), scale.data_ptr(),
-                      y.data_ptr(), M, N, K, G, x2.stride(0),
-                      torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"int4_matmul_bf16 launch failed: CUDA error {err}")
+    prefill = _launch(_library(4), 4, x2, values, scale, y, M, N, K, G)
     int4_matmul.launches += 1
+    int4_matmul.prefill_launches += prefill
     return y.reshape(*lead, N)
 
 
 int4_matmul.launches = 0
+int4_matmul.prefill_launches = 0   # of those, the prefill regime (M > 16)
 
 
 # -- modules ----------------------------------------------------------------

@@ -323,7 +323,9 @@ def test_tiny_train_step_kernels_match_plain(cuda):
 
 # K4 / K5: decode (M ≤ 16: 1, 5) and prefill (M > 16: 17, 339) regimes,
 # ragged N (odd, and the lm_head's 128587), a ragged K tail for int8
-# (K % 64 ≠ 0), G = 256 and G = K for int4
+# (K % 64 ≠ 0), G = 256 and G = K for int4; then the prefill kernel at the
+# Llama's four projection shapes at the image prompt's M = 339, the batched
+# worker's chunks (M = 128, 512) and M = 17, 63 (one X tile, split K)
 QUANT_CASES = [
     (8, 1, 4096, 4096, None), (8, 5, 256, 77, None),
     (8, 339, 512, 1000, None), (8, 17, 208, 130, None),
@@ -331,6 +333,14 @@ QUANT_CASES = [
     (4, 1, 4096, 4096, 256), (4, 5, 256, 77, 256),
     (4, 339, 512, 1000, 128), (4, 17, 384, 130, 384),
     (4, 1, 4096, 128587, 256), (4, 339, 14336, 4096, 256),
+    (8, 339, 4096, 4096, None), (8, 339, 4096, 1024, None),
+    (8, 339, 14336, 4096, None),
+    (4, 339, 4096, 4096, 256), (4, 339, 4096, 1024, 256),
+    (4, 339, 4096, 14336, 256),
+    (8, 128, 4096, 4096, None), (8, 512, 4096, 14336, None),
+    (4, 128, 4096, 14336, 256), (4, 512, 4096, 4096, 256),
+    (8, 17, 4096, 1024, None), (8, 63, 14336, 4096, None),
+    (4, 17, 4096, 4096, 256), (4, 63, 4096, 1024, 256),
 ]
 
 
@@ -360,6 +370,29 @@ def test_quant_kernels_match_plain(cuda, bits, M, K, N, G):
     assert torch.isfinite(out.float()).all()
     assert (diff <= 1e-2 * ref.abs() + 1e-3 * ref.abs().max()).all(), \
         diff.max().item()
+
+
+# the split-K sums run in a fixed order: two launches give the same bits
+@pytest.mark.parametrize("bits,M,K,N,G", [
+    (8, 339, 4096, 1024, None), (8, 17, 4096, 4096, None),
+    (4, 339, 4096, 1024, 256), (4, 128, 14336, 4096, 256),
+])
+def test_quant_prefill_repeats_bit_identical(cuda, bits, M, K, N, G):
+    qt, kernel, plain = _quantized(bits, N, K, G, cuda)
+    assert tq.prefill_plan(bits, M, N, K, G or 0,
+                           tq._sms(cuda)).splits > 1
+    g = torch.Generator(device=cuda)
+    g.manual_seed(2)
+    x = torch.randn(M, K, device=cuda, generator=g).bfloat16()
+    before = kernel.prefill_launches
+    first = kernel(x, *qt)
+    second = kernel(x, *qt)
+    torch.cuda.synchronize()
+    assert kernel.prefill_launches == before + 2
+    assert torch.equal(first, second)
+    ref = plain(x, *qt).float()
+    assert ((first.float() - ref).abs()
+            <= 1e-2 * ref.abs() + 1e-3 * ref.abs().max()).all()
 
 
 def test_quant_kernels_take_leading_dims(cuda):
