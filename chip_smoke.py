@@ -49,16 +49,21 @@ exits non-zero. Phases, in order:
    600, 64 image tokens, anyres over its grids at base 448), at the largest
    batch of 28, 16, 8 or 4 that fits, for a few steps on one repeated
    batch, with a checkpoint at the end. Every step's K1, K2 and K3 counts
-   are asserted and its loss must be finite, and the loss must fall. Then
-   one step and its forward taken apart on the host clock, one step under
+   (and that each K2/K3 launch took the Hopper regime) are asserted, its
+   loss must be finite, and the loss must fall. Then one step and its
+   forward taken apart on the host clock, one step under
    ``torch.profiler``, and one step's LoRA and projector gradients with the
    kernels against the same step with the plain attention forward and
    backward (cos ≥ 0.99);
-9. K1 with its LSE, K2 and K3 against their plain versions at the training
+9. K1 with its LSE against its plain version, with its bound and share,
+   then K2 and K3 through ``bench_flash_bwd.bench_shape`` at the training
    shapes (the Llama layer at the training batch, S = 600, causal, two
    packed segments and a padded tail; the resampler over the batch's image
-   slots; SigLIP's D = 72; a tiny D = 32), with the backward of
-   ``scaled_dot_product_attention`` as the yardstick.
+   slots; SigLIP's D = 72; a tiny D = 32): each against its plain version
+   and for a bit-identical repeat, timed beside PR 4's mma.sync kernels
+   (the regime that keeps them, forced), the plain versions, δ, the pair
+   with and without δ and the backward of ``scaled_dot_product_attention``
+   as the yardstick, per shape and per training step.
 
 The last lines are the kernels' JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -521,33 +526,20 @@ def kernel_counters():
 
 
 def bwd_case(name, B, Sq, Sk, Hq, Hkv, D, causal, segments=False, seed=0):
-    """K1 with its LSE, K2 and K3 against their plain versions at one
-    shape; returns {kernel: row}. ``segments`` packs two segments per row
-    and pads the last row's tail (segment 0)."""
+    """K1 with its LSE against its plain version, with its time, bound and
+    share; then K2 and K3 through ``bench_flash_bwd.bench_shape`` (checked
+    against their plain versions and for a bit-identical repeat, timed
+    beside PR 4's mma.sync kernels, the plain versions, δ and SDPA's
+    backward). Returns {kernel: row, "pair": row, "lse": row}.
+    ``segments`` packs two segments per row and pads the last row's tail
+    (segment 0)."""
     import torch
-    import torch.nn.functional as F
 
+    from mllm_npu_tpu_torch import bench_flash_bwd as bench
     from mllm_npu_tpu_torch.ops.flash_attention import (
-        SegmentIds, attention_delta, flash_attention,
-        flash_attention_reference, flash_bwd_dkv, flash_bwd_dkv_reference,
-        flash_bwd_dq, flash_bwd_dq_reference)
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
-    q, do = (torch.randn(B, Sq, Hq, D, device=dev, generator=g).bfloat16()
-             for _ in range(2))
-    k, v = (torch.randn(B, Sk, Hkv, D, device=dev, generator=g).bfloat16()
-            for _ in range(2))
-    seg = None
-    if segments:
-        if Sq != Sk:
-            fail("segment case needs Sq == Sk")
-        pm = torch.ones(B, Sq, dtype=torch.int32, device=dev)
-        pm[:, Sq // 2:] = 2
-        pm[-1, Sq - Sq // 6:] = 0
-        seg = SegmentIds(q=pm, kv=pm)
+        flash_attention, flash_attention_reference)
+    q, k, v, do, seg = bench.inputs(B, Sq, Sk, Hq, Hkv, D, segments, seed)
     kw = dict(causal=causal, segment_ids=seg)
-
     o, lse = flash_attention(q, k, v, return_lse=True, **kw)
     torch.cuda.synchronize()
     ro, rlse = flash_attention_reference(q, k, v, return_lse=True, **kw)
@@ -557,87 +549,51 @@ def bwd_case(name, B, Sq, Sk, Hq, Hkv, D, causal, segments=False, seed=0):
           f"{name}: K1 LSE err {lse_err} beyond {LSE_ATOL}")
     check(bool((o_diff <= BF16_ATOL + BF16_RTOL * ro.float().abs()).all()),
           f"{name}: K1 output with LSE disagrees")
-    delta = attention_delta(o, do)
-    dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
-    torch.cuda.synchronize()
-    rdq = flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw)
-    rdk, rdv = flash_bwd_dkv_reference(q, k, v, do, lse, delta, **kw)
-    errs = {}
-    for label, got, ref in (("dq", dq, rdq), ("dk", dk, rdk),
-                            ("dv", dv, rdv)):
-        diff = (got.float() - ref.float()).abs()
-        errs[label] = diff.max().item()
-        check(bool(torch.isfinite(got.float()).all()),
-              f"{name}: {label} non-finite")
-        check(bool((diff <= BWD_RTOL * ref.float().abs()
-                    + BWD_ATOL_FRAC * ref.float().abs().max()).all()),
-              f"{name}: {label} max abs err {errs[label]} beyond "
-              f"{BWD_RTOL}·|plain| + {BWD_ATOL_FRAC}·max|plain|")
-    del rdq, rdk, rdv, ro
-
-    mask = torch.ones(B, Sq, Sk, dtype=torch.bool, device=dev)
-    if causal:
-        mask &= torch.ones(Sq, Sk, dtype=torch.bool, device=dev).tril()
-    if seg is not None:
-        mask &= seg.q[:, :, None] == seg.kv[:, None, :]
-    pairs = int(mask.sum().item()) * Hq
-    # each input read once, each output written once
-    in_bytes = 2 * (2 * B * Sq * Hq * D + 2 * B * Sk * Hkv * D) \
-        + 4 * 2 * B * Hq * Sq + (4 * B * (Sq + Sk) if seg is not None else 0)
-    work = {"flash_bwd_dq": (3 * 2 * pairs * D, in_bytes + 2 * B * Sq * Hq * D),
-            "flash_bwd_dkv": (4 * 2 * pairs * D,
-                              in_bytes + 2 * 2 * B * Sk * Hkv * D)}
-
-    G = Hq // Hkv
-    qt = q.transpose(1, 2).detach().requires_grad_()
-    kt = k.transpose(1, 2).repeat_interleave(G, 1).detach().requires_grad_()
-    vt = v.transpose(1, 2).repeat_interleave(G, 1).detach().requires_grad_()
-    if seg is not None:
-        out = F.scaled_dot_product_attention(qt, kt, vt,
-                                             attn_mask=mask[:, None])
-    else:
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
-    dot = do.transpose(1, 2)
-    lib_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                                 retain_graph=True))
-    del out, qt, kt, vt
-    times = {
-        "flash_bwd_dq": (
-            time_ms(lambda: flash_bwd_dq(q, k, v, do, lse, delta, **kw)),
-            time_ms(lambda: flash_bwd_dq_reference(q, k, v, do, lse, delta,
-                                                   **kw), iters=3)),
-        "flash_bwd_dkv": (
-            time_ms(lambda: flash_bwd_dkv(q, k, v, do, lse, delta, **kw)),
-            time_ms(lambda: flash_bwd_dkv_reference(q, k, v, do, lse, delta,
-                                                    **kw), iters=3)),
-    }
+    del ro, rlse, o_diff
     lse_ms = time_ms(lambda: flash_attention(q, k, v, return_lse=True, **kw))
+    # K1 with its LSE: 4·D flops per visible pair; q, k, v read, o and the
+    # LSE written once
+    flops = bench.work(B, Sq, Sk, Hq, Hkv, D, causal, seg)[
+        "flash_bwd_dq"][0] // 6 * 4
+    nbytes = 2 * (2 * B * Sq * Hq * D + 2 * B * Sk * Hkv * D) \
+        + 4 * B * Hq * Sq + (4 * B * (Sq + Sk) if seg is not None else 0)
+    lse_bound, lse_by = bench.bound_ms(flops, nbytes)
+    del q, k, v, do, o, lse
+
+    r = bench.bench_shape(name, B, Sq, Sk, Hq, Hkv, D, causal, segments,
+                          seed=seed)
+    check(r["within_tolerance"], f"{name}: K2/K3 errors {r['max_abs_err']} "
+          f"beyond {bench.BWD_RTOL}·|plain| + "
+          f"{bench.BWD_ATOL_FRAC}·max|plain|")
+    check(r["repeat_bit_identical"], f"{name}: K2/K3 repeat differs")
     rows = {}
-    for kernel, (flops, nbytes) in work.items():
-        t_c, t_m = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    for kernel, key, err in (
+            ("flash_bwd_dq", "k2", r["max_abs_err"]["dq"]),
+            ("flash_bwd_dkv", "k3",
+             max(r["max_abs_err"]["dk"], r["max_abs_err"]["dv"]))):
         rows[kernel] = {
             "shape": name, "B": B, "Sq": Sq, "Sk": Sk, "Hq": Hq, "Hkv": Hkv,
-            "D": D, "causal": causal, "segments": seg is not None,
-            "max_abs_err": (errs["dq"] if kernel == "flash_bwd_dq"
-                            else max(errs["dk"], errs["dv"])),
-            "ms": times[kernel][0], "plain_ms": times[kernel][1],
-            "library_ms": lib_ms, "bound_ms": max(t_c, t_m) * 1e3,
-            "bound_by": "operations" if t_c >= t_m else "bytes",
-            "flops": flops, "bytes": nbytes}
+            "D": D, "causal": causal, "segments": segments,
+            "max_abs_err": err, "ms": r[f"{key}_ms"],
+            "plain_ms": r[f"plain_{key}_ms"], "library_ms": r["sdpa_bwd_ms"],
+            "bound_ms": r[f"{key}_bound_ms"], "bound_by": r[f"{key}_bound_by"],
+            "bound_share": r[f"{key}_bound_share"],
+            "tflops": r[f"{key}_tflops"],
+            "flops": r[f"{key}_flops"], "bytes": r[f"{key}_bytes"],
+            "design": ("wgmma+tma" if r["regime"] == "wgmma"
+                       else "mma.sync"),
+            "pr4_ms": r[f"mma_sync_{key}_ms"],
+        }
+    rows["pair"] = {k: r[k] for k in (
+        "shape", "pair_ms", "pair_delta_ms", "delta_ms", "sdpa_bwd_ms",
+        "pair_vs_sdpa", "pair_delta_vs_sdpa", "mma_sync_pair_ms")}
     rows["lse"] = {"shape": name, "lse_max_abs_err": lse_err,
-                   "k1_with_lse_ms": lse_ms}
-    print(f"[K1/K2/K3] {name}: K1+LSE {lse_ms:.4f} ms (LSE err "
-          f"{lse_err:.2e}); K2 {times['flash_bwd_dq'][0]:.4f} ms (plain "
-          f"{times['flash_bwd_dq'][1]:.3f}, bound "
-          f"{rows['flash_bwd_dq']['bound_ms']:.4f} "
-          f"{rows['flash_bwd_dq']['bound_by']}, err {errs['dq']:.2e}); K3 "
-          f"{times['flash_bwd_dkv'][0]:.4f} ms (plain "
-          f"{times['flash_bwd_dkv'][1]:.3f}, bound "
-          f"{rows['flash_bwd_dkv']['bound_ms']:.4f} "
-          f"{rows['flash_bwd_dkv']['bound_by']}, err "
-          f"{max(errs['dk'], errs['dv']):.2e}); SDPA backward "
-          f"{lib_ms:.4f} ms", flush=True)
+                   "k1_with_lse_ms": lse_ms, "bound_ms": lse_bound,
+                   "bound_by": lse_by, "bound_share": lse_bound / lse_ms,
+                   "tflops": flops / lse_ms / 1e9}
+    print(f"[K1] {name} with its LSE: {lse_ms:.4f} ms (LSE err "
+          f"{lse_err:.2e}), bound {lse_bound:.4f} ms ({lse_by}), "
+          f"{100 * lse_bound / lse_ms:.1f}% of it", flush=True)
     return rows
 
 
@@ -750,6 +706,9 @@ def train_phase(workdir):
 
         def on_step(rec):
             got = {k: fn.launches for k, fn in counters.items()}
+            for k in ("flash_bwd_dq", "flash_bwd_dkv"):
+                got[f"{k}_wgmma"] = counters[k].wgmma_launches
+                counters[k].wgmma_launches = 0
             for fn in counters.values():
                 fn.launches = 0
             per_step.append((rec, got))
@@ -758,10 +717,14 @@ def train_phase(workdir):
                   f"{rec['sec/step']:.3f}, tokens/s {rec['tokens/s']:.0f}, "
                   f"images/s {rec['images/s']:.1f}; launches K1 "
                   f"{got['flash_fwd']}, K2 {got['flash_bwd_dq']}, K3 "
-                  f"{got['flash_bwd_dkv']}", flush=True)
+                  f"{got['flash_bwd_dkv']} (Hopper regime "
+                  f"{got['flash_bwd_dq_wgmma']}/{got['flash_bwd_dkv_wgmma']})",
+                  flush=True)
 
         for fn in counters.values():
             fn.launches = 0
+        counters["flash_bwd_dq"].wgmma_launches = 0
+        counters["flash_bwd_dkv"].wgmma_launches = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         try:
@@ -785,10 +748,12 @@ def train_phase(workdir):
     n_vis = model.vision_encoder.config.num_hidden_layers
     L = lm_cfg.num_hidden_layers
     # the frozen tower's layers (no gradient: K1 alone), the resampler and
-    # each Llama layer (K1 with LSE, K2, K3), whose forward remat re-runs
+    # each Llama layer (K1 with LSE, K2, K3), whose forward remat re-runs;
+    # every K2/K3 launch of the step (D = 128) in the Hopper regime
     expect = {k: 0 for k in counters}
     expect.update(flash_fwd=n_vis + 1 + (2 if lm_cfg.remat else 1) * L,
-                  flash_bwd_dq=L + 1, flash_bwd_dkv=L + 1)
+                  flash_bwd_dq=L + 1, flash_bwd_dkv=L + 1,
+                  flash_bwd_dq_wgmma=L + 1, flash_bwd_dkv_wgmma=L + 1)
     check(len(per_step) == TRAIN_STEPS, f"{len(per_step)} steps ran")
     import math
     for rec, got in per_step:
@@ -813,7 +778,7 @@ def train_phase(workdir):
         "tokens_per_s": sum(r["tokens/s"] for r, _ in steady) / len(steady),
         "images_per_s": sum(r["images/s"] for r, _ in steady) / len(steady),
         "peak_gib": peak, "wall_s": wall, "checkpoint_gib": ckpt_gib,
-        "launches": {k: sum(g[k] for _, g in per_step) for k in counters},
+        "launches": {k: sum(g[k] for _, g in per_step) for k in expect},
         "trainable_m": sum(p.numel() for p in model.parameters()
                            if p.requires_grad) / 1e6,
     }
@@ -1015,7 +980,8 @@ def main():
     for name, (secs, log) in builds.items():
         print(f"[build] nvcc {name}.cu: {secs:.1f} s")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling",
+                                       "C7513")):
                 print(f"[build] {name}: {line.strip()}")
 
     # -- 2. full-width model ------------------------------------------
@@ -1217,14 +1183,28 @@ def main():
     }]
     tmix = {"llama_train": lm_cfg.num_hidden_layers, "resampler_train": 1}
     tby = {b["flash_bwd_dq"]["shape"]: b for b in bwd}
+    pair_step = {key: sum(tby[s]["pair"][key] * n for s, n in tmix.items())
+                 for key in ("pair_ms", "pair_delta_ms", "delta_ms",
+                             "sdpa_bwd_ms", "mma_sync_pair_ms")}
+    pair_step["pair_vs_sdpa"] = pair_step["pair_ms"] / pair_step["sdpa_bwd_ms"]
+    pair_step["pair_delta_vs_sdpa"] = (pair_step["pair_delta_ms"]
+                                       / pair_step["sdpa_bwd_ms"])
+    print(f"[K2/K3] per training step at batch {B}: K2 + K3 "
+          f"{pair_step['pair_ms']:.3f} ms, + delta "
+          f"{pair_step['pair_delta_ms']:.3f} ms, SDPA backward "
+          f"{pair_step['sdpa_bwd_ms']:.3f} ms (ratio "
+          f"{pair_step['pair_vs_sdpa']:.3f}, with delta "
+          f"{pair_step['pair_delta_vs_sdpa']:.3f}); PR 4's mma.sync kernels "
+          f"{pair_step['mma_sync_pair_ms']:.3f} ms", flush=True)
     for name, symbol, replaces in (
             ("flash_bwd_dq", "K2", "mllm_npu_tpu/ops/flash_attention.py:333"),
             ("flash_bwd_dkv", "K3",
              "mllm_npu_tpu/ops/flash_attention.py:407")):
         agg = {key: sum(tby[s][name][key] * n for s, n in tmix.items())
-               for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
-        t_c = sum(tby[s][name]["flops"] * n
-                  for s, n in tmix.items()) / H100_BF16_FLOPS
+               for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                           "pr4_ms")}
+        flops = sum(tby[s][name]["flops"] * n for s, n in tmix.items())
+        t_c = flops / H100_BF16_FLOPS
         t_m = sum(tby[s][name]["bytes"] * n
                   for s, n in tmix.items()) / H100_BYTES_PER_S
         rows.append({
@@ -1232,14 +1212,25 @@ def main():
             "source": "mllm_npu_tpu_torch/csrc/flash_bwd.cu",
             "replaces": replaces,
             "launches": launches[name],
+            "wgmma_launches": train["launches"][f"{name}_wgmma"],
             "max_abs_err": max(b[name]["max_abs_err"] for b in bwd),
             **agg,
             "bound_by": "operations" if t_c >= t_m else "bytes",
+            "bound_share": agg["bound_ms"] / agg["ms"],
+            "tflops": flops / agg["ms"] / 1e9,
+            "design": "wgmma+tma: persistent blocks, a producer warp's TMA "
+                      "rings, a consumer warpgroup, dS/P^T as register A "
+                      "operands, segment-range tile skips (head dims < 32: "
+                      "mma.sync)",
             "ms_basis": f"one training step at batch {B}: the launch mix "
                         + ", ".join(f"{n} x {s}" for s, n in tmix.items()),
+            "pr4_basis": "PR 4's mma.sync kernels (the mma_sync regime, "
+                         "forced) on the same inputs in this run",
             "library": "torch.autograd.grad of scaled_dot_product_attention "
                        "with K/V repeated for GQA (dq, dk and dv together; "
                        "the forward excluded)",
+            "pair_per_step": pair_step,
+            "pair_shapes": [b["pair"] for b in bwd],
             "shapes": [b[name] for b in bwd],
         })
     for bits, replaces in ((8, "mllm_npu_tpu/ops/quant.py:50"),

@@ -20,16 +20,20 @@ an autograd Function, the twin of ``_flash`` with its ``custom_vjp`` rules
 δ = rowsum(dO∘O) in fp32 as a plain op (the reference does so outside its
 kernels, :513) and launches K2 and K3.
 
-The kernels live in ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``; their
-design notes (bound on the H100 and what the design does about it) are at
-the top of each file. K1 is a Hopper kernel (TMA into an mbarrier ring,
-wgmma, a producer warp and consumer warpgroups); the Python side of its
-design is here: the tile shape (:func:`k1_block_q`), the split of the head
-dim between the two swizzles of its tensor maps (:func:`k1_head_split`)
-and, mirrored for the tests, which tiles the kernel masks
-(:func:`k1_kv_tiles`, :func:`k1_needs_mask`). Each wrapper launches its
+The kernels live in ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (with
+the Hopper helpers they share in ``csrc/hopper.cuh``); their design notes
+(bound on the H100 and what the design does about it) are at the top of
+each file. All three are Hopper kernels (TMA into mbarrier rings, wgmma, a
+producer warp and consumer warpgroups); the Python side of their design is
+here: K1's tile shape (:func:`k1_block_q`), the split of the head dim
+between the two swizzles of the tensor maps (:func:`k1_head_split`), K2's
+and K3's regime (:func:`k23_regime`) and, mirrored for the tests, which
+tiles each kernel visits and which of them it masks (:func:`k1_kv_tiles`,
+:func:`k1_needs_mask`, :func:`k2_kv_tiles`, :func:`k3_q_tiles`,
+:func:`k3_needs_mask`). Each wrapper launches its
 kernel for CUDA tensors and counts the launch (``flash_attention.launches``,
-``flash_bwd_dq.launches``, ``flash_bwd_dkv.launches``); for CPU tensors it
+``flash_bwd_dq.launches``, ``flash_bwd_dkv.launches``, and of the last two
+those in the Hopper regime, ``.wgmma_launches``); for CPU tensors it
 computes the same function with its plain fp32 version
 (:func:`flash_attention_reference`, :func:`flash_bwd_dq_reference`,
 :func:`flash_bwd_dkv_reference`). There is no fallback for CUDA tensors: a
@@ -146,7 +150,21 @@ def flash_bwd_dkv_reference(q, k, v, do, lse, delta, *,
 
 
 def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
-    """δ = rowsum(dO∘O) in fp32, [B, Hq, Sq] (the reference's ``di``)."""
+    """δ = rowsum(dO∘O) in fp32, [B, Hq, Sq] (the reference's ``di``).
+
+    On the GPU, for bf16 or fp16 o and dO, one batched product per
+    position, O[b, s] (Hq × D) · dO[b, s]ᵀ with fp32 output, whose diagonal
+    is δ: the products of two bf16 values are exact in fp32 and sum in
+    fp32, as the reference's, and neither tensor is copied to fp32 (the
+    Hq× extra flops cost less than those copies' bytes)."""
+    if o.is_cuda and o.dtype in (torch.bfloat16, torch.float16) \
+            and do.dtype == o.dtype:
+        B, S, H, D = o.shape
+        m = torch.bmm(o.reshape(B * S, H, D),
+                      do.reshape(B * S, H, D).transpose(1, 2),
+                      out_dtype=torch.float32)
+        return m.diagonal(dim1=1, dim2=2).reshape(B, S, H).transpose(
+            1, 2).contiguous()
     return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
 
 
@@ -341,10 +359,87 @@ flash_attention.launches = 0
 BWD_KERNEL = "flash_bwd"
 _BWD_DQ_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-                   ctypes.c_int, ctypes.c_void_p])
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 _BWD_DKV_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                  + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-                    ctypes.c_int, ctypes.c_void_p])
+                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+# K2/K3's Hopper regime: rows of every tile (K2's query rows and K/V tiles,
+# K3's keys and query tiles), rows per consumer warp, the least head dim
+K23_TILE = 64
+K23_WARP_ROWS = 16
+K23_MIN_HEAD_DIM = 32
+
+
+def k23_regime(D: int) -> str:
+    """K2's and K3's regime for head dim D: ``"wgmma"``, the Hopper kernels
+    (TMA rings, wgmma, one consumer warpgroup of 64 rows, two blocks per
+    SM), from 32 on; ``"mma_sync"``, their first design, below."""
+    return "wgmma" if D >= K23_MIN_HEAD_DIM else "mma_sync"
+
+
+def _disjoint(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return int(a.max()) < int(b.min()) or int(a.min()) > int(b.max())
+
+
+def k2_kv_tiles(q0: int, Sq: int, Sk: int, causal: bool,
+                q_ids: Optional[torch.Tensor] = None,
+                kv_ids: Optional[torch.Tensor] = None) -> list:
+    """The 64-key K/V tiles (indices, in order) K2 visits for the query
+    rows [q0, q0 + 64): up to the causal diagonal of the last row,
+    less, with segment ids (one batch row's ``q_ids`` [Sq] and ``kv_ids``
+    [Sk]), those whose kv-id range over the keys below Sk is disjoint from
+    the q-id range of the rows below Sq; if none is left, the last. The
+    mirror of the producer's walk in ``csrc/flash_bwd.cu``."""
+    n = -(-Sk // K23_TILE)
+    if causal:
+        n = min(n, (min(q0 + K23_TILE, Sq) - 1) // K23_TILE + 1)
+    if q_ids is None:
+        return list(range(n))
+    rows = q_ids[q0:min(q0 + K23_TILE, Sq)]
+    kept = [j for j in range(n) if not _disjoint(
+        rows, kv_ids[j * K23_TILE:min((j + 1) * K23_TILE, Sk)])]
+    return kept or [n - 1]
+
+
+def k3_q_tiles(k0: int, Sq: int, Sk: int, causal: bool,
+               q_ids: Optional[torch.Tensor] = None,
+               kv_ids: Optional[torch.Tensor] = None) -> list:
+    """The 64-row query tiles (indices, in order) K3 visits for the keys
+    [k0, k0 + 64), each once per query head of the group: from the
+    first that reaches the keys (causal; at least the last tile) on, less,
+    with segment ids, those whose q-id range is disjoint from the keys'
+    kv-id range; if none is left, the last. The mirror of the producer's
+    walk in ``csrc/flash_bwd.cu``."""
+    nq = -(-Sq // K23_TILE)
+    first = min(k0 // K23_TILE, nq - 1) if causal else 0
+    if q_ids is None:
+        return list(range(first, nq))
+    keys = kv_ids[k0:min(k0 + K23_TILE, Sk)]
+    kept = [i for i in range(first, nq) if not _disjoint(
+        q_ids[i * K23_TILE:min((i + 1) * K23_TILE, Sq)], keys)]
+    return kept or [nq - 1]
+
+
+def k3_needs_mask(key0: int, q0: int, Sq: int, causal: bool,
+                  kv_ids: Optional[torch.Tensor] = None,
+                  q_ids: Optional[torch.Tensor] = None) -> bool:
+    """Whether K3 runs the elementwise mask for one warp's keys
+    [key0, key0 + 16) on the query tile [q0, q0 + 64): the tile holds rows
+    past Sq, crosses the causal diagonal of the warp's keys, or (with
+    segment ids: ``kv_ids`` of the warp's keys below Sk, ``q_ids`` of the
+    tile's rows below Sq) holds any segment but the warp's single one. The
+    mirror of the test in ``csrc/flash_bwd.cu``. (K2's rule is K1's,
+    :func:`k1_needs_mask` with ``block_k`` 64.)"""
+    if q0 + K23_TILE > Sq or (causal and key0 + K23_WARP_ROWS - 1 > q0):
+        return True
+    if kv_ids is None:
+        return False
+    if kv_ids.numel() == 0:
+        return True
+    lo = int(kv_ids.min())
+    return not (lo == int(kv_ids.max()) == int(q_ids.min())
+                == int(q_ids.max()))
 
 
 def _check_bwd(q, k, v, do, lse, delta, segment_ids, name):
@@ -360,8 +455,8 @@ def _check_bwd(q, k, v, do, lse, delta, segment_ids, name):
                              f"tensor [B, Hq, Sq] = {(B, Hq, Sq)}")
 
 
-def _bwd_launch(symbol, argtypes, q, k, v, do, lse, delta, outs, causal,
-                segment_ids, scale):
+def _bwd_launch(symbol, argtypes, wgmma, q, k, v, do, lse, delta, outs,
+                causal, segment_ids, scale):
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     dq = outs[0] if len(outs) == 1 else None
@@ -375,7 +470,7 @@ def _bwd_launch(symbol, argtypes, q, k, v, do, lse, delta, outs, causal,
         lse.data_ptr(), delta.data_ptr(), _ptr(qseg), _ptr(kseg),
         *[t.data_ptr() for t in outs],
         B, Sq, Sk, Hq, Hkv, D, (ctypes.c_longlong * 21)(*strides),
-        float(scale), int(bool(causal)),
+        float(scale), int(bool(causal)), int(wgmma),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
@@ -393,14 +488,19 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw)
     _check_bwd(q, k, v, do, lse, delta, segment_ids, "flash_bwd_dq")
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    if q.shape[0] and q.shape[1]:
-        _bwd_launch("flash_bwd_dq_bf16", _BWD_DQ_ARGS, q, k, v, do, lse,
-                    delta, (dq,), **kw)
+    if q.shape[0] and q.shape[1] and not k.shape[1]:
+        dq.zero_()                  # no key: every row is fully masked
+    elif q.shape[0] and q.shape[1]:
+        wgmma = k23_regime(q.shape[3]) == "wgmma"
+        _bwd_launch("flash_bwd_dq_bf16", _BWD_DQ_ARGS, wgmma, q, k, v, do,
+                    lse, delta, (dq,), **kw)
         flash_bwd_dq.launches += 1
+        flash_bwd_dq.wgmma_launches += wgmma
     return dq
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.wgmma_launches = 0
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
@@ -418,9 +518,11 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     if k.shape[0] and k.shape[1]:
         if q.shape[1]:
-            _bwd_launch("flash_bwd_dkv_bf16", _BWD_DKV_ARGS, q, k, v, do,
-                        lse, delta, (dk, dv), **kw)
+            wgmma = k23_regime(q.shape[3]) == "wgmma"
+            _bwd_launch("flash_bwd_dkv_bf16", _BWD_DKV_ARGS, wgmma, q, k, v,
+                        do, lse, delta, (dk, dv), **kw)
             flash_bwd_dkv.launches += 1
+            flash_bwd_dkv.wgmma_launches += wgmma
         else:
             dk.zero_()
             dv.zero_()
@@ -428,6 +530,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
 
 
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.wgmma_launches = 0
 
 
 class FlashAttention(torch.autograd.Function):

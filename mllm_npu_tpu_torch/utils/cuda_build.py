@@ -2,9 +2,15 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, ``build/lib<name>-<hash>.so``
-at the repository root (git-ignored), and loaded with ``ctypes``. The
-hash of the source names the library, so an edited source is rebuilt.
+at the repository root (git-ignored), and loaded with ``ctypes``. A hash
+of the source, of every header under ``csrc/`` (``*.cuh``) and of the
+flags names the library, so an edited source or header is rebuilt.
 :func:`build_all` starts one nvcc per source, all at once.
+
+``MLLM_NVCC_EXTRA`` adds flags to every build, e.g.
+``MLLM_NVCC_EXTRA=-DMBAR_TRAP_CYCLES=4000000000`` makes a lost mbarrier
+arrival trap (a fault) instead of hanging the card while a kernel is being
+changed (``csrc/hopper.cuh``).
 """
 
 from __future__ import annotations
@@ -35,10 +41,16 @@ def _nvcc() -> str:
                        "machine (CUDA_HOME or /usr/local/cuda)")
 
 
+def _flags():
+    return NVCC_FLAGS + os.environ.get("MLLM_NVCC_EXTRA", "").split()
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(_flags()).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names) -> Dict[str, Tuple[float, str]]:
@@ -54,7 +66,7 @@ def build_all(names) -> Dict[str, Tuple[float, str]]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [_nvcc(), *_flags(), "-o", str(tmp), str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         started[name] = (proc, tmp, out, time.perf_counter())
     result = {name: (0.0, "") for name in names}

@@ -4,7 +4,8 @@ their plain versions (skipped without a CUDA card).
 Run on the GPU machine with
 ``python -m pytest --noconftest tests/test_torch_cuda.py`` (the suite's
 ``conftest.py`` imports JAX, which that machine need not have). K1's cases
-run under both of its tile shapes (64 and 128 query rows per block).
+run under both of its tile shapes (64 and 128 query rows per block); K2's
+and K3's in the regime the call gets and in the mma.sync one forced.
 Tolerances on the same bf16 inputs:
 - K1 rounds P (before PV) and O to bf16, so
   |K1 − plain| ≤ 1e-2 + 1e-2·|plain|;
@@ -13,7 +14,10 @@ Tolerances on the same bf16 inputs:
   (2^-9 relative each, summed over the sequence in another order) and the
   output to bf16, so |kernel − plain| ≤ 2e-2·|plain| + 1e-2·max|plain|;
 - K4 and K5 round their output to bf16 (2^-9 relative) and sum in fp32 in
-  another order, so |kernel − plain| ≤ 1e-2·|plain| + 1e-3·max|plain|.
+  another order, so |kernel − plain| ≤ 1e-2·|plain| + 1e-3·max|plain|;
+- δ (``attention_delta``, one batched product with fp32 output on the
+  card) sums exact fp32 products in another order than the fp32 formula,
+  so |err| ≤ 1e-5·Σ_d |o·dO|.
 """
 
 import pytest
@@ -154,6 +158,16 @@ def test_k1_rejects_what_it_does_not_take(cuda):
     assert flash_attention.launches == n
 
 
+@pytest.fixture(params=("planned", "mma_sync"))
+def k23_regime(request, monkeypatch):
+    """Each K2/K3 case in the regime the call gets (the Hopper kernels from
+    D = 32) and in the mma.sync one forced (the first design, which the
+    bench times beside them)."""
+    if request.param == "mma_sync":
+        monkeypatch.setattr(fa, "k23_regime", lambda D: "mma_sync")
+    return request.param
+
+
 def _bwd_inputs(dev, B, Sq, Sk, Hq, Hkv, D, seg_kind, seed=0):
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
@@ -171,6 +185,17 @@ def _bwd_inputs(dev, B, Sq, Sk, Hq, Hkv, D, seg_kind, seed=0):
             ks = qs.clone()
         elif seg_kind == "masked_row":      # rows whose keys are all masked
             qs[0, [1, Sq // 2]] = 9
+        elif seg_kind == "nonmonotone":     # ids out of order, padded tail
+            gen = torch.Generator().manual_seed(seed)
+            for b in range(B):
+                pos = 0
+                while pos < Sq:
+                    n = int(torch.randint(20, 90, (1,), generator=gen))
+                    qs[b, pos:pos + n] = int(torch.randint(1, 4, (1,),
+                                                           generator=gen))
+                    pos += n
+            qs[-1, Sq - Sq // 6:] = 0
+            ks = qs.clone()
         seg = SegmentIds(q=qs, kv=ks)
     return q, k, v, do, seg
 
@@ -190,6 +215,9 @@ BWD_CASES = [
     (1, 77, 77, 4, 2, 32, True, "packed"),       # tiny, D=32
     (2, 100, 130, 8, 2, 104, False, None),       # ragged S, Sq != Sk
     (1, 70, 70, 8, 1, 64, True, "masked_row"),   # fully masked rows, G=8
+    (2, 300, 300, 8, 2, 128, True, "nonmonotone"),  # ids like 2 2 1 1 3
+    (2, 520, 520, 8, 8, 72, False, "packed"),    # segment skips, D=72
+    (1, 100, 100, 4, 2, 16, True, "packed"),     # D=16: mma.sync regime
 ]
 
 
@@ -212,17 +240,22 @@ def test_k1_lse_matches_plain(cuda, block_q, B, Sq, Sk, Hq, Hkv, D, causal,
 
 
 @pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,seg_kind", BWD_CASES)
-def test_k2_k3_match_plain(cuda, B, Sq, Sk, Hq, Hkv, D, causal, seg_kind):
+def test_k2_k3_match_plain(cuda, k23_regime, B, Sq, Sk, Hq, Hkv, D, causal,
+                           seg_kind):
     q, k, v, do, seg = _bwd_inputs(cuda, B, Sq, Sk, Hq, Hkv, D, seg_kind)
     kw = dict(causal=causal, segment_ids=seg)
     o, lse = flash_attention_reference(q, k, v, return_lse=True, **kw)
     delta = attention_delta(o, do)
     n2, n3 = flash_bwd_dq.launches, flash_bwd_dkv.launches
+    w2, w3 = flash_bwd_dq.wgmma_launches, flash_bwd_dkv.wgmma_launches
     dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
     torch.cuda.synchronize()
     assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == (n2 + 1,
                                                                n3 + 1)
+    hopper = int(k23_regime == "planned" and D >= fa.K23_MIN_HEAD_DIM)
+    assert (flash_bwd_dq.wgmma_launches, flash_bwd_dkv.wgmma_launches) == (
+        w2 + hopper, w3 + hopper)
     assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
     rdq = flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw)
     rdk, rdv = flash_bwd_dkv_reference(q, k, v, do, lse, delta, **kw)
@@ -230,6 +263,52 @@ def test_k2_k3_match_plain(cuda, B, Sq, Sk, Hq, Hkv, D, causal, seg_kind):
         _close(got, ref, 2e-2, 1e-2)
     if seg_kind == "masked_row":
         assert (dq[0, 1] == 0).all() and (dq[0, Sq // 2] == 0).all()
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,seg_kind", [
+    (8, 600, 600, 32, 8, 128, True, "packed"),   # the Llama training layer
+    (56, 64, 729, 32, 32, 128, False, None),     # the resampler's, batch 8
+])
+def test_k2_k3_repeat_bit_identical(cuda, k23_regime, B, Sq, Sk, Hq, Hkv, D,
+                                    causal, seg_kind):
+    """No atomics, a fixed order of every sum: two launches give the same
+    bits, at the two training shapes, in both regimes."""
+    q, k, v, do, seg = _bwd_inputs(cuda, B, Sq, Sk, Hq, Hkv, D, seg_kind)
+    kw = dict(causal=causal, segment_ids=seg)
+    o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    delta = attention_delta(o, do)
+    w2, w3 = flash_bwd_dq.wgmma_launches, flash_bwd_dkv.wgmma_launches
+    hopper = 2 * int(k23_regime == "planned")
+    first = (flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+             *flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    second = (flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+              *flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq.wgmma_launches, flash_bwd_dkv.wgmma_launches) == (
+        w2 + hopper, w3 + hopper)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    rdq = flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw)
+    _close(first[0], rdq, 2e-2, 1e-2)
+
+
+@pytest.mark.parametrize("shape", [(8, 600, 32, 128), (3, 64, 32, 128),
+                                   (2, 77, 4, 72)])
+def test_attention_delta_matches_the_fp32_formula(cuda, shape):
+    """δ by one batched product with fp32 output against the fp32 formula
+    on the same bf16 o and dO: the products are exact in fp32 and only the
+    order of the fp32 sum differs, so |err| <= 1e-5·Σ_d |o·dO|."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    o, do = (torch.randn(*shape, device=cuda, generator=g).bfloat16()
+             for _ in range(2))
+    got = attention_delta(o, do)
+    prod = o.float() * do.float()
+    ref = prod.sum(-1).transpose(1, 2)
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert got.is_contiguous()
+    assert ((got - ref).abs()
+            <= 1e-5 * prod.abs().sum(-1).transpose(1, 2)).all()
 
 
 def test_flash_function_gradients_match_plain(cuda):
