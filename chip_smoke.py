@@ -16,20 +16,44 @@ exits non-zero. Phases, in order:
    (Llama-3-8B with r32 LoRA, SigLIP-so400m, attention resampler), bf16,
    weights drawn from a seed, ``FakeTokenizer`` at vocab 128587;
 3. K1 (flash forward) against its plain PyTorch version on the card at
-   the path's own shapes, with times of the kernel, the plain version,
+   the path's own shapes (the batched worker's padded bucket, S = 384,
+   among them), with times of the kernel, the plain version,
    ``scaled_dot_product_attention`` as a yardstick (with the dense mask,
    and where every segment id is 1 also ``is_causal`` alone: the faster
    counts), the bound, TFLOP/s and the share of the bound; a sweep over
    the edges of K1's design (head dims 8 to 128, lengths off the tile,
    causal Sq != Sk, GQA, segments inside a tile, fused strided q/k/v);
    then K4 (int8) and K5 (int4) against theirs at the Llama's decode
-   (M = 1) and prefill (M = 339) shapes and at the batched worker's
-   prefill chunks (M = 128 and 512, q and gate shapes), with ``F.linear``
-   on the weight dequantized to bf16 as the yardstick;
+   (M = 1) and prefill (M = 339) shapes and at the batched worker's: its
+   decode block (M = 8, the lm_head included), its image admissions
+   (M = 384) and its text admissions and prefill chunks (M = 128 and 512),
+   every projection shape, with ``F.linear`` on the weight dequantized to
+   bf16 as the yardstick;
 4. the bf16 path: ``InferenceEngine.comprehension`` on an 896×896 image
    (2×2 grid + thumbnail), a 384×1152 image and a text-only question,
    with every kernel's launch count set to 0 before and asserted after
    each request;
+4b. the batched worker over the same model (``BatchedInferenceEngine``,
+   the reference worker's defaults: 8 slots, a 2048-token static cache,
+   prompts to 1024 in buckets of 128, decode blocks of 16 steps captured
+   as one CUDA graph) served by the port's ``ModelWorker`` on 127.0.0.1
+   (port 0, ``--no-register``, 16 concurrent generations): 16 concurrent
+   POSTs (8 images of 896×896, 4 of 384×1152, 4 text questions, one of
+   them streamed, 32 new tokens each) with every reply's error code, K1's
+   launches per admission, two of them served again alone (identical ids)
+   and the streamed text checked; then, the worker stopped, 8 requests of
+   128 tokens with every slot busy through the graphed engine and an
+   eager twin (identical ids; ms per decode tick, aggregate tokens/s);
+   four of the burst's requests alone through the eager twin (the
+   burst's ids) with the logits of each choice recorded, against the
+   single-request engine by the logit rule: up to the first divergence
+   both rows within twice the control, the same request's prefill logits
+   with K1 against K1's fp32 plain version; a ``--prefill-chunk 128
+   --prefix-cache 4`` engine on four text requests sharing a 512-word
+   preamble (hits and tokens saved), its eager twin's rows against the
+   monolithic engine's and the single-request engine's by the same rule;
+   one graphed tick under ``torch.profiler``, and ``decode_attention``'s
+   cost (and its fp32 widening's) per tick;
 5. the first image request's prefill logits with K1 against the same
    forward with K1's plain version in every attention;
 6. the text-only request once more under ``torch.profiler``: the share
@@ -41,7 +65,13 @@ exits non-zero. Phases, in order:
    image prefill in the prefill regime, M > 16), and the image prefill
    logits with K4 (K5) against the same forward with its plain version in
    every quantized linear, with each side's top-2 logits and margin, then
-   that prefill under ``torch.profiler``;
+   that prefill under ``torch.profiler``; and for int8 the batched worker
+   over that model (4 images and 4 texts at once, with K4's launches: 225
+   per admission, 224 of them in the prefill regime, and 225 × 16 in a
+   block, counted at the capture), its graphed and eager decode timing,
+   an image and a text against the single-request int8 engine by the
+   logit rule, and one replayed tick under ``torch.profiler``, whose
+   ``qmm_decode`` events must number 225 × 16;
 8. training: ``mllm_npu_tpu_torch.train.train.main`` at full width (the
    same YAML, LoRA dropout 0.05, remat ``dots``, the chunked CE) on a
    webdataset tar of seeded JPEGs and captions through the caption entry of
@@ -404,19 +434,22 @@ def quant_case(bits, M, K, N, group=256, seed=0):
     return row
 
 
-def quant_rows(lm_cfg, s_img):
+def quant_rows(lm_cfg, s_img, bucket, slots):
     """K4 and K5 at the Llama's projection shapes: decode (M = 1, the
-    lm_head included), the image prefill (M = prompt length) and the
-    batched worker's prefill chunks (M = 128 and 512) at the q and gate
-    shapes. Each row says its regime."""
+    lm_head included), the image prefill (M = prompt length), and the
+    batched worker's: its decode block (M = ``slots``, the lm_head
+    included), its image admissions (M = ``bucket``) and its text
+    admissions and prefill chunks (M = 128 and 512). Each row says its
+    regime."""
     hs, inter = lm_cfg.hidden_size, lm_cfg.intermediate_size
     kv = lm_cfg.num_key_value_heads * lm_cfg.head_dim
     proj = [(hs, hs), (hs, kv), (hs, inter), (inter, hs)]
-    shapes = ([("decode", 1, k, n)
-               for k, n in proj + [(hs, lm_cfg.vocab_size)]]
+    head = [(hs, lm_cfg.vocab_size)]
+    shapes = ([("decode", 1, k, n) for k, n in proj + head]
               + [("prefill", s_img, k, n) for k, n in proj]
-              + [("chunk", m, k, n) for m in CHUNK_M
-                 for k, n in [(hs, hs), (hs, inter)]])
+              + [("slots", slots, k, n) for k, n in proj + head]
+              + [("bucket", bucket, k, n) for k, n in proj]
+              + [("chunk", m, k, n) for m in CHUNK_M for k, n in proj])
     return {bits: [dict(quant_case(bits, m, k, n, lm_cfg.quant_group_size),
                         regime=regime)
                    for regime, m, k, n in shapes] for bits in (8, 4)}
@@ -455,8 +488,9 @@ def quant_row_mix(rows, mix):
 
 
 def prefill_logits(model, prep):
-    """Last-position logits of one image request's prefill (vision tower,
-    resampler, scatter, causal Llama prefill with segment ids)."""
+    """Last-position logits of one request's prefill (for an image the
+    vision tower, resampler and scatter; a causal Llama prefill with
+    segment ids)."""
     import torch
 
     from mllm_npu_tpu_torch.ops import SegmentIds
@@ -465,11 +499,12 @@ def prefill_logits(model, prep):
     input_ids = torch.as_tensor(ids, dtype=torch.long, device=dev)[None]
     lm = model.language_model
     with torch.inference_mode():
-        emb, _ = model.embed_and_scatter(
-            input_ids, torch.as_tensor(patches, device=dev),
+        image = (None,) * 4 if patches is None else (
+            torch.as_tensor(patches, device=dev),
             torch.ones((patches.shape[0],), dtype=torch.bool, device=dev),
             torch.as_tensor(cmp, device=dev)[None],
             torch.as_tensor(pos, device=dev))
+        emb, _ = model.embed_and_scatter(input_ids, *image)
         ones = torch.ones_like(input_ids, dtype=torch.int32)
         h, _ = lm(inputs_embeds=emb, segment_ids=SegmentIds(q=ones, kv=ones))
         return lm.logits(h[:, -1]).float()
@@ -477,9 +512,10 @@ def prefill_logits(model, prep):
 
 def profile_call(fn):
     """``fn()`` under ``torch.profiler``: wall ms, device busy ms (the union
-    of the device activity intervals) and the five kernels with the most
-    device time. The profiler's own host cost slows the host, so the busy
-    share it gives is a lower bound."""
+    of the device activity intervals), the five kernels with the most
+    device time and every kernel's event count (kernels a CUDA graph
+    replays are traced one by one). The profiler's own host cost slows
+    the host, so the busy share it gives is a lower bound."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -496,20 +532,21 @@ def profile_call(fn):
         if e > end:
             busy_us += e - max(s, end)
             end = e
-    by_name = {}
+    by_name, counts = {}, {}
     for e in device:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        counts[e.name] = counts.get(e.name, 0) + 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return wall_ms, busy_us / 1e3, top
+    return wall_ms, busy_us / 1e3, top, counts
 
 
-def print_profile(label, wall_ms, busy_ms, top):
+def print_profile(label, wall_ms, busy_ms, top, counts):
     if busy_ms > 0:
         print(f"[profile] {label} under torch.profiler: wall "
               f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
               f"({100 * busy_ms / wall_ms:.1f}%); most device time: "
-              + "; ".join(f"{n[:70]} {t / 1e3:.2f} ms" for n, t in top),
-              flush=True)
+              + "; ".join(f"{n[:70]} {t / 1e3:.2f} ms ({counts[n]} events)"
+                          for n, t in top), flush=True)
     else:
         print(f"[profile] {label}: torch.profiler recorded no device "
               "activity: the busy share is not measured", flush=True)
@@ -944,6 +981,653 @@ def serve(engine, requests, preps, label, lm_cfg, vis_cfg):
     return total, prefill_total
 
 
+# the batched worker (phase 4b, and int8 in phase 7): the reference worker's
+# engine defaults, a concurrency limit that fills every slot twice over
+WORKER = dict(num_slots=8, max_len=2048, max_prompt=1024, block_steps=16,
+              batch_prompt_bucket=128)
+WORKER_CONCURRENCY = 16
+# tokens per request of the graph-vs-eager check and the decode timing
+LONG_TOKENS = 128
+# the logit rule of checks d and f: where a batched stream and the
+# single-request engine's are held against each other, their logit rows
+# (fp32, after the ladder) at every position up to the first divergence
+# lie within this many times the control's max |delta|: the same
+# request's prefill logits with K1 against K1's fp32 plain version in
+# every attention, bf16 rounding alone on the same weights and inputs
+LOGIT_BOUND_FACTOR = 2.0
+QUESTIONS = ("What is unusual in this image?", "Describe the picture.",
+             "What colour dominates?", "How many objects are there?",
+             "Where was this taken?", "What is in the top left corner?",
+             "Is it day or night?", "What is the texture like?",
+             "Name three things you see.", "What happens next?",
+             "Is there any text?", "What is the mood of the scene?",
+             "What is the capital of France?", "Explain photosynthesis.",
+             "Write a haiku about rivers.", "Who painted the Mona Lisa?")
+
+
+def worker_traffic(n896=8, n384=4, n_text=4):
+    """(label, question, b64) requests: 896×896 images (5 tiles, 339
+    tokens), 384×1152 images (4 tiles, 270 tokens) and text questions, each
+    image with its own seed and question."""
+    out = [(f"img896_{i}", QUESTIONS[i], png_b64(896, 896, 100 + i))
+           for i in range(n896)]
+    out += [(f"img384x1152_{i}", QUESTIONS[8 + i], png_b64(384, 1152, 200 + i))
+            for i in range(n384)]
+    out += [(f"text_{i}", QUESTIONS[12 + i], "") for i in range(n_text)]
+    return out
+
+
+def post_worker(url, body, timeout=600):
+    """One POST to the worker; → the decoded ``b"\0"``-delimited chunks."""
+    import urllib.request
+    req = urllib.request.Request(url + "/worker_generate",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        raw = r.read()
+    return [json.loads(c) for c in raw.split(b"\0") if c]
+
+
+class ServedWorker:
+    """The port's worker (``ModelWorker`` over ``engine``) on 127.0.0.1 and
+    a free port, ``--no-register``, served from a thread; it records every
+    request its engine takes (the ids and host times the wire does not
+    carry)."""
+
+    def __init__(self, engine):
+        import threading
+
+        from mllm_npu_tpu_torch.serve.worker import ModelWorker, make_server
+        self.engine = engine
+        self.worker = ModelWorker(
+            "http://unused", "http://127.0.0.1", "smoke", "mllm-8b", engine,
+            no_register=True, limit_model_concurrency=WORKER_CONCURRENCY)
+        self.server = make_server(self.worker, "127.0.0.1", 0)
+        self.url = "http://127.0.0.1:%d" % self.server.server_address[1]
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.taken = []
+        submit = engine.batch_engine.submit
+
+        def recording_submit(*a, **kw):
+            req = submit(*a, **kw)
+            self.taken.append(req)
+            return req
+        engine.batch_engine.submit = recording_submit
+
+    def request_of(self, ids):
+        """The last request taken whose prompt is ``ids``."""
+        import numpy as np
+        for req in reversed(self.taken):
+            if np.array_equal(req.input_ids, ids):
+                return req
+        fail("no request with that prompt was taken")
+
+    def close(self):
+        """Stop serving and the engine's drain thread: the caller's thread
+        then owns ``engine.batch_engine``."""
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=60)
+        check(not self.thread.is_alive(), "the worker's server did not stop")
+        self.engine.close()
+
+
+def http_burst(served, traffic, stream_label=None):
+    """Every request of ``traffic`` POSTed at once, one thread each
+    (``stream_label``'s with ``"stream": true``); → {label: (chunks, wall
+    s)}. Fails unless every reply has error_code 0."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(item):
+        label, q, b64 = item
+        t0 = time.perf_counter()
+        chunks = post_worker(served.url, {"input_text": q, "image": b64,
+                                          "stream": label == stream_label})
+        return label, (chunks, time.perf_counter() - t0)
+    with ThreadPoolExecutor(len(traffic)) as ex:
+        replies = dict(ex.map(one, traffic))
+    bad = {k: [c["error_code"] for c in v[0]] for k, v in replies.items()
+           if not v[0] or any(c["error_code"] != 0 for c in v[0])}
+    check(not bad, f"worker replies with an error: {bad}")
+    return replies
+
+
+def ttft_stats(reqs):
+    """min / median / max of first-token minus submit time (host clock, s)."""
+    import statistics
+    t = sorted(r.first_token_at - r.submitted_at for r in reqs)
+    return {"min": t[0], "median": statistics.median(t), "max": t[-1]}
+
+
+def single_stream(engine, q, b64):
+    """The single-request engine's greedy ids for one request, and at each
+    position its logits after the ladder (fp32 [V], on the card): the
+    logits each greedy choice was made from."""
+    from mllm_npu_tpu_torch.models.generation import generate as gen_mod
+    from mllm_npu_tpu_torch.models.generation import sampler
+    rows, orig = [], sampler._sample
+
+    def recording(logits):
+        rows.append(logits[0].float().clone())
+        return orig(logits)
+    sampler._sample = gen_mod._sample = recording
+    try:
+        ids = engine.comprehension_ids(q, b64)
+    finally:
+        sampler._sample = gen_mod._sample = orig
+    return [int(t) for t in ids], rows
+
+
+def submit_prepared(engine, item, tokens):
+    """One prepared request (ids, patches, positions, compare mask) into a
+    ContinuousBatchingEngine; → its Request."""
+    import numpy as np
+    ids, patches, pos, cmp = item
+    kw = {}
+    if patches is not None:
+        kw = dict(images=patches, ids_cmp_mask=cmp, patch_positions=pos,
+                  embeds_cmp_mask=np.ones((patches.shape[0],), bool))
+    return engine.submit(ids, max_new_tokens=tokens, **kw)
+
+
+def recorded_stream(engine, item, tokens):
+    """One prepared request alone through an idle eager
+    ContinuousBatchingEngine (so in slot 0), and the logits (fp32, after
+    the ladder) each of its greedy choices was made from: the prefill's
+    first-token row, then slot 0's row of each decode step."""
+    from mllm_npu_tpu_torch.serve import batched_engine as be_mod
+    check(engine._graph is None and engine.stats()["slots_busy"] == 0,
+          "recorded_stream needs an idle eager engine")
+    rows, orig = [], be_mod._sample
+
+    def recording(logits):
+        rows.append(logits[0].float().clone())
+        return orig(logits)
+    be_mod._sample = recording
+    try:
+        req = submit_prepared(engine, item, tokens)
+        engine.run_until_idle()
+    finally:
+        be_mod._sample = orig
+    check(req.done and req.error is None, f"recorded request: {req.error}")
+    ids = [int(t) for t in req.tokens]
+    return ids, rows[:len(ids)]
+
+
+def attention_control(model, prep):
+    """The logit rule's control reading for one request: max |delta| of its
+    prefill logits with K1 against the same forward with K1's fp32 plain
+    version in every attention (bf16 rounding alone)."""
+    import mllm_npu_tpu_torch.ops as port_ops
+    from mllm_npu_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_reference)
+    port_ops.flash_attention = flash_attention_reference
+    try:
+        plain = prefill_logits(model, prep)
+    finally:
+        port_ops.flash_attention = flash_attention
+    return (prefill_logits(model, prep) - plain).abs().max().item()
+
+
+def logit_rule(label, batched, b_rows, single, s_rows, bound):
+    """A batched stream against the single-request engine's, held on the
+    logits: at every position up to the first where the ids differ (all
+    of them where none does), each engine took its top logit and the two
+    rows lie within ``bound`` of each other. → (identical, worst max
+    |delta|, description); fails otherwise."""
+    import torch
+    n = min(len(batched), len(single))
+    t = next((i for i in range(n) if batched[i] != single[i]), None)
+    last = n - 1 if t is None else t
+    worst, at = 0.0, 0
+    for p in range(last + 1):
+        a, b = b_rows[p], s_rows[p]
+        fin = torch.isfinite(a)
+        check(bool((fin == torch.isfinite(b)).all()),
+              f"{label}: position {p}: the engines mask different logits")
+        check(int(a.argmax()) == batched[p] and int(b.argmax()) == single[p],
+              f"{label}: position {p}: a token is not its row's argmax")
+        d = (a[fin] - b[fin]).abs().max().item()
+        if d > worst:
+            worst, at = d, p
+    same = t is None and len(batched) == len(single)
+    desc = ("identical ids" if t is None else
+            f"first divergence at token {t}: batched {batched[t]}, single "
+            f"{single[t]}") + (f"; logits max |delta| {worst:.4f} (at "
+                               f"position {at} of 0..{last}), bound "
+                               f"{bound:.4f}")
+    check(worst <= bound, f"{label}: {desc}: beyond the bound")
+    return same, worst, desc
+
+
+def timed_decode(engine, items, tokens):
+    """``items`` (prepared requests) through a ContinuousBatchingEngine at
+    ``tokens`` each, driven from this thread: the first tick admits them
+    all and dispatches the first block; the rest, to idle, is timed (host
+    clock, ending in a synchronize). → (ids per request, ms per decode
+    tick = one step of every slot, aggregate decode tokens/s)."""
+    import torch
+    reqs = [submit_prepared(engine, item, tokens) for item in items]
+    engine.step()
+    check(engine.stats()["slots_busy"] == len(items),
+          "the first tick did not admit every request")
+    torch.cuda.synchronize()
+    blocks0 = engine.replays + engine.eager_blocks
+    t0 = time.perf_counter()
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    blocks = engine.replays + engine.eager_blocks - blocks0
+    check(all(r.done and r.error is None for r in reqs), "a request failed")
+    # tokens computed in the window: all but each row's first (the
+    # prefill's) and the first block's (run before the window)
+    decoded = sum(max(len(r.tokens) - 1 - engine.block_steps, 0)
+                  for r in reqs)
+    return ([[int(t) for t in r.tokens] for r in reqs],
+            wall * 1e3 / (blocks * engine.block_steps), decoded / wall)
+
+
+def batched_engine_for(single, **kw):
+    """A BatchedInferenceEngine (the worker's defaults) over the model the
+    single-request engine serves: no second copy of the weights."""
+    from mllm_npu_tpu_torch.serve.engine import BatchedInferenceEngine
+    model = single.generator.model
+    nq = model.projector.num_queries
+    return BatchedInferenceEngine(
+        model=model, tokenizer=single.tokenizer,
+        image_transform=single.image_transform, num_img_in_tokens=nq,
+        num_img_out_tokens=nq, max_new_tokens=MAX_NEW_TOKENS, device="cuda",
+        **dict(WORKER, **kw))
+
+
+def worker_checks(single, label, traffic, lm_cfg, vis_cfg, stream_label):
+    """Build the batched engine (its decode block captured as a CUDA graph)
+    over the single engine's model, serve ``traffic`` through the worker
+    at once, then two of its requests alone; checks a (error codes, the
+    streamed text), b (alone = among) and e (launch counts). Returns the
+    served worker (still up) and what was measured."""
+    import torch
+
+    from mllm_npu_tpu_torch.ops import quant as tq
+    counters = kernel_counters()
+    quant = single.generator.model.language_model.config.quantization
+    per_forward = 7 * lm_cfg.num_hidden_layers + 1
+    for fn in counters.values():
+        fn.launches = 0
+    tq.int8_matmul.prefill_launches = tq.int4_matmul.prefill_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    batched = batched_engine_for(single)
+    built_s = time.perf_counter() - t0
+    be = batched.batch_engine
+    captured = {k: fn.launches for k, fn in counters.items()}
+    # the capture runs the block once eagerly (its warm-up) and records it
+    # once: each counted every launch of one block
+    check(be.eager_blocks == 1 and be.capture_s is not None,
+          f"{label}: the decode block was not captured")
+    per_block = {k: n // 2 for k, n in captured.items()}
+    expect_block = dict.fromkeys(counters, 0)
+    if quant != "none":
+        expect_block[f"{quant}_matmul"] = per_forward * be.block_steps
+    check(per_block == expect_block and all(n % 2 == 0 for n in
+                                            captured.values()),
+          f"{label}: launches at the capture {captured}, expected twice "
+          f"{expect_block}")
+    check(tq.int8_matmul.prefill_launches + tq.int4_matmul.prefill_launches
+          == 0, f"{label}: the decode block ran a prefill-regime product")
+    print(f"[{label} worker] engine built in {built_s:.2f} s, the decode "
+          f"block ({be.B} slots x {be.block_steps} steps) captured in "
+          f"{be.capture_s:.3f} s; one block launches "
+          + ", ".join(f"{k} {n}" for k, n in per_block.items() if n)
+          + f" (Python counts it at the capture only); static cache "
+          f"{2 * be.state['k'].numel() * 2 / 2**30:.2f} GiB", flush=True)
+
+    served = ServedWorker(batched)
+    for fn in counters.values():
+        fn.launches = 0
+    tq.int8_matmul.prefill_launches = tq.int4_matmul.prefill_launches = 0
+    replays0 = be.replays
+    t0 = time.perf_counter()
+    replies = http_burst(served, traffic, stream_label)
+    burst_s = time.perf_counter() - t0
+    replays = be.replays - replays0
+    got = {k: fn.launches for k, fn in counters.items()}
+    got_prefill = (tq.int8_matmul.prefill_launches,
+                   tq.int4_matmul.prefill_launches)
+    preps = {lab: batched._prepare_comprehension(q, b) for lab, q, b in
+             traffic}
+    reqs = {lab: served.request_of(preps[lab][0]) for lab, _, _ in traffic}
+    n_img = sum(1 for _, _, b in traffic if b)
+    n_text = len(traffic) - n_img
+    L = lm_cfg.num_hidden_layers
+    expect = dict.fromkeys(counters, 0)
+    expect["flash_fwd"] = (L + vis_cfg.num_hidden_layers + 1) * n_img \
+        + L * n_text
+    prefill_expect = [0, 0]
+    if quant != "none":
+        # each admission's prefill (bucket > 16 rows: the prefill regime,
+        # the lm_head's last row the decode one); decode only in replays
+        expect[f"{quant}_matmul"] = per_forward * len(traffic)
+        prefill_expect[0 if quant == "int8" else 1] = \
+            (per_forward - 1) * len(traffic)
+    print(f"[{label} worker] {len(traffic)} concurrent POSTs ({n_img} "
+          f"image, {n_text} text, {stream_label} streamed) in {burst_s:.2f} "
+          f"s, {replays} graph replays; launches counted K1 "
+          f"{got['flash_fwd']}, K4 {got['int8_matmul']}, K5 "
+          f"{got['int4_matmul']} (prefill regime {got_prefill[0]}/"
+          f"{got_prefill[1]}), the replays' own not counted by Python"
+          f"; expected {expect['flash_fwd']}, {expect['int8_matmul']}, "
+          f"{expect['int4_matmul']} ({prefill_expect[0]}/"
+          f"{prefill_expect[1]})", flush=True)
+    check(got == expect, f"{label} worker burst: launches {got}, expected "
+          f"{expect}")
+    check(list(got_prefill) == prefill_expect,
+          f"{label} worker burst: prefill-regime launches {got_prefill}, "
+          f"expected {prefill_expect}")
+    check(replays > 0, f"{label} worker burst: no graph replay")
+    for lab, r in reqs.items():
+        check(r.done and r.error is None and 0 < len(r.tokens)
+              <= MAX_NEW_TOKENS, f"{label} {lab}: {len(r.tokens)} tokens, "
+              f"error {r.error}")
+    burst_ttft = ttft_stats(reqs.values())
+    walls = sorted(w for _, w in replies.values())
+
+    # b: two of the requests again through the worker with nothing else in
+    # flight; the streamed one's last snapshot against its text alone
+    alone = {}
+    first_img = next(lab for lab, _, b in traffic if b)
+    for lab in (first_img, stream_label):
+        _, q, b64 = next(t for t in traffic if t[0] == lab)
+        chunks = post_worker(served.url, {"input_text": q, "image": b64})
+        check(len(chunks) == 1 and chunks[0]["error_code"] == 0,
+              f"{label} {lab} alone: {chunks}")
+        r = served.request_of(preps[lab][0])
+        check(r is not reqs[lab], "the request alone was not taken")
+        check(r.tokens == reqs[lab].tokens, f"{label} {lab}: ids alone "
+              f"{r.tokens} differ from among {len(traffic)}: "
+              f"{reqs[lab].tokens}")
+        alone[lab] = {"text": chunks[0]["text"], "request": r}
+    streamed = replies[stream_label][0]
+    check(len(streamed) >= 2 and streamed[-1]["text"]
+          == alone[stream_label]["text"],
+          f"{label}: the streamed request's last snapshot "
+          f"{streamed[-1]['text']!r} differs from its text "
+          f"{alone[stream_label]['text']!r}")
+    alone_ttft = {lab: a["request"].first_token_at
+                  - a["request"].submitted_at for lab, a in alone.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{label} worker] TTFT among {len(traffic)} (host, submit to "
+          f"first token): min {burst_ttft['min'] * 1e3:.1f} ms, median "
+          f"{burst_ttft['median'] * 1e3:.1f} ms, max "
+          f"{burst_ttft['max'] * 1e3:.1f} ms; alone "
+          + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in alone_ttft.items())
+          + f"; request wall (HTTP) min {walls[0]:.2f} s, median "
+          f"{walls[len(walls) // 2]:.2f} s, max {walls[-1]:.2f} s; the "
+          f"streamed request gave {len(streamed)} snapshots; ids alone = "
+          f"among for {', '.join(alone)}; peak {peak:.2f} GiB", flush=True)
+    return served, {
+        "capture_s": be.capture_s, "per_block": per_block,
+        "burst_s": burst_s, "replays": replays, "launches": got,
+        "prefill_launches": got_prefill,
+        "ttft_burst_s": burst_ttft, "ttft_alone_s": alone_ttft,
+        "wall_s": {"min": walls[0], "median": walls[len(walls) // 2],
+                   "max": walls[-1]},
+        "peak_gib": peak, "stream_snapshots": len(streamed),
+        "ids": {lab: r.tokens for lab, r in reqs.items()},
+    }
+
+
+def twin_of(engine, **kw):
+    """A ContinuousBatchingEngine on ``engine``'s model with its settings,
+    ``kw`` changed."""
+    from mllm_npu_tpu_torch.serve.batched_engine import (
+        ContinuousBatchingEngine)
+    return ContinuousBatchingEngine(engine.model, **dict(dict(
+        num_slots=engine.B, max_len=engine.max_len,
+        block_steps=engine.block_steps, prompt_bucket=engine.prompt_bucket,
+        max_prompt=engine.max_prompt, eos_token_id=engine.eos,
+        pad_token_id=engine.pad, cache_dtype=engine.cache_dtype,
+        ladder=engine.ladder), **kw))
+
+
+def decode_timing(served, label, traffic, lm_cfg):
+    """After the worker stops: LONG_TOKENS per request, every slot busy,
+    through the worker's graphed engine and an eager twin on the same
+    model; the ids must be identical (check c). → (summary, graphed
+    engine, eager engine)."""
+    served.close()
+    graphed = served.engine.batch_engine
+    eager = twin_of(graphed, cuda_graph=False)
+    items = [served.engine._prepare_comprehension(q, b)
+             for _, q, b in traffic]
+    out = {}
+    for name, eng in (("graphed", graphed), ("eager", eager)):
+        ids, tick_ms, tps = timed_decode(eng, items, LONG_TOKENS)
+        out[name] = {"ids": ids, "tick_ms": tick_ms, "tokens_per_s": tps}
+    same = [a == b for a, b in zip(out["graphed"]["ids"],
+                                   out["eager"]["ids"])]
+    print(f"[{label} worker] {len(items)} requests x {LONG_TOKENS} tokens, "
+          f"{graphed.B} slots busy: decode tick (one step of every slot) "
+          f"graphed {out['graphed']['tick_ms']:.3f} ms, eager "
+          f"{out['eager']['tick_ms']:.3f} ms; aggregate decode "
+          f"{out['graphed']['tokens_per_s']:.1f} tokens/s graphed, "
+          f"{out['eager']['tokens_per_s']:.1f} eager; graphed ids = eager "
+          f"ids for {sum(same)} of {len(same)}", flush=True)
+    check(all(same), f"{label}: graphed and eager ids differ: {same}")
+    return {k: {kk: vv for kk, vv in v.items() if kk != "ids"}
+            for k, v in out.items()}, graphed, eager
+
+
+def profile_block(engine, single, label):
+    """One tick with every slot busy (one replayed block and the previous
+    block's tokens handed out) under ``torch.profiler``; → profile_call's
+    tuple."""
+    prompts = [single._prepare_comprehension(q, "")[0]
+               for q in QUESTIONS[:engine.B]]
+    reqs = [engine.submit(p, max_new_tokens=3 * engine.block_steps)
+            for p in prompts]
+    engine.step()                      # admit, dispatch block 1
+    engine.step()                      # block 2 in flight
+    replays0 = engine.replays
+    prof = profile_call(engine.step)
+    check(engine.replays == replays0 + 1,
+          f"{label}: the profiled tick replayed "
+          f"{engine.replays - replays0} blocks, not one")
+    engine.run_until_idle()
+    check(all(r.done and r.error is None for r in reqs), "profiled run")
+    print_profile(f"{label} worker: one tick ({engine.B} slots x "
+                  f"{engine.block_steps} steps)", *prof)
+    return prof
+
+
+def decode_attention_cost(engine, lm_cfg, tick_ms):
+    """``decode_attention`` at the decode block's shapes (one layer: every
+    slot's query over the whole static cache) and its fp32 widening of K
+    and V alone, on CUDA events; × layers, against one tick."""
+    import torch
+
+    from mllm_npu_tpu_torch.ops import decode_attention
+    st = engine.state
+    k, v = st["k"][0], st["v"][0]
+    B, H, D = engine.B, lm_cfg.num_attention_heads, lm_cfg.head_dim
+    L = lm_cfg.num_hidden_layers
+    with torch.inference_mode():
+        q = torch.randn(B, 1, H, D, device=k.device).bfloat16()
+        cur = torch.randn(B, 1, lm_cfg.num_key_value_heads, D,
+                          device=k.device).bfloat16()
+        mask = torch.ones(B, 1, 1, k.shape[1], dtype=torch.bool,
+                          device=k.device)
+        attn = time_ms(lambda: decode_attention(q, k, v, mask, k_cur=cur,
+                                                v_cur=cur)) * L
+        widen = time_ms(lambda: (k.float(), v.float())) * L
+    print(f"[worker] decode_attention over the [{B}, {engine.max_len}] "
+          f"static cache: {attn:.3f} ms a tick ({L} layers, "
+          f"{100 * attn / tick_ms:.1f}% of the graphed tick); its fp32 "
+          f"widening of K and V alone {widen:.3f} ms "
+          f"({100 * widen / tick_ms:.1f}%; "
+          f"{2 * k.numel() * 4 * L / 1e9:.2f} GB of fp32 copies)", flush=True)
+    return {"attention_ms_per_tick": attn, "widening_ms_per_tick": widen}
+
+
+def single_engine_check(single, eager, label, traffic, labels, ids_of):
+    """Check d: each of ``labels`` through the single-request engine and,
+    alone, through the eager batched twin, whose ids must equal
+    ``ids_of[label]`` (the graphed worker's among its burst); the two held
+    by the logit rule, its bound LOGIT_BOUND_FACTOR × the largest control
+    reading among these requests. → summary."""
+    reqs = {lab: (q, b) for lab, q, b in traffic if lab in labels}
+    preps = {lab: single._prepare_comprehension(q, b)
+             for lab, (q, b) in reqs.items()}
+    control = {lab: attention_control(single.generator.model, preps[lab])
+               for lab in labels}
+    bound = LOGIT_BOUND_FACTOR * max(control.values())
+    print(f"[check] {label} logit rule: control max |delta| (K1 vs its fp32 "
+          f"plain version, prefill logits) "
+          + ", ".join(f"{k} {v:.4f}" for k, v in control.items())
+          + f"; bound {bound:.4f}", flush=True)
+    identical, worst = 0, {}
+    for lab in labels:
+        single_ids, s_rows = single_stream(single, *reqs[lab])
+        ids, b_rows = recorded_stream(eager, preps[lab], MAX_NEW_TOKENS)
+        check(ids == ids_of[lab], f"{label} {lab}: eager ids alone {ids} "
+              f"differ from the graphed worker's {ids_of[lab]}")
+        same, worst[lab], desc = logit_rule(f"{label} {lab}", ids, b_rows,
+                                            single_ids, s_rows, bound)
+        identical += same
+        print(f"[check] {label} worker vs single-request engine, {lab}: "
+              f"{desc}", flush=True)
+    print(f"[check] {label} worker streams identical to the single-request "
+          f"engine's: {identical} of {len(labels)}", flush=True)
+    return {"control": control, "bound": bound, "max_abs_delta": worst,
+            "identical": identical}
+
+
+def chunked_prefix_check(single, graphed, eager):
+    """Check f: a --prefill-chunk 128 --prefix-cache 4 engine serves four
+    text requests that share a 512-word preamble (one at a time to
+    admission, as the engine admits chunked prefills): at least 3 hits and
+    1536 tokens saved. Its eager twin then serves each alone (the same
+    hits, the same ids) and its logit rows are held by the logit rule
+    against the monolithic eager engine's and the single-request
+    engine's; the graphed monolithic engine's ids equal the eager one's."""
+    import numpy as np
+    rs = np.random.RandomState(7)
+    preamble = " ".join(rs.choice(WORDS, 512))
+    texts = [f"{preamble} {q}" for q in QUESTIONS[12:16]]
+    model = single.generator.model
+    eng = twin_of(graphed, prefill_chunk=128, prefix_cache=4)
+    preps = [single._prepare_comprehension(t, "") for t in texts]
+    reqs = [eng.submit(p[0], max_new_tokens=MAX_NEW_TOKENS) for p in preps]
+    eng.run_until_idle()
+    st = eng.stats()["prefix_cache"]
+    check(all(r.done and r.error is None for r in reqs), "chunked requests")
+    check(st["hits"] >= 3 and st["tokens_saved"] >= 1536,
+          f"prefix cache: {st}")
+    mono = [submit_prepared(graphed, p, MAX_NEW_TOKENS) for p in preps]
+    graphed.run_until_idle()
+    check(all(r.done and r.error is None for r in mono), "monolithic requests")
+    twin = twin_of(eng, prefill_chunk=128, prefix_cache=4, cuda_graph=False)
+    control = [attention_control(model, p) for p in preps]
+    bound = LOGIT_BOUND_FACTOR * max(control)
+    identical = {"monolithic": 0, "single": 0}
+    worst = {"monolithic": 0.0, "single": 0.0}
+    for i, (t, p) in enumerate(zip(texts, preps)):
+        ids, rows = recorded_stream(twin, p, MAX_NEW_TOKENS)
+        check(ids == reqs[i].tokens, f"prefix request {i}: the eager "
+              f"chunked ids alone {ids} differ from the graphed engine's "
+              f"among four {reqs[i].tokens}")
+        m_ids, m_rows = recorded_stream(eager, p, MAX_NEW_TOKENS)
+        check(m_ids == mono[i].tokens, f"prefix request {i}: the eager "
+              f"monolithic ids {m_ids} differ from the graphed engine's "
+              f"{mono[i].tokens}")
+        s_ids, s_rows = single_stream(single, t, "")
+        for name, ref_ids, ref_rows in (("monolithic", m_ids, m_rows),
+                                        ("single", s_ids, s_rows)):
+            same, d, desc = logit_rule(f"prefix request {i} (chunked vs "
+                                       f"{name})", ids, rows, ref_ids,
+                                       ref_rows, bound)
+            identical[name] += same
+            worst[name] = max(worst[name], d)
+            print(f"[check] prefix request {i}, chunked vs {name}: {desc}",
+                  flush=True)
+    check(twin.stats()["prefix_cache"]["hits"] >= 3,
+          f"the eager chunked twin: {twin.stats()['prefix_cache']}")
+    print(f"[worker] chunked (128) + prefix cache (4) engine, 4 text "
+          f"requests with a 512-word preamble ({len(preps[0][0])} tokens): "
+          f"prefix cache {st}; control max |delta| "
+          + ", ".join(f"{c:.4f}" for c in control)
+          + f", bound {bound:.4f}; the chunked ids equal the monolithic "
+          f"engine's for {identical['monolithic']} of 4 (logits max |delta| "
+          f"{worst['monolithic']:.4f}) and the single-request engine's for "
+          f"{identical['single']} of 4 ({worst['single']:.4f}); capture "
+          f"{eng.capture_s:.3f} s", flush=True)
+    return {"prefix_cache": st, "control": control, "bound": bound,
+            "identical": identical, "max_abs_delta": worst}
+
+
+def worker_phase(single, lm_cfg, vis_cfg):
+    """Phase 4b on the bf16 model of phases 2-4."""
+    import torch
+    traffic = worker_traffic()
+    served, summary = worker_checks(single, "bf16", traffic, lm_cfg, vis_cfg,
+                                    stream_label="text_1")
+    # c and the timing, the worker stopped
+    mixed = [t for t in traffic if t[0].startswith("img896")][:4] + \
+        [t for t in traffic if t[0].startswith("text")]
+    timing, graphed, eager = decode_timing(served, "bf16", mixed, lm_cfg)
+    summary["decode"] = timing
+    # d: the worker's ids against the single-request engine's on the same
+    # card, both image shapes and two texts
+    summary["single_engine"] = single_engine_check(
+        single, eager, "bf16", traffic,
+        ("img896_0", "img384x1152_0", "text_0", "text_2"), summary["ids"])
+    summary["chunked_prefix"] = chunked_prefix_check(single, graphed, eager)
+    summary["profile"] = profile_block(graphed, single, "bf16")[:3]
+    summary["decode_attention"] = decode_attention_cost(
+        graphed, lm_cfg, timing["graphed"]["tick_ms"])
+    del served, graphed, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary.pop("ids")
+    return summary
+
+
+def int8_worker_phase(single, lm_cfg, vis_cfg):
+    """The int8 sub-run of phase 7: 4 image and 4 text requests at once
+    through the worker over phase 7's int8 model (checks a, b and e), the
+    graphed and eager decode timing (check c), an image and a text against
+    the single-request int8 engine (check d), and one replayed tick under
+    the profiler: its K4 decode-kernel events, 225 × block_steps."""
+    import torch
+    traffic = worker_traffic(n896=4, n384=0, n_text=4)
+    served, summary = worker_checks(single, "int8", traffic, lm_cfg, vis_cfg,
+                                    stream_label="text_1")
+    timing, graphed, eager = decode_timing(served, "int8", traffic, lm_cfg)
+    summary["decode"] = timing
+    summary["single_engine"] = single_engine_check(
+        single, eager, "int8", traffic, ("img896_0", "text_0"),
+        summary["ids"])
+    prof = profile_block(graphed, single, "int8")
+    traced = sum(n for name, n in prof[3].items() if "qmm_decode" in name)
+    expect = (7 * lm_cfg.num_hidden_layers + 1) * graphed.block_steps
+    print(f"[int8 worker] one replayed block: {traced} qmm_decode kernel "
+          f"events in the trace, expected {expect}; the burst replayed "
+          f"{summary['replays']} blocks", flush=True)
+    check(traced == expect, f"int8: a replayed block ran qmm_decode "
+          f"{traced} times, expected {expect}")
+    check(not any("qmm_prefill" in name for name in prof[3]),
+          "int8: the replayed block ran the prefill kernel")
+    summary["graph_replay_launches"] = traced
+    summary["profile"] = prof[:3]
+    del served, graphed, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary.pop("ids")
+    return summary
+
+
 def main():
     # the training phase runs near the card's memory: let the allocator grow
     # segments instead of fragmenting (read when CUDA initialises)
@@ -1005,7 +1689,10 @@ def main():
                 ("What is the capital of France?", "")]
     preps = [engine._prepare_comprehension(q, b) for q, b in requests]
     s_img, n_tiles = len(preps[0][0]), preps[0][1].shape[0]
-    print(f"[model] request 1: prompt {s_img} tokens, {n_tiles} tiles")
+    bucket = -(-s_img // WORKER["batch_prompt_bucket"]) \
+        * WORKER["batch_prompt_bucket"]
+    print(f"[model] request 1: prompt {s_img} tokens, {n_tiles} tiles; the "
+          f"batched worker's bucket {bucket}")
 
     # -- 3. K1, K4 and K5 against their plain versions at the path's shapes
     H, Hkv, D = (lm_cfg.num_attention_heads, lm_cfg.num_key_value_heads,
@@ -1020,6 +1707,10 @@ def main():
                     pad_rows={}),
         kernel_case("llama_prefill_padded_b2", 2, s_img, s_img, H, Hkv, D,
                     True, pad_rows={1: s_img - 57}),
+        # the batched worker's admission: the prompt padded to its bucket,
+        # the tail segment 0
+        kernel_case("llama_bucket_padded", 1, bucket, bucket, H, Hkv, D,
+                    True, pad_rows={0: s_img}),
         kernel_case("siglip", n_tiles, n_vis, n_vis, vh, vh,
                     vis_cfg.hidden_size // vh, False),
         kernel_case("resampler", n_tiles, n_queries, n_vis, res_heads,
@@ -1028,11 +1719,17 @@ def main():
                     pad_rows={}),
     ]
     edges = k1_edge_sweep()
-    qrows = quant_rows(lm_cfg, s_img)
+    qrows = quant_rows(lm_cfg, s_img, bucket, WORKER["num_slots"])
 
     # -- 4. the bf16 path, counts set to 0 before each request ---------
     launches, quant_prefill = serve(engine, requests, preps, "bf16",
                                     lm_cfg, vis_cfg)
+
+    # -- 4b. the batched worker over the same model, counts set to 0 before
+    #        its burst: HTTP, the slot engine, the captured decode block
+    worker = {"bf16": worker_phase(engine, lm_cfg, vis_cfg)}
+    for k, n in worker["bf16"]["launches"].items():
+        launches[k] += n
 
     # -- 5. the image request's prefill with K1 against the same forward
     #       with K1's plain version in every attention (SigLIP, resampler,
@@ -1090,6 +1787,13 @@ def main():
             launches[k] += got[k]
         for b in quant_prefill:
             quant_prefill[b] += got_prefill[b]
+        if bits == 8:
+            # the int8 worker: its burst's counts (its graph replays'
+            # launches are traced, not counted)
+            w = worker["int8"] = int8_worker_phase(engine, lm_cfg, vis_cfg)
+            for k, n in w["launches"].items():
+                launches[k] += n
+            quant_prefill[8] += w["prefill_launches"][0]
 
         kernel = getattr(tq, f"{label}_matmul")
         qlogits = {}
@@ -1240,12 +1944,23 @@ def main():
         pre = quant_row_mix([r for r in qrows[bits]
                              if r["regime"] == "prefill"],
                             quant_mix(lm_cfg, lm_head=False))
+        slots = quant_row_mix([r for r in qrows[bits]
+                               if r["regime"] == "slots"], quant_mix(lm_cfg))
         rows.append({
             "name": f"int{bits}_matmul", "route": "cuda",
             "source": "mllm_npu_tpu_torch/csrc/quant_matmul.cu",
             "replaces": replaces,
             "launches": launches[f"int{bits}_matmul"],
             "prefill_launches": quant_prefill[bits],
+            # the int8 worker's replayed blocks, which no counter sees:
+            # qmm_decode's events in one traced replay, and the replays
+            "graph_replay_launches": (worker["int8"]["graph_replay_launches"]
+                                      if bits == 8 else None),
+            "graph_replays": (worker["int8"]["replays"] if bits == 8
+                              else None),
+            "graph_replay_basis": "qmm_decode kernel events in one replayed "
+                                  "block under torch.profiler (int8 worker; "
+                                  "no int4 worker runs)",
             "max_abs_err": max(r["max_abs_err"] for r in qrows[bits]),
             **{k: dec[k] for k in ("ms", "plain_ms", "bound_ms",
                                    "library_ms", "bound_by")},
@@ -1261,11 +1976,20 @@ def main():
                 "design": "tma+wgmma: persistent blocks, TMA ring, weight "
                           "converted to wgmma's register A operand, split-K",
             },
+            "worker_decode": {
+                **{k: slots[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "library_ms", "bound_by",
+                                         "bound_share")},
+                "ms_basis": f"one decode step of the batched worker "
+                            f"(M={WORKER['num_slots']}): the launch mix "
+                            + slots["launch_mix"],
+            },
             "library": "F.linear on the weight dequantized to bf16",
             "shapes": qrows[bits],
         })
     print("[train] summary " + json.dumps(
         {k: v for k, v in train.items() if k != "profile"}))
+    print("[worker] summary " + json.dumps(worker, default=str))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

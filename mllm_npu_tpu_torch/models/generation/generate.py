@@ -7,9 +7,8 @@ the GPU) that fills the KV cache; the first token from the last real
 position's logits; then a greedy read-only-cache decode with the image
 ladder. Eager PyTorch takes the place of ``jit``. The Llama's weights may
 be served in int8 or int4 (``quantize_int8`` / ``quantize_int4``, K4 / K5
-on the GPU). Speculative decode and projection fusion are not ported yet;
-the reference's ``unroll_layers`` needs no port, as the port's layers are
-already a Python loop.
+on the GPU). The reference's ``unroll_layers`` needs no port, as the
+port's layers are already a Python loop.
 """
 
 from __future__ import annotations
@@ -74,10 +73,13 @@ class MLLMGenerator:
     @torch.inference_mode()
     def generate(self, input_ids, *, prompt_mask=None, images=None,
                  embeds_cmp_mask=None, ids_cmp_mask=None,
-                 patch_positions=None) -> dict:
+                 patch_positions=None,
+                 sampling: Optional[SamplingConfig] = None) -> dict:
         """input_ids [B, Sp] (right-padded when ``prompt_mask`` is given);
-        returns {"generate_ids": [B, max_new_tokens]}."""
-        model, cfg = self.model, self.sampling
+        returns {"generate_ids": [B, max_new_tokens]}. ``sampling``
+        overrides the generator's config for this call."""
+        model = self.model
+        cfg = self.sampling if sampling is None else sampling
         lm = model.language_model
         if input_ids.ndim == 1:
             input_ids = input_ids[None]

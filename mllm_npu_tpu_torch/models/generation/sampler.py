@@ -1,7 +1,9 @@
 """Greedy decoding with the forced image-token ladder (twin of
 ``mllm_npu_tpu/models/generation/sampler.py``: ``ImageTokenLadder``,
 ``ladder_from_tokenizer``, ``apply_image_ladder``, greedy ``_sample`` and
-``decode_loop``). Sampled decoding (temperature, top-p) is not ported yet.
+``decode_loop``). Sampled decoding (temperature, top-p, the batched
+engine's per-slot ``sample_rows``) is not ported yet (ROADMAP queue 1 item
+10b).
 """
 
 from __future__ import annotations
@@ -27,6 +29,19 @@ class SamplingConfig:
 class ImageTokenLadder:
     """Token ids of [<img>, <img_00000>, ..., <img_NNNNN>, </img>]."""
     ids: tuple
+    # the ids as a tensor, one per device, copied there on first use
+    _on_device: dict = dataclasses.field(default_factory=dict, compare=False,
+                                         repr=False)
+
+    def ids_on(self, device: torch.device) -> torch.Tensor:
+        """The ids as a long tensor on ``device``, built once: a decode
+        step then makes no host-to-device copy (a CUDA graph cannot hold
+        one)."""
+        device = torch.device(device)
+        if device not in self._on_device:
+            self._on_device[device] = torch.tensor(self.ids, dtype=torch.long,
+                                                   device=device)
+        return self._on_device[device]
 
     @property
     def boi(self) -> int:
@@ -53,14 +68,14 @@ def apply_image_ladder(logits: torch.Tensor, last_token: torch.Tensor,
     """If the last token is in the ladder (except its final ``</img>``),
     force its successor; otherwise suppress the non-initial ladder tokens.
     logits [B, V] fp32, last_token [B]."""
-    ids = torch.tensor(ladder.ids, dtype=torch.long, device=logits.device)
+    ids = ladder.ids_on(logits.device)
     prev_ids, next_ids = ids[:-1], ids[1:]
     eq = last_token[:, None].long() == prev_ids[None, :]      # [B, L-1]
     in_ladder = eq.any(dim=-1)
     forced_next = (eq.long() * next_ids[None, :]).sum(dim=-1)
-    B, V = logits.shape
-    suppressed = logits.clone()
-    suppressed[:, next_ids] = NEG_INF
+    # index_fill takes the fill as a scalar: no host tensor to copy (which
+    # a CUDA graph could not hold)
+    suppressed = logits.index_fill(1, next_ids, NEG_INF)
     forced = torch.full_like(logits, NEG_INF)
     forced.scatter_(1, forced_next[:, None],
                     logits.max(dim=-1, keepdim=True).values + 10.0)

@@ -10,15 +10,20 @@ prompt's keys and values, and each decode step attends over the cache
 read-only plus its own key/value as a virtual column, then writes that
 column for all layers at once (:func:`write_decode_column`).
 
-Served here: the prefill (causal, segment ids, K1 on the GPU) and the
-single-token read-only-cache decode, with bf16, int8 (K4) or int4 (K5)
-weights (``LlamaConfig.quantization``; every projection and the
-``lm_head``, as the reference). Trained here: LoRA with adapter dropout,
-per-segment positions (:func:`packed_positions`), the dense and chunked
-causal-LM losses, and per-layer remat (``remat_policy`` ``nothing`` or
-``dots``); attention then runs K1 with its LSE forward and K2/K3
-backward. The reference's multi-token verify and eager branches, fused
-projections, LoRA over a quantized base and the ``dots_no_batch``,
+Served here: the prefill (causal, segment ids, K1 on the GPU); the
+single-token read-only-cache decode, with one scalar filled length or one
+per row (``cache["pos"]`` a [B] tensor: continuous batching, each row
+writing its column at its own position); and the multi-token cached step
+(a scalar filled length and S > 1: the chunked prefill, which writes the
+chunk first and attends causally from ``q_offset = pos``, eagerly, as the
+reference does). Weights in bf16, int8 (K4) or int4 (K5)
+(``LlamaConfig.quantization``; every projection and the ``lm_head``, as
+the reference). Trained here: LoRA with adapter dropout, per-segment
+positions (:func:`packed_positions`), the dense and chunked causal-LM
+losses, and per-layer remat (``remat_policy`` ``nothing`` or ``dots``);
+attention then runs K1 with its LSE forward and K2/K3 backward. The
+reference's multi-token verify window (per-row positions with S > 1),
+fused projections, LoRA over a quantized base and the ``dots_no_batch``,
 ``dots_lite`` and ``hoist_attn`` policies are not ported yet.
 """
 
@@ -270,10 +275,16 @@ def init_cache(config: LlamaConfig, batch_size: int, max_len: int,
 
 
 def write_decode_column(cache: torch.Tensor, col: torch.Tensor,
-                        pos: int) -> None:
+                        pos) -> None:
     """Write one decoded column for all layers at once, in place:
-    cache [L, B, max_len, Hkv, D], col [L, B, 1, Hkv, D]."""
-    cache[:, :, pos:pos + 1] = col.to(cache.dtype)
+    cache [L, B, max_len, Hkv, D], col [L, B, 1, Hkv, D]; ``pos`` an int,
+    or a [B] tensor of per-row positions (one scatter over device
+    indices: no host read, so a CUDA graph can hold it)."""
+    if isinstance(pos, torch.Tensor):
+        rows = torch.arange(cache.shape[1], device=cache.device)
+        cache[:, rows, pos] = col[:, :, 0].to(cache.dtype)
+    else:
+        cache[:, :, pos:pos + 1] = col.to(cache.dtype)
 
 
 class RMSNorm(nn.Module):
@@ -328,26 +339,45 @@ class LlamaAttention(nn.Module):
         q, k = ops.apply_rope(q, k, cos, sin)
 
         new_col = None
-        if layer_cache is not None and not prefill:
+        per_row = isinstance(cache_pos, torch.Tensor)
+        if layer_cache is not None and not prefill and (S == 1 or per_row):
             if S != 1:
                 raise NotImplementedError(
-                    "multi-token cached steps are not ported yet")
+                    "the multi-token verify window (per-row positions with "
+                    "S > 1) is not ported yet (ROADMAP queue 1 item 10b)")
             ck, cv = layer_cache                       # [B, max_len, Hkv, D]
-            kv_len = ck.shape[1]
-            am = (torch.arange(kv_len, device=x.device)
-                  < cache_pos)[None, None, None, :]    # [1, 1, 1, Skv]
+            kv_idx = torch.arange(ck.shape[1], device=x.device)
+            if per_row:
+                # each row sees its strictly older keys
+                am = (kv_idx[None] < cache_pos[:, None])[:, None, None]
+            else:
+                am = (kv_idx < cache_pos)[None, None, None, :]
             if attn_mask is not None:
                 am = am & attn_mask
             out = ops.decode_attention(q, ck, cv, am, k_cur=k, v_cur=v)
             new_col = (k, v)
         else:
             if layer_cache is not None:
+                # the chunk (a prefill's whole prompt) goes into the cache
                 ck, cv = layer_cache
                 ck[:, cache_pos:cache_pos + S] = k.to(ck.dtype)
                 cv[:, cache_pos:cache_pos + S] = v.to(cv.dtype)
-            out = ops.multi_head_attention(
-                q, k, v, causal=True, segment_ids=segment_ids,
-                attn_mask=attn_mask)
+            if layer_cache is not None and not prefill:
+                # multi-token cached step (chunked prefill): the filled
+                # keys and this chunk's, causal from q_offset = cache_pos;
+                # eager (dot_product_attention), as the reference runs it
+                am = (torch.arange(ck.shape[1], device=x.device)
+                      < cache_pos + S)[None, None, None, :]
+                if attn_mask is not None:
+                    am = am & attn_mask
+                out = ops.multi_head_attention(
+                    q, ck.to(k.dtype), cv.to(v.dtype), causal=True,
+                    attn_mask=am, q_offset=cache_pos)
+            else:
+                # no cache, or a prefill into an empty one: the prompt alone
+                out = ops.multi_head_attention(
+                    q, k, v, causal=True, segment_ids=segment_ids,
+                    attn_mask=attn_mask)
         return self.o_proj(out.reshape(B, S, H * D)), new_col
 
 
@@ -397,8 +427,11 @@ class LlamaModel(nn.Module):
         B, S = h.shape[:2]
         cache_pos = None if cache is None else cache["pos"]
         if positions is None:
+            offset = 0 if cache_pos is None else cache_pos
+            if isinstance(offset, torch.Tensor):
+                offset = offset[:, None]
             positions = (torch.arange(S, device=h.device)[None]
-                         + (cache_pos or 0)).expand(B, S)
+                         + offset).expand(B, S)
         cols = []
         remat = (self.config.remat and cache is None
                  and torch.is_grad_enabled())

@@ -83,8 +83,11 @@ def decode_attention(q, k, v, attn_mask, *, k_cur=None, v_cur=None,
     once after the layer pass. Products are taken in the compute dtype
     (bf16 for an 8-bit cache) and accumulated in fp32, as the reference's
     ``preferred_element_type=float32``: the operands are widened to fp32
-    exactly before each product. The reference's block-buffer arguments
-    (``blk_k``/``blk_v``) serve the batched engine and are not ported yet.
+    exactly before each product. ``attn_mask`` may be per row
+    ([B, 1, 1, Sk]): the batched engine's decode block writes each step's
+    column into its static cache in place and widens the row's mask, so
+    the reference's block buffers (``blk_k``/``blk_v``/``blk_mask``, there
+    so XLA's scan would not copy the whole cache a step) have no use here.
     """
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape

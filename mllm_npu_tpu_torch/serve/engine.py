@@ -1,16 +1,25 @@
-"""Single-request inference engine (twin of ``InferenceEngine`` in
-``mllm_npu_tpu/serve/engine.py:43-195``), comprehension branch: b64 image
-→ anyres tiling → ``<patch>…</patch><img>…</img>Question: …\\nAnswer:``
+"""Inference engines, the model side of the serve worker (twins of
+``InferenceEngine`` and ``BatchedInferenceEngine`` in
+``mllm_npu_tpu/serve/engine.py``), comprehension branch: b64 image →
+anyres tiling → ``<patch>…</patch><img>…</img>Question: …\\nAnswer:``
 prompt → greedy decode → special-token-stripped text. A null or empty
-image means a text-only question. The image-generation branch waits for
-the de-tokenizer slice.
+image means a text-only question. ``InferenceEngine`` serves one request
+per call; ``BatchedInferenceEngine`` sends concurrent requests through the
+continuous-batching engine. The image-generation branch waits for the
+de-tokenizer slice.
 """
 
 from __future__ import annotations
 
 import base64
+import dataclasses
 import io
+import logging
+import queue
 import re
+import threading
+from typing import Optional
+
 import numpy as np
 import torch
 from PIL import Image
@@ -21,9 +30,13 @@ from mllm_npu_tpu_torch.constant import (BOI_TOKEN, BOP_TOKEN, EOI_TOKEN,
 from mllm_npu_tpu_torch.data.utils import (
     grid_pinpoints_from_resolution_grids, process_anyres_image)
 from mllm_npu_tpu_torch.models.generation.generate import MLLMGenerator
+from mllm_npu_tpu_torch.models.generation.generate import CACHE_DTYPE
 from mllm_npu_tpu_torch.models.generation.sampler import (
     SamplingConfig, ladder_from_tokenizer)
+from mllm_npu_tpu_torch.serve.batched_engine import ContinuousBatchingEngine
 from mllm_npu_tpu_torch.utils.device import resolve_device
+
+log = logging.getLogger(__name__)
 
 DEFAULT_RESOLUTION_GRIDS = ("1x1", "1x2", "1x3", "2x1", "3x1", "1x4",
                             "4x1", "2x2")
@@ -107,14 +120,21 @@ class InferenceEngine:
         text = re.sub(r"\[(.*)\]", "", text)
         return text.split("\n")[0]
 
-    def generate_ids(self, input_text: str, image_b64: str) -> np.ndarray:
-        """Greedy ids [max_new_tokens] for one request."""
+    def comprehension_ids(self, input_text: str, image_b64: str,
+                          max_new_tokens: Optional[int] = None
+                          ) -> np.ndarray:
+        """Greedy ids [max_new_tokens] for one request (the engine's
+        ``max_new_tokens`` unless one is given)."""
         ids, patches, patch_pos, ids_cmp_mask = \
             self._prepare_comprehension(input_text, image_b64)
         dev = self.device
+        sampling = None
+        if max_new_tokens is not None:
+            sampling = dataclasses.replace(self.generator.sampling,
+                                           max_new_tokens=max_new_tokens)
         input_ids = torch.as_tensor(ids, dtype=torch.long, device=dev)[None]
         if patches is None:
-            out = self.generator.generate(input_ids)
+            out = self.generator.generate(input_ids, sampling=sampling)
         else:
             n = patches.shape[0]
             out = self.generator.generate(
@@ -122,8 +142,184 @@ class InferenceEngine:
                 images=torch.as_tensor(patches, device=dev),
                 embeds_cmp_mask=torch.ones((n,), dtype=torch.bool, device=dev),
                 ids_cmp_mask=torch.as_tensor(ids_cmp_mask, device=dev)[None],
-                patch_positions=torch.as_tensor(patch_pos, device=dev))
+                patch_positions=torch.as_tensor(patch_pos, device=dev),
+                sampling=sampling)
         return out["generate_ids"][0].cpu().numpy()
 
-    def comprehension(self, input_text: str, image_b64: str) -> str:
-        return self._strip_text(self.generate_ids(input_text, image_b64))
+    def comprehension(self, input_text: str, image_b64: str,
+                      max_new_tokens: Optional[int] = None) -> str:
+        return self._strip_text(self.comprehension_ids(
+            input_text, image_b64, max_new_tokens))
+
+
+class BatchedInferenceEngine(InferenceEngine):
+    """``InferenceEngine`` whose comprehension runs through the
+    :class:`ContinuousBatchingEngine`: concurrent requests share one static
+    KV cache and decode together, the decode block captured as a CUDA
+    graph on the GPU. The other keywords are
+    ``InferenceEngine``'s; its ``generator`` (weights cast, quantized)
+    holds the model both engines serve.
+
+    Threads: callers (the worker's handler threads) prepare inputs on the
+    host and submit; one drain thread, started last, makes every device
+    call after construction (the capture happens before it starts); a
+    ``threading.Condition`` hands requests over and wakes callers when
+    theirs is done. An engine failure fails every request in flight and
+    every later one."""
+
+    def __init__(self, *, num_slots: int = 8, max_len: int = 2048,
+                 max_prompt: int = 1024, block_steps: int = 16,
+                 batch_prompt_bucket: int = 128,
+                 prefill_chunk: Optional[int] = None,
+                 prefix_cache: Optional[int] = None, **kw):
+        super().__init__(**kw)
+        gen = self.generator
+        self.batch_engine = ContinuousBatchingEngine(
+            gen.model, num_slots=num_slots, max_len=max_len,
+            block_steps=block_steps, prompt_bucket=batch_prompt_bucket,
+            max_prompt=max_prompt, eos_token_id=gen.sampling.eos_token_id,
+            pad_token_id=gen.sampling.pad_token_id, cache_dtype=CACHE_DTYPE,
+            prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
+            ladder=gen.ladder)
+        self._cv = threading.Condition()
+        self._inflight: dict = {}   # uid -> [request, event, queue, #sent]
+        self._engine_error: Optional[BaseException] = None
+        self._closed = False
+        self._drain = threading.Thread(target=self._drain_loop, daemon=True,
+                                       name="batched-engine-drain")
+        self._drain.start()
+
+    def close(self) -> None:
+        """Stop the drain thread once nothing is in flight; after this the
+        caller's thread may drive ``batch_engine`` itself."""
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        self._drain.join()
+
+    def _submit(self, ids, patches, patch_pos, ids_cmp_mask,
+                max_new_tokens: Optional[int], q=None):
+        eng = self.batch_engine
+        want = max_new_tokens or self.generator.sampling.max_new_tokens
+        mnt = min(want, eng.capacity_for(len(ids)))
+        if mnt < 1:
+            raise ValueError(
+                f"prompt of {len(ids)} tokens exceeds the batched engine's "
+                f"capacity (max_prompt={eng.max_prompt}, "
+                f"max_len={eng.max_len})")
+        if mnt < want:
+            log.warning(
+                "truncating max_new_tokens %d -> %d: prompt of %d tokens "
+                "leaves only that much cache-row capacity (raise the "
+                "worker's --max-cache-len for longer answers)", want, mnt,
+                len(ids))
+        ev = threading.Event()
+        with self._cv:
+            if self._engine_error is not None:
+                raise RuntimeError("batched engine failed") \
+                    from self._engine_error
+            if self._closed:
+                raise RuntimeError("batched engine is closed")
+            if patches is None:
+                # text-only: eligible for the prompt-prefix cache
+                req = eng.submit(ids, max_new_tokens=mnt)
+            else:
+                req = eng.submit(
+                    ids, images=patches,
+                    embeds_cmp_mask=np.ones((patches.shape[0],), bool),
+                    ids_cmp_mask=ids_cmp_mask, patch_positions=patch_pos,
+                    max_new_tokens=mnt)
+            self._inflight[req.uid] = [req, ev, q, 0]
+            self._cv.notify()
+        return req, ev
+
+    def _wait(self, req, ev) -> None:
+        ev.wait()
+        with self._cv:
+            if self._engine_error is not None:
+                raise RuntimeError("batched engine failed") \
+                    from self._engine_error
+        if req.error is not None:
+            # a failure of this request alone (isolated at admission):
+            # the worker's error code 1
+            raise ValueError(f"request failed: {req.error}")
+
+    def request(self, input_text: str, image_b64: str,
+                max_new_tokens: Optional[int] = None):
+        """Serve one comprehension request and return the finished
+        ``Request`` (its greedy ids in ``tokens``, its host times)."""
+        req, ev = self._submit(
+            *self._prepare_comprehension(input_text, image_b64),
+            max_new_tokens)
+        self._wait(req, ev)
+        return req
+
+    def comprehension_ids(self, input_text: str, image_b64: str,
+                          max_new_tokens: Optional[int] = None
+                          ) -> np.ndarray:
+        return np.asarray(self.request(input_text, image_b64,
+                                       max_new_tokens).tokens, np.int32)
+
+    def generate_ids(self, ids, max_new_tokens: int) -> np.ndarray:
+        """Greedy ids for raw prompt ids through the batched engine (the
+        evaluator's path; text-only, so prefix-cacheable)."""
+        req, ev = self._submit(np.asarray(ids, np.int32), None, None, None,
+                               max_new_tokens)
+        self._wait(req, ev)
+        return np.asarray(req.tokens, np.int32)
+
+    def comprehension_stream(self, input_text: str, image_b64: str,
+                             max_new_tokens: Optional[int] = None):
+        """Cumulative text snapshots, one per decode block as the drain
+        thread hands out tokens, then a final one equal to
+        :meth:`comprehension`'s text."""
+        q: "queue.Queue" = queue.Queue()
+        req, ev = self._submit(
+            *self._prepare_comprehension(input_text, image_b64),
+            max_new_tokens, q)
+        while True:
+            toks = q.get()
+            if toks is None:
+                break
+            yield self._strip_text(np.asarray(toks, np.int32))
+        self._wait(req, ev)
+        yield self._strip_text(np.asarray(req.tokens, np.int32))
+
+    def _drain_loop(self) -> None:
+        eng = self.batch_engine
+        while True:
+            with self._cv:
+                while not self._inflight and not self._closed:
+                    self._cv.wait()
+                if not self._inflight:
+                    return
+            try:
+                eng.step()
+            except BaseException as e:  # noqa: BLE001 — fail every request
+                log.exception("batched engine drain loop failed")
+                with self._cv:
+                    self._engine_error = e
+                    for req, ev, q, _ in self._inflight.values():
+                        req.done = True
+                        if q is not None:
+                            q.put(None)
+                        ev.set()
+                    self._inflight.clear()
+                if not isinstance(e, Exception):
+                    raise
+                return
+            with self._cv:
+                done = []
+                for uid, entry in self._inflight.items():
+                    req, ev, q, sent = entry
+                    if q is not None and len(req.tokens) > sent \
+                            and not req.done:
+                        q.put(list(req.tokens))
+                        entry[3] = len(req.tokens)
+                    if req.done:
+                        if q is not None:
+                            q.put(None)
+                        ev.set()
+                        done.append(uid)
+                for uid in done:
+                    self._inflight.pop(uid)

@@ -1,5 +1,7 @@
 """K1 (with and without its LSE), K2, K3, K4 and K5 on the GPU against
-their plain versions (skipped without a CUDA card).
+their plain versions, and the batched engine's decode block captured as a
+CUDA graph against the same block run eagerly (skipped without a CUDA
+card).
 
 Run on the GPU machine with
 ``python -m pytest --noconftest tests/test_torch_cuda.py`` (the suite's
@@ -503,3 +505,119 @@ def test_quant_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):                     # odd K
         tq.int4_matmul(torch.zeros(3, 255, device=cuda).bfloat16(), *q4)
     assert (tq.int8_matmul.launches, tq.int4_matmul.launches) == (n8, n4)
+
+
+# -- the batched engine's decode block as a CUDA graph ---------------------
+
+def _tiny_serving_model(dev, bits=None, seed=0):
+    """The tiny assembly in bf16 on the card (int8 / int4 Llama with
+    ``bits``), as the serving engines hold it."""
+    from mllm_npu_tpu_torch.utils.testing import TinySpec, build_tiny_mllm
+    from mllm_npu_tpu_torch.utils.weights import quantize_llama_
+    model, _, _ = build_tiny_mllm(TinySpec(dtype=torch.bfloat16), device=dev,
+                                  seed=seed)
+    if bits is not None:
+        quantize_llama_(model.language_model, bits=bits, group_size=128)
+    return model
+
+
+def _engine(model, **kw):
+    from mllm_npu_tpu_torch.models.generation.sampler import (
+        ImageTokenLadder)
+    from mllm_npu_tpu_torch.serve.batched_engine import (
+        ContinuousBatchingEngine)
+    from mllm_npu_tpu_torch.utils.fake_tokenizer import FakeTokenizer
+    tok = FakeTokenizer()
+    ladder = ImageTokenLadder(ids=tuple(
+        [tok.special["<img>"]] + [tok.special[f"<img_{i:05d}>"]
+                                  for i in range(4)]
+        + [tok.special["</img>"]]))
+    return ContinuousBatchingEngine(
+        model, **dict(dict(num_slots=4, max_len=128, block_steps=4,
+                           prompt_bucket=16, ladder=ladder), **kw))
+
+
+def _prompts(n, seed=0, shortest=3):
+    rs = torch.Generator().manual_seed(seed)
+    return [torch.randint(3, 4000, (int(torch.randint(shortest, 40, (1,),
+                                                      generator=rs)),),
+                          generator=rs).tolist() for _ in range(n)]
+
+
+def _drain(engine, prompts, T):
+    reqs = [engine.submit(p, max_new_tokens=T) for p in prompts]
+    engine.run_until_idle()
+    assert all(r.done and r.error is None for r in reqs)
+    return [r.tokens for r in reqs]
+
+
+@pytest.mark.parametrize("bits", [None, 8, 4])
+def test_graphed_engine_matches_eager(cuda, bits):
+    """Six requests over four slots (slots recycled, a ladder prompt among
+    them), with and without chunked prefill: the graphed block gives the
+    eager block's ids, and each tick was one replay."""
+    model = _tiny_serving_model(cuda, bits)
+    prompts = _prompts(5) + [[3, 17, 10]]           # the last ends in <img>
+    for chunk in (None, 16):
+        eager = _engine(model, cuda_graph=False, prefill_chunk=chunk)
+        graphed = _engine(model, prefill_chunk=chunk)
+        assert eager.replays == 0 and graphed.capture_s is not None
+        want = _drain(eager, prompts, 20)
+        got = _drain(graphed, prompts, 20)
+        assert got == want, chunk
+        assert graphed.replays == eager.eager_blocks > 0
+        assert got[-1][:5] == [20, 21, 22, 23, 11]  # the forced ladder
+
+
+def test_request_alone_equals_among_others(cuda):
+    """Static decode shapes (every slot computes every step) and a per
+    request prefill: a request's ids do not depend on what else is in
+    flight."""
+    model = _tiny_serving_model(cuda)
+    engine = _engine(model)
+    prompts = _prompts(7, seed=1)
+    alone = _drain(engine, prompts[:1], 24)[0]
+    among = _drain(engine, prompts, 24)
+    assert among[0] == alone
+    assert _drain(engine, prompts[3:4], 24)[0] == among[3]
+
+
+def test_failed_capture_raises(cuda, monkeypatch):
+    """A host read inside the block breaks the capture: the engine raises
+    instead of falling back to eager."""
+    from mllm_npu_tpu_torch.serve import batched_engine as be
+    model = _tiny_serving_model(cuda)
+
+    def syncing_sample(logits):
+        torch.cuda.synchronize()
+        return torch.argmax(logits, dim=-1) + int(logits[0, 0] > 1e30)
+    monkeypatch.setattr(be, "_sample", syncing_sample)
+    with pytest.raises(RuntimeError):
+        _engine(model)
+    monkeypatch.undo()
+    assert _engine(model).capture_s is not None     # the card still works
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_replayed_block_launch_counts(cuda, bits):
+    """The Python counters advance where a wrapper launches, i.e. at the
+    capture's warm-up and at its recording: each holds block_steps × 225
+    products (7 per layer and the lm_head, all at M = num_slots, the decode
+    regime); a replay adds none, an admission's prefill adds one forward's
+    (the bucket's M > 16 runs the prefill regime, the lm_head's last row
+    the decode one)."""
+    model = _tiny_serving_model(cuda, bits)
+    kernel = getattr(tq, f"int{bits}_matmul")
+    L = model.language_model.config.num_hidden_layers
+    per_forward = 7 * L + 1
+    kernel.launches = kernel.prefill_launches = 0
+    engine = _engine(model, block_steps=6)
+    assert engine.eager_blocks == 1
+    assert kernel.launches == 2 * 6 * per_forward
+    assert kernel.prefill_launches == 0
+    kernel.launches = 0
+    tokens = _drain(engine, _prompts(3, seed=2, shortest=17), 30)
+    assert all(len(t) == 30 for t in tokens)
+    assert engine.replays >= 5
+    assert kernel.launches == 3 * per_forward
+    assert kernel.prefill_launches == 3 * (per_forward - 1)

@@ -103,7 +103,7 @@ def test_comprehension_identical_to_reference(engines, image):
     np.testing.assert_array_equal(ids, je._prepare_comprehension(q, b64)[0])
     if image == "896x896":
         assert patches.shape[0] == 5          # 2×2 grid + thumbnail
-    got = te.generate_ids(q, b64)
+    got = te.comprehension_ids(q, b64)
     assert got.shape == (COMMON["max_new_tokens"],)
     np.testing.assert_array_equal(got, _reference_ids(je, q, b64))
     assert te.comprehension(q, b64) == je.comprehension(q, b64)
@@ -137,7 +137,7 @@ def test_quantized_comprehension_identical_to_reference(quantized_engines,
     je, te = quantized_engines
     b64 = "" if image == "none" else _png_b64(896, 896)
     q = "what is shown in this picture?"
-    got = te.generate_ids(q, b64)
+    got = te.comprehension_ids(q, b64)
     assert got.shape == (COMMON["max_new_tokens"],)
     np.testing.assert_array_equal(got, _reference_ids(je, q, b64))
     assert te.comprehension(q, b64) == je.comprehension(q, b64)
@@ -202,7 +202,8 @@ def test_port_imports_no_jax_and_no_reference():
         "for m in ('train.train', 'train.train_state', 'train.checkpoint',"
         " 'train.scheduler', 'train.trackers', 'data.streams',"
         " 'data.datapipes', 'data.dataloader', 'data.data_utils',"
-        " 'data.tasks.image_caption'):\n"
+        " 'data.tasks.image_caption', 'serve.batched_engine',"
+        " 'serve.prefix_cache', 'serve.worker', 'serve.serve_utils'):\n"
         "    assert 'mllm_npu_tpu_torch.' + m in names, m\n"
         "print('BAD', bad)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -239,6 +240,11 @@ def test_entry_points_raise_without_gpu(monkeypatch):
                         image_transform=ImageProcessor(56, 56), **COMMON)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_engine()
+    from mllm_npu_tpu_torch.serve.worker import load_engine_from_config
+    for batched in (False, True):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            load_engine_from_config("models/mllm_llama3_8b_siglip_vit.yaml",
+                                    batched=batched)
 
 
 def test_yaml_builds_and_serves_tiny_on_cpu(monkeypatch):
