@@ -27,8 +27,9 @@ exits non-zero. Phases, in order:
    (M = 1) and prefill (M = 339) shapes and at the batched worker's: its
    decode block (M = 8, the lm_head included), its image admissions
    (M = 384) and its text admissions and prefill chunks (M = 128 and 512),
-   every projection shape, with ``F.linear`` on the weight dequantized to
-   bf16 as the yardstick;
+   every projection shape, the speculative verify windows (M = 40 and 5)
+   and the fused products (N = 6144 and 28672 at M = 1, 5, 8, 40, 512),
+   with ``F.linear`` on the weight dequantized to bf16 as the yardstick;
 4. the bf16 path: ``InferenceEngine.comprehension`` on an 896×896 image
    (2×2 grid + thumbnail), a 384×1152 image and a text-only question,
    with every kernel's launch count set to 0 before and asserted after
@@ -42,7 +43,7 @@ exits non-zero. Phases, in order:
    them streamed, 32 new tokens each) with every reply's error code, K1's
    launches per admission, two of them served again alone (identical ids)
    and the streamed text checked; then, the worker stopped, 8 requests of
-   128 tokens with every slot busy through the graphed engine and an
+   64 tokens with every slot busy through the graphed engine and an
    eager twin (identical ids; ms per decode tick, aggregate tokens/s);
    four of the burst's requests alone through the eager twin (the
    burst's ids) with the logits of each choice recorded, against the
@@ -54,10 +55,33 @@ exits non-zero. Phases, in order:
    monolithic engine's and the single-request engine's by the same rule;
    one graphed tick under ``torch.profiler``, and ``decode_attention``'s
    cost (and its fp32 widening's) per tick;
+4c. sampled, speculative, fp8/f32-cache and fused serving over the same
+   model (4 images of 896×896 and 4 texts at once; counts set to 0 before
+   and read after): a. the worker's engine with speculation (k = 4 and
+   63, 3-grams), graphed and eager (identical ids), a request alone (its
+   ids among 8), tokens per busy row and verify tick, acceptance, ms per
+   tick and tokens/s against the plain engine, and two requests' logit
+   rows against the plain engine's by the logit rule; b. the
+   single-request engine with k = 4 on an image and a text (verify
+   forwards and ms per token; its ids the plain engine's up to a
+   divergence at a near tie); c. 4 sampled rows (0.7, 0.9, seeds 1-4)
+   among 4 greedy ones (greedy rows the greedy engine's, sampled rows
+   graphed = eager and alone = among 8, with speculation one token a tick
+   outside the ladder) and ``sample_rows`` alone on the card: 2^16 draws
+   over the vocab, none outside the nucleus, a chi-square over its top 32
+   ids; d. the fp8 and f32 static caches (memory, ms per tick, graphed =
+   eager; fp8 ``decode_attention`` on the bf16 worker's own filled cache
+   within 8% relative RMS of bf16's, f32 logit rows by the logit rule);
+   e. after phase 6, the model's LoRA merged and its projections fused in
+   place: prefill logits within the logit rule's bound of the unfused
+   model's, the worker's decode step and a single request before and
+   after (also on phase 7's int8 model: K4 225 → 129 launches a forward,
+   counted and in a traced replay);
 5. the first image request's prefill logits with K1 against the same
    forward with K1's plain version in every attention;
-6. the text-only request once more under ``torch.profiler``: the share
-   of its wall time the device is busy, and the kernels that take most;
+6. the text-only request once more, at 8 new tokens, under
+   ``torch.profiler``: the share of its wall time the device is busy, and
+   the kernels that take most;
 7. the int8 and the int4 paths (``build_engine(quantize_int8=True)``, then
    ``quantize_int4=True``; same seed, so the same weights before
    quantization), each on the 896×896 image and the text-only question,
@@ -71,7 +95,10 @@ exits non-zero. Phases, in order:
    block, counted at the capture), its graphed and eager decode timing,
    an image and a text against the single-request int8 engine by the
    logit rule, and one replayed tick under ``torch.profiler``, whose
-   ``qmm_decode`` events must number 225 × 16;
+   ``qmm_decode`` events must number 225 × 16; then phase 4c's int8
+   parts: the speculative (k = 4) engine, whose captured verify tick
+   counts 225 prefill-regime launches (M = 40) and whose traced replay
+   holds 225 ``qmm_prefill`` events, and check e;
 8. training: ``mllm_npu_tpu_torch.train.train.main`` at full width (the
    same YAML, LoRA dropout 0.05, remat ``dots``, the chunked CE) on a
    webdataset tar of seeded JPEGs and captions through the caption entry of
@@ -119,6 +146,9 @@ BF16_ATOL, BF16_RTOL = 1e-2, 1e-2
 H100_BF16_FLOPS = 989e12
 H100_BYTES_PER_S = 3.35e12
 MAX_NEW_TOKENS = 32
+# tokens of the text request phase 6 profiles (the profiler's own host
+# work grows with every traced event)
+PROFILED_TOKENS = 8
 # the batched worker's prefill chunk lengths, at which K4/K5 are also timed
 CHUNK_M = (128, 512)
 # K4/K5 vs their fp32 plain versions on the same bf16 inputs: the output
@@ -439,17 +469,26 @@ def quant_rows(lm_cfg, s_img, bucket, slots):
     lm_head included), the image prefill (M = prompt length), and the
     batched worker's: its decode block (M = ``slots``, the lm_head
     included), its image admissions (M = ``bucket``) and its text
-    admissions and prefill chunks (M = 128 and 512). Each row says its
-    regime."""
+    admissions and prefill chunks (M = 128 and 512); the speculative
+    verify windows (the worker's at k = 4, M = ``slots`` × 5, and the
+    single request's, M = 5, the lm_head included); the fused products
+    (qkv and gate_up) at M = 1, 5, ``slots``, ``slots`` × 5 and
+    ``slots`` × 64 (k = 63). Each row says its regime."""
     hs, inter = lm_cfg.hidden_size, lm_cfg.intermediate_size
     kv = lm_cfg.num_key_value_heads * lm_cfg.head_dim
     proj = [(hs, hs), (hs, kv), (hs, inter), (inter, hs)]
     head = [(hs, lm_cfg.vocab_size)]
+    fused = [(hs, lm_cfg.hidden_size + 2 * kv), (hs, 2 * inter)]
     shapes = ([("decode", 1, k, n) for k, n in proj + head]
               + [("prefill", s_img, k, n) for k, n in proj]
               + [("slots", slots, k, n) for k, n in proj + head]
               + [("bucket", bucket, k, n) for k, n in proj]
-              + [("chunk", m, k, n) for m in CHUNK_M for k, n in proj])
+              + [("chunk", m, k, n) for m in CHUNK_M for k, n in proj]
+              + [("verify", slots * 5, k, n) for k, n in proj + head]
+              + [("verify_single", 5, k, n) for k, n in proj + head]
+              + [(f"fused_m{m}", m, k, n)
+                 for m in (1, 5, slots, slots * 5, slots * 64)
+                 for k, n in fused])
     return {bits: [dict(quant_case(bits, m, k, n, lm_cfg.quant_group_size),
                         regime=regime)
                    for regime, m, k, n in shapes] for bits in (8, 4)}
@@ -468,6 +507,16 @@ def quant_mix(lm_cfg, lm_head=True):
     if lm_head:
         mix[(hs, lm_cfg.vocab_size)] = 1
     return mix
+
+
+def fused_mix(lm_cfg):
+    """Launches of each (K, N) per forward with fused projections: 32
+    layers of qkv, o, gate_up, down, and the lm_head once."""
+    hs, inter = lm_cfg.hidden_size, lm_cfg.intermediate_size
+    kv = lm_cfg.num_key_value_heads * lm_cfg.head_dim
+    L = lm_cfg.num_hidden_layers
+    return {(hs, hs + 2 * kv): L, (hs, hs): L, (hs, 2 * inter): L,
+            (inter, hs): L, (hs, lm_cfg.vocab_size): 1}
 
 
 def quant_row_mix(rows, mix):
@@ -514,28 +563,31 @@ def profile_call(fn):
     """``fn()`` under ``torch.profiler``: wall ms, device busy ms (the union
     of the device activity intervals), the five kernels with the most
     device time and every kernel's event count (kernels a CUDA graph
-    replays are traced one by one). The profiler's own host cost slows
-    the host, so the busy share it gives is a lower bound."""
+    replays are traced one by one), read from the tracer's raw records.
+    The profiler's own host cost slows the host, so the busy share it
+    gives is a lower bound."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()       # only fn's device work in the window
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device = [(e.name(), e.start_ns() / 1e3, (e.start_ns() + e.duration_ns())
+               / 1e3) for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
     busy_us, end = 0.0, float("-inf")
-    for s, e in sorted((e.time_range.start, e.time_range.end)
-                       for e in device):
+    for s, e in sorted((s, e) for _, s, e in device):
         if e > end:
             busy_us += e - max(s, end)
             end = e
     by_name, counts = {}, {}
-    for e in device:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-        counts[e.name] = counts.get(e.name, 0) + 1
+    for name, s, e in device:
+        by_name[name] = by_name.get(name, 0.0) + e - s
+        counts[name] = counts.get(name, 0) + 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return wall_ms, busy_us / 1e3, top, counts
 
@@ -987,7 +1039,7 @@ WORKER = dict(num_slots=8, max_len=2048, max_prompt=1024, block_steps=16,
               batch_prompt_bucket=128)
 WORKER_CONCURRENCY = 16
 # tokens per request of the graph-vs-eager check and the decode timing
-LONG_TOKENS = 128
+LONG_TOKENS = 64
 # the logit rule of checks d and f: where a batched stream and the
 # single-request engine's are held against each other, their logit rows
 # (fp32, after the ladder) at every position up to the first divergence
@@ -1120,16 +1172,17 @@ def single_stream(engine, q, b64):
     return [int(t) for t in ids], rows
 
 
-def submit_prepared(engine, item, tokens):
+def submit_prepared(engine, item, tokens, **sampling):
     """One prepared request (ids, patches, positions, compare mask) into a
-    ContinuousBatchingEngine; → its Request."""
+    ContinuousBatchingEngine (``sampling``: do_sample, temperature, top_p,
+    seed); → its Request."""
     import numpy as np
     ids, patches, pos, cmp = item
     kw = {}
     if patches is not None:
         kw = dict(images=patches, ids_cmp_mask=cmp, patch_positions=pos,
                   embeds_cmp_mask=np.ones((patches.shape[0],), bool))
-    return engine.submit(ids, max_new_tokens=tokens, **kw)
+    return engine.submit(ids, max_new_tokens=tokens, **kw, **sampling)
 
 
 def recorded_stream(engine, item, tokens):
@@ -1442,6 +1495,67 @@ def profile_block(engine, single, label):
     return prof
 
 
+def traced_replays():
+    """``python3 chip_smoke.py --traced-replays``: the replayed ticks'
+    kernel counts, traced in a process of their own over phase 7's int8
+    model (the same seed): one decode block of the worker engine, one
+    verify tick of its speculative (k = 4) twin, and one block after the
+    projections are fused in place. Prints one JSON line. (In the long
+    main process the tracer lost 1-3 of a replayed block's ~41k records
+    in some runs; in a fresh process every trace held them all.)"""
+    from mllm_npu_tpu_torch.demo_img2txt import build_engine
+    from mllm_npu_tpu_torch.utils.weights import fuse_llama_projections_
+    single = build_engine(device="cuda", seed=0, fake_tokenizer=True,
+                          max_new_tokens=MAX_NEW_TOKENS, quantize_int8=True)
+
+    def count(engine, label):
+        prof = profile_block(engine, single, f"{label} (traced alone)")
+        return {k: sum(n for name, n in prof[3].items() if k in name)
+                for k in ("qmm_decode", "qmm_prefill", "qmm_split_sum")}
+    out = {"block": count(worker_engine(single), "int8"),
+           "verify": count(worker_engine(single, speculative_k=4,
+                                         speculative_ngram=SPEC_NGRAM),
+                           "int8 speculative k=4")}
+    fuse_llama_projections_(single.generator.model.language_model)
+    out["fused_block"] = count(worker_engine(single), "int8 fused")
+    print(json.dumps({"traced": out}))
+
+
+def traced_replay_checks(lm_cfg, block_steps):
+    """Run traced_replays in a child process (it exits before this goes
+    on) and hold its counts: a block 225 × 16 ``qmm_decode`` events and no
+    prefill kernel; a verify tick 225 ``qmm_prefill`` (M = 40) and no
+    decode kernel; a fused block 129 × 16. → the counts."""
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--traced-replays"], capture_output=True,
+                          text=True, timeout=900)
+    for line in proc.stdout.splitlines()[:-1]:
+        if line.startswith("[profile]"):
+            print(line, flush=True)
+    check(proc.returncode == 0, f"traced replays: exit {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])["traced"]
+    L = lm_cfg.num_hidden_layers
+    want = {"block": {"qmm_decode": (7 * L + 1) * block_steps,
+                      "qmm_prefill": 0},
+            "verify": {"qmm_decode": 0, "qmm_prefill": 7 * L + 1},
+            "fused_block": {"qmm_decode": (4 * L + 1) * block_steps,
+                            "qmm_prefill": 0}}
+    print(f"[int8 traced] one replay each, traced in a process of its own: "
+          f"decode block {got['block']['qmm_decode']} qmm_decode (expected "
+          f"{want['block']['qmm_decode']}); verify tick "
+          f"{got['verify']['qmm_prefill']} qmm_prefill (expected "
+          f"{want['verify']['qmm_prefill']}, M = 40) and "
+          f"{got['verify']['qmm_split_sum']} split-K sums; fused block "
+          f"{got['fused_block']['qmm_decode']} qmm_decode (expected "
+          f"{want['fused_block']['qmm_decode']})", flush=True)
+    for tick, kernels in want.items():
+        for k, n in kernels.items():
+            check(got[tick][k] == n, f"traced {tick}: {got[tick][k]} {k} "
+                  f"events, expected {n}")
+    return got
+
+
 def decode_attention_cost(engine, lm_cfg, tick_ms):
     """``decode_attention`` at the decode block's shapes (one layer: every
     slot's query over the whole static cache) and its fp32 widening of K
@@ -1599,7 +1713,7 @@ def int8_worker_phase(single, lm_cfg, vis_cfg):
     through the worker over phase 7's int8 model (checks a, b and e), the
     graphed and eager decode timing (check c), an image and a text against
     the single-request int8 engine (check d), and one replayed tick under
-    the profiler: its K4 decode-kernel events, 225 × block_steps."""
+    the profiler."""
     import torch
     traffic = worker_traffic(n896=4, n384=0, n_text=4)
     served, summary = worker_checks(single, "int8", traffic, lm_cfg, vis_cfg,
@@ -1609,23 +1723,596 @@ def int8_worker_phase(single, lm_cfg, vis_cfg):
     summary["single_engine"] = single_engine_check(
         single, eager, "int8", traffic, ("img896_0", "text_0"),
         summary["ids"])
+    # one replayed tick under the profiler: the busy share (its K4 events
+    # are counted by traced_replay_checks, in a process of its own)
     prof = profile_block(graphed, single, "int8")
-    traced = sum(n for name, n in prof[3].items() if "qmm_decode" in name)
-    expect = (7 * lm_cfg.num_hidden_layers + 1) * graphed.block_steps
-    print(f"[int8 worker] one replayed block: {traced} qmm_decode kernel "
-          f"events in the trace, expected {expect}; the burst replayed "
-          f"{summary['replays']} blocks", flush=True)
-    check(traced == expect, f"int8: a replayed block ran qmm_decode "
-          f"{traced} times, expected {expect}")
-    check(not any("qmm_prefill" in name for name in prof[3]),
-          "int8: the replayed block ran the prefill kernel")
-    summary["graph_replay_launches"] = traced
     summary["profile"] = prof[:3]
     del served, graphed, eager
     gc.collect()
     torch.cuda.empty_cache()
     summary.pop("ids")
     return summary
+
+
+# -- phase 4c: sampled, speculative, fp8/f32-cache and fused serving ------
+# speculation in the worker at these k (3-gram prompt lookup); tokens per
+# request of phase 4c's graphed (timed) runs and of its eager, alone and
+# recorded runs (held against a graphed run's first tokens)
+SPEC_KS = (4, 63)
+SPEC_NGRAM = 3
+SPEC_TOKENS = 64
+C_TOKENS = 32
+# the sampled rows of check c: temperature, top-p, seeds 1-4
+SAMPLED = dict(do_sample=True, temperature=0.7, top_p=0.9)
+# check c's distribution test: draws, rows a call, the nucleus's top ids
+# binned alone, and the least p-value a chi-square may give
+DRAWS, DRAW_ROWS, CHI2_TOP, CHI2_P_MIN = 1 << 16, 1024, 32, 1e-3
+# the reference's bound on fp8 storage (tests/test_batched_engine.py:
+# 689-716): decode_attention's relative RMS error against a finer cache
+FP8_RMS_BOUND = 0.08
+
+
+def mixed_items(single):
+    """The worker's mixed traffic: 4 images of 896×896 and 4 text questions,
+    prepared (ids, tiles, positions, compare mask)."""
+    traffic = worker_traffic(n896=4, n384=0, n_text=4)
+    return traffic, [single._prepare_comprehension(q, b)
+                     for _, q, b in traffic]
+
+
+def timed_ticks(engine, items, tokens, sampling=None):
+    """``items`` through ``engine`` (every slot busy) at ``tokens`` each,
+    driven from this thread: the first tick admits them all; the rest, to
+    idle, is timed (host clock, ending in a synchronize). → dict: ids,
+    ms per tick, decode tokens/s, tokens per busy row and tick, and the
+    acceptance of proposals (speculative engines)."""
+    import torch
+    reqs = [submit_prepared(engine, it, tokens,
+                            **(sampling[i] if sampling else {}))
+            for i, it in enumerate(items)]
+    engine.step()
+    check(engine.stats()["slots_busy"] == len(items),
+          "the first tick did not admit every request")
+    torch.cuda.synchronize()
+    first = int(engine._emitted.sum())      # the first tick, before t0
+    ticks0 = engine.replays + engine.eager_blocks
+    rt0, te0 = engine.row_ticks, engine.tokens_emitted
+    t0 = time.perf_counter()
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ticks = engine.replays + engine.eager_blocks - ticks0
+    check(all(r.done and r.error is None for r in reqs), "a request failed")
+    rows, toks = engine.row_ticks - rt0, engine.tokens_emitted - te0
+    out = {"ids": [[int(t) for t in r.tokens] for r in reqs],
+           "tick_ms": wall * 1e3 / ticks, "ticks": ticks,
+           # one step of every slot: a verify tick, or a block's step
+           "step_ms": wall * 1e3 / ticks / (
+               1 if engine.speculative_k else engine.block_steps),
+           "tokens_per_s": (toks - first) / wall,
+           "tokens_per_row_tick": toks / rows}
+    if engine.speculative_k:
+        out["acceptance"] = (toks - rows) / (engine.speculative_k * rows)
+    return out
+
+
+def recorded_spec_stream(engine, item, tokens):
+    """recorded_stream for an idle eager speculative engine: one request
+    alone (slot 0); the logits (fp32, after the ladder) each emitted token
+    was chosen from: the prefill's row, then the kept rows of each verify
+    window."""
+    from mllm_npu_tpu_torch.serve import batched_engine as be_mod
+    check(engine._graph is None and engine.stats()["slots_busy"] == 0,
+          "recorded_spec_stream needs an idle eager engine")
+    rows, window, orig, tick = [], [], be_mod._sample, engine._tick
+
+    def recording(logits):
+        if logits.ndim == 2:
+            rows.append(logits[0].float().clone())
+        else:
+            window[:] = [logits[0].float().clone()]
+        return orig(logits)
+
+    def recorded_tick():
+        tick()
+        rows.extend(window[0][:int(engine._emitted[0].sum())])
+    be_mod._sample, engine._tick = recording, recorded_tick
+    try:
+        req = submit_prepared(engine, item, tokens)
+        engine.run_until_idle()
+    finally:
+        be_mod._sample, engine._tick = orig, tick
+    check(req.done and req.error is None, f"recorded request: {req.error}")
+    ids = [int(t) for t in req.tokens]
+    return ids, rows[:len(ids)]
+
+
+def logit_control(single, traffic, labels):
+    """The logit rule's bound for ``labels``: LOGIT_BOUND_FACTOR × the
+    largest control reading (phase 4b's rule)."""
+    preps = {lab: single._prepare_comprehension(q, b)
+             for lab, q, b in traffic if lab in labels}
+    control = {lab: attention_control(single.generator.model, p)
+               for lab, p in preps.items()}
+    return preps, control, LOGIT_BOUND_FACTOR * max(control.values())
+
+
+def spec_batched_check(plain_graphed, plain_eager, items, plain_tps, rule):
+    """Check a: the worker's engine with speculation (k = 4 and 63) on the
+    mixed traffic, graphed and eager (identical ids), a request alone
+    (its ids among 8), and two requests alone through the eager engine
+    held against the non-speculative eager engine by the logit rule."""
+    preps, control, bound = rule
+    labels = tuple(preps)
+    plain_rows = {lab: recorded_stream(plain_eager, preps[lab], C_TOKENS)
+                  for lab in labels}
+    out = {"control": control, "bound": bound}
+    for k in SPEC_KS:
+        graphed = twin_of(plain_graphed, speculative_k=k,
+                          speculative_ngram=SPEC_NGRAM)
+        eager = twin_of(plain_graphed, speculative_k=k,
+                        speculative_ngram=SPEC_NGRAM, cuda_graph=False)
+        runs = {name: timed_ticks(eng, items, SPEC_TOKENS if name ==
+                                  "graphed" else C_TOKENS)
+                for name, eng in (("graphed", graphed), ("eager", eager))}
+        n = min(len(runs["eager"]["ids"][0]), len(runs["graphed"]["ids"][0]))
+        same = [a[:len(b)] == b for a, b in zip(runs["graphed"]["ids"],
+                                                runs["eager"]["ids"])]
+        check(all(same), f"speculative k={k}: graphed and eager ids differ: "
+              f"{same}")
+        alone = timed_ticks(graphed, items[:1], C_TOKENS)["ids"][0]
+        check(alone == runs["graphed"]["ids"][0][:len(alone)],
+              f"speculative k={k}: the request alone {alone} differs from "
+              f"among 8")
+        rule = {}
+        for lab in labels:
+            ids, rows = recorded_spec_stream(eager, preps[lab], C_TOKENS)
+            rule[lab] = logit_rule(f"speculative k={k} {lab} vs plain", ids,
+                                   rows, *plain_rows[lab], bound)[1:]
+            print(f"[check] speculative k={k} worker vs the plain worker, "
+                  f"{lab}: {rule[lab][1]}", flush=True)
+        g = runs["graphed"]
+        print(f"[spec worker] k={k}: {len(items)} requests x {SPEC_TOKENS} "
+              f"tokens: {g['tokens_per_row_tick']:.3f} tokens per busy row "
+              f"and verify tick (acceptance {100 * g['acceptance']:.1f}% of "
+              f"proposals), verify tick graphed {g['tick_ms']:.3f} ms, "
+              f"eager {runs['eager']['tick_ms']:.3f} ms; aggregate decode "
+              f"{g['tokens_per_s']:.1f} tokens/s graphed (without "
+              f"speculation {plain_tps:.1f}), "
+              f"{runs['eager']['tokens_per_s']:.1f} eager; graphed = eager "
+              f"over {n} tokens a request; capture {graphed.capture_s:.3f} s",
+              flush=True)
+        out[f"k{k}"] = {"graphed": {kk: v for kk, v in g.items()
+                                    if kk != "ids"},
+                        "eager": {kk: v for kk, v in runs["eager"].items()
+                                  if kk != "ids"},
+                        "capture_s": graphed.capture_s,
+                        "logit_rule": {lab: r[0] for lab, r in rule.items()}}
+        if k == SPEC_KS[0]:
+            out["k4_ids"] = runs["graphed"]["ids"]
+        else:
+            out["ladder_burst"] = ladder_burst(graphed, plain_graphed)
+        del graphed, eager
+    return out
+
+
+def ladder_burst(spec, plain):
+    """The forced image ladder through the k = 63 engine: 8 text prompts
+    ending in ``<img>``; after the prefill's first forced token one verify
+    tick emits the other 64 (the chain and ``</img>``) of every row, the
+    ids those of the plain engine, which takes 64 steps for them."""
+    import numpy as np
+    import torch
+    ladder = spec.ladder.ids
+    n = len(ladder) - 1                  # the forced tokens after <img>
+    items = [(np.asarray(list(range(100 + 7 * i, 112 + 7 * i)) + [ladder[0]],
+                         np.int32), None, None, None) for i in range(spec.B)]
+    out = {}
+    for name, eng in (("speculative", spec), ("plain", plain)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [submit_prepared(eng, it, n) for it in items]
+        ticks0 = eng.replays + eng.eager_blocks
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        out[name] = {"ms": (time.perf_counter() - t0) * 1e3,
+                     "ticks": eng.replays + eng.eager_blocks - ticks0,
+                     "ids": [r.tokens for r in reqs]}
+        check(all(r.tokens[:n] == list(ladder[1:]) for r in reqs),
+              f"ladder burst ({name}): a row did not emit the forced ladder")
+    check(out["speculative"]["ids"] == out["plain"]["ids"],
+          "ladder burst: the speculative ids differ from the plain ones")
+    check(out["speculative"]["ticks"] == 1, f"ladder burst: "
+          f"{out['speculative']['ticks']} verify ticks, expected 1")
+    print(f"[spec worker] ladder burst: {spec.B} rows x {n} forced tokens "
+          f"in {out['speculative']['ticks']} verify tick (k="
+          f"{spec.speculative_k}), {out['speculative']['ms']:.1f} ms with "
+          f"the admissions; the plain engine {out['plain']['ticks']} blocks, "
+          f"{out['plain']['ms']:.1f} ms; the same ids", flush=True)
+    return {name: {k: v for k, v in o.items() if k != "ids"}
+            for name, o in out.items()}
+
+
+def spec_single_check(single, traffic, rule):
+    """Check b: the single-request engine with speculation (k = 4) on an
+    image and a text request against the same engine without: verify
+    forwards per token, ms per token, and the ids equal up to the first
+    divergence, where the plain engine's logit for the speculative token
+    lies within the logit rule's bound of its top logit."""
+    import copy
+
+    from mllm_npu_tpu_torch.models.generation.generate import MLLMGenerator
+    gen = single.generator
+    spec = copy.copy(single)
+    spec.generator = MLLMGenerator(gen.model, sampling=gen.sampling,
+                                   ladder=gen.ladder, speculative_k=4,
+                                   speculative_ngram=SPEC_NGRAM)
+    preps, control, bound = rule
+    labels = tuple(preps)
+    out = {"control": control, "bound": bound}
+    for lab, q, b in traffic:
+        if lab not in labels:
+            continue
+        plain_ids, rows = single_stream(single, q, b)
+        tp = dict(gen.last_timings)
+        ids = [int(t) for t in spec.comprehension_ids(q, b)]
+        ts = dict(spec.generator.last_timings)
+        t = next((i for i, (a, c) in enumerate(zip(ids, plain_ids))
+                  if a != c), None)
+        gap = 0.0
+        if t is not None:
+            gap = (rows[t].max() - rows[t][ids[t]]).item()
+            check(gap <= bound, f"single-request speculation {lab}: first "
+                  f"divergence at {t} ({ids[t]} vs {plain_ids[t]}), the "
+                  f"plain engine's logit gap {gap:.4f} beyond {bound:.4f}")
+        n_tok = len(ids) - 1
+        out[lab] = {"verify_per_token": ts["decode_steps"] / n_tok,
+                    "ms_per_token": ts["decode_s"] * 1e3 / n_tok,
+                    "plain_ms_per_token": tp["decode_s"] * 1e3 / n_tok,
+                    "first_divergence": t, "logit_gap": gap}
+        print(f"[spec single] {lab}: {ts['decode_steps']} verify forwards for "
+              f"{n_tok} tokens ({out[lab]['verify_per_token']:.3f} a token); "
+              f"decode {out[lab]['ms_per_token']:.2f} ms/token against "
+              f"{out[lab]['plain_ms_per_token']:.2f} without speculation; "
+              + ("identical ids" if t is None else
+                 f"first divergence at token {t}, the plain engine's logit "
+                 f"gap {gap:.4f} (bound {bound:.4f})"), flush=True)
+    return out
+
+
+def sampling_check(single, plain_graphed, items, plain_ids, spec_ids):
+    """Check c: 4 sampled rows (2 images, 2 texts; temperature 0.7, top-p
+    0.9, seeds 1-4) among 4 greedy ones: the greedy rows are the greedy
+    engine's; the sampled rows graphed = eager and alone = among 8; with
+    speculation (k = 4) the greedy rows are the greedy speculative
+    engine's and a sampled row emits one token a tick outside the ladder.
+    Then ``sample_rows`` alone: 2^16 draws over the full vocab."""
+    sampled = (0, 1, 4, 5)
+    sampling = [dict(SAMPLED, seed=sampled.index(i) + 1) if i in sampled
+                else {} for i in range(len(items))]
+    graphed = twin_of(plain_graphed, enable_sampling=True)
+    eager = twin_of(plain_graphed, enable_sampling=True, cuda_graph=False)
+    timed = timed_ticks(graphed, items, SPEC_TOKENS, sampling)
+    g = timed["ids"]
+    e = timed_ticks(eager, items, C_TOKENS, sampling)["ids"]
+    check(all(a[:len(b)] == b for a, b in zip(g, e)),
+          "sampled engine: graphed and eager ids differ")
+    for i in range(len(items)):
+        if i not in sampled:
+            check(g[i] == plain_ids[i][:len(g[i])], f"greedy row {i} among "
+                  f"sampled ones differs from the greedy engine's")
+    alone = timed_ticks(graphed, [items[4]], C_TOKENS, [sampling[4]])["ids"]
+    check(alone[0] == g[4][:len(alone[0])],
+          "a sampled request alone differs from among 8")
+    del graphed, eager
+    spec = twin_of(plain_graphed, enable_sampling=True, speculative_k=4,
+                   speculative_ngram=SPEC_NGRAM)
+    reqs = [submit_prepared(spec, it, C_TOKENS, **sampling[i])
+            for i, it in enumerate(items)]
+    ladder = set(spec.ladder.ids[1:])
+    seen = [0] * len(reqs)
+    burst_ok = True
+    while spec.step():
+        for i, r in enumerate(reqs):
+            new = r.tokens[seen[i]:]
+            if i in sampled and seen[i] and len(new) > 1:
+                burst_ok &= all(t in ladder for t in new[:-1])
+            seen[i] = len(r.tokens)
+    check(all(r.done and r.error is None for r in reqs), "spec sampled run")
+    check(burst_ok, "a sampled row emitted more than one token a tick "
+          "outside the ladder")
+    for i in range(len(items)):
+        if i not in sampled:
+            check(reqs[i].tokens == spec_ids[i][:len(reqs[i].tokens)],
+                  f"greedy row {i} among sampled ones under speculation "
+                  f"differs from the greedy speculative engine's")
+    del spec
+    dist = sampling_distribution(single.generator.model.language_model
+                                 .config.vocab_size)
+    print(f"[sampling] 4 sampled rows (t {SAMPLED['temperature']}, top-p "
+          f"{SAMPLED['top_p']}, seeds 1-4) among 4 greedy: greedy rows = the "
+          f"greedy engine's, graphed = eager, alone = among 8; with "
+          f"speculation k=4 greedy rows unchanged and sampled rows one token "
+          f"a tick outside the ladder; {dist['draws']} draws over "
+          f"{dist['vocab']} ids: nucleus {dist['nucleus']} ids, none drawn "
+          f"outside, chi-square over its top {CHI2_TOP} and the rest "
+          f"{dist['chi2']:.2f} (df {CHI2_TOP}), p {dist['p']:.4f}; "
+          f"{dist['ms_per_call']:.3f} ms per sample_rows call of "
+          f"{DRAW_ROWS} rows; the sampling engine's decode step (8 busy) "
+          f"{timed['step_ms']:.3f} ms, {timed['tokens_per_s']:.1f} tokens/s",
+          flush=True)
+    return dict(dist, step_ms=timed["step_ms"],
+                tokens_per_s=timed["tokens_per_s"])
+
+
+def sampling_distribution(vocab):
+    """``sample_rows`` on the card: DRAWS draws (token indices 0..DRAWS-1
+    under one seed) of one row of seeded logits over the vocab at
+    (0.7, 0.9): none outside the nucleus, and a chi-square over the
+    nucleus's top CHI2_TOP ids and the rest of it at p >= CHI2_P_MIN."""
+    import torch
+
+    from mllm_npu_tpu_torch.models.generation.sampler import (
+        NEG_INF, nucleus_filter, sample_rows)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    logits = torch.randn(1, vocab, device=dev, generator=g) * 3.0
+    full = lambda x, dt=torch.float32: torch.full((DRAW_ROWS,), x, dtype=dt,
+                                                  device=dev)
+    temp, top_p = full(SAMPLED["temperature"]), full(SAMPLED["top_p"])
+    filtered = nucleus_filter(logits, temp[:1], top_p[:1])[0]
+    support = filtered > NEG_INF / 2
+    probs = torch.softmax(filtered.double(), dim=-1)
+    lg = logits.expand(DRAW_ROWS, vocab)
+    draw = lambda i: sample_rows(
+        lg, full(77, torch.long), torch.arange(i, i + DRAW_ROWS, device=dev),
+        temp, top_p, full(True, torch.bool))
+    ms = time_ms(lambda: draw(0), iters=5)
+    draws = torch.cat([draw(i) for i in range(0, DRAWS, DRAW_ROWS)])
+    check(bool(support[draws].all()), "a draw outside the nucleus")
+    top = torch.argsort(probs, descending=True)[:CHI2_TOP]
+    counts = torch.bincount(draws, minlength=vocab).double()
+    c = torch.cat([counts[top], (DRAWS - counts[top].sum())[None]])
+    p = torch.cat([probs[top], (1 - probs[top].sum())[None]]) * DRAWS
+    stat = float(((c - p) ** 2 / p).sum())
+    pval = float(torch.special.gammaincc(
+        torch.tensor(CHI2_TOP / 2.0, dtype=torch.float64),
+        torch.tensor(stat / 2.0, dtype=torch.float64)))
+    check(pval >= CHI2_P_MIN, f"sampled draws: chi-square {stat:.2f}, "
+          f"p {pval:.2e} below {CHI2_P_MIN}")
+    return {"draws": DRAWS, "vocab": vocab, "nucleus": int(support.sum()),
+            "chi2": stat, "p": pval, "ms_per_call": ms}
+
+
+def cache_dtype_check(single, plain_graphed, plain_eager, items, plain_ids,
+                      rule):
+    """Check d: the same 8 requests with the fp8 and the f32 static cache,
+    graphed and eager (identical ids): memory, cache bytes and ms per tick;
+    decode_attention with the fp8 cache against the bf16 cache on the
+    bf16 worker's own filled cache; two requests' logit rows against the
+    bf16 cache's (f32: the logit rule; fp8: printed)."""
+    import torch
+
+    from mllm_npu_tpu_torch.models.language_models.llama import to_cache
+    from mllm_npu_tpu_torch.ops import decode_attention
+    preps, control, bound = rule
+    labels = tuple(preps)
+    bf16_rows = {lab: recorded_stream(plain_eager, preps[lab], C_TOKENS)
+                 for lab in labels}
+    # fp8 against bf16 on the worker's filled cache (the mixed run's keys)
+    st = plain_graphed.state
+    gen = torch.Generator(device=st["k"].device)
+    gen.manual_seed(5)
+    lm_cfg = single.generator.model.language_model.config
+    mask = st["key_valid"][:, None, None, :]
+    worst = 0.0
+    with torch.inference_mode():
+        for layer in (0, lm_cfg.num_hidden_layers // 2,
+                      lm_cfg.num_hidden_layers - 1):
+            k, v = st["k"][layer], st["v"][layer]
+            q = torch.randn(plain_graphed.B, 1, lm_cfg.num_attention_heads,
+                            lm_cfg.head_dim, device=k.device,
+                            generator=gen).bfloat16()
+            ref = decode_attention(q, k, v, mask).float()
+            f8 = decode_attention(q, to_cache(k, torch.float8_e4m3fn),
+                                  to_cache(v, torch.float8_e4m3fn),
+                                  mask).float()
+            rms = ((f8 - ref).pow(2).mean().sqrt()
+                   / ref.pow(2).mean().sqrt()).item()
+            worst = max(worst, rms)
+    check(worst < FP8_RMS_BOUND, f"fp8 cache: decode_attention relative RMS "
+          f"{worst:.4f} against the bf16 cache, beyond {FP8_RMS_BOUND}")
+    bf16_bytes = 2 * st["k"].numel() * st["k"].element_size()
+    out = {"fp8_attention_rel_rms": worst, "bf16_cache_bytes": bf16_bytes,
+           "control": control, "bound": bound}
+    for name, dt in (("fp8", torch.float8_e4m3fn), ("f32", torch.float32)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        graphed = twin_of(plain_graphed, cache_dtype=dt)
+        eager = twin_of(plain_graphed, cache_dtype=dt, cuda_graph=False)
+        g = timed_ticks(graphed, items, SPEC_TOKENS)
+        e = timed_ticks(eager, items, C_TOKENS)
+        check(all(a[:len(b)] == b for a, b in zip(g["ids"], e["ids"])),
+              f"{name} cache: graphed and eager ids differ")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        nbytes = 2 * graphed.state["k"].numel() \
+            * graphed.state["k"].element_size()
+        rule, identical = {}, 0
+        for lab in labels:
+            ids, rows = recorded_stream(eager, preps[lab], C_TOKENS)
+            same, d, desc = logit_rule(
+                f"{name} cache {lab} vs bf16 cache", ids, rows,
+                *bf16_rows[lab], bound if name == "f32" else float("inf"))
+            rule[lab] = d
+            identical += same
+            print(f"[check] {name} cache vs bf16 cache, {lab}: {desc}"
+                  + ("" if name == "f32" else " (not gated)"), flush=True)
+        same_bf16 = sum(a == b[:len(a)] for a, b in zip(g["ids"], plain_ids))
+        print(f"[cache {name}] static cache {nbytes / 2**30:.3f} GiB (bf16 "
+              f"{bf16_bytes / 2**30:.3f}); peak {peak:.2f} GiB with the "
+              f"graphed and eager engines; decode step of 8 busy slots "
+              f"graphed {g['step_ms']:.3f} ms, eager {e['step_ms']:.3f} ms; "
+              f"{g['tokens_per_s']:.1f} "
+              f"tokens/s graphed; graphed = eager; {same_bf16} of "
+              f"{len(items)} streams identical to the bf16 cache's",
+              flush=True)
+        out[name] = {"cache_bytes": nbytes, "peak_gib": peak,
+                     "step_ms": g["step_ms"], "eager_step_ms": e["step_ms"],
+                     "tokens_per_s": g["tokens_per_s"],
+                     "logit_max_abs_delta": rule,
+                     "identical_to_bf16": same_bf16}
+        del graphed, eager
+    print(f"[check] fp8 cache: decode_attention on the bf16 worker's filled "
+          f"cache, relative RMS against the bf16 cache {worst:.4f} (bound "
+          f"{FP8_RMS_BOUND})", flush=True)
+    return out
+
+
+def worker_engine(single, **kw):
+    """A ContinuousBatchingEngine with the worker's settings over the
+    single-request engine's model (no second copy of the weights), driven
+    from this thread; ``kw`` adds or changes settings."""
+    from mllm_npu_tpu_torch.serve.batched_engine import (
+        ContinuousBatchingEngine)
+    gen = single.generator
+    return ContinuousBatchingEngine(gen.model, **dict(dict(
+        num_slots=WORKER["num_slots"], max_len=WORKER["max_len"],
+        block_steps=WORKER["block_steps"],
+        prompt_bucket=WORKER["batch_prompt_bucket"],
+        max_prompt=WORKER["max_prompt"],
+        eos_token_id=gen.sampling.eos_token_id,
+        pad_token_id=gen.sampling.pad_token_id, cache_dtype=gen.cache_dtype,
+        ladder=gen.ladder), **kw))
+
+
+def fused_check(single, prep, label, items):
+    """Check e on ``single``'s model, its LoRA merged (fusion needs the
+    merge: the reference's generate.py:71-76): before and after fusing
+    q/k/v and gate/up in place, the image request's prefill logits (the
+    fused within the logit rule's bound of the unfused), K4/K5's launches
+    per forward (int8: 225, then 129), a worker engine's decode step with
+    every slot busy and a text request's ms per token (the fused int8
+    block's traced replay: traced_replay_checks)."""
+    import torch
+
+    from mllm_npu_tpu_torch.ops import quant as tq
+    from mllm_npu_tpu_torch.utils.weights import (fuse_llama_projections_,
+                                                  merge_lora_)
+    model = single.generator.model
+    lm = model.language_model
+    if lm.config.lora_rank > 0:
+        merge_lora_(lm)
+    L = lm.config.num_hidden_layers
+    quant = lm.config.quantization
+    bound = LOGIT_BOUND_FACTOR * attention_control(model, prep)
+    out = {"bound": bound}
+    logits = {}
+    for which, per_forward in (("unfused", 7 * L + 1), ("fused", 4 * L + 1)):
+        if which == "fused":
+            t0 = time.perf_counter()
+            fuse_llama_projections_(lm)
+            torch.cuda.synchronize()
+            out["fuse_s"] = time.perf_counter() - t0
+        tq.int8_matmul.launches = tq.int4_matmul.launches = 0
+        logits[which] = prefill_logits(model, prep)
+        n = tq.int8_matmul.launches + tq.int4_matmul.launches
+        want = per_forward if quant != "none" else 0
+        check(n == want, f"{label} {which}: K4/K5 launches per prefill {n},"
+              f" expected {want}")
+        single.comprehension(QUESTIONS[12], "")
+        tm = single.generator.last_timings
+        engine = worker_engine(single)
+        run = timed_ticks(engine, items, SPEC_TOKENS)
+        out[which] = {"launches_per_forward": n,
+                      "step_ms": run["step_ms"],
+                      "tokens_per_s": run["tokens_per_s"],
+                      "single_ms_per_token": tm["decode_s"] * 1e3
+                      / max(tm["decode_steps"], 1)}
+        del engine
+    d = (logits["fused"] - logits["unfused"]).abs().max().item()
+    check(d <= bound, f"{label} fused: prefill logits max |delta| {d:.4f} "
+          f"against the unfused model's, beyond {bound:.4f}")
+    out["logit_max_abs_delta"] = d
+    u, f = out["unfused"], out["fused"]
+    print(f"[fused {label}] LoRA merged; q/k/v and gate/up fused in "
+          f"{out['fuse_s']:.2f} s: prefill logits max |delta| {d:.4f} against "
+          f"unfused (bound {bound:.4f}); K4/K5 launches per forward "
+          f"{u['launches_per_forward']} -> {f['launches_per_forward']}"
+          f"; worker decode step (8 busy) {u['step_ms']:.3f} -> "
+          f"{f['step_ms']:.3f} ms, {u['tokens_per_s']:.1f} -> "
+          f"{f['tokens_per_s']:.1f} tokens/s; single request "
+          f"{u['single_ms_per_token']:.2f} -> {f['single_ms_per_token']:.2f} "
+          f"ms/token", flush=True)
+    return out
+
+
+def int8_spec_check(single):
+    """The int8 sub-run of check a: the speculative (k = 4) worker engine
+    over the int8 model; at the capture each recording of the verify tick
+    counts 225 K4 launches, all in the prefill regime (M = 8 × 5 = 40:
+    each product and the lm_head); then 8 requests through it, one verify
+    tick under the profiler (its events are counted by
+    traced_replay_checks). Every kernel's count is set to 0 before and
+    read after."""
+    from mllm_npu_tpu_torch.ops import quant as tq
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    tq.int8_matmul.prefill_launches = 0
+    eng = worker_engine(single, speculative_k=4,
+                        speculative_ngram=SPEC_NGRAM)
+    per = 7 * eng.lm.config.num_hidden_layers + 1
+    check(tq.int8_matmul.launches == tq.int8_matmul.prefill_launches
+          == 2 * per, f"int8 verify tick at the capture (warm-up and "
+          f"recording): {tq.int8_matmul.launches} launches "
+          f"({tq.int8_matmul.prefill_launches} prefill regime), expected "
+          f"{2 * per}, all prefill regime")
+    prof = profile_block(eng, single, "int8 speculative k=4")
+    print(f"[int8 spec worker] the verify tick captured in "
+          f"{eng.capture_s:.3f} s", flush=True)
+    del eng
+    return {"profile": prof[:3],
+            "launches": {k: fn.launches for k, fn in counters.items()},
+            "prefill_launches": tq.int8_matmul.prefill_launches}
+
+
+def phase_4c(single):
+    """Phase 4c on the bf16 model (checks a-d; e runs after phase 6, on the
+    model LoRA-merged): every kernel's count set to 0 before, read after.
+    → summary."""
+    import torch
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    traffic, items = mixed_items(single)
+    plain_graphed = worker_engine(single)
+    plain_eager = worker_engine(single, cuda_graph=False)
+    plain = timed_ticks(plain_graphed, items, SPEC_TOKENS)
+    plain_ids = plain.pop("ids")
+    print(f"[phase 4c] the plain worker engine, {len(items)} requests x "
+          f"{SPEC_TOKENS} tokens: decode step {plain['step_ms']:.3f} ms, "
+          f"{plain['tokens_per_s']:.1f} tokens/s", flush=True)
+    out = {"plain": plain}
+    rule = logit_control(single, traffic, ("img896_0", "text_0"))
+    print(f"[check] phase 4c logit rule: control max |delta| "
+          + ", ".join(f"{k} {v:.4f}" for k, v in rule[1].items())
+          + f"; bound {rule[2]:.4f}", flush=True)
+    out["a"] = spec_batched_check(plain_graphed, plain_eager, items,
+                                  plain["tokens_per_s"], rule)
+    spec_ids = out["a"].pop("k4_ids")
+    out["b"] = spec_single_check(single, traffic, rule)
+    out["c"] = sampling_check(single, plain_graphed, items, plain_ids,
+                              spec_ids)
+    out["d"] = cache_dtype_check(single, plain_graphed, plain_eager, items,
+                                 plain_ids, rule)
+    out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    check(out["launches"]["flash_fwd"] > 0, "phase 4c launched no K1")
+    del plain_graphed, plain_eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def main():
@@ -1652,7 +2339,11 @@ def main():
     # einsum; cuDNN would run an fp32 conv in TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--traced-replays"]:
+        traced_replays()
+        return
 
+    t_start = time.perf_counter()
     # -- 1. header and kernel builds, all started together --------------
     smi = nvidia_smi()
     print(f"[card] {smi}")
@@ -1668,6 +2359,8 @@ def main():
                                        "C7513")):
                 print(f"[build] {name}: {line.strip()}")
 
+    print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 2",
+          flush=True)
     # -- 2. full-width model ------------------------------------------
     t0 = time.perf_counter()
     engine = build_engine(device="cuda", seed=0, fake_tokenizer=True,
@@ -1694,6 +2387,8 @@ def main():
     print(f"[model] request 1: prompt {s_img} tokens, {n_tiles} tiles; the "
           f"batched worker's bucket {bucket}")
 
+    print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 3",
+          flush=True)
     # -- 3. K1, K4 and K5 against their plain versions at the path's shapes
     H, Hkv, D = (lm_cfg.num_attention_heads, lm_cfg.num_key_value_heads,
                  lm_cfg.head_dim)
@@ -1721,16 +2416,30 @@ def main():
     edges = k1_edge_sweep()
     qrows = quant_rows(lm_cfg, s_img, bucket, WORKER["num_slots"])
 
+    print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 4",
+          flush=True)
     # -- 4. the bf16 path, counts set to 0 before each request ---------
     launches, quant_prefill = serve(engine, requests, preps, "bf16",
                                     lm_cfg, vis_cfg)
 
+    print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 4b",
+          flush=True)
     # -- 4b. the batched worker over the same model, counts set to 0 before
     #        its burst: HTTP, the slot engine, the captured decode block
     worker = {"bf16": worker_phase(engine, lm_cfg, vis_cfg)}
     for k, n in worker["bf16"]["launches"].items():
         launches[k] += n
 
+    print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 4c",
+          flush=True)
+    # -- 4c. sampled, speculative and fp8/f32-cache serving over the same
+    #        model, counts set to 0 before and read after (e: after 6)
+    worker["bf16_4c"] = phase_4c(engine)
+    for k, n in worker["bf16_4c"]["launches"].items():
+        launches[k] += n
+
+    print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 5",
+          flush=True)
     # -- 5. the image request's prefill with K1 against the same forward
     #       with K1's plain version in every attention (SigLIP, resampler,
     #       Llama): random weights give flat logits, so hold the direction
@@ -1761,12 +2470,27 @@ def main():
     check(cos >= 0.99, f"K1 and plain-attention logits disagree (cos {cos})")
     bf16_logits = k1
 
+    print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 6",
+          flush=True)
     # -- 6. how busy the device is during a text-only request ----------
-    print_profile("text request", *profile_call(
-        lambda: engine.comprehension(*requests[2])))
+    print_profile(f"text request ({PROFILED_TOKENS} tokens)", *profile_call(
+        lambda: engine.comprehension(*requests[2], PROFILED_TOKENS)))
+
+    print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 4c check e "
+          "starts", flush=True)
+    # -- 4c, check e (bf16): the model's LoRA merged, then its projections
+    #    fused in place (the bf16 model's last use)
+    for fn in kernel_counters().values():
+        fn.launches = 0
+    worker["bf16_4c"]["e"] = fused_check(engine, preps[0], "bf16",
+                                         mixed_items(engine)[1])
+    launches["flash_fwd"] += flash_attention.launches
+    check(flash_attention.launches > 0, "check e launched no K1")
     del engine, model, logits, k1, plain
     torch.cuda.empty_cache()
 
+    print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 7",
+          flush=True)
     # -- 7. the int8 and int4 paths: the image and the text request each,
     #       then the image prefill with K4 (K5) against the same forward
     #       with its plain version in every quantized linear
@@ -1794,6 +2518,11 @@ def main():
             for k, n in w["launches"].items():
                 launches[k] += n
             quant_prefill[8] += w["prefill_launches"][0]
+            # 4c, int8 sub-run of check a: the captured verify tick
+            w["spec"] = int8_spec_check(engine)
+            for k, n in w["spec"]["launches"].items():
+                launches[k] += n
+            quant_prefill[8] += w["spec"]["prefill_launches"]
 
         kernel = getattr(tq, f"{label}_matmul")
         qlogits = {}
@@ -1841,8 +2570,26 @@ def main():
         # the device is busy, and K4's (K5's) share of the device time
         print_profile(f"{label} image prefill", *profile_call(
             lambda: prefill_logits(model, preps[0])))
+        if bits == 8:
+            # 4c, check e (int8): the quantized projections fused in place,
+            # counts set to 0 before and read after
+            for fn in kernel_counters().values():
+                fn.launches = 0
+            kernel.prefill_launches = 0
+            worker["int8"]["fused"] = fused_check(
+                engine, preps[0], label, mixed_items(engine)[1])
+            check(kernel.launches > 0, "check e launched no K4")
+            launches["int8_matmul"] += kernel.launches
+            launches["flash_fwd"] += flash_attention.launches
+            quant_prefill[8] += kernel.prefill_launches
         del engine, model, qlogits, ql, qp
         torch.cuda.empty_cache()
+
+    print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 8",
+          flush=True)
+    # -- 7b. the replayed ticks' K4 events, traced in a process of their own
+    traced = traced_replay_checks(lm_cfg, WORKER["block_steps"])
+    worker["int8"]["traced"] = traced
 
     # -- 8. training at full width, the counts set to 0 before each step
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
@@ -1850,6 +2597,8 @@ def main():
     for k in launches:
         launches[k] += train["launches"][k]
 
+    print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 9",
+          flush=True)
     # -- 9. K1 with its LSE, K2 and K3 at the training shapes ------------
     S, B = train["seq"], train["batch"]
     bwd = [
@@ -1946,6 +2695,14 @@ def main():
                             quant_mix(lm_cfg, lm_head=False))
         slots = quant_row_mix([r for r in qrows[bits]
                                if r["regime"] == "slots"], quant_mix(lm_cfg))
+        verify = quant_row_mix([r for r in qrows[bits]
+                                if r["regime"] == "verify"],
+                               quant_mix(lm_cfg))
+        fmix = fused_mix(lm_cfg)
+        fused_dec = quant_row_mix(
+            [r for r in qrows[bits] if (r["regime"] == "fused_m1" or (
+                r["regime"] == "decode" and (r["K"], r["N"]) in fmix))],
+            fmix)
         rows.append({
             "name": f"int{bits}_matmul", "route": "cuda",
             "source": "mllm_npu_tpu_torch/csrc/quant_matmul.cu",
@@ -1954,7 +2711,7 @@ def main():
             "prefill_launches": quant_prefill[bits],
             # the int8 worker's replayed blocks, which no counter sees:
             # qmm_decode's events in one traced replay, and the replays
-            "graph_replay_launches": (worker["int8"]["graph_replay_launches"]
+            "graph_replay_launches": (traced["block"]["qmm_decode"]
                                       if bits == 8 else None),
             "graph_replays": (worker["int8"]["replays"] if bits == 8
                               else None),
@@ -1984,12 +2741,38 @@ def main():
                             f"(M={WORKER['num_slots']}): the launch mix "
                             + slots["launch_mix"],
             },
+            "verify": {
+                **{k: verify[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "library_ms", "bound_by",
+                                          "bound_share")},
+                "ms_basis": f"one speculative verify tick of the worker at "
+                            f"k=4 (M={5 * WORKER['num_slots']}): the launch "
+                            "mix " + verify["launch_mix"],
+                "graph_replay_launches": (
+                    traced["verify"]["qmm_prefill"]
+                    if bits == 8 else None),
+                "graph_replay_split_sums": (
+                    traced["verify"]["qmm_split_sum"] if bits == 8
+                    else None),
+            },
+            "fused_decode": {
+                **{k: fused_dec[k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "library_ms", "bound_by",
+                                             "bound_share")},
+                "ms_basis": "one decode token (M=1) with fused projections: "
+                            "the launch mix " + fused_dec["launch_mix"],
+                "graph_replay_launches": (
+                    traced["fused_block"]["qmm_decode"]
+                    if bits == 8 else None),
+            },
             "library": "F.linear on the weight dequantized to bf16",
             "shapes": qrows[bits],
         })
     print("[train] summary " + json.dumps(
         {k: v for k, v in train.items() if k != "profile"}))
     print("[worker] summary " + json.dumps(worker, default=str))
+    print(f"[time] {time.perf_counter() - t_start:.1f} s: all phases done",
+          flush=True)
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,17 @@
-"""End-to-end greedy generation for the comprehension assembly (twin of
+"""End-to-end generation for the comprehension assembly (twin of
 ``MLLMGenerator.generate``, ``mllm_npu_tpu/models/generation/generate.py:50-307``).
 
 One call: embed the prompt and scatter the image tokens; a causal prefill
 over the right-padded prompt with segment ids from ``prompt_mask`` (K1 on
 the GPU) that fills the KV cache; the first token from the last real
-position's logits; then a greedy read-only-cache decode with the image
-ladder. Eager PyTorch takes the place of ``jit``. The Llama's weights may
-be served in int8 or int4 (``quantize_int8`` / ``quantize_int4``, K4 / K5
-on the GPU). The reference's ``unroll_layers`` needs no port, as the
+position's logits; then a read-only-cache decode with the image ladder,
+greedy or sampled (``SamplingConfig.do_sample``), or, for one greedy row
+with ``speculative_k``, prompt-lookup speculation (k proposals verified
+in one multi-token forward). Eager PyTorch takes the place of ``jit``.
+The Llama's weights may be served in int8 or int4 (``quantize_int8`` /
+``quantize_int4``, K4 / K5 on the GPU), with fused q/k/v and gate/up
+products (``fuse_projections``); the KV cache in bf16, fp32 or fp8
+(``cache_dtype``). The reference's ``unroll_layers`` needs no port, as the
 port's layers are already a Python loop.
 """
 
@@ -18,30 +22,34 @@ from typing import Optional
 
 import torch
 
-from mllm_npu_tpu_torch.models.generation.sampler import (ImageTokenLadder,
-                                                          SamplingConfig,
-                                                          _sample,
-                                                          apply_image_ladder,
-                                                          decode_loop)
+from mllm_npu_tpu_torch.models.generation.sampler import (
+    ImageTokenLadder, SamplingConfig, apply_image_ladder, decode_loop, pick,
+    row_seeds, speculative_decode_loop)
 from mllm_npu_tpu_torch.models.language_models.llama import init_cache
 from mllm_npu_tpu_torch.ops import SegmentIds
-from mllm_npu_tpu_torch.utils.weights import merge_lora_, quantize_llama_
+from mllm_npu_tpu_torch.utils.weights import (fuse_llama_projections_,
+                                              merge_lora_, quantize_llama_)
 
 CACHE_DTYPE = torch.bfloat16
 
 
 class MLLMGenerator:
-    """Greedy generation for one ``GeneralizedMultimodalModel``.
+    """Generation for one ``GeneralizedMultimodalModel``.
 
     Every fp32 parameter is stored in bf16 (the modules still compute in
     their own dtype), as the reference's serving default, and the KV cache
-    is bf16. ``quantize_int8`` / ``quantize_int4`` serve the Llama's
-    projections and ``lm_head`` in int8 / int4. The model is changed in
-    place, in the reference's order (``generate.py:71-113``): LoRA
-    adapters are merged in their dtype (fp32 where loaded so) when
-    ``merge_lora`` or a quantization asks for it, then the fp32 parameters
-    are cast to bf16, then the Llama is quantized from those bf16 values.
-    The scales are fp32 buffers, which the cast does not reach.
+    is ``cache_dtype`` (bf16 by default). ``quantize_int8`` /
+    ``quantize_int4`` serve the Llama's projections and ``lm_head`` in
+    int8 / int4. The model is changed in place, in the reference's order
+    (``generate.py:71-113``): LoRA adapters are merged in their dtype (fp32
+    where loaded so) when ``merge_lora``, ``fuse_projections`` or a
+    quantization asks for it, then q/k/v and gate/up are fused, then the
+    fp32 parameters are cast to bf16, then the Llama is quantized from
+    those bf16 values. The scales are fp32 buffers, which the cast does not
+    reach. ``speculative_k`` > 0 decodes a single greedy row by
+    prompt-lookup speculation (``speculative_ngram``-grams), the cache
+    given k of headroom; sampled calls and batches decode one token a
+    step.
     ``last_timings`` holds the wall times of the last call, each ending in
     a device synchronisation: the embedding (vision tower, projector and
     scatter), the prefill with the first token, their sum (time to first
@@ -51,13 +59,20 @@ class MLLMGenerator:
     def __init__(self, model, *, sampling: SamplingConfig = SamplingConfig(),
                  ladder: Optional[ImageTokenLadder] = None,
                  quantize_int8: bool = False, quantize_int4: bool = False,
-                 merge_lora: bool = False):
+                 merge_lora: bool = False, fuse_projections: bool = False,
+                 cache_dtype: torch.dtype = CACHE_DTYPE,
+                 speculative_k: int = 0, speculative_ngram: int = 3):
         if quantize_int8 and quantize_int4:
             raise ValueError("pick one of quantize_int8 / quantize_int4")
+        if speculative_k < 0:
+            raise ValueError(f"speculative_k must be >= 0, got "
+                             f"{speculative_k}")
         lm = model.language_model
-        if lm.config.lora_rank > 0 and (merge_lora or quantize_int8
-                                        or quantize_int4):
+        if lm.config.lora_rank > 0 and (merge_lora or fuse_projections
+                                        or quantize_int8 or quantize_int4):
             merge_lora_(lm)
+        if fuse_projections:
+            fuse_llama_projections_(lm)
         for p in model.parameters():
             if p.dtype == torch.float32:
                 p.data = p.data.to(torch.bfloat16)
@@ -68,16 +83,21 @@ class MLLMGenerator:
         self.lm_config = model.language_model.config
         self.sampling = sampling
         self.ladder = ladder
+        self.cache_dtype = cache_dtype
+        self.speculative_k = speculative_k
+        self.speculative_ngram = speculative_ngram
         self.last_timings: dict = {}
 
     @torch.inference_mode()
     def generate(self, input_ids, *, prompt_mask=None, images=None,
                  embeds_cmp_mask=None, ids_cmp_mask=None,
                  patch_positions=None,
-                 sampling: Optional[SamplingConfig] = None) -> dict:
+                 sampling: Optional[SamplingConfig] = None,
+                 seed: int = 0) -> dict:
         """input_ids [B, Sp] (right-padded when ``prompt_mask`` is given);
         returns {"generate_ids": [B, max_new_tokens]}. ``sampling``
-        overrides the generator's config for this call."""
+        overrides the generator's config for this call; a sampled row b
+        draws from (``seed``, b) (``sampler.row_seeds``)."""
         model = self.model
         cfg = self.sampling if sampling is None else sampling
         lm = model.language_model
@@ -92,9 +112,10 @@ class MLLMGenerator:
             patch_positions)
         sync()
         t_embed = time.perf_counter()
-        max_len = Sp + cfg.max_new_tokens
-        cache = init_cache(self.lm_config, B, max_len, dtype=CACHE_DTYPE,
-                           device=dev)
+        spec_k = 0 if cfg.do_sample or B != 1 else self.speculative_k
+        max_len = Sp + cfg.max_new_tokens + spec_k
+        cache = init_cache(self.lm_config, B, max_len,
+                           dtype=self.cache_dtype, device=dev)
         pm = (torch.ones((B, Sp), dtype=torch.int32, device=dev)
               if prompt_mask is None else prompt_mask.to(torch.int32))
         row_len = pm.sum(dim=-1)                                   # [B]
@@ -108,7 +129,8 @@ class MLLMGenerator:
         if self.ladder is not None:
             last_logits = apply_image_ladder(
                 last_logits, input_ids[rows, idx_last], self.ladder)
-        first_token = _sample(last_logits)
+        seeds = row_seeds(seed, B, dev)
+        first_token = pick(last_logits, cfg, seeds, 0)
 
         # keys valid over the whole cache: the real prompt tokens and
         # everything decoded after position Sp
@@ -125,11 +147,29 @@ class MLLMGenerator:
                           attn_mask=decode_am)
             return lm.logits(h[:, -1]).float(), cache
 
-        tokens, _, steps = decode_loop(step, cache, first_token, cfg,
-                                       ladder=self.ladder)
+        def step_multi(toks, cache):
+            # k + 1 positions from the row's next one; the cache's keys
+            # past the accepted ones are masked by the filled length
+            pos_t = (row_len[:, None] + (cache["pos"] - Sp)
+                     + torch.arange(toks.shape[1], device=dev))
+            h, cache = lm(toks, positions=pos_t, cache=cache,
+                          attn_mask=decode_am)
+            return lm.logits(h).float(), cache
+
+        if spec_k:
+            tokens, _, steps = speculative_decode_loop(
+                step_multi, cache, first_token, cfg, input_ids,
+                ladder=self.ladder, k=spec_k, ngram=self.speculative_ngram,
+                prompt_len=int(row_len[0]))
+        else:
+            tokens, _, steps = decode_loop(step, cache, first_token, cfg,
+                                           ladder=self.ladder, seeds=seeds)
         sync()
         t2 = time.perf_counter()
+        # decode_steps: the model calls of the decode (verify forwards
+        # when speculating)
         self.last_timings = {"embed_s": t_embed - t0,
                              "prefill_s": t1 - t_embed, "ttft_s": t1 - t0,
-                             "decode_s": t2 - t1, "decode_steps": steps}
+                             "decode_s": t2 - t1, "decode_steps": steps,
+                             "speculative_k": spec_k}
         return {"generate_ids": tokens}

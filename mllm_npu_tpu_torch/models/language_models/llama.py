@@ -13,18 +13,26 @@ column for all layers at once (:func:`write_decode_column`).
 Served here: the prefill (causal, segment ids, K1 on the GPU); the
 single-token read-only-cache decode, with one scalar filled length or one
 per row (``cache["pos"]`` a [B] tensor: continuous batching, each row
-writing its column at its own position); and the multi-token cached step
-(a scalar filled length and S > 1: the chunked prefill, which writes the
-chunk first and attends causally from ``q_offset = pos``, eagerly, as the
-reference does). Weights in bf16, int8 (K4) or int4 (K5)
-(``LlamaConfig.quantization``; every projection and the ``lm_head``, as
-the reference). Trained here: LoRA with adapter dropout, per-segment
-positions (:func:`packed_positions`), the dense and chunked causal-LM
-losses, and per-layer remat (``remat_policy`` ``nothing`` or ``dots``);
-attention then runs K1 with its LSE forward and K2/K3 backward. The
-reference's multi-token verify window (per-row positions with S > 1),
-fused projections, LoRA over a quantized base and the ``dots_no_batch``,
-``dots_lite`` and ``hoist_attn`` policies are not ported yet.
+writing its column at its own position); the multi-token verify window
+(per-row positions and S > 1: the batched engine's speculative tick,
+which attends over the read-only cache plus the window, causal within it,
+and hands the window's columns back as ``k_col``/``v_col`` for the engine
+to write); and the multi-token cached step (a scalar filled length and
+S > 1: the chunked prefill and the single-request speculative verify,
+which write the chunk first and attend causally from ``q_offset = pos``,
+eagerly, as the reference does). The KV cache may be bf16, fp32 or fp8
+(e4m3; :func:`to_cache` saturates at ±448). Weights in bf16, int8 (K4) or
+int4 (K5) (``LlamaConfig.quantization``; every projection and the
+``lm_head``, as the reference), with q/k/v and gate/up fused into one
+product each when ``fused_projections`` is set
+(``utils.weights.fuse_llama_projections_``). Trained here: LoRA with
+adapter dropout, per-segment positions (:func:`packed_positions`), the
+dense and chunked causal-LM losses, and per-layer remat (``remat_policy``
+``nothing`` or ``dots``); attention then runs K1 with its LSE forward and
+K2/K3 backward. The reference's tensor-parallel fused layout
+(``fused_shards > 1``), LoRA over a quantized base and the
+``dots_no_batch``, ``dots_lite`` and ``hoist_attn`` policies are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -74,6 +82,11 @@ class LlamaConfig:
     # each layer's input, 'dots' also every matmul output
     remat: bool = False
     remat_policy: str = "nothing"
+    # serving: q/k/v as one qkv_proj and gate/up as one gate_up_proj
+    # (utils.weights.fuse_llama_projections_); fused_shards > 1, the
+    # tensor-parallel interleaved layout, is not ported yet
+    fused_projections: bool = False
+    fused_shards: int = 1
 
     @property
     def head_dim(self) -> int:
@@ -263,28 +276,60 @@ def remat_layer(layer: nn.Module, policy: str, h, **kw):
         "'dots')")
 
 
+FP8_MAX = 448.0
+
+
+def byte_view(x: torch.Tensor) -> torch.Tensor:
+    """A 1-byte float tensor as the uint8 view of its storage (the same
+    bytes; scatters and fills take it on every device), else itself."""
+    if x.is_floating_point() and x.element_size() == 1:
+        return x.view(torch.uint8)
+    return x
+
+
+def to_cache(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Keys or values in the cache's dtype. Into fp8 (e4m3) they are first
+    clamped to ±448, so the cast rounds as the reference's for every
+    |x| < 464 and saturates above on the CPU and the GPU alike (the
+    reference's cast gives NaN there: ROADMAP, known issues)."""
+    if dtype == torch.float8_e4m3fn:
+        x = x.clamp(-FP8_MAX, FP8_MAX)
+    return x.to(dtype)
+
+
 def init_cache(config: LlamaConfig, batch_size: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
-    """Preallocated KV cache [L, B, max_len, Hkv, D]; ``pos`` is the filled
-    length."""
+    """Preallocated KV cache [L, B, max_len, Hkv, D] in ``dtype`` (bf16,
+    fp32 or fp8); ``pos`` is the filled length."""
     shape = (config.num_hidden_layers, batch_size, max_len,
              config.num_key_value_heads, config.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": 0}
+    zeros = lambda: torch.zeros(shape, dtype=dtype, device=device)
+    if torch.empty((), dtype=dtype).element_size() == 1:
+        zeros = lambda: torch.zeros(shape, dtype=torch.uint8,
+                                    device=device).view(dtype)
+    return {"k": zeros(), "v": zeros(), "pos": 0}
 
 
 def write_decode_column(cache: torch.Tensor, col: torch.Tensor,
                         pos) -> None:
-    """Write one decoded column for all layers at once, in place:
-    cache [L, B, max_len, Hkv, D], col [L, B, 1, Hkv, D]; ``pos`` an int,
+    """Write W decoded columns for all layers at once, in place:
+    cache [L, B, max_len, Hkv, D], col [L, B, W, Hkv, D]; ``pos`` an int,
     or a [B] tensor of per-row positions (one scatter over device
-    indices: no host read, so a CUDA graph can hold it)."""
+    indices: no host read, so a CUDA graph can hold it). Per-row indices
+    past the cache's end are clamped to its last column, where only an
+    idle row writes (the reference's update clamps likewise)."""
+    W = col.shape[2]
+    col = byte_view(to_cache(col, cache.dtype))
+    cache = byte_view(cache)
     if isinstance(pos, torch.Tensor):
-        rows = torch.arange(cache.shape[1], device=cache.device)
-        cache[:, rows, pos] = col[:, :, 0].to(cache.dtype)
+        rows = torch.arange(cache.shape[1], device=cache.device)[:, None]
+        idx = pos[:, None]
+        if W > 1:
+            idx = (idx + torch.arange(W, device=cache.device)
+                   ).clamp(max=cache.shape[2] - 1)
+        cache[:, rows, idx] = col
     else:
-        cache[:, :, pos:pos + 1] = col.to(cache.dtype)
+        cache[:, :, pos:pos + W] = col
 
 
 class RMSNorm(nn.Module):
@@ -297,16 +342,36 @@ class RMSNorm(nn.Module):
         return ops.rms_norm(x, self.weight.to(x.dtype), self.eps)
 
 
+def _check_fused(cfg: LlamaConfig) -> None:
+    if cfg.fused_shards > 1:
+        raise NotImplementedError(
+            "fused_shards > 1 (the tensor-parallel interleaved layout) is "
+            "not ported yet (ROADMAP queue 1 item 12)")
+    if cfg.lora_rank > 0:
+        raise ValueError("fused projections need the LoRA adapters merged "
+                         "first (merge_lora_)")
+
+
 class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, dtype):
         super().__init__()
         hs, inter = cfg.hidden_size, cfg.intermediate_size
-        self.gate_proj = _dense(cfg, "gate_proj", hs, inter, dtype)
-        self.up_proj = _dense(cfg, "up_proj", hs, inter, dtype)
+        self.fused = cfg.fused_projections
+        if self.fused:
+            _check_fused(cfg)
+            self.gate_up_proj = _dense(cfg, "gate_up_proj", hs, 2 * inter,
+                                       dtype)
+        else:
+            self.gate_proj = _dense(cfg, "gate_proj", hs, inter, dtype)
+            self.up_proj = _dense(cfg, "up_proj", hs, inter, dtype)
         self.down_proj = _dense(cfg, "down_proj", inter, hs, dtype)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        if self.fused:
+            gate, up = self.gate_up_proj(x).chunk(2, dim=-1)
+        else:
+            gate, up = self.gate_proj(x), self.up_proj(x)
+        return self.down_proj(F.silu(gate) * up)
 
 
 class LlamaAttention(nn.Module):
@@ -316,21 +381,32 @@ class LlamaAttention(nn.Module):
         H, Hkv, D = (cfg.num_attention_heads, cfg.num_key_value_heads,
                      cfg.head_dim)
         hs = cfg.hidden_size
-        self.q_proj = _dense(cfg, "q_proj", hs, H * D, dtype)
-        self.k_proj = _dense(cfg, "k_proj", hs, Hkv * D, dtype)
-        self.v_proj = _dense(cfg, "v_proj", hs, Hkv * D, dtype)
+        if cfg.fused_projections:
+            _check_fused(cfg)
+            self.qkv_proj = _dense(cfg, "qkv_proj", hs, (H + 2 * Hkv) * D,
+                                   dtype)
+        else:
+            self.q_proj = _dense(cfg, "q_proj", hs, H * D, dtype)
+            self.k_proj = _dense(cfg, "k_proj", hs, Hkv * D, dtype)
+            self.v_proj = _dense(cfg, "v_proj", hs, Hkv * D, dtype)
         self.o_proj = _dense(cfg, "o_proj", H * D, hs, dtype)
 
     def forward(self, x, *, positions, layer_cache=None, cache_pos=None,
                 segment_ids=None, attn_mask=None, prefill=False):
-        """Returns (output, (k, v) of this step for a decode step or None)."""
+        """Returns (output, (k, v) of this step for a decode step or a
+        verify window, else None)."""
         cfg = self.config
         B, S, _ = x.shape
         H, Hkv, D = (cfg.num_attention_heads, cfg.num_key_value_heads,
                      cfg.head_dim)
-        q = self.q_proj(x).reshape(B, S, H, D)
-        k = self.k_proj(x).reshape(B, S, Hkv, D)
-        v = self.v_proj(x).reshape(B, S, Hkv, D)
+        if cfg.fused_projections:
+            q, k, v = self.qkv_proj(x).split([H * D, Hkv * D, Hkv * D],
+                                             dim=-1)
+        else:
+            q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        q = q.reshape(B, S, H, D)
+        k = k.reshape(B, S, Hkv, D)
+        v = v.reshape(B, S, Hkv, D)
         cos, sin = ops.rope_cos_sin(
             positions, D, theta=cfg.rope_theta,
             scaling_type=cfg.rope_scaling_type,
@@ -341,10 +417,9 @@ class LlamaAttention(nn.Module):
         new_col = None
         per_row = isinstance(cache_pos, torch.Tensor)
         if layer_cache is not None and not prefill and (S == 1 or per_row):
-            if S != 1:
-                raise NotImplementedError(
-                    "the multi-token verify window (per-row positions with "
-                    "S > 1) is not ported yet (ROADMAP queue 1 item 10b)")
+            # one token, or a verify window of S tokens a row: the cache is
+            # read-only here, the step's keys and values virtual columns
+            # (causal within the window), written by the caller
             ck, cv = layer_cache                       # [B, max_len, Hkv, D]
             kv_idx = torch.arange(ck.shape[1], device=x.device)
             if per_row:
@@ -360,11 +435,12 @@ class LlamaAttention(nn.Module):
             if layer_cache is not None:
                 # the chunk (a prefill's whole prompt) goes into the cache
                 ck, cv = layer_cache
-                ck[:, cache_pos:cache_pos + S] = k.to(ck.dtype)
-                cv[:, cache_pos:cache_pos + S] = v.to(cv.dtype)
+                ck[:, cache_pos:cache_pos + S] = to_cache(k, ck.dtype)
+                cv[:, cache_pos:cache_pos + S] = to_cache(v, cv.dtype)
             if layer_cache is not None and not prefill:
-                # multi-token cached step (chunked prefill): the filled
-                # keys and this chunk's, causal from q_offset = cache_pos;
+                # multi-token cached step (chunked prefill, single-request
+                # verify): the filled keys and this chunk's, read back in
+                # the compute dtype, causal from q_offset = cache_pos;
                 # eager (dot_product_attention), as the reference runs it
                 am = (torch.arange(ck.shape[1], device=x.device)
                       < cache_pos + S)[None, None, None, :]
@@ -449,6 +525,13 @@ class LlamaModel(nn.Module):
                 cols.append(col)
         h = self.norm(h)
         if cache is not None:
+            if cols and S > 1:
+                # a verify window: the cache stays read-only and the
+                # window's [L, B, S, Hkv, D] columns go back to the caller,
+                # who writes them and advances each row by what it accepts
+                cache["k_col"] = torch.stack([c[0] for c in cols])
+                cache["v_col"] = torch.stack([c[1] for c in cols])
+                return h, cache
             if cols:
                 write_decode_column(cache["k"],
                                     torch.stack([c[0] for c in cols]),

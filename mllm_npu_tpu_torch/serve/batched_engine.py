@@ -1,5 +1,5 @@
-"""Continuous-batching decode engine, greedy (twin of
-``ContinuousBatchingEngine`` in ``mllm_npu_tpu/serve/batched_engine.py``).
+"""Continuous-batching decode engine (twin of ``ContinuousBatchingEngine``
+in ``mllm_npu_tpu/serve/batched_engine.py``).
 
 - A fixed pool of ``num_slots`` decode slots shares one static KV cache
   ``[L, B, max_len, Hkv, D]`` and per-slot state tensors (the reference's
@@ -20,13 +20,28 @@
   as a ``torch.cuda.CUDAGraph`` (the reference's ``jit`` of the block) and
   each tick is one ``replay()``; ``cuda_graph=False`` runs it eagerly, as
   it always runs on the CPU. A capture that fails raises.
-- :meth:`step` pipelines: block N + 1 is dispatched before block N's
+- With ``speculative_k`` = k > 0 a tick is one speculative verify
+  instead of a block (:meth:`_spec_tick`, the reference's
+  ``_get_spec_decode``): every row proposes k tokens by prompt lookup
+  over its own token history (the forced ladder's chain inside the
+  ladder), one (k + 1)-wide forward verifies them over the read-only
+  cache, and each row keeps its matching prefix and the token after it
+  (cut at EOS and its budget), writes the window's columns and marks only
+  the kept span valid. A tick emits 1 to k + 1 tokens a row; it too is
+  one CUDA graph replay.
+- With ``enable_sampling`` each request carries ``do_sample``,
+  ``temperature``, ``top_p`` and ``seed`` into per-slot state; sampled and
+  greedy rows decode together (``sampler.sample_rows``; a draw depends on
+  the request's seed and the token's index only). Under speculation a
+  sampled row accepts proposals only at forced ladder positions and
+  samples the token after them.
+- The static cache may be bf16, fp32 or fp8 (``cache_dtype``).
+- :meth:`step` pipelines: tick N + 1 is dispatched before tick N's
   tokens are read from a pinned host buffer that a non-blocking copy
-  filled behind an event.
+  filled behind an event; the emitted mask says which of them count.
 
 Greedy ids equal the reference engine's and ``MLLMGenerator``'s (the
-tests hold them on the CPU). Per-slot sampling and speculative decode are
-not ported yet (ROADMAP queue 1 item 10b).
+tests hold them on the CPU), with and without speculation.
 """
 
 from __future__ import annotations
@@ -40,9 +55,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from mllm_npu_tpu_torch.models.generation.sampler import (_sample,
-                                                          apply_image_ladder)
-from mllm_npu_tpu_torch.models.language_models.llama import init_cache
+from mllm_npu_tpu_torch.models.generation.sampler import (
+    _sample, apply_image_ladder, ladder_propose, lookup_proposals,
+    sample_rows)
+from mllm_npu_tpu_torch.models.language_models.llama import (
+    byte_view, init_cache, write_decode_column)
 from mllm_npu_tpu_torch.ops import SegmentIds
 from mllm_npu_tpu_torch.serve.prefix_cache import PrefixCache
 
@@ -64,6 +81,11 @@ class Request:
     ids_cmp_mask: Optional[np.ndarray] = None
     patch_positions: Optional[object] = None
     max_new_tokens: int = 128
+    # per-request sampling (the engine needs enable_sampling=True)
+    do_sample: bool = False
+    temperature: float = 1.0
+    top_p: float = 1.0
+    seed: int = 0
     # filled by the engine (times on the host's perf_counter clock)
     tokens: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
@@ -76,7 +98,8 @@ class Request:
 class ContinuousBatchingEngine:
     """Slot-based continuous batching over a ``GeneralizedMultimodalModel``
     (its Llama and, for image requests, its vision tower and projector),
-    on the device the model's parameters live on. Greedy."""
+    on the device the model's parameters live on. Greedy unless
+    ``enable_sampling``; speculative with ``speculative_k`` > 0."""
 
     def __init__(self, model, *, num_slots: int = 8, max_len: int = 1024,
                  block_steps: int = 8, prompt_bucket: int = 128,
@@ -84,7 +107,8 @@ class ContinuousBatchingEngine:
                  pad_token_id: int = 0, cache_dtype=torch.bfloat16,
                  prefill_chunk: Optional[int] = None,
                  prefix_cache: Optional[int] = None, ladder=None,
-                 cuda_graph: bool = True):
+                 enable_sampling: bool = False, speculative_k: int = 0,
+                 speculative_ngram: int = 3, cuda_graph: bool = True):
         self.model = model
         self.lm = model.language_model
         self.cfg = self.lm.config
@@ -113,6 +137,14 @@ class ContinuousBatchingEngine:
         self.prefix_cache = (PrefixCache(prefix_cache,
                                          granularity=prompt_bucket)
                              if prefix_cache else None)
+        if speculative_k < 0:
+            raise ValueError(f"speculative_k must be >= 0, got "
+                             f"{speculative_k}")
+        self.enable_sampling = enable_sampling
+        self.speculative_k = speculative_k
+        self.speculative_ngram = speculative_ngram
+        # tokens a tick may emit per row
+        self.per_tick = speculative_k + 1 if speculative_k else block_steps
 
         dev, B = self.device, num_slots
         with torch.inference_mode():
@@ -131,19 +163,38 @@ class ContinuousBatchingEngine:
                 "n_gen": torch.zeros((B,), dtype=torch.long, device=dev),
                 "max_gen": torch.zeros((B,), dtype=torch.long, device=dev),
             }
-            # the block's outputs: each step's token and whether it was
-            # emitted (the row was active at the step's entry)
-            self._toks = torch.full((B, block_steps), pad_token_id,
-                                    dtype=torch.long, device=dev)
-            self._emitted = torch.zeros((B, block_steps), dtype=torch.bool,
-                                        device=dev)
+            if enable_sampling:
+                self.state.update({
+                    "seed": torch.zeros((B,), dtype=torch.long, device=dev),
+                    "temp": torch.ones((B,), device=dev),
+                    "top_p": torch.ones((B,), device=dev),
+                    "do_sample": torch.zeros((B,), dtype=torch.bool,
+                                             device=dev)})
+            if speculative_k:
+                # each row's token history for the proposals: the prompt's
+                # real tokens, then every token emitted; one more column
+                # takes the appends of positions not emitted
+                self.state["hist"] = torch.full(
+                    (B, max_len + speculative_k + 2), pad_token_id,
+                    dtype=torch.long, device=dev)
+                self.state["hist_len"] = torch.zeros((B,), dtype=torch.long,
+                                                     device=dev)
+            # a tick's outputs: each position's token and whether it was
+            # emitted (the row was active at the step's entry; under
+            # speculation, within the row's kept span)
+            W = self.per_tick
+            self._toks = torch.full((B, W), pad_token_id, dtype=torch.long,
+                                    device=dev)
+            self._emitted = torch.zeros((B, W), dtype=torch.bool, device=dev)
             self._rows = torch.arange(B, device=dev)
-        # two pinned host copies of the outputs, used in turn: block N's
-        # stays readable while block N + 1's copy is in flight
+            self._iota_w = torch.arange(W, device=dev)
+            self._iota_len = torch.arange(max_len, device=dev)
+        # two pinned host copies of the outputs, used in turn: tick N's
+        # stays readable while tick N + 1's copy is in flight
         pin = dev.type == "cuda"
-        self._host = [(torch.empty((B, block_steps), dtype=torch.long,
+        self._host = [(torch.empty((B, self.per_tick), dtype=torch.long,
                                    pin_memory=pin),
-                       torch.empty((B, block_steps), dtype=torch.bool,
+                       torch.empty((B, self.per_tick), dtype=torch.bool,
                                    pin_memory=pin)) for _ in range(2)]
         self._flip = 0
         self._slot_req: List[Optional[Request]] = [None] * B
@@ -153,8 +204,13 @@ class ContinuousBatchingEngine:
         self._result = None
         self._prefilling: Optional[dict] = None
         self._graph: Optional[torch.cuda.CUDAGraph] = None
+        # one tick: a decode block, or a speculative verify
+        self._tick = self._spec_tick if speculative_k else self._decode_block
         self.replays = 0        # graph replays
-        self.eager_blocks = 0   # blocks run eagerly, the capture's warm-up too
+        self.eager_blocks = 0   # ticks run eagerly, the capture's warm-up too
+        # handed-out ticks: (row, tick) pairs that emitted, and their tokens
+        self.row_ticks = 0
+        self.tokens_emitted = 0
         self.capture_s: Optional[float] = None
         if cuda_graph and dev.type == "cuda":
             self._capture()
@@ -163,15 +219,22 @@ class ContinuousBatchingEngine:
     # device pieces
     # ------------------------------------------------------------------
 
-    def _first_token(self, h_last: torch.Tensor, last_id: int
+    def _first_token(self, h_last: torch.Tensor, req: Request
                      ) -> torch.Tensor:
-        """The greedy first token from the last real position's hidden
-        state h_last [1, H], with the ladder applied: a 0-d device tensor."""
+        """The first token from the last real position's hidden state
+        h_last [1, H], with the ladder applied, greedy or drawn as the
+        request asks (its output index 0): a 0-d device tensor."""
         logits = self.lm.logits(h_last).float()
+        one = lambda x, dt: torch.full((1,), x, dtype=dt, device=self.device)
         if self.ladder is not None:
             logits = apply_image_ladder(
-                logits, torch.full((1,), last_id, dtype=torch.long,
-                                   device=self.device), self.ladder)
+                logits, one(int(req.input_ids[-1]), torch.long), self.ladder)
+        if req.do_sample:
+            return sample_rows(logits, one(req.seed, torch.long),
+                               one(0, torch.long),
+                               one(req.temperature, torch.float32),
+                               one(req.top_p, torch.float32),
+                               one(True, torch.bool))[0]
         return _sample(logits)[0]
 
     def _embeds(self, req: Request, bucket: int):
@@ -207,18 +270,20 @@ class ContinuousBatchingEngine:
                            cache=cache, segment_ids=SegmentIds(q=pm, kv=pm),
                            prefill=True)
         Sp = len(req.input_ids)
-        first = self._first_token(h[:, Sp - 1], int(req.input_ids[-1]))
+        first = self._first_token(h[:, Sp - 1], req)
         return first, cache["k"], cache["v"]
 
-    def _insert(self, slot: int, k: torch.Tensor, v: torch.Tensor, Sp: int,
-                first_tok: torch.Tensor, max_new: int) -> None:
+    def _insert(self, slot: int, k: torch.Tensor, v: torch.Tensor,
+                req: Request, first_tok: torch.Tensor) -> None:
         """A prefilled request into ``slot``: its keys and values copied
         into the static cache at offset 0, its real prompt positions marked
-        valid, its counters set; every state tensor written in place."""
+        valid, its counters, sampling settings and token history set; every
+        state tensor written in place."""
         st = self.state
+        Sp, max_new = len(req.input_ids), req.max_new_tokens
         bucket = k.shape[2]
-        st["k"][:, slot, :bucket].copy_(k[:, 0])
-        st["v"][:, slot, :bucket].copy_(v[:, 0])
+        byte_view(st["k"])[:, slot, :bucket].copy_(byte_view(k)[:, 0])
+        byte_view(st["v"])[:, slot, :bucket].copy_(byte_view(v)[:, 0])
         st["key_valid"][slot].zero_()
         st["key_valid"][slot, :Sp] = True
         st["write_pos"][slot] = bucket
@@ -230,11 +295,22 @@ class ContinuousBatchingEngine:
             st["active"][slot] = False
         st["n_gen"][slot] = 1
         st["max_gen"][slot] = max_new
+        if self.enable_sampling:
+            st["seed"][slot] = req.seed
+            st["temp"][slot] = req.temperature
+            st["top_p"][slot] = req.top_p
+            st["do_sample"][slot] = req.do_sample
+        if self.speculative_k:
+            hist = st["hist"][slot]
+            hist.fill_(self.pad)
+            hist[:Sp] = torch.as_tensor(req.input_ids, device=self.device)
+            hist[Sp] = first_tok
+            st["hist_len"][slot] = Sp + 1
 
     def _decode_block(self) -> None:
-        """``block_steps`` greedy steps of every slot, in place over the
-        static state; each step's token and emission land in the output
-        buffers. No host read of a device value, so it can be captured."""
+        """``block_steps`` steps of every slot, in place over the static
+        state; each step's token and emission land in the output buffers.
+        No host read of a device value, so it can be captured."""
         st, lm = self.state, self.lm
         key_valid = st["key_valid"]
         am = key_valid[:, None, None, :]          # a view: widens in place
@@ -247,7 +323,13 @@ class ContinuousBatchingEngine:
             last = lm.logits(h[:, -1]).float()
             if self.ladder is not None:
                 last = apply_image_ladder(last, st["cur_tok"], self.ladder)
-            nxt = torch.where(act, _sample(last), self.pad)
+            if self.enable_sampling:
+                # the token drawn is the row's output index n_gen
+                nxt = sample_rows(last, st["seed"], st["n_gen"], st["temp"],
+                                  st["top_p"], st["do_sample"])
+            else:
+                nxt = _sample(last)
+            nxt = torch.where(act, nxt, self.pad)
             # the column just written is a key only for rows that were
             # active; an idle row's garbage is never marked valid
             wp = st["write_pos"]
@@ -263,9 +345,87 @@ class ContinuousBatchingEngine:
             self._toks[:, i] = nxt
             self._emitted[:, i] = act
 
+    def _verify(self, toks: torch.Tensor, positions: torch.Tensor,
+                write_pos: torch.Tensor):
+        """The verify forward of a speculative tick: toks [B, W] at RoPE
+        ``positions`` over the read-only static cache, row b's window from
+        ``write_pos[b]`` → (logits [B, W, V] fp32, k_col, v_col
+        [L, B, W, Hkv, D])."""
+        st = self.state
+        cache = {"k": st["k"], "v": st["v"], "pos": write_pos}
+        h, cache = self.lm(toks, positions=positions, cache=cache,
+                           attn_mask=st["key_valid"][:, None, None, :])
+        return self.lm.logits(h).float(), cache["k_col"], cache["v_col"]
+
+    def _spec_tick(self) -> None:
+        """One speculative tick of every slot, in place over the static
+        state (the reference's ``_get_spec_decode``): proposals, one
+        (k + 1)-wide verify, acceptance, the kept span's keys and history.
+        Emitted tokens and their mask land in the output buffers. No host
+        read of a device value, so it can be captured."""
+        st, k, W = self.state, self.speculative_k, self.speculative_k + 1
+        B, iw = self.B, self._iota_w
+        act = st["active"].clone()
+        wp0 = st["write_pos"].clone()
+        n_hist = st["hist"].shape[1] - 1      # the last column is a sink
+        props = lookup_proposals(st["hist"][:, :n_hist], st["hist_len"], k,
+                                 self.speculative_ngram, self.pad)
+        if self.ladder is not None:
+            props = ladder_propose(st["cur_tok"], props, self.ladder)
+        toks = torch.cat([st["cur_tok"][:, None], props], dim=1)   # [B, W]
+        lg, k_col, v_col = self._verify(toks, st["rope_pos"][:, None] + iw,
+                                        wp0)
+        if self.ladder is not None:
+            V = lg.shape[-1]
+            lg = apply_image_ladder(lg.reshape(B * W, V), toks.reshape(-1),
+                                    self.ladder).reshape(B, W, V)
+        g = _sample(lg)                                            # [B, W]
+        acc = props == g[:, :k]
+        if self.enable_sampling:
+            # a sampled row keeps a proposal only where the ladder forced
+            # it (its logits one-hot: every draw is that token)
+            if self.ladder is not None:
+                lad = self.ladder.ids_on(lg.device)[:-1]
+                forced = (toks[:, :k, None] == lad).any(dim=-1)
+                acc_s = acc & forced
+            else:
+                acc_s = torch.zeros_like(acc)
+            acc = torch.where(st["do_sample"][:, None], acc_s, acc)
+        m = torch.cumprod(acc.long(), dim=1).sum(dim=1)             # [B]
+        emit = g
+        if self.enable_sampling:
+            # the first position not kept is drawn (output index n_gen + m)
+            samp = sample_rows(lg[self._rows, m], st["seed"], st["n_gen"] + m,
+                               st["temp"], st["top_p"], st["do_sample"])
+            emit = g.scatter(1, m[:, None], samp[:, None])
+        rem = (st["max_gen"] - st["n_gen"]).clamp(min=1)
+        e = torch.minimum(m + 1, rem)
+        eos_idx = torch.where(emit == self.eos, iw, W).min(dim=1).values
+        e = torch.where(act, torch.minimum(e, eos_idx + 1), 0)
+        done_now = (eos_idx < e) | (st["n_gen"] + e >= st["max_gen"])
+        new_active = act & ~done_now
+        emit_mask = (iw < e[:, None]) & act[:, None]
+        self._toks.copy_(torch.where(emit_mask, emit, self.pad))
+        self._emitted.copy_(emit_mask)
+        cur = emit.gather(1, (e - 1).clamp(0, W - 1)[:, None])[:, 0]
+        st["cur_tok"].copy_(torch.where(new_active, cur, self.pad))
+        # every window column is written (capacity_for leaves the room);
+        # only the kept span becomes valid, the rest is overwritten later
+        write_decode_column(st["k"], k_col, wp0)
+        write_decode_column(st["v"], v_col, wp0)
+        il = self._iota_len
+        st["key_valid"].logical_or_((il >= wp0[:, None])
+                                    & (il < (wp0 + e)[:, None]))
+        hl = st["hist_len"]
+        idx = torch.where(iw < e[:, None], hl[:, None] + iw, n_hist)
+        st["hist"].scatter_(1, idx, emit)
+        for name in ("hist_len", "write_pos", "rope_pos", "n_gen"):
+            st[name].add_(e)
+        st["active"].copy_(new_active)
+
     def _capture(self) -> None:
-        """Warm the block up once on a side stream (every slot is idle, so
-        it changes no valid state), then capture one block into a CUDA
+        """Warm the tick up once on a side stream (every slot is idle, so
+        it changes no valid state), then capture one tick into a CUDA
         graph. Raises if the capture fails; there is no eager fallback."""
         t0 = time.perf_counter()
         dev = self.device
@@ -273,24 +433,24 @@ class ContinuousBatchingEngine:
             side = torch.cuda.Stream(device=dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
-                self._decode_block()
+                self._tick()
             self.eager_blocks += 1
             torch.cuda.current_stream(dev).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
-                self._decode_block()
+                self._tick()
         torch.cuda.synchronize(dev)
         self._graph = graph
         self.capture_s = time.perf_counter() - t0
 
     def _dispatch_block(self):
-        """Run (replay) one block and queue the copy of its outputs to the
+        """Run (replay) one tick and queue the copy of its outputs to the
         next pinned host buffer; → (host buffers, event or None)."""
         if self._graph is not None:
             self._graph.replay()
             self.replays += 1
         else:
-            self._decode_block()
+            self._tick()
             self.eager_blocks += 1
         host = self._host[self._flip]
         self._flip ^= 1
@@ -310,33 +470,47 @@ class ContinuousBatchingEngine:
         return min(_round_up(prompt_len, self.prompt_bucket),
                    self.max_prompt)
 
+    @property
+    def headroom(self) -> int:
+        """Cache columns an active row may write past its budget: a block,
+        or a verify window of k + 1."""
+        if self.speculative_k:
+            return max(self.block_steps, self.speculative_k + 1)
+        return self.block_steps
+
     def capacity_for(self, prompt_len: int) -> int:
         """Decode-token budget left in a cache row for a prompt of this
-        length after bucketing; <= 0 means it will not fit. ``block_steps``
-        of headroom keep an active row's block inside the cache."""
+        length after bucketing; <= 0 means it will not fit. The headroom
+        keeps an active row's block (or verify window) inside the cache."""
         if prompt_len > self.max_prompt:
             return 0
-        return self.max_len - self._bucket(prompt_len) - self.block_steps
+        return self.max_len - self._bucket(prompt_len) - self.headroom
 
     def submit(self, input_ids, *, images=None, embeds_cmp_mask=None,
                ids_cmp_mask=None, patch_positions=None,
-               max_new_tokens: int = 128) -> Request:
+               max_new_tokens: int = 128, do_sample: bool = False,
+               temperature: float = 1.0, top_p: float = 1.0,
+               seed: int = 0) -> Request:
+        if do_sample and not self.enable_sampling:
+            raise ValueError("do_sample request on a greedy engine: build "
+                             "the engine with enable_sampling=True")
         Sp = len(input_ids)
         bucket = self._bucket(Sp)
         if Sp > bucket:
             raise ValueError(f"prompt of {Sp} tokens exceeds max_prompt="
                              f"{self.max_prompt}")
-        if bucket + max_new_tokens + self.block_steps > self.max_len:
+        if bucket + max_new_tokens + self.headroom > self.max_len:
             raise ValueError(
                 f"request cannot fit in a cache row: bucket {bucket} + "
-                f"max_new_tokens {max_new_tokens} + block_steps "
-                f"{self.block_steps} > max_len {self.max_len}")
+                f"max_new_tokens {max_new_tokens} + headroom "
+                f"{self.headroom} > max_len {self.max_len}")
         self._uid += 1
         req = Request(self._uid, np.asarray(input_ids, np.int32),
                       images=images, embeds_cmp_mask=embeds_cmp_mask,
                       ids_cmp_mask=ids_cmp_mask,
                       patch_positions=patch_positions,
-                      max_new_tokens=max_new_tokens,
+                      max_new_tokens=max_new_tokens, do_sample=do_sample,
+                      temperature=temperature, top_p=top_p, seed=seed,
                       submitted_at=time.perf_counter())
         self._pending.append(req)
         return req
@@ -419,8 +593,7 @@ class ContinuousBatchingEngine:
                     self._prefill_chunk_step(pf)
                 return
         first_tok, k, v = self._prefill(req, bucket)
-        self._insert(slot, k, v, len(req.input_ids), first_tok,
-                     req.max_new_tokens)
+        self._insert(slot, k, v, req, first_tok)
         if self.prefix_cache is not None and req.images is None:
             self.prefix_cache.insert(req.input_ids, k, v)
         self._started(slot, req, first_tok)
@@ -453,8 +626,8 @@ class ContinuousBatchingEngine:
             if plen % C or plen >= bucket:
                 raise RuntimeError(f"prefix of {plen} tokens does not tile "
                                    f"chunks of {C} in a bucket of {bucket}")
-            cache["k"][:, :, :plen] = entry.k
-            cache["v"][:, :, :plen] = entry.v
+            byte_view(cache["k"])[:, :, :plen] = byte_view(entry.k)
+            byte_view(cache["v"])[:, :, :plen] = byte_view(entry.v)
             filled = plen
         return {"req": req, "slot": slot, "embeds": embeds,
                 "pk": cache["k"], "pv": cache["v"], "filled": filled,
@@ -473,19 +646,18 @@ class ContinuousBatchingEngine:
         pf["filled"] = off + C
         if pf["filled"] < pf["bucket"]:
             return
-        first_tok = self._first_token(pf["h_last"], int(req.input_ids[-1]))
-        self._insert(pf["slot"], pf["pk"], pf["pv"], Sp, first_tok,
-                     req.max_new_tokens)
+        first_tok = self._first_token(pf["h_last"], req)
+        self._insert(pf["slot"], pf["pk"], pf["pv"], req, first_tok)
         if self.prefix_cache is not None and req.images is None:
             self.prefix_cache.insert(req.input_ids, pf["pk"], pf["pv"])
         self._prefilling = None
         self._started(pf["slot"], req, first_tok)
 
     def _decode_would_emit(self) -> bool:
-        """True iff the next block could emit a real token for some slot.
-        The host's token counts lag the block in flight, so a request in
-        that block's snapshot gets a ``block_steps`` discount; this skips
-        the trailing block of idle slots the pipeline would otherwise run."""
+        """True iff the next tick could emit a real token for some slot.
+        The host's token counts lag the tick in flight, so a request in
+        that tick's snapshot gets a ``per_tick`` discount; this skips the
+        trailing tick of idle slots the pipeline would otherwise run."""
         inflight = set()
         if self._result is not None:
             inflight = {id(r) for r in self._result[2] if r is not None}
@@ -494,7 +666,7 @@ class ContinuousBatchingEngine:
                 continue
             remaining = r.max_new_tokens - len(r.tokens)
             if id(r) in inflight:
-                remaining -= self.block_steps
+                remaining -= self.per_tick
             if remaining > 0:
                 return True
         return False
@@ -523,6 +695,9 @@ class ContinuousBatchingEngine:
                 if req is None or req.done:
                     continue
                 finished = False
+                n = int(emitted[slot].sum())
+                self.row_ticks += n > 0
+                self.tokens_emitted += n
                 for t, m in zip(toks[slot], emitted[slot]):
                     if m:
                         req.tokens.append(int(t))

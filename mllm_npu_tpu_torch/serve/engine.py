@@ -5,8 +5,9 @@ anyres tiling → ``<patch>…</patch><img>…</img>Question: …\\nAnswer:``
 prompt → greedy decode → special-token-stripped text. A null or empty
 image means a text-only question. ``InferenceEngine`` serves one request
 per call; ``BatchedInferenceEngine`` sends concurrent requests through the
-continuous-batching engine. The image-generation branch waits for the
-de-tokenizer slice.
+continuous-batching engine. Both take the reference's serving options:
+the KV cache's dtype, fused projections and prompt-lookup speculation.
+The image-generation branch waits for the de-tokenizer slice.
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ from mllm_npu_tpu_torch.constant import (BOI_TOKEN, BOP_TOKEN, EOI_TOKEN,
                                          image_tokens_str)
 from mllm_npu_tpu_torch.data.utils import (
     grid_pinpoints_from_resolution_grids, process_anyres_image)
-from mllm_npu_tpu_torch.models.generation.generate import MLLMGenerator
-from mllm_npu_tpu_torch.models.generation.generate import CACHE_DTYPE
+from mllm_npu_tpu_torch.models.generation.generate import (CACHE_DTYPE,
+                                                           MLLMGenerator)
 from mllm_npu_tpu_torch.models.generation.sampler import (
     SamplingConfig, ladder_from_tokenizer)
 from mllm_npu_tpu_torch.serve.batched_engine import ContinuousBatchingEngine
@@ -46,7 +47,10 @@ class InferenceEngine:
     """``model`` is a ``GeneralizedMultimodalModel``; it is moved to
     ``device`` (``cuda`` unless the caller names another).
     ``quantize_int8`` / ``quantize_int4`` serve its Llama with int8 / int4
-    weights (``MLLMGenerator``), converted in place on ``device``."""
+    weights and ``fuse_projections`` with fused q/k/v and gate/up products
+    (``MLLMGenerator``, converted in place on ``device``); ``cache_dtype``
+    is the KV cache's; ``speculative_k`` > 0 decodes a request by
+    prompt-lookup speculation."""
 
     def __init__(self, *, model, tokenizer, image_transform,
                  resolution_grids=DEFAULT_RESOLUTION_GRIDS,
@@ -54,7 +58,10 @@ class InferenceEngine:
                  num_img_in_tokens: int = NUM_IMG_TOKENS,
                  num_img_out_tokens: int = NUM_IMG_TOKENS,
                  max_new_tokens: int = 512, device=None,
-                 quantize_int8: bool = False, quantize_int4: bool = False):
+                 quantize_int8: bool = False, quantize_int4: bool = False,
+                 fuse_projections: bool = False,
+                 cache_dtype: torch.dtype = CACHE_DTYPE,
+                 speculative_k: int = 0, speculative_ngram: int = 3):
         self.device = resolve_device(device)
         self.tokenizer = tokenizer
         self.image_transform = image_transform
@@ -74,7 +81,9 @@ class InferenceEngine:
                 eos_token_id=eos if eos is not None else -1,
                 pad_token_id=getattr(tokenizer, "pad_token_id", 0) or 0),
             ladder=ladder_from_tokenizer(tokenizer, num_img_out_tokens),
-            quantize_int8=quantize_int8, quantize_int4=quantize_int4)
+            quantize_int8=quantize_int8, quantize_int4=quantize_int4,
+            fuse_projections=fuse_projections, cache_dtype=cache_dtype,
+            speculative_k=speculative_k, speculative_ngram=speculative_ngram)
 
     def _prepare_comprehension(self, input_text: str, image_b64: str):
         """b64 image + question → (prompt ids, anyres tiles NHWC, tile
@@ -155,10 +164,11 @@ class InferenceEngine:
 class BatchedInferenceEngine(InferenceEngine):
     """``InferenceEngine`` whose comprehension runs through the
     :class:`ContinuousBatchingEngine`: concurrent requests share one static
-    KV cache and decode together, the decode block captured as a CUDA
-    graph on the GPU. The other keywords are
-    ``InferenceEngine``'s; its ``generator`` (weights cast, quantized)
-    holds the model both engines serve.
+    KV cache and decode together, the decode block (or the speculative
+    verify tick) captured as a CUDA graph on the GPU. The other keywords
+    are ``InferenceEngine``'s; its ``generator`` (weights cast, fused,
+    quantized) holds the model both engines serve, and its cache dtype and
+    speculation settings are the batched engine's too.
 
     Threads: callers (the worker's handler threads) prepare inputs on the
     host and submit; one drain thread, started last, makes every device
@@ -178,9 +188,11 @@ class BatchedInferenceEngine(InferenceEngine):
             gen.model, num_slots=num_slots, max_len=max_len,
             block_steps=block_steps, prompt_bucket=batch_prompt_bucket,
             max_prompt=max_prompt, eos_token_id=gen.sampling.eos_token_id,
-            pad_token_id=gen.sampling.pad_token_id, cache_dtype=CACHE_DTYPE,
-            prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
-            ladder=gen.ladder)
+            pad_token_id=gen.sampling.pad_token_id,
+            cache_dtype=gen.cache_dtype, prefill_chunk=prefill_chunk,
+            prefix_cache=prefix_cache, ladder=gen.ladder,
+            speculative_k=gen.speculative_k,
+            speculative_ngram=gen.speculative_ngram)
         self._cv = threading.Condition()
         self._inflight: dict = {}   # uid -> [request, event, queue, #sent]
         self._engine_error: Optional[BaseException] = None

@@ -28,6 +28,8 @@ import urllib.request
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+import torch
+
 from mllm_npu_tpu_torch.serve.serve_utils import build_logger, server_error_msg
 
 logger = logging.getLogger("model_worker")
@@ -211,19 +213,28 @@ def _load_tokenizer(tok_cfg: dict, vocab_size: int):
     return instantiate(tok_cfg)
 
 
+KV_CACHE_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32,
+                   "fp8": torch.float8_e4m3fn}
+
+
 def load_engine_from_config(model_config_path: str,
                             max_new_tokens: int = 512,
                             batched: bool = False, num_slots: int = 8,
                             max_len: int = 2048, prefill_chunk=None,
                             prefix_cache=None, prompt_bucket: int = 128,
                             quantize_int8: bool = False,
-                            quantize_int4: bool = False, *, device=None,
+                            quantize_int4: bool = False,
+                            fuse_projections: bool = False,
+                            speculative_k: int = 0,
+                            speculative_ngram: int = 3,
+                            kv_cache_dtype: str = "bf16", *, device=None,
                             seed: int = 0):
     """The worker's engine from a model YAML, weights drawn from ``seed``
     (checkpoint loading is not ported yet), on ``device`` (``cuda`` unless
     named; raises without a GPU). ``batched`` gives a
     :class:`BatchedInferenceEngine` with ``max_prompt = max_len // 2``, as
-    the reference's worker."""
+    the reference's worker. ``kv_cache_dtype`` is ``bf16``, ``fp8`` (e4m3:
+    half the cache's memory and its read traffic) or ``f32``."""
     from mllm_npu_tpu_torch.configs import instantiate, load_config
     from mllm_npu_tpu_torch.serve.engine import (BatchedInferenceEngine,
                                                  InferenceEngine)
@@ -240,7 +251,11 @@ def load_engine_from_config(model_config_path: str,
                   image_transform=instantiate(cfg["processor"]),
                   num_img_in_tokens=nq, num_img_out_tokens=nq,
                   max_new_tokens=max_new_tokens, device=device,
-                  quantize_int8=quantize_int8, quantize_int4=quantize_int4)
+                  quantize_int8=quantize_int8, quantize_int4=quantize_int4,
+                  fuse_projections=fuse_projections,
+                  speculative_k=speculative_k,
+                  speculative_ngram=speculative_ngram,
+                  cache_dtype=KV_CACHE_DTYPES[kv_cache_dtype])
     if batched:
         return BatchedInferenceEngine(
             num_slots=num_slots, max_len=max_len, max_prompt=max_len // 2,
@@ -252,19 +267,13 @@ def load_engine_from_config(model_config_path: str,
 # flags of the reference's worker this port does not serve yet: each
 # raises, naming its ROADMAP item, when set to anything but its default
 UNPORTED_FLAGS = {
-    "speculative_k": (0, "prompt-lookup speculative decode, queue 1 item "
-                         "10b"),
-    "speculative_ngram": (3, "prompt-lookup speculative decode, queue 1 "
-                             "item 10b"),
     "tensor_parallel": (1, "tensor-parallel serving, queue 1 item 12"),
-    "fuse_projections": (False, "fused projections, queue 1 item 10b"),
-    "kv_cache_dtype": ("bf16", "the fp8 and f32 KV caches, queue 1 item "
-                               "10b"),
     "params_checkpoint": (None, "loading orbax checkpoints, queue 1 item "
                                 "16"),
     "generation_config": (None, "the SDXL de-tokenizer, queue 1 item 14"),
-    "cast_bf16": (True, "serving fp32 weights (--no-cast-bf16), queue 1 "
-                        "item 10b"),
+    "cast_bf16": (True, "serving fp32 weights (--no-cast-bf16: fp32 "
+                        "serving needs K1 for fp32 operands), queue 1 "
+                        "item 10c"),
 }
 
 
@@ -321,19 +330,22 @@ def parse_worker_args(argv=None):
                              "is not ported yet and raises)")
     parser.add_argument("--fuse-projections",
                         action=argparse.BooleanOptionalAction, default=False,
-                        help="not ported yet (raises)")
+                        help="serve q/k/v and gate/up as one product each "
+                             "(LoRA merged first)")
     parser.add_argument("--unroll-layers",
                         action=argparse.BooleanOptionalAction, default=False,
                         help="accepted and without effect: the port's "
                              "layers are already a Python loop")
     parser.add_argument("--speculative-k", type=int, default=0,
-                        help="not ported yet (raises above 0)")
+                        help="prompt-lookup speculative decode: verify k "
+                             "proposed tokens a forward (greedy requests; "
+                             "0 turns it off)")
     parser.add_argument("--speculative-ngram", type=int, default=3,
-                        help="not ported yet (raises unless 3)")
+                        help="n-gram length the proposals are matched on")
     parser.add_argument("--kv-cache-dtype", type=str, default="bf16",
-                        choices=["bf16", "fp8", "f32"],
-                        help="KV cache storage dtype; only bf16 is ported "
-                             "(fp8 and f32 raise)")
+                        choices=list(KV_CACHE_DTYPES),
+                        help="KV cache storage dtype (fp8: e4m3, half the "
+                             "cache memory of bf16)")
     parser.add_argument("--params-checkpoint", type=str, default=None,
                         help="not ported yet (raises)")
     parser.add_argument("--device", type=str, default="cuda",
@@ -371,7 +383,11 @@ def main(argv=None):
         max_len=args.max_cache_len, prefill_chunk=args.prefill_chunk,
         prefix_cache=args.prefix_cache, prompt_bucket=args.prompt_bucket,
         quantize_int8=args.quantize_int8, quantize_int4=args.quantize_int4,
-        device=args.device, seed=args.seed)
+        fuse_projections=args.fuse_projections,
+        speculative_k=args.speculative_k,
+        speculative_ngram=args.speculative_ngram,
+        kv_cache_dtype=args.kv_cache_dtype, device=args.device,
+        seed=args.seed)
     if args.batched:
         args.limit_model_concurrency = max(args.limit_model_concurrency,
                                            args.num_slots)

@@ -17,8 +17,9 @@ it. It undoes:
   (int8) or [K/2, N] (packed int4) → ``weight_q`` [N, K] or [N, K/2], its
   transpose; ``scale`` [N] and ``scale_g`` [K/G, N] as they are.
 
-It also holds the port's serving transforms, :func:`merge_lora_` and
-:func:`quantize_llama_` (twins of ``merge_lora_params`` and
+It also holds the port's serving transforms, :func:`merge_lora_`,
+:func:`fuse_llama_projections_` and :func:`quantize_llama_` (twins of
+``merge_lora_params``, ``fuse_llama_projections`` with one shard and
 ``quantize_llama_params``). Unlike the reference's pure tree functions,
 they change the model in place and free each replaced weight as they go,
 so a full-width model is never held twice.
@@ -66,7 +67,7 @@ def linear_from_jax(node: dict, key: str, i=None
 
 def llama_from_jax(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
     """``LlamaForCausalLM`` params (scan-stacked layers, float or
-    quantized) → state_dict."""
+    quantized, with separate or fused projections) → state_dict."""
     sd = {}
     m = tree["model"]
     sd[f"{prefix}model.embed_tokens.weight"] = _t(
@@ -79,10 +80,8 @@ def llama_from_jax(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
         lp = f"{prefix}model.layers.{i}."
         for norm in ("input_layernorm", "post_attention_layernorm"):
             sd[f"{lp}{norm}.weight"] = _t(layers[norm]["weight"][i])
-        for group, names in (("self_attn", ("q_proj", "k_proj", "v_proj",
-                                            "o_proj")),
-                             ("mlp", ("gate_proj", "up_proj", "down_proj"))):
-            for name in names:
+        for group in ("self_attn", "mlp"):
+            for name in sorted(layers[group]):
                 node = layers[group][name]
                 key = f"{lp}{group}.{name}"
                 if "base" in node:
@@ -196,6 +195,71 @@ def merge_lora_(lm: nn.Module) -> None:
         _swap(lm, name, merged)
         del mod, w, delta   # the old weight goes before the next is merged
     set_llama_config(lm, lora_rank=0)
+
+
+_FUSED = (("self_attn", "qkv_proj", ("q_proj", "k_proj", "v_proj")),
+          ("mlp", "gate_up_proj", ("gate_proj", "up_proj")))
+
+
+def _fuse(parts):
+    """One module whose output is the concatenation of ``parts``' (bias-free
+    Linear, Int8Linear or Int4Linear of one input width): their weights
+    (or int8 values and per-channel scales, or packed int4 values and
+    group scales) joined along the output axis. Quantization is per output
+    channel, so fusing quantized parts gives the same buffers as
+    quantizing the fused float weight."""
+    first = parts[0]
+    n_out = sum(_out(p) for p in parts)
+    if isinstance(first, Int8Linear):
+        with torch.device("meta"):
+            new = Int8Linear(first.weight_q.shape[1], n_out,
+                             first.compute_dtype)
+        new.weight_q = torch.cat([p.weight_q for p in parts])
+        new.scale = torch.cat([p.scale for p in parts])
+    elif isinstance(first, Int4Linear):
+        K = 2 * first.weight_q.shape[1]
+        G = K // first.scale_g.shape[0]
+        with torch.device("meta"):
+            new = Int4Linear(K, n_out, G, first.compute_dtype)
+        new.weight_q = torch.cat([p.weight_q for p in parts])
+        new.scale_g = torch.cat([p.scale_g for p in parts], dim=1)
+    else:
+        w = first.weight
+        with torch.device("meta"):
+            new = Linear(w.shape[1], n_out, bias=False,
+                         dtype=first.compute_dtype)
+        new.weight = nn.Parameter(torch.cat([p.weight for p in parts]),
+                                  requires_grad=w.requires_grad)
+    return new
+
+
+def _out(m: nn.Module) -> int:
+    return (m.weight_q if hasattr(m, "weight_q") else m.weight).shape[0]
+
+
+@torch.no_grad()
+def fuse_llama_projections_(lm: nn.Module) -> None:
+    """In place: join each layer's q/k/v projections into ``qkv_proj``
+    ([(H + 2·Hkv)·D, hidden]) and gate/up into ``gate_up_proj`` ([2·I,
+    hidden]), in the reference's order (``fuse_llama_projections`` with
+    one shard: q | k | v, gate | up), and set ``fused_projections``.
+    Serving order: after :func:`merge_lora_` (a LoRA model raises) and
+    before :func:`quantize_llama_`; fusing a quantized model gives the same
+    buffers. The parts are freed as each fused module is made."""
+    if any(isinstance(m, LoRALinear) for m in lm.modules()):
+        raise ValueError("merge the LoRA adapters (merge_lora_) before "
+                         "fusing projections")
+    if lm.config.fused_projections:
+        return
+    for layer in lm.model.layers:
+        for group, fused, names in _FUSED:
+            mod = getattr(layer, group)
+            setattr(mod, fused, _fuse([getattr(mod, n) for n in names]))
+            for n in names:
+                delattr(mod, n)
+            if group == "mlp":
+                mod.fused = True
+    set_llama_config(lm, fused_projections=True)
 
 
 @torch.no_grad()

@@ -340,3 +340,332 @@ def test_prefix_cache_entry_owns_its_memory():
     k.fill_(7.0)
     e = pc.lookup(np.arange(8, dtype=np.int32))
     assert e is not None and float(e.k.abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# sampling, speculation, the fp8 cache (the reference's slow tests, mirrored)
+# ---------------------------------------------------------------------------
+
+PROMPTS_SPEC = [[7, 8, 9, 7, 8, 9, 7, 8], [5, 1, 88, 200, 14, 3, 77, 21, 9],
+                [4, 4, 4, 4, 4, 4]]
+
+
+def test_speculative_engine_matches_reference_and_plain(stack):
+    """speculative_k = 4: the port's ids equal the JAX speculative engine's
+    and both engines' plain block decode."""
+    spec_kw = dict(num_slots=4, max_len=64, prompt_bucket=8, max_prompt=16)
+    ref, got = _both(stack, PROMPTS_SPEC, 10, speculative_k=4, **spec_kw)
+    assert got == ref
+    plain_ref, plain = _both(stack, PROMPTS_SPEC, 10, block_steps=3,
+                             **spec_kw)
+    assert got == plain == plain_ref
+
+
+def _oracle_engine(stack, table=None, raw=None, **kw):
+    """A port engine whose verify forward is an oracle: logits one-hot at
+    ``table[token]`` (× 10), or the fixed row ``raw`` for every position."""
+    tm = stack[3]
+    eng = ContinuousBatchingEngine(tm, eos_token_id=-1,
+                                   cache_dtype=torch.float32, **kw)
+    L, B, _, Hkv, D = eng.state["k"].shape
+    V = tm.language_model.config.vocab_size
+
+    def verify(toks, positions, write_pos):
+        if table is not None:
+            logits = torch.nn.functional.one_hot(table[toks], V).float() * 10
+        else:
+            logits = raw.expand(*toks.shape, V).clone()
+        W = toks.shape[1]
+        z = torch.zeros(L, B, W, Hkv, D)
+        return logits, z, z
+    eng._verify = verify
+    return eng
+
+
+@torch.inference_mode()
+def _set(eng, **values):
+    """Write engine state (inference tensors) in place."""
+    for name, v in values.items():
+        eng.state[name].copy_(torch.as_tensor(v))
+
+
+def test_speculative_acceptance_mechanics(stack):
+    """The reference's oracle check of one tick: a row whose history holds
+    the oracle's chain accepts all k drafts (k + 1 tokens), a row with no
+    repeated n-gram emits one, idle rows nothing; positions, budgets and
+    histories move by what was emitted."""
+    k, W = 4, 5
+    table = torch.zeros(stack[1].vocab_size, dtype=torch.long)
+    for a, b in [(8, 1), (1, 2), (2, 3), (3, 4), (4, 5)]:
+        table[a] = b
+    eng = _oracle_engine(stack, table=table, num_slots=4, max_len=64,
+                         prompt_bucket=16, speculative_k=k)
+    rep = [5, 6, 9, 7, 8, 1, 2, 3, 4, 9, 7, 8]
+    rnd = [3, 17, 42, 100, 5, 60, 11, 2]
+    hist = eng.state["hist"].clone()
+    hist[0, :len(rep)] = torch.tensor(rep)
+    hist[1, :len(rnd)] = torch.tensor(rnd)
+    _set(eng, hist=hist, hist_len=[len(rep), len(rnd), 0, 0],
+         cur_tok=[8, 2, 0, 0],
+         active=[True, True, False, False], write_pos=[12, 8, 0, 0],
+         rope_pos=[12, 8, 0, 0], n_gen=[1, 1, 0, 0], max_gen=[32, 32, 0, 0])
+    with torch.inference_mode():
+        eng._spec_tick()
+    toks, mask = eng._toks, eng._emitted
+    assert mask[0].sum() == W and toks[0].tolist() == [1, 2, 3, 4, 5]
+    assert mask[1].sum() == 1
+    assert mask[2].sum() == 0 and mask[3].sum() == 0
+    st = eng.state
+    assert st["write_pos"].tolist() == [12 + W, 9, 0, 0]
+    assert st["hist_len"].tolist() == [12 + W, 9, 0, 0]
+    assert st["n_gen"].tolist() == [1 + W, 2, 0, 0]
+    assert st["hist"][0, 12:12 + W].tolist() == [1, 2, 3, 4, 5]
+    assert st["key_valid"][0, 12:12 + W].all()
+    assert not st["key_valid"][1, 9:].any()
+
+
+def test_speculative_ladder_mechanics(stack):
+    """The reference's ladder oracle: mid-ladder a greedy and a sampled row
+    both emit k + 1 forced tokens in one tick; at the ladder's end a greedy
+    row emits the forced tokens and the argmax, a sampled one the forced
+    tokens and a token drawn from the post-``</img>`` logits (which varies
+    with the seed and is never a ladder token)."""
+    k, W, B = 4, 5, 4
+    V = stack[1].vocab_size
+    lad = tuple(range(20, 31))
+    raw = (torch.arange(V, dtype=torch.float32) % 7) * 0.05
+    raw[20:31] = -5.0
+    eng = _oracle_engine(stack, raw=raw, num_slots=B, max_len=64,
+                         prompt_bucket=16, speculative_k=k,
+                         enable_sampling=True,
+                         ladder=ImageTokenLadder(ids=lad))
+
+    def tick(seed):
+        _set(eng, cur_tok=[20, 20, 28, 28], active=[True] * B,
+             do_sample=[False, True, True, False],
+             temp=[1.0, 1.0, 4.0, 1.0], top_p=[1.0] * B,
+             seed=[seed * 10 + i for i in range(B)], write_pos=[8] * B,
+             rope_pos=[8] * B, n_gen=[1] * B, max_gen=[32] * B,
+             hist_len=[0] * B)
+        with torch.inference_mode():
+            eng._spec_tick()
+        return eng._toks.clone(), eng._emitted.clone()
+
+    toks, mask = tick(0)
+    for r in (0, 1):
+        assert mask[r].sum() == W and toks[r].tolist() == [21, 22, 23, 24,
+                                                           25]
+    g_corr = int(torch.argmax(raw))
+    assert mask[3].sum() == 3 and toks[3, :3].tolist() == [29, 30, g_corr]
+    assert mask[2].sum() == 3 and toks[2, :2].tolist() == [29, 30]
+    corr = {int(tick(s)[0][2, 2]) for s in range(6)}
+    assert len(corr) >= 2 and all(c < 20 or c > 30 for c in corr)
+
+
+def _engine_pair(stack, cache=("float32", "float32"), **kw):
+    """The JAX engine and the port's with the same ``kw`` and the caches
+    ``cache`` (jnp and torch dtype names)."""
+    jm, jl, params, tm = stack
+    jkw = dict(kw)
+    if jkw.pop("ladder", None):
+        jkw["ladder"] = _ladder(JLadder)
+        kw["ladder"] = _ladder(ImageTokenLadder)
+    je = JEngine(jm, jl, params, eos_token_id=-1,
+                 cache_dtype=getattr(jnp, cache[0]), **jkw)
+    te = ContinuousBatchingEngine(tm, eos_token_id=-1,
+                                  cache_dtype=getattr(torch, cache[1]), **kw)
+    return je, te
+
+
+def test_per_request_sampling_mixed_with_greedy(stack):
+    """enable_sampling: a greedy row among sampled ones keeps the
+    reference's ids; a sampled row's ids are a function of its seed
+    (the same alone as among others, and in another slot); a near-zero
+    temperature collapses onto greedy; do_sample on a greedy engine
+    raises."""
+    jm, jl, params, tm = stack
+    T = 8
+    kw = dict(num_slots=4, max_len=64, block_steps=3, prompt_bucket=8)
+    (ref,), _ = _both(stack, [[3, 17, 42, 9]], T, **kw)
+    cold_ref = _both(stack, [[250, 4, 4]], T, **kw)[0][0]
+    eng = ContinuousBatchingEngine(tm, eos_token_id=-1,
+                                   cache_dtype=torch.float32,
+                                   enable_sampling=True, **kw)
+    r_g = eng.submit([3, 17, 42, 9], max_new_tokens=T)
+    r_s = eng.submit([5, 1, 88], max_new_tokens=T, do_sample=True,
+                     temperature=0.9, top_p=0.9, seed=7)
+    r_c = eng.submit([250, 4, 4], max_new_tokens=T, do_sample=True,
+                     temperature=1e-4, top_p=1.0, seed=3)
+    eng.run_until_idle()
+    assert r_g.tokens == ref and r_c.tokens == cold_ref
+    assert len(r_s.tokens) == T
+    # alone, in slot 0 instead of slot 1: the same draws
+    alone = eng.submit([5, 1, 88], max_new_tokens=T, do_sample=True,
+                       temperature=0.9, top_p=0.9, seed=7)
+    eng.run_until_idle()
+    assert alone.tokens == r_s.tokens
+    other = eng.submit([5, 1, 88], max_new_tokens=T, do_sample=True,
+                       temperature=0.9, top_p=0.9, seed=8)
+    eng.run_until_idle()
+    assert other.tokens != r_s.tokens
+    with pytest.raises(ValueError, match="enable_sampling"):
+        ContinuousBatchingEngine(tm, **kw).submit([3, 4], do_sample=True)
+
+
+def test_speculative_mixed_sampled_and_greedy_slots(stack):
+    """Under speculation a sampled row rides the same verify forward but
+    emits exactly one token a tick (no ladder here), drawn as the plain
+    sampled engine draws it; the greedy row keeps the reference's ids."""
+    jm, jl, params, tm = stack
+    T = 8
+    kw = dict(num_slots=4, max_len=64, prompt_bucket=8, max_prompt=16)
+    ref = _both(stack, [[3, 17, 42, 9, 100, 7]], T, block_steps=3,
+                **kw)[0][0]
+    eng = ContinuousBatchingEngine(tm, eos_token_id=-1,
+                                   cache_dtype=torch.float32,
+                                   speculative_k=4, enable_sampling=True,
+                                   **kw)
+    r_g = eng.submit([3, 17, 42, 9, 100, 7], max_new_tokens=T)
+    r_s = eng.submit([5, 1, 88, 200], max_new_tokens=T, do_sample=True,
+                     temperature=0.8, top_p=0.9, seed=7)
+    deltas, last = [], len(r_s.tokens)
+    while eng.step():
+        if len(r_s.tokens) != last:
+            deltas.append(len(r_s.tokens) - last)
+            last = len(r_s.tokens)
+    assert r_g.tokens == ref
+    assert len(r_s.tokens) == T and set(deltas) == {1}
+    plain = ContinuousBatchingEngine(tm, eos_token_id=-1,
+                                     cache_dtype=torch.float32,
+                                     block_steps=3, enable_sampling=True,
+                                     **kw)
+    r_p = plain.submit([5, 1, 88, 200], max_new_tokens=T, do_sample=True,
+                       temperature=0.8, top_p=0.9, seed=7)
+    plain.run_until_idle()
+    assert r_p.tokens == r_s.tokens
+
+
+def test_fp8_cache_engine_matches_reference(stack):
+    """An fp8 (e4m3) static cache: the port's ids equal the JAX fp8
+    engine's (both store e4m3 and attend in bf16 with fp32 sums), and the
+    first token the f32 engine's (the prefill never reads the cache)."""
+    prompt = [3, 17, 42, 9, 100, 7]
+    T = 24
+    je, te = _engine_pair(stack, ("float8_e4m3fn", "float8_e4m3fn"),
+                          num_slots=2, max_len=64, block_steps=2,
+                          prompt_bucket=8)
+    assert te.state["k"].dtype == torch.float8_e4m3fn
+    got = [list(map(int, _run(e, [prompt], T)[0].tokens)) for e in (je, te)]
+    assert got[1] == got[0]
+    f32 = _both(stack, [prompt], T, num_slots=2, max_len=64, block_steps=2,
+                prompt_bucket=8)[1][0]
+    assert got[1][0] == f32[0]
+
+
+def test_fp8_kv_decode_attention_error_bound():
+    """The reference's bound on the fp8 storage path: with an e4m3 cache
+    the port's ``decode_attention`` computes in bf16, within 8% relative
+    RMS of the fp32 result (fp8 q and probabilities would measure ~10.5%),
+    and a bf16 cache within 1%."""
+    from mllm_npu_tpu_torch.ops import decode_attention
+    rs = np.random.RandomState(0)
+    B, Hq, Hkv, D, Sk = 2, 8, 4, 64, 256
+    q = torch.from_numpy(rs.randn(B, 1, Hq, D).astype(np.float32))
+    k = torch.from_numpy(rs.randn(B, Sk, Hkv, D).astype(np.float32))
+    v = torch.from_numpy(rs.randn(B, Sk, Hkv, D).astype(np.float32))
+    mask = torch.ones(B, 1, 1, Sk, dtype=torch.bool)
+    ref = decode_attention(q, k, v, mask)
+    qb = q.bfloat16()
+    denom = ref.pow(2).mean().sqrt()
+    for dt, bound in ((torch.float8_e4m3fn, 0.08), (torch.bfloat16, 0.01)):
+        o = decode_attention(qb, k.to(dt), v.to(dt), mask).float()
+        assert float((o - ref).pow(2).mean().sqrt() / denom) < bound, dt
+
+
+@pytest.mark.parametrize("cache", ["f32", "fp8"])
+def test_speculative_ladder_parity_and_sampled_forcing(stack, cache):
+    """Ladder + speculation: greedy ids equal the reference's speculative
+    engine's (f32 and fp8 caches) and the plain ladder engine's; a sampled
+    request whose prompt ends with ``<img>`` still emits the exact forced
+    ladder."""
+    n_img, T = 4, 7
+    lad = _ladder(ImageTokenLadder)
+    prompt = [3, 17, lad.ids[0]]
+    name = {"f32": "float32", "fp8": "float8_e4m3fn"}[cache]
+    je, te = _engine_pair(stack, (name, name), num_slots=2, max_len=64,
+                          prompt_bucket=8, ladder=True, speculative_k=3)
+    got = [list(map(int, _run(e, [prompt], T)[0].tokens)) for e in (je, te)]
+    assert got[1] == got[0]
+    assert got[1][:n_img + 1] == list(lad.ids[1:])
+    if cache == "f32":
+        plain = _both(stack, [prompt], T, num_slots=2, max_len=64,
+                      block_steps=2, prompt_bucket=8, ladder=True)[1][0]
+        assert got[1] == plain
+    eng = ContinuousBatchingEngine(
+        stack[3], num_slots=2, max_len=64, prompt_bucket=8, eos_token_id=-1,
+        cache_dtype=getattr(torch, name), ladder=lad, speculative_k=3,
+        enable_sampling=True)
+    r1 = eng.submit(prompt, max_new_tokens=T)
+    r2 = eng.submit(prompt, max_new_tokens=T, do_sample=True,
+                    temperature=0.9, top_p=0.95, seed=3)
+    eng.run_until_idle()
+    assert r1.tokens == got[1]
+    assert r2.tokens[:n_img + 1] == list(lad.ids[1:])
+
+
+@pytest.mark.parametrize("chunk", [None, 8])
+def test_speculative_with_prefix_cache_parity(stack, chunk):
+    """A prompt admitted through a prefix-cache hit into a speculative
+    engine (its history seeded from the whole prompt): the reference's
+    ids, hits and tokens saved."""
+    sys_prompt = [7, 3, 99, 12, 45, 6, 81, 2, 33, 9]
+    prompts = [sys_prompt + [100, 101, 5], sys_prompt + [200, 14, 77, 21],
+               sys_prompt + [100, 101, 5]]
+    je, te = _engine_pair(stack, num_slots=2, max_len=64, block_steps=3,
+                          prompt_bucket=8, prefill_chunk=chunk,
+                          prefix_cache=4, speculative_k=4)
+    got = [[list(map(int, _run(e, [p], 8)[0].tokens)) for p in prompts]
+           for e in (je, te)]
+    assert got[1] == got[0]
+    st = te.stats()["prefix_cache"]
+    assert st == je.stats()["prefix_cache"]
+    assert st["hits"] >= 2 and st["tokens_saved"] >= 16
+
+
+def test_speculative_full_ladder_burst_single_tick(stack):
+    """k spanning the ladder: the whole forced chain and the token after it
+    in one verify tick (the reference's seedx k = 63 burst, at tiny
+    scale), with the plain ladder engine's ids."""
+    tok = FakeTokenizer()
+    n_img = 4
+    lad = _ladder(ImageTokenLadder)
+    k, T = n_img + 1, n_img + 4
+    prompt = [3, 17, 42, lad.ids[0]]
+    plain = _both(stack, [prompt], T, num_slots=1, max_len=64, block_steps=2,
+                  prompt_bucket=8, ladder=True)
+    eng = ContinuousBatchingEngine(stack[3], num_slots=1, max_len=64,
+                                   prompt_bucket=8, eos_token_id=-1,
+                                   cache_dtype=torch.float32, ladder=lad,
+                                   speculative_k=k)
+    assert tok.special["<img>"] == lad.ids[0]
+    r = eng.submit(prompt, max_new_tokens=T)
+    deltas, last = [], len(r.tokens)
+    while eng.step():
+        if len(r.tokens) != last:
+            deltas.append(len(r.tokens) - last)
+            last = len(r.tokens)
+    assert r.tokens == plain[1][0] == plain[0][0]
+    # the prefill's first token, then the rest of the chain and the token
+    # after it from one tick
+    assert deltas[0] == 1 and deltas[1] >= n_img + 1, deltas
+
+
+def test_speculative_capacity_headroom(stack):
+    """A verify window needs k + 1 columns of headroom past the budget."""
+    eng = ContinuousBatchingEngine(stack[3], num_slots=2, max_len=32,
+                                   block_steps=2, prompt_bucket=8,
+                                   speculative_k=5,
+                                   cache_dtype=torch.float32)
+    assert eng.headroom == 6 and eng.capacity_for(5) == 32 - 8 - 6
+    with pytest.raises(ValueError, match="cannot fit"):
+        eng.submit([3, 4, 5], max_new_tokens=20)

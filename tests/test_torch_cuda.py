@@ -422,6 +422,13 @@ QUANT_CASES = [
     (4, 128, 4096, 14336, 256), (4, 512, 4096, 4096, 256),
     (8, 17, 4096, 1024, None), (8, 63, 14336, 4096, None),
     (4, 17, 4096, 4096, 256), (4, 63, 4096, 1024, 256),
+] + [
+    # the fused projections' N (qkv 6144, gate_up 28672) at the rows of
+    # sampled and speculative serving: decode (1), the single-request
+    # verify (5), a worker step (8), the worker's verify at k = 4
+    # (8 × 5 = 40) and at k = 63 (8 × 64 = 512)
+    (bits, M, 4096, N, 256 if bits == 4 else None) for bits in (8, 4)
+    for N in (6144, 28672) for M in (1, 5, 8, 40, 512)
 ]
 
 
@@ -621,3 +628,104 @@ def test_replayed_block_launch_counts(cuda, bits):
     assert engine.replays >= 5
     assert kernel.launches == 3 * per_forward
     assert kernel.prefill_launches == 3 * (per_forward - 1)
+
+
+# -- the shapes of sampled, speculative and fused serving ------------------
+
+@pytest.mark.parametrize("bits,M,N", [(8, 40, 6144), (8, 512, 28672),
+                                      (8, 5, 6144), (4, 40, 28672),
+                                      (4, 512, 6144), (8, 40, 128587)])
+def test_quant_kernels_under_graph_capture(cuda, bits, M, N):
+    """Inside a captured verify tick K4/K5's plan is made at capture and
+    the split-K workspace comes from the graph's pool: replays on new
+    inputs give the eager launch's bits."""
+    qt, kernel, plain = _quantized(bits, N, 4096, 256, cuda)
+    x = torch.zeros(M, 4096, device=cuda).bfloat16()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernel(x, *qt)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = kernel(x, *qt)
+    for seed in (4, 5):
+        g = torch.Generator(device=cuda)
+        g.manual_seed(seed)
+        x.copy_(torch.randn(M, 4096, device=cuda, generator=g).bfloat16())
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, kernel(x, *qt))
+        ref = plain(x, *qt).float()
+        assert ((y.float() - ref).abs()
+                <= 1e-2 * ref.abs() + 1e-3 * ref.abs().max()).all()
+
+
+def test_fp8_cast_and_scatter_match_the_cpu(cuda):
+    """The fp8 cache write on the card: the same bytes as on the CPU for
+    every edge value (saturating at ±448 above 464, as on the CPU), through
+    the cast and through the per-row scatter into an fp8 cache."""
+    from mllm_npu_tpu_torch.models.language_models.llama import (
+        LlamaConfig, init_cache, to_cache, write_decode_column)
+    vals = torch.tensor(
+        [0.0, -0.0, 2.0 ** -9, 2.0 ** -10, 3 * 2.0 ** -10, 0.3, 1.0625,
+         1.1875, -1.1875, 15.5, 17.0, 240.0, 248.0, 447.0, 448.0, -448.0,
+         450.0, 456.0, 463.9, 464.0, -464.0, 465.0, 500.0, 1e4, -500.0,
+         -1e4])
+    want = to_cache(vals, torch.float8_e4m3fn).view(torch.uint8)
+    got = to_cache(vals.to(cuda), torch.float8_e4m3fn).view(torch.uint8)
+    assert torch.equal(got.cpu(), want)
+    assert got[-5:].tolist() == [0x7E, 0x7E, 0x7E, 0xFE, 0xFE]
+    n = vals.numel()
+    cfg = LlamaConfig(num_hidden_layers=1, num_key_value_heads=n,
+                      num_attention_heads=n, hidden_size=n)
+    cache = init_cache(cfg, 2, 6, dtype=torch.float8_e4m3fn,
+                       device=cuda)["k"]
+    cache = cache[:, :, :, :, :1].contiguous()
+    col = vals.to(cuda).bfloat16().reshape(1, 1, 1, n, 1).expand(
+        cache.shape[0], 2, 3, n, 1).contiguous()
+    write_decode_column(cache, col, torch.tensor([1, 3], device=cuda))
+    b = cache.view(torch.uint8)
+    want_b = to_cache(vals.bfloat16(), torch.float8_e4m3fn).view(torch.uint8)
+    for row, start in ((0, 1), (1, 3)):
+        for w in range(3):
+            assert torch.equal(b[0, row, start + w, :, 0].cpu(), want_b)
+    assert not b[0, 0, 0].any() and not b[0, 1, :3].any()
+
+
+@pytest.mark.parametrize("bits,k", [(None, 4), (8, 4), (None, 9)])
+def test_graphed_speculative_tick_matches_eager(cuda, bits, k):
+    """The speculative verify tick captured as a CUDA graph: the eager
+    tick's ids (six requests over four slots, a ladder prompt among them,
+    repetitive prompts that accept), one replay a tick."""
+    model = _tiny_serving_model(cuda, bits)
+    prompts = _prompts(4) + [[7, 8, 9, 7, 8, 9, 7, 8], [3, 17, 10]]
+    eager = _engine(model, cuda_graph=False, speculative_k=k)
+    graphed = _engine(model, speculative_k=k)
+    want = _drain(eager, prompts, 20)
+    got = _drain(graphed, prompts, 20)
+    assert got == want
+    assert graphed.replays == eager.eager_blocks > 0
+    assert got[-1][:5] == [20, 21, 22, 23, 11]
+
+
+@pytest.mark.parametrize("k", [0, 4])
+def test_graphed_sampled_rows_match_eager(cuda, k):
+    """Sampled rows (seeded) beside greedy ones: the graphed engine gives
+    the eager engine's ids, and a sampled request alone its ids among
+    the others."""
+    model = _tiny_serving_model(cuda)
+    prompts = _prompts(6, seed=3)
+
+    def run(engine, ps, idx):
+        reqs = [engine.submit(p, max_new_tokens=16, do_sample=i % 2 == 0,
+                              temperature=0.8, top_p=0.9, seed=i)
+                for i, p in zip(idx, ps)]
+        engine.run_until_idle()
+        return [r.tokens for r in reqs]
+    kw = dict(enable_sampling=True, speculative_k=k)
+    want = run(_engine(model, cuda_graph=False, **kw), prompts, range(6))
+    graphed = _engine(model, **kw)
+    got = run(graphed, prompts, range(6))
+    assert got == want
+    assert run(graphed, prompts[2:3], [2]) == [got[2]]

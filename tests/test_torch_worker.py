@@ -287,15 +287,10 @@ def test_worker_config_json_and_unknown_keys(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--speculative-k", "4"], "10b"),
-    (["--speculative-ngram", "5"], "10b"),
     (["--tensor-parallel", "2"], "item 12"),
-    (["--fuse-projections"], "10b"),
-    (["--kv-cache-dtype", "fp8"], "10b"),
-    (["--kv-cache-dtype", "f32"], "10b"),
     (["--params-checkpoint", "ckpt"], "item 16"),
     (["--generation-config", "gen.yaml"], "item 14"),
-    (["--no-cast-bf16"], "10b"),
+    (["--no-cast-bf16"], "item 10c"),
 ])
 def test_unported_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -303,12 +298,63 @@ def test_unported_flags_raise(flags, item):
 
 
 def test_unported_key_in_worker_config_raises(tmp_path):
-    """The reference's shipped worker config sets speculative_k 63."""
+    """A worker config's key that is not ported raises as its flag does."""
     cfg = tmp_path / "w.json"
     cfg.write_text(json.dumps({"model_config": "m.yaml",
-                               "speculative_k": 63}))
-    with pytest.raises(NotImplementedError, match="speculative"):
+                               "tensor_parallel": 2}))
+    with pytest.raises(NotImplementedError, match="tensor-parallel"):
         worker_mod.parse_worker_args(["--worker-config", str(cfg)])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--speculative-k", "4"],
+    ["--speculative-k", "3", "--speculative-ngram", "2"],
+    ["--fuse-projections"],
+    ["--kv-cache-dtype", "fp8"],
+    ["--kv-cache-dtype", "f32"],
+])
+def test_ported_flags_build_an_engine_on_cpu(monkeypatch, flags):
+    """The serving flags of queue 1 item 10b parse and build the tiny
+    batched engine on the CPU with what they ask for, and it answers."""
+    monkeypatch.setenv("DEBUG_FLAG", "True")
+    args = worker_mod.parse_worker_args(
+        ["--model-config", "models/mllm_llama3_8b_siglip_vit.yaml",
+         "--batched", "--device", "cpu"] + flags)
+    eng = worker_mod.load_engine_from_config(
+        args.model_config, max_new_tokens=3, batched=True, num_slots=2,
+        max_len=256, fuse_projections=args.fuse_projections,
+        speculative_k=args.speculative_k,
+        speculative_ngram=args.speculative_ngram,
+        kv_cache_dtype=args.kv_cache_dtype, device="cpu")
+    try:
+        be = eng.batch_engine
+        assert be.speculative_k == args.speculative_k
+        assert be.speculative_ngram == args.speculative_ngram
+        assert eng.generator.speculative_k == args.speculative_k
+        assert be.state["k"].dtype == worker_mod.KV_CACHE_DTYPES[
+            args.kv_cache_dtype] == eng.generator.cache_dtype
+        lm_cfg = eng.generator.model.language_model.config
+        assert lm_cfg.fused_projections == args.fuse_projections
+        assert len(eng.comprehension_ids("hi", "")) == 3
+    finally:
+        eng.close()
+
+
+def test_worker_config_speculation_and_cache_dtype(tmp_path):
+    """The reference's shipped worker config sets speculative_k 63; a
+    worker config's speculative_k and kv_cache_dtype are honoured, and the
+    command line still wins."""
+    cfg = tmp_path / "w.json"
+    cfg.write_text(json.dumps({"model_config": "m.yaml",
+                               "speculative_k": 63,
+                               "kv_cache_dtype": "fp8"}))
+    args = worker_mod.parse_worker_args(["--worker-config", str(cfg)])
+    assert args.speculative_k == 63 and args.kv_cache_dtype == "fp8"
+    args = worker_mod.parse_worker_args(["--worker-config", str(cfg),
+                                         "--speculative-k", "4"])
+    assert args.speculative_k == 4
+    assert worker_mod.parse_worker_args(
+        ["--model-config", "m.yaml"]).speculative_k == 0
 
 
 def test_load_engine_from_config_serves_tiny_on_cpu(monkeypatch):
