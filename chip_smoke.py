@@ -20,15 +20,20 @@ exits non-zero. Phases, in order:
    among them), with times of the kernel, the plain version,
    ``scaled_dot_product_attention`` as a yardstick (with the dense mask,
    and where every segment id is 1 also ``is_causal`` alone: the faster
-   counts), the bound, TFLOP/s and the share of the bound; a sweep over
-   the edges of K1's design (head dims 8 to 128, lengths off the tile,
-   causal Sq != Sk, GQA, segments inside a tile, fused strided q/k/v);
+   counts), the bound, TFLOP/s and the share of the bound, and at
+   SEED-X's shapes from its YAML (Qwen-ViT-G's D = 104 over 1024 patches,
+   its attention pool, the input projector's D = 160, the output
+   projector, the Llama-2-13B MHA prefill at the image request's and the
+   caption's lengths); a sweep over the edges of K1's design (head dims 8
+   to 160, lengths off the tile, causal Sq != Sk, GQA, segments inside a
+   tile, fused strided q/k/v);
    then K4 (int8) and K5 (int4) against theirs at the Llama's decode
    (M = 1) and prefill (M = 339) shapes and at the batched worker's: its
    decode block (M = 8, the lm_head included), its image admissions
    (M = 384) and its text admissions and prefill chunks (M = 128 and 512),
    every projection shape, the speculative verify windows (M = 40 and 5)
    and the fused products (N = 6144 and 28672 at M = 1, 5, 8, 40, 512),
+   and at the Llama-2-13B's (K, N) pairs at M = 1, 8 and the prefill's,
    with ``F.linear`` on the weight dequantized to bf16 as the yardstick;
 4. the bf16 path: ``InferenceEngine.comprehension`` on an 896×896 image
    (2×2 grid + thumbnail), a 384×1152 image and a text-only question,
@@ -120,7 +125,26 @@ exits non-zero. Phases, in order:
    and for a bit-identical repeat, timed beside PR 4's mma.sync kernels
    (the regime that keeps them, forced), the plain versions, δ, the pair
    with and without δ and the backward of ``scaled_dot_product_attention``
-   as the yardstick, per shape and per training step.
+   as the yardstick, per shape and per training step;
+10. SEED-X at full width, after the Llama-3 models are dropped: the port's
+   ``seedx_llama2_13b_qwenvl_vitg.yaml`` through ``load_engine_from_config``
+   (Llama-2-13B with r32 LoRA, vocab 32330; Qwen-ViT-G-448 and its
+   attention pool; the input and output resamplers; bf16, weights from
+   seed 0, ``FakeTokenizer``): its parameter count and resident memory;
+   ``comprehension`` on an 896×896 image, a 448×448 image and a text
+   question with every kernel's count asserted (K1 90 an image request, 40
+   a text one); the image request's prefill logits with K1 against K1's
+   plain version everywhere; ``text_to_image_features`` on a caption (64
+   forced image tokens, ``img_gen_feat`` [1, 64, 4096] against the same
+   request on K1's plain version, 41 K1 launches); the worker from the
+   port's ``seedx_worker.json`` (speculative_k 63, 8 slots, a 2048-token
+   cache) on 127.0.0.1: 4 image and 4 text POSTs at once (code 0), an
+   ``image_gen`` POST (code 3, the log naming item 14), graphed = eager
+   ids, ms per verify tick against a speculative_k = 0 twin's step,
+   tokens/s, the cache's size, ``decode_attention``'s share of the step;
+   then the Llama quantized to int8 in place, one image request (281 K4
+   launches a forward) and its prefill logits with K4 against the plain
+   quantized linears.
 
 The last lines are the kernels' JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -299,7 +323,7 @@ def kernel_case(name, B, Sq, Sk, Hq, Hkv, D, causal, pad_rows=None, seed=0):
         "shape": name, "B": B, "Sq": Sq, "Sk": Sk, "Hq": Hq, "Hkv": Hkv,
         "D": D, "causal": causal, "segments": seg is not None,
         "block_q": k1_block_q(B, Sq, Hq, torch.cuda.get_device_properties(
-            0).multi_processor_count),
+            0).multi_processor_count, D),
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": time_ms(lambda: flash_attention_reference(q, k, v, **kw),
@@ -323,8 +347,8 @@ def kernel_case(name, B, Sq, Sk, Hq, Hkv, D, causal, pad_rows=None, seed=0):
 
 def k1_edge_sweep():
     """K1 against its plain version (output and LSE) at the edges of its
-    Hopper design: head dims from 8 to 128 (TMA's zero fill past D, the
-    128-byte / 32-byte swizzle split), lengths below and off the tile,
+    Hopper design: head dims from 8 to 160 (TMA's zero fill past D, the
+    128-byte / 32-byte swizzle split, the 64-row tiles alone at D > 144), lengths below and off the tile,
     causal with Sq != Sk, GQA 32/8 and 8/1, segments that change inside a
     tile with right-padded rows that see no key, and q, k, v as strided
     views of one fused [B, S, 3, H, D] tensor. Any disagreement fails."""
@@ -345,6 +369,11 @@ def k1_edge_sweep():
         (1, 729, 129, 8, 1, 64, True, False, False),
         (2, 300, 300, 32, 8, 128, True, True, False),
         (2, 200, 200, 8, 8, 72, True, True, True),
+        (2, 300, 300, 16, 16, 104, False, True, True),
+        (1, 129, 129, 8, 2, 136, True, False, False),
+        (2, 65, 63, 8, 8, 152, True, False, False),
+        (1, 729, 729, 8, 8, 160, False, True, False),
+        (4, 64, 256, 32, 32, 160, False, False, False),
     ]
     worst = 0.0
     for i, (B, Sq, Sk, Hq, Hkv, D, causal, segs, fused) in enumerate(cases):
@@ -464,7 +493,7 @@ def quant_case(bits, M, K, N, group=256, seed=0):
     return row
 
 
-def quant_rows(lm_cfg, s_img, bucket, slots):
+def quant_rows(lm_cfg, s_img, bucket, slots, regimes=None):
     """K4 and K5 at the Llama's projection shapes: decode (M = 1, the
     lm_head included), the image prefill (M = prompt length), and the
     batched worker's: its decode block (M = ``slots``, the lm_head
@@ -473,10 +502,12 @@ def quant_rows(lm_cfg, s_img, bucket, slots):
     verify windows (the worker's at k = 4, M = ``slots`` × 5, and the
     single request's, M = 5, the lm_head included); the fused products
     (qkv and gate_up) at M = 1, 5, ``slots``, ``slots`` × 5 and
-    ``slots`` × 64 (k = 63). Each row says its regime."""
+    ``slots`` × 64 (k = 63). Each row says its regime; ``regimes`` keeps
+    only those named."""
     hs, inter = lm_cfg.hidden_size, lm_cfg.intermediate_size
     kv = lm_cfg.num_key_value_heads * lm_cfg.head_dim
-    proj = [(hs, hs), (hs, kv), (hs, inter), (inter, hs)]
+    # (MHA: k and v have q's shape)
+    proj = list(dict.fromkeys([(hs, hs), (hs, kv), (hs, inter), (inter, hs)]))
     head = [(hs, lm_cfg.vocab_size)]
     fused = [(hs, lm_cfg.hidden_size + 2 * kv), (hs, 2 * inter)]
     shapes = ([("decode", 1, k, n) for k, n in proj + head]
@@ -489,6 +520,8 @@ def quant_rows(lm_cfg, s_img, bucket, slots):
               + [(f"fused_m{m}", m, k, n)
                  for m in (1, 5, slots, slots * 5, slots * 64)
                  for k, n in fused])
+    if regimes is not None:
+        shapes = [sh for sh in shapes if sh[0] in regimes]
     return {bits: [dict(quant_case(bits, m, k, n, lm_cfg.quant_group_size),
                         regime=regime)
                    for regime, m, k, n in shapes] for bits in (8, 4)}
@@ -502,8 +535,10 @@ def quant_mix(lm_cfg, lm_head=True):
     hs, inter = lm_cfg.hidden_size, lm_cfg.intermediate_size
     kv = lm_cfg.num_key_value_heads * lm_cfg.head_dim
     L = lm_cfg.num_hidden_layers
-    mix = {(hs, hs): 2 * L, (hs, kv): 2 * L, (hs, inter): 2 * L,
-           (inter, hs): L}
+    mix = {}
+    for key, n in (((hs, hs), 2 * L), ((hs, kv), 2 * L), ((hs, inter), 2 * L),
+                   ((inter, hs), L)):
+        mix[key] = mix.get(key, 0) + n      # MHA: k, v have q's shape
     if lm_head:
         mix[(hs, lm_cfg.vocab_size)] = 1
     return mix
@@ -557,6 +592,104 @@ def prefill_logits(model, prep):
         ones = torch.ones_like(input_ids, dtype=torch.int32)
         h, _ = lm(inputs_embeds=emb, segment_ids=SegmentIds(q=ones, kv=ones))
         return lm.logits(h[:, -1]).float()
+
+
+def k1_vs_plain_prefill(model, prep, label):
+    """Phase 5's check: one image request's prefill logits with K1 against
+    the same forward with K1's plain version in every attention (the
+    vision tower, the projector, the Llama), K1's count asserted. Random
+    weights give flat logits, so the direction (cosine) is held and the
+    argmax reported. → (K1 logits, plain logits)."""
+    import torch
+
+    import mllm_npu_tpu_torch.ops as port_ops
+    from mllm_npu_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_reference)
+    lm_cfg = model.language_model.config
+    logits = {}
+    for which, fn in (("K1", flash_attention),
+                      ("plain", flash_attention_reference)):
+        port_ops.flash_attention = fn
+        flash_attention.launches = 0
+        try:
+            logits[which] = prefill_logits(model, prep)
+        finally:
+            port_ops.flash_attention = flash_attention
+        expect = (lm_cfg.num_hidden_layers + k1_per_image(model)
+                  if which == "K1" else 0)
+        check(flash_attention.launches == expect,
+              f"{label} {which} prefill launched K1 "
+              f"{flash_attention.launches} times, expected {expect}")
+    k1, plain = logits["K1"], logits["plain"]
+    cos = torch.nn.functional.cosine_similarity(k1, plain).item()
+    diff = (k1 - plain).abs().max().item()
+    print(f"[check] {label} image prefill logits, K1 vs plain attention: "
+          f"cos {cos:.6f}, max abs diff {diff:.4f}, |logits| max "
+          f"{plain.abs().max().item():.3f}, argmax "
+          f"{k1.argmax().item()} vs {plain.argmax().item()}", flush=True)
+    check(bool(torch.isfinite(k1).all()), f"{label}: non-finite logits")
+    check(tuple(k1.shape) == (1, lm_cfg.vocab_size),
+          f"{label}: logits shape")
+    check(cos >= 0.99,
+          f"{label}: K1 and plain-attention logits disagree (cos {cos})")
+    return k1, plain
+
+
+def quant_vs_plain_prefill(model, prep, bits, label, bf16_logits):
+    """Phase 7's check: one image request's prefill logits with K4 (bits
+    8) or K5 (bits 4) against the same forward with its plain version in
+    every quantized linear (cos ≥ 0.99), the counts asserted (7 × layers +
+    1 launches, all but the lm_head in the prefill regime), each side's
+    top-2 logits and margin printed. → (kernel logits, plain logits)."""
+    import torch
+
+    from mllm_npu_tpu_torch.ops import quant as tq
+    lm_cfg = model.language_model.config
+    name = f"int{bits}"
+    kernel = getattr(tq, f"{name}_matmul")
+    qlogits = {}
+    for which, fn in ((name, kernel),
+                      ("plain", getattr(tq, f"{name}_matmul_reference"))):
+        setattr(tq, f"{name}_matmul", fn)
+        kernel.launches = kernel.prefill_launches = 0
+        try:
+            qlogits[which] = prefill_logits(model, prep)
+        finally:
+            setattr(tq, f"{name}_matmul", kernel)
+        expect = 7 * lm_cfg.num_hidden_layers + 1 if which == name else 0
+        check(kernel.launches == expect,
+              f"{label} {which} prefill launched {name}_matmul "
+              f"{kernel.launches} times, expected {expect}")
+        # all but the lm_head (last row, decode regime) at M = prompt
+        expect = 7 * lm_cfg.num_hidden_layers if which == name else 0
+        check(kernel.prefill_launches == expect,
+              f"{label} {which} prefill launched {name}_matmul's prefill "
+              f"kernel {kernel.prefill_launches} times, expected {expect}")
+    ql, qp = qlogits[name], qlogits["plain"]
+    cos = torch.nn.functional.cosine_similarity(ql, qp).item()
+    cos_bf16 = torch.nn.functional.cosine_similarity(ql, bf16_logits).item()
+    # random weights give flat logits: the top two and their margin on each
+    # side tell a near-tie flip of the argmax from a kernel error
+    tops = {}
+    for which, lg in (("kernel", ql), ("plain", qp)):
+        v, i = lg[0].topk(2)
+        tops[which] = (i.tolist(), v.tolist(), (v[0] - v[1]).item())
+    print(f"[check] {label} {name} image prefill logits, kernel vs plain "
+          f"quantized linears: cos {cos:.6f}, max abs diff "
+          f"{(ql - qp).abs().max().item():.4f}, argmax "
+          f"{ql.argmax().item()} vs {qp.argmax().item()}; top-2 "
+          + "; ".join(f"{w} ids {t[0]} logits {t[1][0]:.4f}, "
+                      f"{t[1][1]:.4f} (margin {t[2]:.4f})"
+                      for w, t in tops.items())
+          + f"; against the bf16 engine's logits (information only): "
+          f"cos {cos_bf16:.6f}", flush=True)
+    check(bool(torch.isfinite(ql).all()), f"{label}: non-finite {name} "
+          "logits")
+    check(tuple(ql.shape) == (1, lm_cfg.vocab_size), f"{label}: logits "
+          "shape")
+    check(cos >= 0.99,
+          f"{label}: {name} kernel and plain logits disagree (cos {cos})")
+    return ql, qp
 
 
 def profile_call(fn):
@@ -963,7 +1096,21 @@ def train_phase(workdir):
     return summary
 
 
-def serve(engine, requests, preps, label, lm_cfg, vis_cfg):
+def k1_per_image(model):
+    """K1 launches an image prompt's embedding makes: one for every
+    attention of the vision tower (its pool included) and of the
+    projector."""
+    from mllm_npu_tpu_torch.models.multimodal_encoder.qwenvl_vit import (
+        VisualAttention)
+    from mllm_npu_tpu_torch.models.vit_common import (TorchMHA,
+                                                      ViTSelfAttention)
+    kinds = (TorchMHA, ViTSelfAttention, VisualAttention)
+    return sum(isinstance(m, kinds) for part in (model.vision_encoder,
+                                                  model.projector)
+               for m in part.modules())
+
+
+def serve(engine, requests, preps, label, lm_cfg):
     """Each request once, with every kernel's count set to 0 just before
     and read just after; asserts K1's count and, for a quantized engine,
     K4's or K5's: 225 per forward (7 projections × 32 layers + lm_head) ×
@@ -977,6 +1124,7 @@ def serve(engine, requests, preps, label, lm_cfg, vis_cfg):
     counters = kernel_counters()
     quant = engine.generator.model.language_model.config.quantization
     per_forward = 7 * lm_cfg.num_hidden_layers + 1
+    k1_image = k1_per_image(engine.generator.model)
     total = dict.fromkeys(counters, 0)
     prefill_total = {8: 0, 4: 0}
     for i, ((q, b64), prep) in enumerate(zip(requests, preps), 1):
@@ -992,7 +1140,7 @@ def serve(engine, requests, preps, label, lm_cfg, vis_cfg):
         steps = tm["decode_steps"]
         expect = {k: 0 for k in counters}
         expect["flash_fwd"] = lm_cfg.num_hidden_layers + (
-            vis_cfg.num_hidden_layers + 1 if b64 else 0)
+            k1_image if b64 else 0)
         prefill_got = (tq.int8_matmul.prefill_launches,
                        tq.int4_matmul.prefill_launches)
         prefill_expect = [0, 0]
@@ -1086,14 +1234,15 @@ class ServedWorker:
     request its engine takes (the ids and host times the wire does not
     carry)."""
 
-    def __init__(self, engine):
+    def __init__(self, engine, model_name="mllm-8b",
+                 concurrency=WORKER_CONCURRENCY):
         import threading
 
         from mllm_npu_tpu_torch.serve.worker import ModelWorker, make_server
         self.engine = engine
         self.worker = ModelWorker(
-            "http://unused", "http://127.0.0.1", "smoke", "mllm-8b", engine,
-            no_register=True, limit_model_concurrency=WORKER_CONCURRENCY)
+            "http://unused", "http://127.0.0.1", "smoke", model_name, engine,
+            no_register=True, limit_model_concurrency=concurrency)
         self.server = make_server(self.worker, "127.0.0.1", 0)
         self.url = "http://127.0.0.1:%d" % self.server.server_address[1]
         self.thread = threading.Thread(target=self.server.serve_forever,
@@ -1295,7 +1444,7 @@ def batched_engine_for(single, **kw):
         **dict(WORKER, **kw))
 
 
-def worker_checks(single, label, traffic, lm_cfg, vis_cfg, stream_label):
+def worker_checks(single, label, traffic, lm_cfg, stream_label):
     """Build the batched engine (its decode block captured as a CUDA graph)
     over the single engine's model, serve ``traffic`` through the worker
     at once, then two of its requests alone; checks a (error codes, the
@@ -1356,7 +1505,7 @@ def worker_checks(single, label, traffic, lm_cfg, vis_cfg, stream_label):
     n_text = len(traffic) - n_img
     L = lm_cfg.num_hidden_layers
     expect = dict.fromkeys(counters, 0)
-    expect["flash_fwd"] = (L + vis_cfg.num_hidden_layers + 1) * n_img \
+    expect["flash_fwd"] = (L + k1_per_image(single.generator.model)) * n_img \
         + L * n_text
     prefill_expect = [0, 0]
     if quant != "none":
@@ -1495,46 +1644,57 @@ def profile_block(engine, single, label):
     return prof
 
 
-def traced_replays():
-    """``python3 chip_smoke.py --traced-replays``: the replayed ticks'
-    kernel counts, traced in a process of their own over phase 7's int8
-    model (the same seed): one decode block of the worker engine, one
-    verify tick of its speculative (k = 4) twin, and one block after the
-    projections are fused in place. Prints one JSON line. (In the long
-    main process the tracer lost 1-3 of a replayed block's ~41k records
-    in some runs; in a fresh process every trace held them all.)"""
+TRACED_TICKS = ("block", "verify", "fused_block")
+
+
+def traced_replays(tick):
+    """``python3 chip_smoke.py --traced-replays <tick>``: one replayed
+    tick's kernel counts, the only trace of a process of its own over
+    phase 7's int8 model (the same seed): a decode block of the worker
+    engine (``block``), a verify tick of its speculative (k = 4) twin
+    (``verify``), or a block after the projections are fused in place
+    (``fused_block``). Prints one JSON line. (Late in the long main process
+    the tracer lost 1-3 of a replayed block's ~41k records in some runs,
+    and the third trace of one process 11% of its records once; every
+    first trace of a fresh process held them all.)"""
     from mllm_npu_tpu_torch.demo_img2txt import build_engine
     from mllm_npu_tpu_torch.utils.weights import fuse_llama_projections_
+    check(tick in TRACED_TICKS, f"--traced-replays takes one of "
+          f"{TRACED_TICKS}")
     single = build_engine(device="cuda", seed=0, fake_tokenizer=True,
                           max_new_tokens=MAX_NEW_TOKENS, quantize_int8=True)
-
-    def count(engine, label):
-        prof = profile_block(engine, single, f"{label} (traced alone)")
-        return {k: sum(n for name, n in prof[3].items() if k in name)
-                for k in ("qmm_decode", "qmm_prefill", "qmm_split_sum")}
-    out = {"block": count(worker_engine(single), "int8"),
-           "verify": count(worker_engine(single, speculative_k=4,
-                                         speculative_ngram=SPEC_NGRAM),
-                           "int8 speculative k=4")}
-    fuse_llama_projections_(single.generator.model.language_model)
-    out["fused_block"] = count(worker_engine(single), "int8 fused")
-    print(json.dumps({"traced": out}))
+    kw, label = {}, "int8"
+    if tick == "verify":
+        kw, label = dict(speculative_k=4, speculative_ngram=SPEC_NGRAM), \
+            "int8 speculative k=4"
+    elif tick == "fused_block":
+        fuse_llama_projections_(single.generator.model.language_model)
+        label = "int8 fused"
+    prof = profile_block(worker_engine(single, **kw), single,
+                         f"{label} (traced alone)")
+    print(json.dumps({"traced": {
+        k: sum(n for name, n in prof[3].items() if k in name)
+        for k in ("qmm_decode", "qmm_prefill", "qmm_split_sum")}}))
 
 
 def traced_replay_checks(lm_cfg, block_steps):
-    """Run traced_replays in a child process (it exits before this goes
-    on) and hold its counts: a block 225 × 16 ``qmm_decode`` events and no
+    """Run traced_replays once for each tick, each in a child process of
+    its own (one after the other, each exiting before the next starts),
+    and hold their counts: a block 225 × 16 ``qmm_decode`` events and no
     prefill kernel; a verify tick 225 ``qmm_prefill`` (M = 40) and no
     decode kernel; a fused block 129 × 16. → the counts."""
-    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
-                           "--traced-replays"], capture_output=True,
-                          text=True, timeout=900)
-    for line in proc.stdout.splitlines()[:-1]:
-        if line.startswith("[profile]"):
-            print(line, flush=True)
-    check(proc.returncode == 0, f"traced replays: exit {proc.returncode}: "
-          f"{proc.stderr[-3000:]}")
-    got = json.loads(proc.stdout.strip().splitlines()[-1])["traced"]
+    got = {}
+    for tick in TRACED_TICKS:
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--traced-replays", tick],
+                              capture_output=True, text=True, timeout=600)
+        for line in proc.stdout.splitlines()[:-1]:
+            if line.startswith("[profile]"):
+                print(line, flush=True)
+        check(proc.returncode == 0, f"traced replays ({tick}): exit "
+              f"{proc.returncode}: {proc.stderr[-3000:]}")
+        got[tick] = json.loads(proc.stdout.strip().splitlines()[-1])[
+            "traced"]
     L = lm_cfg.num_hidden_layers
     want = {"block": {"qmm_decode": (7 * L + 1) * block_steps,
                       "qmm_prefill": 0},
@@ -1681,11 +1841,11 @@ def chunked_prefix_check(single, graphed, eager):
             "identical": identical, "max_abs_delta": worst}
 
 
-def worker_phase(single, lm_cfg, vis_cfg):
+def worker_phase(single, lm_cfg):
     """Phase 4b on the bf16 model of phases 2-4."""
     import torch
     traffic = worker_traffic()
-    served, summary = worker_checks(single, "bf16", traffic, lm_cfg, vis_cfg,
+    served, summary = worker_checks(single, "bf16", traffic, lm_cfg,
                                     stream_label="text_1")
     # c and the timing, the worker stopped
     mixed = [t for t in traffic if t[0].startswith("img896")][:4] + \
@@ -1708,7 +1868,7 @@ def worker_phase(single, lm_cfg, vis_cfg):
     return summary
 
 
-def int8_worker_phase(single, lm_cfg, vis_cfg):
+def int8_worker_phase(single, lm_cfg):
     """The int8 sub-run of phase 7: 4 image and 4 text requests at once
     through the worker over phase 7's int8 model (checks a, b and e), the
     graphed and eager decode timing (check c), an image and a text against
@@ -1716,7 +1876,7 @@ def int8_worker_phase(single, lm_cfg, vis_cfg):
     the profiler."""
     import torch
     traffic = worker_traffic(n896=4, n384=0, n_text=4)
-    served, summary = worker_checks(single, "int8", traffic, lm_cfg, vis_cfg,
+    served, summary = worker_checks(single, "int8", traffic, lm_cfg,
                                     stream_label="text_1")
     timing, graphed, eager = decode_timing(served, "int8", traffic, lm_cfg)
     summary["decode"] = timing
@@ -2315,6 +2475,361 @@ def phase_4c(single):
     return out
 
 
+# -- phase 10: SEED-X at full width --------------------------------------
+SEEDX_YAML = "mllm_npu_tpu_torch/configs/models/seedx_llama2_13b_qwenvl_vitg.yaml"
+SEEDX_WORKER = "mllm_npu_tpu_torch/configs/workers/seedx_worker.json"
+SEEDX_CAPTION = "A red bicycle leaning on a stone wall in the rain"
+# tokens of the caption → features request: the 64 forced image tokens,
+# </img> and one more
+T2I_TOKENS = 66
+# img_gen_feat with K1 against the same request with K1's plain version
+T2I_COS = 0.99
+# tokens per request of the worker's timed runs (k = 63 graphed and eager,
+# the k = 0 twin)
+SEEDX_TOKENS = 32
+
+
+def k1_mix(rows, mix, basis):
+    """K1's rows summed over one request's launch mix {shape: launches}:
+    ms, plain_ms, bound_ms, library_ms, the share of the bound, what
+    bounds it and the basis."""
+    by = {r["shape"]: r for r in rows}
+    agg = {key: sum(by[s][key] * n for s, n in mix.items())
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    t_c = sum(by[s]["flops"] * n for s, n in mix.items()) / H100_BF16_FLOPS
+    t_m = sum(by[s]["bytes"] * n for s, n in mix.items()) / H100_BYTES_PER_S
+    return {**agg, "bound_share": agg["bound_ms"] / agg["ms"],
+            "bound_by": "operations" if t_c >= t_m else "bytes",
+            "ms_basis": f"{basis}: the launch mix "
+                        + ", ".join(f"{n} x {s}" for s, n in mix.items())}
+
+
+def seedx_quant(rows, lm_cfg, s_img):
+    """K4's or K5's rows at the Llama-2-13B's shapes summed over its
+    launch mixes: one decode token (M = 1), one worker step (M = 8) and
+    one image prefill (M = ``s_img``, the lm_head's last row aside)."""
+    out = {}
+    for regime, key, lm_head, basis in (
+            ("decode", "decode", True, "one decode token (M=1)"),
+            ("slots", "worker_step", True,
+             f"one worker step (M={WORKER['num_slots']})"),
+            ("prefill", "prefill", False, f"one image prefill (M={s_img})")):
+        agg = quant_row_mix([r for r in rows if r["regime"] == regime],
+                            quant_mix(lm_cfg, lm_head=lm_head))
+        out[key] = {**{k: agg[k] for k in (
+            "ms", "plain_ms", "bound_ms", "library_ms", "bound_by",
+            "bound_share")}, "ms_basis": f"SEED-X's Llama-2-13B, {basis}: "
+            "the launch mix " + agg["launch_mix"]}
+    return out
+
+
+def seedx_specs():
+    """The SEED-X components as the port's YAML configures them, built
+    only as specs (no weights): → (vision config, projector config,
+    output projector config, LlamaConfig)."""
+    from mllm_npu_tpu_torch.configs import instantiate, load_config
+    m = load_config(ROOT / SEEDX_YAML)["mllm"]
+    node = m["mllm_model"]
+    return (instantiate(node["vision_encoder"]).config,
+            instantiate(node["projector"]).config,
+            instantiate(node["output_projector"]).config,
+            instantiate(m["language_model"]).config)
+
+
+def seedx_kernel_cases(n_tiles, s_img, caption_len):
+    """Phase 3's K1 cases at SEED-X's shapes, from its YAML: Qwen-ViT-G's
+    self-attention (D = 104) and its attention pool over ``n_tiles``
+    tiles, the input projector (D = 160), the output projector over one
+    window, and the Llama-2-13B causal prefill (MHA 40/40) at the image
+    request's length and at the caption's."""
+    vis, proj, outp, lm = seedx_specs()
+    P, pool_h = vis.num_patches, max(vis.output_dim // 128, 1)
+    H, D = lm.num_attention_heads, lm.head_dim
+    return [
+        kernel_case("seedx_qwen_vit", n_tiles, P, P, vis.heads, vis.heads,
+                    vis.width // vis.heads, False),
+        kernel_case("seedx_attn_pool", n_tiles, vis.n_queries, P, pool_h,
+                    pool_h, vis.output_dim // pool_h, False),
+        kernel_case("seedx_input_projector", n_tiles, proj["num_queries"],
+                    vis.n_queries, proj["num_heads"], proj["num_heads"],
+                    proj["embed_dim"] // proj["num_heads"], False),
+        kernel_case("seedx_output_projector", 1, outp["num_queries"],
+                    outp["num_queries"], outp["num_heads"],
+                    outp["num_heads"],
+                    outp["embed_dim"] // outp["num_heads"], False),
+        kernel_case("seedx_llama2_prefill", 1, s_img, s_img, H,
+                    lm.num_key_value_heads, D, True, pad_rows={}),
+        kernel_case("seedx_llama2_caption", 1, caption_len, caption_len, H,
+                    lm.num_key_value_heads, D, True, pad_rows={}),
+    ]
+
+
+class LogTail(list):
+    """A logging handler that keeps the messages of one logger."""
+
+    def __init__(self, name):
+        import logging
+        super().__init__()
+        self.handler = logging.Handler()
+        self.handler.emit = lambda rec: self.append(
+            rec.getMessage() + (str(rec.exc_info[1]) if rec.exc_info
+                                else ""))
+        logging.getLogger(name).addHandler(self.handler)
+
+    def close(self, name):
+        import logging
+        logging.getLogger(name).removeHandler(self.handler)
+
+
+def seedx_worker_check(single, lm_cfg):
+    """Phase 10's worker: the port's seedx_worker.json parsed as the
+    worker's command line would, its engine (speculative_k 63, 8 slots, a
+    2048-token cache) over the single engine's model, served on 127.0.0.1
+    port 0: 4 image and 4 text POSTs at once (code 0, K1's launches per
+    admission), an image_gen POST (code 3, the log naming item 14); then,
+    the worker stopped, the same requests graphed and eager (identical
+    ids), a speculative_k = 0 twin, and decode_attention's share of its
+    step on CUDA events. → summary."""
+    import torch
+
+    from mllm_npu_tpu_torch.serve.engine import BatchedInferenceEngine
+    from mllm_npu_tpu_torch.serve.worker import (KV_CACHE_DTYPES,
+                                                 parse_worker_args)
+    args = parse_worker_args(["--worker-config", str(ROOT / SEEDX_WORKER),
+                              "--host", "127.0.0.1", "--port", "0",
+                              "--no-register"])
+    check(args.batched and args.speculative_k == 63 and args.num_slots == 8
+          and args.max_cache_len == 2048, f"seedx_worker.json: {args}")
+    model = single.generator.model
+    nq = model.projector.num_queries
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # load_engine_from_config's batched engine from these args, over the
+    # model already built (no second copy of the weights)
+    batched = BatchedInferenceEngine(
+        model=model, tokenizer=single.tokenizer,
+        image_transform=single.image_transform, num_img_in_tokens=nq,
+        num_img_out_tokens=nq, max_new_tokens=MAX_NEW_TOKENS, device="cuda",
+        quantize_int8=args.quantize_int8, quantize_int4=args.quantize_int4,
+        fuse_projections=args.fuse_projections,
+        speculative_k=args.speculative_k,
+        speculative_ngram=args.speculative_ngram,
+        cache_dtype=KV_CACHE_DTYPES[args.kv_cache_dtype],
+        num_slots=args.num_slots, max_len=args.max_cache_len,
+        max_prompt=args.max_cache_len // 2,
+        batch_prompt_bucket=args.prompt_bucket,
+        prefill_chunk=args.prefill_chunk, prefix_cache=args.prefix_cache)
+    be = batched.batch_engine
+    check(be.capture_s is not None, "seedx: the verify tick was not captured")
+    cache_gib = 2 * be.state["k"].numel() * be.state["k"].element_size() \
+        / 2**30
+    print(f"[seedx worker] engine from {SEEDX_WORKER} built in "
+          f"{time.perf_counter() - t0:.2f} s: {be.B} slots x {be.max_len}, "
+          f"speculative_k {be.speculative_k}, the verify tick captured in "
+          f"{be.capture_s:.3f} s; static cache {cache_gib:.3f} GiB",
+          flush=True)
+
+    served = ServedWorker(batched, model_name=args.model_name,
+                          concurrency=max(args.limit_model_concurrency,
+                                          args.num_slots))
+    traffic = worker_traffic(n896=4, n384=0, n_text=4)
+    for fn in counters.values():
+        fn.launches = 0
+    replays0 = be.replays
+    t0 = time.perf_counter()
+    http_burst(served, traffic)
+    burst_s = time.perf_counter() - t0
+    got = {k: fn.launches for k, fn in counters.items()}
+    L = lm_cfg.num_hidden_layers
+    expect = dict.fromkeys(counters, 0)
+    expect["flash_fwd"] = (L + k1_per_image(model)) * 4 + L * 4
+    print(f"[seedx worker] 8 concurrent POSTs (4 images, 4 texts) in "
+          f"{burst_s:.2f} s, every reply code 0, {be.replays - replays0} "
+          f"verify-tick replays; launches counted {got} (expected {expect})",
+          flush=True)
+    check(got == expect, f"seedx worker burst: launches {got}, expected "
+          f"{expect}")
+    log = LogTail("model_worker")
+    try:
+        chunks = post_worker(served.url, {"input_text": SEEDX_CAPTION,
+                                          "image_gen": True})
+    finally:
+        log.close("model_worker")
+    named = any("item 14" in m for m in log)
+    print(f"[seedx worker] image_gen POST: {chunks}; the worker's log names "
+          f"item 14: {named}", flush=True)
+    check([c["error_code"] for c in chunks] == [3] and named,
+          f"seedx image_gen: {chunks}, log {list(log)}")
+    served.close()
+
+    items = [batched._prepare_comprehension(q, b) for _, q, b in traffic]
+    graphed = timed_ticks(be, items, SEEDX_TOKENS)
+    eager_engine = twin_of(be, cuda_graph=False,
+                           speculative_k=be.speculative_k,
+                           speculative_ngram=be.speculative_ngram)
+    eager = timed_ticks(eager_engine, items, SEEDX_TOKENS)
+    del eager_engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    same = [a == b for a, b in zip(graphed["ids"], eager["ids"])]
+    check(all(same), f"seedx: graphed and eager ids differ: {same}")
+    plain_engine = twin_of(be, speculative_k=0)
+    plain = timed_ticks(plain_engine, items, SEEDX_TOKENS)
+    attn = decode_attention_cost(plain_engine, lm_cfg, plain["step_ms"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[seedx worker] {len(items)} requests x {SEEDX_TOKENS} tokens, "
+          f"every slot busy: k = 63 verify tick {graphed['tick_ms']:.2f} ms "
+          f"graphed, {eager['tick_ms']:.2f} ms eager (ids identical), "
+          f"{graphed['tokens_per_row_tick']:.3f} tokens per row and tick, "
+          f"acceptance {100 * graphed['acceptance']:.1f}%, "
+          f"{graphed['tokens_per_s']:.1f} tokens/s; speculative_k = 0 twin "
+          f"{plain['step_ms']:.2f} ms a step graphed, "
+          f"{plain['tokens_per_s']:.1f} tokens/s; static cache "
+          f"{cache_gib:.3f} GiB an engine; peak {peak:.2f} GiB", flush=True)
+    del plain_engine, be, batched, served
+    gc.collect()
+    torch.cuda.empty_cache()
+    strip = lambda d: {k: v for k, v in d.items() if k != "ids"}
+    return {"launches": got, "burst_s": burst_s, "image_gen": chunks,
+            "spec_graphed": strip(graphed), "spec_eager": strip(eager),
+            "plain_graphed": strip(plain), "decode_attention": attn,
+            "cache_gib": cache_gib, "peak_gib": peak}
+
+
+def seedx_phase(s_img):
+    """Phase 10 (see the module's docstring). → summary, its launches
+    among them."""
+    import torch
+
+    import mllm_npu_tpu_torch.ops as port_ops
+    from mllm_npu_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_reference)
+    from mllm_npu_tpu_torch.serve.engine import InferenceEngine
+    from mllm_npu_tpu_torch.serve.worker import load_engine_from_config
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[seedx] device memory before the build: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved",
+          flush=True)
+    launches = dict.fromkeys(kernel_counters(), 0)
+    t0 = time.perf_counter()
+    single = load_engine_from_config(str(ROOT / SEEDX_YAML),
+                                     max_new_tokens=MAX_NEW_TOKENS,
+                                     device="cuda", seed=0,
+                                     fake_tokenizer=True)
+    torch.cuda.synchronize()
+    model = single.generator.model
+    lm_cfg = model.language_model.config
+    vis = model.vision_encoder
+    n = lambda mod: sum(p.numel() for p in mod.parameters())
+    parts = {"llama": n(model.language_model),
+             "qwen_vit": n(vis) - n(vis.attn_pool),
+             "pool_and_projectors": n(vis.attn_pool) + n(model.projector)
+             + n(model.output_projector) + model.patch_pos_embed.numel()}
+    check(sum(parts.values()) == n(model), f"seedx parameter parts {parts}")
+    print(f"[seedx] {SEEDX_YAML} built in {time.perf_counter() - t0:.1f} s: "
+          f"{n(model) / 1e9:.3f} B params ("
+          + ", ".join(f"{k} {v / 1e9:.3f} B" for k, v in parts.items())
+          + f"), {torch.cuda.memory_allocated() / 2**30:.2f} GiB resident; "
+          f"llama {lm_cfg.num_hidden_layers} layers, MHA "
+          f"{lm_cfg.num_attention_heads}/{lm_cfg.num_key_value_heads}, LoRA "
+          f"r{lm_cfg.lora_rank}, vocab {lm_cfg.vocab_size}; qwen "
+          f"{vis.config.layers} layers, D {vis.config.width // vis.config.heads}",
+          flush=True)
+    check(vis.config.width // vis.config.heads == 104
+          and model.projector.embed_dim // model.projector.attn.num_heads
+          == 160, "seedx: the head dims are not 104 and 160")
+
+    requests = [("What is unusual in this image?", png_b64(896, 896, 0)),
+                ("Describe the picture.", png_b64(448, 448, 1)),
+                ("What is the capital of France?", "")]
+    preps = [single._prepare_comprehension(q, b) for q, b in requests]
+    check(len(preps[0][0]) == s_img, f"seedx: the image prompt has "
+          f"{len(preps[0][0])} tokens, phase 3 timed {s_img}")
+    got, _ = serve(single, requests, preps, "seedx", lm_cfg)
+    for k in launches:
+        launches[k] += got[k]
+    k1_logits, _ = k1_vs_plain_prefill(model, preps[0], "SEED-X")
+
+    # caption → features with K1, then with K1's plain version everywhere
+    feats = {}
+    for which, fn in (("K1", flash_attention),
+                      ("plain", flash_attention_reference)):
+        port_ops.flash_attention = fn
+        flash_attention.launches = 0
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = single.text_to_image_features(SEEDX_CAPTION,
+                                                max_new_tokens=T2I_TOKENS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            port_ops.flash_attention = flash_attention
+        ids = res["generate_ids"][0].tolist()
+        ladder = list(single.generator.ladder.ids)
+        f = res["img_gen_feat"]
+        check(ids[:len(ladder) - 1] == ladder[1:],
+              f"seedx {which}: not the forced ladder: {ids}")
+        check(res["num_gen_imgs"] == 1 and tuple(f.shape) == (
+            1, model.num_img_out_tokens, model.output_projector.embed_dim)
+              and bool(torch.isfinite(f.float()).all()),
+              f"seedx {which}: img_gen_feat {None if f is None else f.shape}")
+        expect = lm_cfg.num_hidden_layers + 1 if which == "K1" else 0
+        check(flash_attention.launches == expect, f"seedx {which} "
+              f"text_to_image_features launched K1 "
+              f"{flash_attention.launches} times, expected {expect}")
+        launches["flash_fwd"] += flash_attention.launches
+        tm = single.generator.last_timings
+        print(f"[seedx] text_to_image_features ({which}): {len(ladder) - 2} "
+              f"forced image tokens and </img> in {len(ids)} tokens, "
+              f"img_gen_feat {tuple(f.shape)}; K1 {expect} launches; ttft "
+              f"{tm['ttft_s'] * 1e3:.1f} ms, decode "
+              f"{tm['decode_s'] * 1e3 / max(tm['decode_steps'], 1):.2f} "
+              f"ms/token, wall {wall:.2f} s", flush=True)
+        feats[which] = f.float()
+    a, b = feats["K1"].flatten(), feats["plain"].flatten()
+    t2i = {"cos": torch.nn.functional.cosine_similarity(a, b, dim=0).item(),
+           "rel_rms": ((a - b).norm() / b.norm()).item()}
+    print(f"[check] SEED-X img_gen_feat, K1 vs plain attention: cos "
+          f"{t2i['cos']:.6f}, relative RMS {t2i['rel_rms']:.4f}", flush=True)
+    check(t2i["cos"] >= T2I_COS, f"seedx img_gen_feat disagree: {t2i}")
+
+    worker = seedx_worker_check(single, lm_cfg)
+    for k in launches:
+        launches[k] += worker["launches"][k]
+
+    # int8: the Llama's LoRA merged and quantized in place, one image
+    # request, its prefill logits with K4 against the plain quantized linears
+    nq = model.projector.num_queries
+    t0 = time.perf_counter()
+    q8 = InferenceEngine(model=model, tokenizer=single.tokenizer,
+                         image_transform=single.image_transform,
+                         num_img_in_tokens=nq, num_img_out_tokens=nq,
+                         max_new_tokens=MAX_NEW_TOKENS, device="cuda",
+                         quantize_int8=True)
+    torch.cuda.synchronize()
+    check(model.language_model.config.quantization == "int8",
+          "seedx: not quantized")
+    print(f"[seedx int8] quantized in place in {time.perf_counter() - t0:.1f}"
+          f" s: {torch.cuda.memory_allocated() / 2**30:.2f} GiB resident",
+          flush=True)
+    got, got_prefill = serve(q8, requests[:1], preps[:1], "seedx int8",
+                             lm_cfg)
+    for k in launches:
+        launches[k] += got[k]
+    quant_vs_plain_prefill(model, preps[0], 8, "SEED-X", k1_logits)
+    del q8, single, model, feats, k1_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "int8_prefill_launches": got_prefill[8],
+            "params": parts, "t2i": t2i, "worker": worker}
+
+
 def main():
     # the training phase runs near the card's memory: let the allocator grow
     # segments instead of fragmenting (read when CUDA initialises)
@@ -2328,19 +2843,18 @@ def main():
     sys.path.insert(0, str(ROOT))
     os.environ.pop("DEBUG_FLAG", None)       # full width, never tiny
 
-    import mllm_npu_tpu_torch.ops as port_ops
+    from mllm_npu_tpu_torch.constant import BOI_TOKEN
     from mllm_npu_tpu_torch.demo_img2txt import build_engine
     from mllm_npu_tpu_torch.ops import quant as tq
-    from mllm_npu_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_reference)
+    from mllm_npu_tpu_torch.ops.flash_attention import flash_attention
     from mllm_npu_tpu_torch.utils.cuda_build import build_all
 
     # fp32 reference products in full fp32 (the plain K1 is an fp32
     # einsum; cuDNN would run an fp32 conv in TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if sys.argv[1:] == ["--traced-replays"]:
-        traced_replays()
+    if sys.argv[1:2] == ["--traced-replays"]:
+        traced_replays(sys.argv[2] if len(sys.argv) > 2 else "")
         return
 
     t_start = time.perf_counter()
@@ -2413,20 +2927,27 @@ def main():
         kernel_case("tiny_llama_d32", 1, 77, 77, 4, 2, 32, True,
                     pad_rows={}),
     ]
+    # SEED-X's shapes (phase 10 serves the same 896×896 request: the same
+    # prompt length; and the caption of its text_to_image_features)
+    caption_len = 1 + len(engine.tokenizer.encode(SEEDX_CAPTION + BOI_TOKEN))
+    seedx_cases = seedx_kernel_cases(n_tiles, s_img, caption_len)
     edges = k1_edge_sweep()
     qrows = quant_rows(lm_cfg, s_img, bucket, WORKER["num_slots"])
+    seedx_lm = seedx_specs()[3]
+    qrows13 = quant_rows(seedx_lm, s_img, bucket, WORKER["num_slots"],
+                         regimes=("decode", "slots", "prefill"))
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 4",
           flush=True)
     # -- 4. the bf16 path, counts set to 0 before each request ---------
     launches, quant_prefill = serve(engine, requests, preps, "bf16",
-                                    lm_cfg, vis_cfg)
+                                    lm_cfg)
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 4b",
           flush=True)
     # -- 4b. the batched worker over the same model, counts set to 0 before
     #        its burst: HTTP, the slot engine, the captured decode block
-    worker = {"bf16": worker_phase(engine, lm_cfg, vis_cfg)}
+    worker = {"bf16": worker_phase(engine, lm_cfg)}
     for k, n in worker["bf16"]["launches"].items():
         launches[k] += n
 
@@ -2444,30 +2965,7 @@ def main():
     #       with K1's plain version in every attention (SigLIP, resampler,
     #       Llama): random weights give flat logits, so hold the direction
     #       (cosine) and report the argmax
-    logits = {}
-    for label, fn in (("K1", flash_attention),
-                      ("plain", flash_attention_reference)):
-        port_ops.flash_attention = fn
-        flash_attention.launches = 0
-        try:
-            logits[label] = prefill_logits(model, preps[0])
-        finally:
-            port_ops.flash_attention = flash_attention
-        expect = (lm_cfg.num_hidden_layers + vis_cfg.num_hidden_layers + 1
-                  if label == "K1" else 0)
-        check(flash_attention.launches == expect,
-              f"{label} prefill launched K1 {flash_attention.launches} times, "
-              f"expected {expect}")
-    k1, plain = logits["K1"], logits["plain"]
-    cos = torch.nn.functional.cosine_similarity(k1, plain).item()
-    diff = (k1 - plain).abs().max().item()
-    print(f"[check] full-width image prefill logits, K1 vs plain attention: "
-          f"cos {cos:.6f}, max abs diff {diff:.4f}, |logits| max "
-          f"{plain.abs().max().item():.3f}, argmax "
-          f"{k1.argmax().item()} vs {plain.argmax().item()}")
-    check(bool(torch.isfinite(k1).all()), "non-finite logits")
-    check(tuple(k1.shape) == (1, lm_cfg.vocab_size), "logits shape")
-    check(cos >= 0.99, f"K1 and plain-attention logits disagree (cos {cos})")
+    k1, plain = k1_vs_plain_prefill(model, preps[0], "full-width")
     bf16_logits = k1
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 6",
@@ -2486,7 +2984,7 @@ def main():
                                          mixed_items(engine)[1])
     launches["flash_fwd"] += flash_attention.launches
     check(flash_attention.launches > 0, "check e launched no K1")
-    del engine, model, logits, k1, plain
+    del engine, model, k1, plain
     torch.cuda.empty_cache()
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 7",
@@ -2506,7 +3004,7 @@ def main():
               f"{time.perf_counter() - t0:.1f} s: "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident")
         got, got_prefill = serve(engine, [requests[0], requests[2]],
-                                 [preps[0], preps[2]], label, lm_cfg, vis_cfg)
+                                 [preps[0], preps[2]], label, lm_cfg)
         for k in launches:
             launches[k] += got[k]
         for b in quant_prefill:
@@ -2514,7 +3012,7 @@ def main():
         if bits == 8:
             # the int8 worker: its burst's counts (its graph replays'
             # launches are traced, not counted)
-            w = worker["int8"] = int8_worker_phase(engine, lm_cfg, vis_cfg)
+            w = worker["int8"] = int8_worker_phase(engine, lm_cfg)
             for k, n in w["launches"].items():
                 launches[k] += n
             quant_prefill[8] += w["prefill_launches"][0]
@@ -2525,47 +3023,8 @@ def main():
             quant_prefill[8] += w["spec"]["prefill_launches"]
 
         kernel = getattr(tq, f"{label}_matmul")
-        qlogits = {}
-        for which, fn in ((label, kernel),
-                          ("plain", getattr(tq, f"{label}_matmul_reference"))):
-            setattr(tq, f"{label}_matmul", fn)
-            kernel.launches = kernel.prefill_launches = 0
-            try:
-                qlogits[which] = prefill_logits(model, preps[0])
-            finally:
-                setattr(tq, f"{label}_matmul", kernel)
-            expect = 7 * lm_cfg.num_hidden_layers + 1 if which == label else 0
-            check(kernel.launches == expect,
-                  f"{which} prefill launched {label}_matmul "
-                  f"{kernel.launches} times, expected {expect}")
-            # all but the lm_head (last row, decode regime) at M = 339
-            expect = 7 * lm_cfg.num_hidden_layers if which == label else 0
-            check(kernel.prefill_launches == expect,
-                  f"{which} prefill launched {label}_matmul's prefill kernel "
-                  f"{kernel.prefill_launches} times, expected {expect}")
-        ql, qp = qlogits[label], qlogits["plain"]
-        cos = torch.nn.functional.cosine_similarity(ql, qp).item()
-        cos_bf16 = torch.nn.functional.cosine_similarity(
-            ql, bf16_logits).item()
-        # random weights give flat logits: the top two and their margin on
-        # each side tell a near-tie flip of the argmax from a kernel error
-        tops = {}
-        for which, lg in (("kernel", ql), ("plain", qp)):
-            v, i = lg[0].topk(2)
-            tops[which] = (i.tolist(), v.tolist(), (v[0] - v[1]).item())
-        print(f"[check] full-width {label} image prefill logits, kernel vs "
-              f"plain quantized linears: cos {cos:.6f}, max abs diff "
-              f"{(ql - qp).abs().max().item():.4f}, argmax "
-              f"{ql.argmax().item()} vs {qp.argmax().item()}; top-2 "
-              + "; ".join(f"{w} ids {t[0]} logits {t[1][0]:.4f}, "
-                          f"{t[1][1]:.4f} (margin {t[2]:.4f})"
-                          for w, t in tops.items())
-              + f"; against the bf16 engine's logits (information only): "
-              f"cos {cos_bf16:.6f}")
-        check(bool(torch.isfinite(ql).all()), f"non-finite {label} logits")
-        check(tuple(ql.shape) == (1, lm_cfg.vocab_size), "logits shape")
-        check(cos >= 0.99,
-              f"{label} kernel and plain logits disagree (cos {cos})")
+        ql, qp = quant_vs_plain_prefill(model, preps[0], bits, "full-width",
+                                        bf16_logits)
         # the image prefill once more under the profiler: how much of it
         # the device is busy, and K4's (K5's) share of the device time
         print_profile(f"{label} image prefill", *profile_call(
@@ -2582,7 +3041,7 @@ def main():
             launches["int8_matmul"] += kernel.launches
             launches["flash_fwd"] += flash_attention.launches
             quant_prefill[8] += kernel.prefill_launches
-        del engine, model, qlogits, ql, qp
+        del engine, model, ql, qp
         torch.cuda.empty_cache()
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 8",
@@ -2610,29 +3069,38 @@ def main():
         bwd_case("tiny_d32", 1, 77, 77, 4, 2, 32, True, segments=True),
     ]
 
-    by = {c["shape"]: c for c in cases}
-    mix = {"llama_prefill": lm_cfg.num_hidden_layers,
-           "siglip": vis_cfg.num_hidden_layers, "resampler": 1}
-    agg = {key: sum(by[s][key] * n for s, n in mix.items())
-           for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 10",
+          flush=True)
+    # -- 10. SEED-X at full width, the Llama-3 models dropped ------------
+    seedx = seedx_phase(s_img)
+    for k in launches:
+        launches[k] += seedx["launches"][k]
+    quant_prefill[8] += seedx["int8_prefill_launches"]
+
+    L13 = seedx_lm.num_hidden_layers
+    seedx_image = k1_mix(seedx_cases, {
+        "seedx_llama2_prefill": L13, "seedx_qwen_vit": seedx_specs()[0].layers,
+        "seedx_attn_pool": 1, "seedx_input_projector": 1},
+        "one SEED-X 896x896 request")
+    seedx_caption = k1_mix(seedx_cases, {
+        "seedx_llama2_caption": L13, "seedx_output_projector": 1},
+        "one SEED-X caption -> features request")
     rows = [{
         "name": "flash_fwd", "route": "cuda", "design": "wgmma+tma",
         "source": "mllm_npu_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "mllm_npu_tpu/ops/flash_attention.py:100",
         "launches": launches["flash_fwd"],
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        **agg,
-        "bound_share": agg["bound_ms"] / agg["ms"],
-        "bound_by": ("operations" if sum(by[s]["flops"] * n for s, n in
-                                          mix.items()) / H100_BF16_FLOPS
-                     >= sum(by[s]["bytes"] * n for s, n in mix.items())
-                     / H100_BYTES_PER_S else "bytes"),
-        "ms_basis": "one 896x896 request: the launch mix "
-                    + ", ".join(f"{n} x {s}" for s, n in mix.items()),
+        "max_abs_err": max(c["max_abs_err"] for c in cases + seedx_cases),
+        **k1_mix(cases, {"llama_prefill": lm_cfg.num_hidden_layers,
+                         "siglip": vis_cfg.num_hidden_layers,
+                         "resampler": 1}, "one 896x896 request"),
         "library": "SDPA per shape, the faster of its calls (see shapes)",
         "shapes": cases,
         "edge_sweep": edges,
         "lse_shapes": [b["lse"] for b in bwd],
+        "seedx_image_request": seedx_image,
+        "seedx_caption_request": seedx_caption,
+        "seedx_shapes": seedx_cases,
     }]
     tmix = {"llama_train": lm_cfg.num_hidden_layers, "resampler_train": 1}
     tby = {b["flash_bwd_dq"]["shape"]: b for b in bwd}
@@ -2767,10 +3235,12 @@ def main():
             },
             "library": "F.linear on the weight dequantized to bf16",
             "shapes": qrows[bits],
+            "seedx": seedx_quant(qrows13[bits], seedx_lm, s_img),
         })
     print("[train] summary " + json.dumps(
         {k: v for k, v in train.items() if k != "profile"}))
     print("[worker] summary " + json.dumps(worker, default=str))
+    print("[seedx] summary " + json.dumps(seedx, default=str))
     print(f"[time] {time.perf_counter() - t_start:.1f} s: all phases done",
           flush=True)
     print(json.dumps({"kernels": rows}))

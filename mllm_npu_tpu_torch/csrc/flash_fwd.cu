@@ -86,7 +86,17 @@
 //    each part: N = 64 or 128 from the 128-byte boxes (MN-major, SBO 1024 B
 //    between 8-key groups, LBO BK·128 B between 64-column boxes) and
 //    N = 16, 32 or 48 from the 32-byte boxes (SBO 256 B, LBO BK·32 B).
-//    D = 72 → 64 + 16 (cols 72–79 zero-filled), 128 → 128, 32 → 0 + 32.
+//    D = 72 → 64 + 16 (cols 72–79 zero-filled), 128 → 128, 32 → 0 + 32,
+//    104 → 64 + 48 (Qwen-ViT-G), 160 → 128 + 32 (the SEED-X input
+//    projector): no wgmma shape beyond those D ≤ 128 already uses.
+//  * Shared memory above D = 128. Q (2 stages) and K and V (2 stages
+//    each) take 6·BQ·DP·2 bytes: at BQ = 128 that is 168 KB at DP = 112
+//    and 216 KB at DP = 144, within the 227 KB a block may use, but 240 KB
+//    at DP = 160. So DP = 160 takes only the 64-row tiles (120 KB, one
+//    block per SM); the wrapper's plan (`k1_block_q`, `k1_smem_bytes`)
+//    mirrors Cfg::SMEM and never asks for a shape that does not fit, and
+//    the host entry refuses one. Registers: O at DP = 160 is 80 fp32 a
+//    consumer thread (o_hi 64 + o_lo 16), beside S (BK/2) and P (BK/4).
 //  * The P fragment layout. The m64nNk16 fp32 accumulator gives each
 //    thread, per 8-column slice, (row g, cols 2t, 2t+1) and (row g+8, same
 //    cols) of its warp's 16 rows; the register A operand of m64nNk16 wants
@@ -159,6 +169,8 @@ struct Cfg {
   static constexpr int SMEM = BAR_OFF + 8 * (4 + 4 * STAGES) + 1024;
   static_assert(Q_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0,
                 "buffers stay 1024-byte aligned for the 128-byte swizzle");
+  // what one block may use on an H100 (227 KB)
+  static constexpr bool FITS = SMEM <= 232448;
 };
 
 // The work of one call: tiles of BQ query rows of one (head, batch), in
@@ -628,6 +640,13 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// a tile shape whose shared memory does not fit is never instantiated
+template <int NWG, int DP>
+cudaError_t launch_fit(const Params& p, cudaStream_t stream) {
+  if constexpr (Cfg<NWG, DP>::FITS) return launch<NWG, DP>(p, stream);
+  else return cudaErrorInvalidValue;
+}
+
 template <int NWG>
 cudaError_t launch_dp(const Params& p, cudaStream_t stream) {
   switch ((p.D + 15) / 16) {
@@ -639,6 +658,8 @@ cudaError_t launch_dp(const Params& p, cudaStream_t stream) {
     case 6: return launch<NWG, 96>(p, stream);
     case 7: return launch<NWG, 112>(p, stream);
     case 8: return launch<NWG, 128>(p, stream);
+    case 9: return launch_fit<NWG, 144>(p, stream);
+    case 10: return launch_fit<NWG, 160>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -647,9 +668,11 @@ cudaError_t launch_dp(const Params& p, cudaStream_t stream) {
 
 // Returns 0 on success, else a CUDA error code (cudaGetLastError() after
 // the launch, or cudaErrorInvalidValue for arguments or tensor maps the
-// kernel does not take). Pointers are device pointers, strides are in
-// elements, lse and q_seg/kv_seg may be null. block_q (64 or 128) picks the
-// tile shape: query rows per block, which is also the keys per K/V tile.
+// kernel does not take, a head dim above 160 or a tile shape whose shared
+// memory does not fit among them). Pointers are device pointers, strides
+// are in elements, lse and q_seg/kv_seg may be null. block_q (64 or 128)
+// picks the tile shape: query rows per block, which is also the keys per
+// K/V tile.
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               void* o, void* lse, const void* q_seg,
                               const void* kv_seg,
@@ -661,7 +684,7 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               float scale, int causal, int block_q,
                               void* stream) {
   if ((q_seg == nullptr) != (kv_seg == nullptr) || D % 8 != 0 || D < 8 ||
-      D > 128 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || B <= 0 ||
+      D > 160 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || B <= 0 ||
       (block_q != 64 && block_q != 128))
     return cudaErrorInvalidValue;
   EncodeTiled fn = encode_tiled();

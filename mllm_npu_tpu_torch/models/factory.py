@@ -1,11 +1,13 @@
 """Builders targeted by the port's YAML configs (twins of
-``mllm_npu_tpu/models/factory.py`` :123, :149, :231, :264, :291).
+``mllm_npu_tpu/models/factory.py`` :123, :137, :149, :231, :245, :264,
+:291, :318).
 
 Component builders return a :class:`ModelSpec` (config plus constructor)
-and build nothing; :func:`build_mllm` builds the assembly once, on the
-``meta`` device, then allocates it on the target device in the parameter
-dtype and fills it from a seeded generator on that device. So a full-width
-build never runs 8B parameters through a CPU initializer.
+and build nothing; :func:`build_mllm` and :func:`build_seed` build the
+assembly once, on the ``meta`` device, then allocate it on the target
+device in the parameter dtype and fill it from a seeded generator on that
+device. So a full-width build never runs 8B or 13B parameters through a
+CPU initializer.
 
 Weights are drawn from the seed: loading the reference's checkpoints is
 not ported yet, and a configured checkpoint path that exists raises rather
@@ -36,7 +38,9 @@ from torch import nn
 
 from mllm_npu_tpu_torch.models.language_models.llama import (
     LlamaConfig, LlamaForCausalLM, LoRALinear, RMSNorm)
-from mllm_npu_tpu_torch.models.mllm import GeneralizedMultimodalModel
+from mllm_npu_tpu_torch.models.mllm import SEED, GeneralizedMultimodalModel
+from mllm_npu_tpu_torch.models.multimodal_encoder.qwenvl_vit import (
+    QwenViTConfig, VisionTransformerWithAttnPool)
 from mllm_npu_tpu_torch.models.multimodal_encoder.siglip_vit import (
     SigLIPConfig, SigLIPVisionEncoder)
 from mllm_npu_tpu_torch.models.multimodal_projector.attention_resampler \
@@ -56,11 +60,12 @@ def _no_checkpoint(path) -> None:
 
 @dataclasses.dataclass
 class ModelSpec:
-    """A component to build: its config, compute dtype and a no-argument
-    constructor."""
+    """A component to build: its config, compute dtype and a constructor
+    (no arguments, but a resampler's takes the width of its input under
+    ``DEBUG_FLAG``: :func:`build_attention_resampler`)."""
     config: Any
     dtype: torch.dtype
-    make: Callable[[], nn.Module]
+    make: Callable[..., nn.Module]
 
 
 def _llama_spec(cfg: LlamaConfig, dtype) -> ModelSpec:
@@ -76,6 +81,20 @@ def build_llama3(pretrained_model_name_or_path=None, vocab_size=None,
         kw.setdefault("remat", True)
         kw.setdefault("remat_policy", "dots")
         cfg = LlamaConfig.llama3_8b(**kw)
+        if vocab_size is not None:
+            cfg = dataclasses.replace(cfg, vocab_size=vocab_size)
+    return _llama_spec(cfg, dtype)
+
+
+def build_llama2(pretrained_model_name_or_path=None, vocab_size=None,
+                 dtype=torch.bfloat16, **kw) -> ModelSpec:
+    _no_checkpoint(pretrained_model_name_or_path)
+    if _debug():
+        cfg = LlamaConfig.tiny(vocab_size=vocab_size or 1024, **kw)
+    else:
+        kw.setdefault("remat", True)
+        kw.setdefault("remat_policy", "dots")
+        cfg = LlamaConfig.llama2_13b(**kw)
         if vocab_size is not None:
             cfg = dataclasses.replace(cfg, vocab_size=vocab_size)
     return _llama_spec(cfg, dtype)
@@ -107,15 +126,48 @@ def build_siglip(pretrained_model_name_or_path=None, hidden_dim=1152,
                      lambda: SigLIPVisionEncoder(cfg, dtype=dtype))
 
 
+def build_qwen_vit(pretrained_model_name_or_path=None, heads=16,
+                   image_size=448, layers=48, mlp_ratio=4.9231,
+                   output_dim=4096, patch_size=14, width=1664,
+                   patch_pos=False, dtype=torch.bfloat16, **kw) -> ModelSpec:
+    """Qwen-ViT with its attention pool (ViT-G at the defaults)."""
+    _no_checkpoint(pretrained_model_name_or_path)
+    cfg = (QwenViTConfig.tiny() if _debug() else
+           QwenViTConfig(image_size=image_size, patch_size=patch_size,
+                         width=width, layers=layers, heads=heads,
+                         mlp_ratio=mlp_ratio, output_dim=output_dim,
+                         patch_pos=patch_pos))
+    return ModelSpec(cfg, dtype,
+                     lambda: VisionTransformerWithAttnPool(cfg, dtype=dtype))
+
+
 def build_attention_resampler(grid_size: int, embed_dim: int,
                               num_heads: int, kv_dim: Optional[int] = None,
                               dtype=torch.bfloat16, **kw) -> ModelSpec:
+    """The resampler; its config holds ``num_queries``, ``embed_dim`` and
+    ``num_heads``.
+    Under ``DEBUG_FLAG`` it is tiny (4 queries, width 128, 4 heads) and,
+    where it has an input projection, takes the tiny producer's width,
+    which the assembly builder passes to ``make`` (the reference's Dense
+    infers it from the input)."""
     if _debug():
         grid_size, embed_dim, num_heads = 2, 128, 4
-        kv_dim = None if kv_dim is None else 64
-    return ModelSpec(None, dtype, lambda: AttentionResampler(
-        grid_size=grid_size, embed_dim=embed_dim, num_heads=num_heads,
-        kv_dim=kv_dim, dtype=dtype))
+
+    def make(kv_in: Optional[int] = None):
+        kv = kv_dim if kv_in is None or kv_dim is None else kv_in
+        return AttentionResampler(grid_size=grid_size, embed_dim=embed_dim,
+                                  num_heads=num_heads, kv_dim=kv, dtype=dtype)
+    return ModelSpec({"num_queries": grid_size ** 2, "embed_dim": embed_dim,
+                      "num_heads": num_heads}, dtype, make)
+
+
+def _width(spec: ModelSpec) -> int:
+    """The width of a vision tower's or a Llama's output tokens."""
+    return getattr(spec.config, "output_dim", None) or spec.config.hidden_size
+
+
+def _make_resampler(spec: ModelSpec, producer: ModelSpec) -> nn.Module:
+    return spec.make(_width(producer)) if _debug() else spec.make()
 
 
 def init_random_(module: nn.Module, seed: int = 0, std: float = 0.02
@@ -190,12 +242,57 @@ def build_mllm(language_model: ModelSpec = None,
 
     def make():
         return GeneralizedMultimodalModel(
-            language_model.make(), vision_encoder.make(), projector.make(),
+            language_model.make(), vision_encoder.make(),
+            _make_resampler(projector, vision_encoder),
             add_patch_pos=add_patch_pos,
             patch_pos_dim=language_model.config.hidden_size,
             freeze_vision_encoder=freeze_vision_encoder,
             lm_loss_scale=lm_loss_scale, ce_loss_chunk=ce_loss_chunk)
+    return _materialize_assembly(make, freeze_vision_encoder, device=device,
+                                 param_dtype=param_dtype, seed=seed,
+                                 train=train)
 
+
+def build_seed(language_model: ModelSpec = None,
+               vision_encoder: ModelSpec = None,
+               projector: ModelSpec = None,
+               output_projector: ModelSpec = None,
+               freeze_vision_encoder=True, lm_loss_scale=1.0,
+               rec_loss_scale=1.0, add_patch_pos=False, vit_down=False,
+               mse=False, num_img_out_tokens: Optional[int] = None,
+               pretrained_model_name_or_path=None,
+               pretrained_model_path=None, *, device=None,
+               param_dtype=torch.bfloat16, seed: int = 0,
+               train: bool = False, ce_loss_chunk: int = 0,
+               **kw) -> SEED:
+    """The SEED assembly (the comprehension assembly plus its output
+    projector and reconstruction loss) with seeded weights on ``device``,
+    as :func:`build_mllm`. ``num_img_out_tokens`` defaults to 64 (the
+    tiny projector's query count under ``DEBUG_FLAG``); the patch
+    positions take the Llama's width."""
+    _no_checkpoint(pretrained_model_name_or_path or pretrained_model_path)
+    if num_img_out_tokens is None:
+        num_img_out_tokens = (projector.config["num_queries"] if _debug()
+                              else 64)
+
+    def make():
+        return SEED(
+            language_model.make(), vision_encoder.make(),
+            _make_resampler(projector, vision_encoder),
+            _make_resampler(output_projector, language_model),
+            rec_loss_scale=rec_loss_scale, vit_down=vit_down, mse=mse,
+            num_img_out_tokens=num_img_out_tokens,
+            add_patch_pos=add_patch_pos,
+            patch_pos_dim=language_model.config.hidden_size,
+            freeze_vision_encoder=freeze_vision_encoder,
+            lm_loss_scale=lm_loss_scale, ce_loss_chunk=ce_loss_chunk)
+    return _materialize_assembly(make, freeze_vision_encoder, device=device,
+                                 param_dtype=param_dtype, seed=seed,
+                                 train=train)
+
+
+def _materialize_assembly(make, freeze_vision_encoder, *, device,
+                          param_dtype, seed, train):
     frozen = None
     if train:
         def frozen(model):

@@ -1,5 +1,6 @@
-"""End-to-end generation for the comprehension assembly (twin of
-``MLLMGenerator.generate``, ``mllm_npu_tpu/models/generation/generate.py:50-307``).
+"""End-to-end generation for the multimodal assemblies (twin of
+``MLLMGenerator.generate`` and ``generate_with_projection``,
+``mllm_npu_tpu/models/generation/generate.py:50-346``).
 
 One call: embed the prompt and scatter the image tokens; a causal prefill
 over the right-padded prompt with segment ids from ``prompt_mask`` (K1 on
@@ -7,7 +8,11 @@ the GPU) that fills the KV cache; the first token from the last real
 position's logits; then a read-only-cache decode with the image ladder,
 greedy or sampled (``SamplingConfig.do_sample``), or, for one greedy row
 with ``speculative_k``, prompt-lookup speculation (k proposals verified
-in one multi-token forward). Eager PyTorch takes the place of ``jit``.
+in one multi-token forward). Each emitted token's hidden state is kept;
+with a ladder the image windows are cut from them, and for SEED
+(:meth:`MLLMGenerator.generate_with_projection`) the output projector maps
+each window to the image-generation features. Eager PyTorch takes the
+place of ``jit``.
 The Llama's weights may be served in int8 or int4 (``quantize_int8`` /
 ``quantize_int4``, K4 / K5 on the GPU), with fused q/k/v and gate/up
 products (``fuse_projections``); the KV cache in bf16, fp32 or fp8
@@ -23,8 +28,8 @@ from typing import Optional
 import torch
 
 from mllm_npu_tpu_torch.models.generation.sampler import (
-    ImageTokenLadder, SamplingConfig, apply_image_ladder, decode_loop, pick,
-    row_seeds, speculative_decode_loop)
+    ImageTokenLadder, SamplingConfig, apply_image_ladder, decode_loop,
+    extract_img_windows, pick, row_seeds, speculative_decode_loop)
 from mllm_npu_tpu_torch.models.language_models.llama import init_cache
 from mllm_npu_tpu_torch.ops import SegmentIds
 from mllm_npu_tpu_torch.utils.weights import (fuse_llama_projections_,
@@ -34,7 +39,7 @@ CACHE_DTYPE = torch.bfloat16
 
 
 class MLLMGenerator:
-    """Generation for one ``GeneralizedMultimodalModel``.
+    """Generation for one ``GeneralizedMultimodalModel`` or ``SEED``.
 
     Every fp32 parameter is stored in bf16 (the modules still compute in
     their own dtype), as the reference's serving default, and the KV cache
@@ -93,11 +98,18 @@ class MLLMGenerator:
                  embeds_cmp_mask=None, ids_cmp_mask=None,
                  patch_positions=None,
                  sampling: Optional[SamplingConfig] = None,
-                 seed: int = 0) -> dict:
+                 seed: int = 0, num_img_gen_tokens: int = 64,
+                 max_gen_imgs: int = 4) -> dict:
         """input_ids [B, Sp] (right-padded when ``prompt_mask`` is given);
-        returns {"generate_ids": [B, max_new_tokens]}. ``sampling``
-        overrides the generator's config for this call; a sampled row b
-        draws from (``seed``, b) (``sampler.row_seeds``)."""
+        returns {"generate_ids": [B, T], "hidden_states": [B, T, D]} (T =
+        ``max_new_tokens``; column t the hidden state token t was chosen
+        from) and, with a ladder, the image windows of each row
+        (``sampler.extract_img_windows`` over its first ``max_gen_imgs``
+        ``</img>``, ``num_img_gen_tokens`` hidden states each, at most T):
+        "img_windows" [B, max_gen_imgs, n, D], "img_valid" [B,
+        max_gen_imgs] and "text_mask" [B, T]. ``sampling`` overrides the
+        generator's config for this call; a sampled row b draws from
+        (``seed``, b) (``sampler.row_seeds``)."""
         model = self.model
         cfg = self.sampling if sampling is None else sampling
         lm = model.language_model
@@ -125,7 +137,8 @@ class MLLMGenerator:
                            prefill=True)
         idx_last = (row_len - 1).long()
         rows = torch.arange(B, device=dev)
-        last_logits = lm.logits(hidden[rows, idx_last]).float()
+        first_hidden = hidden[rows, idx_last]
+        last_logits = lm.logits(first_hidden).float()
         if self.ladder is not None:
             last_logits = apply_image_ladder(
                 last_logits, input_ids[rows, idx_last], self.ladder)
@@ -145,7 +158,7 @@ class MLLMGenerator:
             pos_t = (row_len + (cache["pos"] - Sp))[:, None]
             h, cache = lm(tok, positions=pos_t, cache=cache,
                           attn_mask=decode_am)
-            return lm.logits(h[:, -1]).float(), cache
+            return lm.logits(h[:, -1]).float(), h[:, -1], cache
 
         def step_multi(toks, cache):
             # k + 1 positions from the row's next one; the cache's keys
@@ -154,16 +167,17 @@ class MLLMGenerator:
                      + torch.arange(toks.shape[1], device=dev))
             h, cache = lm(toks, positions=pos_t, cache=cache,
                           attn_mask=decode_am)
-            return lm.logits(h).float(), cache
+            return lm.logits(h).float(), h, cache
 
         if spec_k:
-            tokens, _, steps = speculative_decode_loop(
-                step_multi, cache, first_token, cfg, input_ids,
+            tokens, hiddens, _, steps = speculative_decode_loop(
+                step_multi, cache, first_token, first_hidden, cfg, input_ids,
                 ladder=self.ladder, k=spec_k, ngram=self.speculative_ngram,
                 prompt_len=int(row_len[0]))
         else:
-            tokens, _, steps = decode_loop(step, cache, first_token, cfg,
-                                           ladder=self.ladder, seeds=seeds)
+            tokens, hiddens, _, steps = decode_loop(
+                step, cache, first_token, first_hidden, cfg,
+                ladder=self.ladder, seeds=seeds)
         sync()
         t2 = time.perf_counter()
         # decode_steps: the model calls of the decode (verify forwards
@@ -172,4 +186,45 @@ class MLLMGenerator:
                              "prefill_s": t1 - t_embed, "ttft_s": t1 - t0,
                              "decode_s": t2 - t1, "decode_steps": steps,
                              "speculative_k": spec_k}
-        return {"generate_ids": tokens}
+        out = {"generate_ids": tokens, "hidden_states": hiddens}
+        if self.ladder is not None:
+            # a window can never exceed the decode budget
+            n = min(num_img_gen_tokens, cfg.max_new_tokens)
+            cut = [extract_img_windows(tokens[b], hiddens[b], self.ladder.eoi,
+                                       n, max_gen_imgs, self.ladder.boi)
+                   for b in range(B)]
+            out["img_windows"], out["img_valid"], out["text_mask"] = (
+                torch.stack(x) for x in zip(*cut))
+        return out
+
+    @torch.inference_mode()
+    def generate_with_projection(self, input_ids, tokenizer=None,
+                                 **kw) -> dict:
+        """The SEED path: :meth:`generate` (``kw`` are its keywords), then
+        every valid image window through the model's output projector, in
+        one call. Returns the reference's dict: "generate_ids" and, with a
+        ladder, "has_img_output", "num_gen_imgs" and "img_gen_feat" ([n,
+        num_img_gen_tokens, D_out] in row-major (row, image) order, or
+        None), and with ``tokenizer`` the first row's "text": its ids
+        outside the image windows, cut at EOS and without padding."""
+        out = self.generate(input_ids, **kw)
+        result = {"generate_ids": out["generate_ids"]}
+        if "img_windows" in out:
+            valid = out["img_valid"]
+            n = int(valid.sum())
+            result["has_img_output"] = n > 0
+            result["num_gen_imgs"] = n
+            result["img_gen_feat"] = (
+                self.model.output_projector(out["img_windows"][valid])
+                if n else None)
+        if tokenizer is not None:
+            ids = out["generate_ids"][0]
+            keep = ids != self.sampling.pad_token_id
+            if "text_mask" in out:
+                keep &= out["text_mask"][0]
+            eos = (ids == self.sampling.eos_token_id).nonzero()
+            if self.sampling.eos_token_id >= 0 and len(eos):
+                keep[int(eos[0, 0]):] = False
+            result["text"] = tokenizer.decode(
+                ids[keep].cpu().numpy(), skip_special_tokens=False)
+        return result

@@ -2,8 +2,9 @@
 prompt-lookup speculative (twin of
 ``mllm_npu_tpu/models/generation/sampler.py``: ``ImageTokenLadder``,
 ``ladder_from_tokenizer``, ``apply_image_ladder``, ``ladder_propose``,
-``sample_rows``, ``_sample``, ``decode_loop`` and
-``speculative_decode_loop``).
+``sample_rows``, ``_sample``, ``decode_loop``, ``speculative_decode_loop``
+and ``extract_img_windows``). The decode loops return each emitted token's
+hidden state beside it, from which the SEED path cuts the image windows.
 
 Random numbers: ``jax.random``'s bits are not reproduced. A sampled row's
 draw for one token is Gumbel-max over its filtered logits, the Gumbel
@@ -196,33 +197,42 @@ def pick(logits: torch.Tensor, cfg: SamplingConfig, seeds: torch.Tensor,
 
 
 def decode_loop(step_fn: Callable, cache, first_token: torch.Tensor,
-                cfg: SamplingConfig,
+                first_hidden: torch.Tensor, cfg: SamplingConfig,
                 ladder: Optional[ImageTokenLadder] = None,
                 seeds: Optional[torch.Tensor] = None):
-    """step_fn(token [B, 1], cache) → (logits [B, V] fp32, cache).
+    """step_fn(token [B, 1], cache) → (logits [B, V] fp32, hidden [B, D],
+    cache).
 
-    Returns (tokens [B, max_new_tokens], done [B], steps run): the first
-    token from the prefill, then one per step until every row has emitted
-    EOS; a row pads with ``pad_token_id`` after its EOS, and steps after
-    all rows are done are not run (their columns stay 0, as in the
-    reference). With ``cfg.do_sample`` row b samples with ``seeds[b]``."""
+    Returns (tokens [B, max_new_tokens], hiddens [B, max_new_tokens, D],
+    done [B], steps run): the first token and its hidden state
+    (``first_hidden`` [B, D], the prompt's last position) from the prefill,
+    then one of each per step until every row has emitted EOS; a row pads
+    with ``pad_token_id`` after its EOS, and steps after all rows are done
+    are not run (their columns stay 0, as in the reference). Column t of
+    ``hiddens`` is the hidden state token t was chosen from. With
+    ``cfg.do_sample`` row b samples with ``seeds[b]``."""
     B = first_token.shape[0]
     T = cfg.max_new_tokens
-    tokens = torch.zeros((B, T), dtype=torch.long, device=first_token.device)
+    dev = first_token.device
+    tokens = torch.zeros((B, T), dtype=torch.long, device=dev)
+    hiddens = torch.zeros((B, T, first_hidden.shape[-1]),
+                          dtype=first_hidden.dtype, device=dev)
     tokens[:, 0] = first_token
+    hiddens[:, 0] = first_hidden
     done = first_token == cfg.eos_token_id
     t = 1
     while t < T and not bool(done.all()):
         cur = tokens[:, t - 1:t]
-        logits, cache = step_fn(cur, cache)
+        logits, h, cache = step_fn(cur, cache)
         if ladder is not None:
             logits = apply_image_ladder(logits, cur[:, 0], ladder)
         nxt = pick(logits, cfg, seeds, t)
         nxt = torch.where(done, torch.full_like(nxt, cfg.pad_token_id), nxt)
         tokens[:, t] = nxt
+        hiddens[:, t] = h
         done = done | (nxt == cfg.eos_token_id)
         t += 1
-    return tokens, done, t - 1
+    return tokens, hiddens, done, t - 1
 
 
 def lookup_proposals(hist: torch.Tensor, end: torch.Tensor, k: int,
@@ -254,7 +264,8 @@ def lookup_proposals(hist: torch.Tensor, end: torch.Tensor, k: int,
 
 
 def speculative_decode_loop(step_multi: Callable, cache,
-                            first_token: torch.Tensor, cfg: SamplingConfig,
+                            first_token: torch.Tensor,
+                            first_hidden: torch.Tensor, cfg: SamplingConfig,
                             context_ids: torch.Tensor,
                             ladder: Optional[ImageTokenLadder] = None,
                             k: int = 5, ngram: int = 3,
@@ -265,13 +276,16 @@ def speculative_decode_loop(step_multi: Callable, cache,
     verifies [cur, proposals] in one forward and keeps the matching
     prefix and the token after it, so the ids equal :func:`decode_loop`'s.
 
-    step_multi(toks [1, k+1], cache) → (logits [1, k+1, V], cache): the
-    forward writes k+1 keys from ``cache["pos"]`` and advances it by k+1;
-    the loop moves it back over the rejected ones (the next verify
-    overwrites them). ``context_ids`` [1, Sp] is the right-padded prompt
-    and ``prompt_len`` its real length: the real tokens are right-aligned
-    so no n-gram matches across the padding. The cache needs k of
-    headroom. Returns (tokens [1, T], done [1], verify forwards)."""
+    step_multi(toks [1, k+1], cache) → (logits [1, k+1, V], hidden
+    [1, k+1, D], cache): the forward writes k+1 keys from ``cache["pos"]``
+    and advances it by k+1; the loop moves it back over the rejected ones
+    (the next verify overwrites them). ``context_ids`` [1, Sp] is the
+    right-padded prompt and ``prompt_len`` its real length: the real tokens
+    are right-aligned so no n-gram matches across the padding. The cache
+    needs k of headroom. Returns (tokens [1, T], hiddens [1, T, D], done
+    [1], verify forwards): an emitted token's hidden state is the verify
+    forward's row at its position (``first_hidden`` [1, D] the prefill's),
+    as :func:`decode_loop`'s; past the last token both are 0."""
     if cfg.do_sample:
         raise ValueError("speculative decode is greedy-only")
     if first_token.shape[0] != 1:
@@ -281,7 +295,10 @@ def speculative_decode_loop(step_multi: Callable, cache,
     Sp = context_ids.shape[1]
     dev = first_token.device
     tokens = torch.zeros((1, Tp), dtype=torch.long, device=dev)
+    hiddens = torch.zeros((1, Tp, first_hidden.shape[-1]),
+                          dtype=first_hidden.dtype, device=dev)
     tokens[0, 0] = first_token[0]
+    hiddens[0, 0] = first_hidden[0]
     done = int(first_token[0]) == cfg.eos_token_id
     offset = 0 if prompt_len is None else Sp - int(prompt_len)
     ctx0 = torch.roll(context_ids[0].long(), offset)
@@ -294,7 +311,7 @@ def speculative_decode_loop(step_multi: Callable, cache,
         if ladder is not None:
             props = ladder_propose(cur, props, ladder)
         toks_in = torch.cat([cur[:, None], props], dim=1)     # [1, k+1]
-        logits, cache = step_multi(toks_in, cache)
+        logits, h, cache = step_multi(toks_in, cache)
         lg = logits[0].float()
         if ladder is not None:
             lg = apply_image_ladder(lg, toks_in[0], ladder)
@@ -306,9 +323,40 @@ def speculative_decode_loop(step_multi: Callable, cache,
         e = min(m + 1, T - t, eos_idx + 1)
         done = eos_idx < e or t + e >= T
         tokens[0, t:t + k + 1] = g
+        hiddens[0, t:t + k + 1] = h[0]
         cache["pos"] = cache["pos"] - (k + 1) + e
         cur = g[e - 1:e]
         t += e
         n_iters += 1
     tokens[:, t:] = 0
-    return (tokens[:, :T], torch.tensor([done], device=dev), n_iters)
+    hiddens[:, t:] = 0
+    return (tokens[:, :T], hiddens[:, :T], torch.tensor([done], device=dev),
+            n_iters)
+
+
+def extract_img_windows(tokens: torch.Tensor,    # [T] one row's ids
+                        hiddens: torch.Tensor,   # [T, D]
+                        eoi_token_id: int, num_img_gen_tokens: int,
+                        max_imgs: int, boi_token_id: Optional[int] = None):
+    """The reference's per-image hidden windows (its static-shape
+    ``extract_img_windows``): for each of the first ``max_imgs`` ``</img>``
+    at index e, ``hiddens[e - n : e]`` (the start clamped into the row).
+    Returns (windows [max_imgs, n, D], valid [max_imgs], text_mask [T]:
+    False on the windows, every ``</img>`` and every ``<img>``)."""
+    T = hiddens.shape[0]
+    n = num_img_gen_tokens
+    dev = tokens.device
+    is_eoi = tokens == eoi_token_id
+    # the EOI positions first, in order, then the others (invalid slots)
+    order = torch.argsort((~is_eoi).to(torch.int8), stable=True)[:max_imgs]
+    valid = is_eoi[order]
+    starts = (order - n).clamp(0, T - 1)
+    idx = starts.clamp(max=T - n)[:, None] + torch.arange(n, device=dev)
+    windows = hiddens[idx]
+    pos = torch.arange(T, device=dev)
+    in_window = ((pos[None] >= starts[:, None]) & (pos[None] < order[:, None])
+                 & valid[:, None]).any(dim=0)
+    text_mask = ~(in_window | is_eoi)
+    if boi_token_id is not None:
+        text_mask &= tokens != boi_token_id
+    return windows, valid, text_mask

@@ -25,7 +25,8 @@ the Hopper helpers they share in ``csrc/hopper.cuh``); their design notes
 (bound on the H100 and what the design does about it) are at the top of
 each file. All three are Hopper kernels (TMA into mbarrier rings, wgmma, a
 producer warp and consumer warpgroups); the Python side of their design is
-here: K1's tile shape (:func:`k1_block_q`), the split of the head dim
+here: K1's tile shape and its shared memory (:func:`k1_plan`,
+:func:`k1_block_q`, :func:`k1_smem_bytes`), the split of the head dim
 between the two swizzles of the tensor maps (:func:`k1_head_split`), K2's
 and K3's regime (:func:`k23_regime`) and, mirrored for the tests, which
 tiles each kernel visits and which of them it masks (:func:`k1_kv_tiles`,
@@ -48,7 +49,10 @@ from typing import NamedTuple, Optional
 import torch
 
 KERNEL = "flash_fwd"
-MAX_HEAD_DIM = 128
+# K1 takes head dims in multiples of 8 up to this (Qwen-ViT-G's 104, the
+# SEED-X input projector's 160); K2 and K3 up to K23_MAX_HEAD_DIM
+MAX_HEAD_DIM = 160
+K23_MAX_HEAD_DIM = 128
 
 
 class SegmentIds(NamedTuple):
@@ -181,7 +185,8 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, *,
     return dq, dk, dv
 
 
-def _check(q, k, v, segment_ids, name="flash_attention"):
+def _check(q, k, v, segment_ids, name="flash_attention",
+           max_head_dim=MAX_HEAD_DIM):
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError(f"{name}: q, k, v must all be on the GPU")
     for nm, t in (("q", q), ("k", k), ("v", v)):
@@ -193,13 +198,19 @@ def _check(q, k, v, segment_ids, name="flash_attention"):
     if Hq % k.shape[2]:
         raise ValueError(f"GQA requires Hq % Hkv == 0, got {Hq} % "
                          f"{k.shape[2]}")
-    if D % 8 or not 8 <= D <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {D}: the kernel takes multiples of 8 "
-                         f"up to {MAX_HEAD_DIM}")
+    _check_head_dim(D, max_head_dim, name)
     if segment_ids is not None:
         if (segment_ids.q.shape != (B, Sq)
                 or segment_ids.kv.shape != (B, k.shape[1])):
             raise ValueError("segment ids must be [B, Sq] and [B, Sk]")
+
+
+def _check_head_dim(D, max_head_dim, name):
+    if D % 8 or not 8 <= D <= max_head_dim:
+        raise ValueError(f"head dim {D}: {name} takes multiples of 8 up to "
+                         f"{max_head_dim}"
+                         + (" (the backward above 128 is queue 1 item 13b)"
+                            if max_head_dim == K23_MAX_HEAD_DIM else ""))
 
 
 def _check_bshd(t, nm, name):
@@ -248,16 +259,46 @@ _FWD_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
 # K/V tile (64 rows for each consumer warpgroup)
 K1_BLOCK_Q = (64, 128)
 K1_WARP_ROWS = 16   # query rows per consumer warp
+# the shared memory one block may use on an H100 (227 KB)
+K1_MAX_SMEM = 232448
 
 
-def k1_block_q(B: int, Sq: int, Hq: int, num_sms: int) -> int:
+def k1_smem_bytes(block_q: int, D: int) -> int:
+    """Shared memory of one K1 block (the mirror of ``Cfg::SMEM`` in
+    ``csrc/flash_fwd.cu``): two Q stages and two stages each of K and V,
+    ``block_q`` rows of D rounded up to 16 in bf16, then each K stage's
+    segment ids and their min and max, the mbarriers, and 1024 bytes to
+    align the base for the 128-byte swizzle."""
+    dp = -(-D // 16) * 16
+    tile = block_q * dp * 2
+    seg = (2 * (block_q + 2) * 4 + 7) // 8 * 8
+    return 2 * tile + 4 * tile + seg + 8 * (4 + 4 * 2) + 1024
+
+
+def k1_block_q(B: int, Sq: int, Hq: int, num_sms: int, D: int = 128) -> int:
     """K1's tile shape for a call: 128 query rows per block (two consumer
     warpgroups, one block per SM, 128-key tiles) where that grid fills the
-    card's SMs, else 64 (one warpgroup, two blocks per SM, 64-key tiles),
-    so that a short or narrow call still spreads over the card."""
-    if Sq > 64 and B * Hq * -(-Sq // 128) >= num_sms:
+    card's SMs and its shared memory fits (not at D > 144), else 64 (one
+    warpgroup, 64-key tiles; two blocks per SM where they fit), so that a
+    short or narrow call still spreads over the card."""
+    if (Sq > 64 and B * Hq * -(-Sq // 128) >= num_sms
+            and k1_smem_bytes(128, D) <= K1_MAX_SMEM):
         return 128
     return 64
+
+
+def k1_plan(B: int, Sq: int, Hq: int, D: int, num_sms: int):
+    """K1's plan for a call: (query rows a block, shared memory a block in
+    bytes). Raises for a head dim the kernel does not take and for a tile
+    shape whose shared memory does not fit."""
+    _check_head_dim(D, MAX_HEAD_DIM, "flash_attention")
+    block_q = k1_block_q(B, Sq, Hq, num_sms, D)
+    smem = k1_smem_bytes(block_q, D)
+    if smem > K1_MAX_SMEM:
+        raise ValueError(f"flash_attention: {block_q} query rows a block at "
+                         f"head dim {D} need {smem} bytes of shared memory, "
+                         f"over {K1_MAX_SMEM}")
+    return block_q, smem
 
 
 def k1_head_split(D: int):
@@ -329,6 +370,7 @@ def flash_attention(q, k, v, *, causal: bool = False,
     _check(q, k, v, segment_ids)
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
+    block_q, _ = k1_plan(B, Sq, Hq, D, _sms(q.device))
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -344,8 +386,7 @@ def flash_attention(q, k, v, *, causal: bool = False,
             B, Sq, Sk, Hq, Hkv, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3],
-            float(scale), int(bool(causal)),
-            k1_block_q(B, Sq, Hq, _sms(q.device)),
+            float(scale), int(bool(causal)), block_q,
             torch.cuda.current_stream(q.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"flash_fwd_bf16 launch failed: CUDA error "
@@ -443,7 +484,7 @@ def k3_needs_mask(key0: int, q0: int, Sq: int, causal: bool,
 
 
 def _check_bwd(q, k, v, do, lse, delta, segment_ids, name):
-    _check(q, k, v, segment_ids, name)
+    _check(q, k, v, segment_ids, name, K23_MAX_HEAD_DIM)
     _check_bshd(do, "do", name)
     if do.shape != q.shape or not do.is_cuda:
         raise ValueError(f"{name}: do must be a GPU tensor shaped like q")

@@ -1,13 +1,16 @@
 """Inference engines, the model side of the serve worker (twins of
 ``InferenceEngine`` and ``BatchedInferenceEngine`` in
-``mllm_npu_tpu/serve/engine.py``), comprehension branch: b64 image →
-anyres tiling → ``<patch>…</patch><img>…</img>Question: …\\nAnswer:``
-prompt → greedy decode → special-token-stripped text. A null or empty
-image means a text-only question. ``InferenceEngine`` serves one request
-per call; ``BatchedInferenceEngine`` sends concurrent requests through the
-continuous-batching engine. Both take the reference's serving options:
-the KV cache's dtype, fused projections and prompt-lookup speculation.
-The image-generation branch waits for the de-tokenizer slice.
+``mllm_npu_tpu/serve/engine.py``). Comprehension: b64 image → anyres
+tiling → ``<patch>…</patch><img>…</img>Question: …\\nAnswer:`` prompt →
+greedy decode → special-token-stripped text; a null or empty image means
+a text-only question. For a SEED model, ``text_to_image_features``: a
+caption ending in ``<img>`` → the forced image-token ladder → the output
+projector's features. ``InferenceEngine`` serves one request per call;
+``BatchedInferenceEngine`` sends concurrent comprehension requests through
+the continuous-batching engine and the rest through its single-request
+generator. Both take the reference's serving options: the KV cache's
+dtype, fused projections and prompt-lookup speculation. ``generation``
+(the de-tokenizer, features → image) raises until queue 1 item 14.
 """
 
 from __future__ import annotations
@@ -69,6 +72,7 @@ class InferenceEngine:
         self.grid_pinpoints = grid_pinpoints_from_resolution_grids(
             list(resolution_grids), base_resolution)
         self.num_img_in_tokens = num_img_in_tokens
+        self.num_img_out_tokens = num_img_out_tokens
         self.boi = tokenizer.encode(BOI_TOKEN, add_special_tokens=False)[0]
         self.eoi = tokenizer.encode(EOI_TOKEN, add_special_tokens=False)[0]
         self.bop = tokenizer.encode(BOP_TOKEN, add_special_tokens=False)[0]
@@ -142,8 +146,10 @@ class InferenceEngine:
             sampling = dataclasses.replace(self.generator.sampling,
                                            max_new_tokens=max_new_tokens)
         input_ids = torch.as_tensor(ids, dtype=torch.long, device=dev)[None]
+        kw = dict(sampling=sampling,
+                  num_img_gen_tokens=self.num_img_out_tokens)
         if patches is None:
-            out = self.generator.generate(input_ids, sampling=sampling)
+            out = self.generator.generate(input_ids, **kw)
         else:
             n = patches.shape[0]
             out = self.generator.generate(
@@ -151,14 +157,40 @@ class InferenceEngine:
                 images=torch.as_tensor(patches, device=dev),
                 embeds_cmp_mask=torch.ones((n,), dtype=torch.bool, device=dev),
                 ids_cmp_mask=torch.as_tensor(ids_cmp_mask, device=dev)[None],
-                patch_positions=torch.as_tensor(patch_pos, device=dev),
-                sampling=sampling)
+                patch_positions=torch.as_tensor(patch_pos, device=dev), **kw)
         return out["generate_ids"][0].cpu().numpy()
 
     def comprehension(self, input_text: str, image_b64: str,
                       max_new_tokens: Optional[int] = None) -> str:
         return self._strip_text(self.comprehension_ids(
             input_text, image_b64, max_new_tokens))
+
+    def text_to_image_features(self, caption: str,
+                               max_new_tokens: Optional[int] = None) -> dict:
+        """``caption`` + ``<img>`` through a SEED model's generator
+        (``MLLMGenerator.generate_with_projection``): the forced ladder's
+        hidden states through the output projector. Returns its dict
+        (``text``, ``has_img_output``, ``num_gen_imgs``, ``img_gen_feat``
+        [n, num_img_out_tokens, D]). ``max_new_tokens`` (the engine's
+        unless given) bounds the decode, the ladder included."""
+        ids = [self.tokenizer.bos_token_id] + self.tokenizer.encode(
+            f"{caption}{BOI_TOKEN}", add_special_tokens=False)
+        sampling = None
+        if max_new_tokens is not None:
+            sampling = dataclasses.replace(self.generator.sampling,
+                                           max_new_tokens=max_new_tokens)
+        return self.generator.generate_with_projection(
+            torch.as_tensor(ids, dtype=torch.long, device=self.device)[None],
+            tokenizer=self.tokenizer, sampling=sampling,
+            num_img_gen_tokens=self.num_img_out_tokens)
+
+    def generation(self, input_text: str, num_inference_steps: int = 50
+                   ) -> str:
+        """Caption → b64 JPEG: the features of
+        :meth:`text_to_image_features` through the SDXL de-tokenizer."""
+        raise NotImplementedError(
+            "image generation needs the SDXL de-tokenizer, which is not "
+            "ported yet (ROADMAP queue 1 item 14)")
 
 
 class BatchedInferenceEngine(InferenceEngine):

@@ -112,12 +112,16 @@ class ModelWorker:
     def generate_gate(self, params: dict):
         """Generator of ``b"\\0"``-delimited JSON chunks with the
         reference's error codes: 0 ok, 1 a ``ValueError`` (a bad image or
-        prompt), 3 anything else."""
+        prompt), 3 anything else (an ``image_gen`` request among them,
+        until the de-tokenizer is ported: its ``NotImplementedError`` names
+        queue 1 item 14 in the worker's log)."""
         try:
             if params.get("image_gen"):
-                raise NotImplementedError(
-                    "image generation waits for the de-tokenizer port "
-                    "(ROADMAP queue 1 item 14)")
+                image_b64 = self.engine.generation(params["input_text"])
+                yield json.dumps({"text": "generate successed.",
+                                  "image": image_b64,
+                                  "error_code": 0}).encode() + b"\0"
+                return
             if params.get("stream") and hasattr(self.engine,
                                                 "comprehension_stream"):
                 for text in self.engine.comprehension_stream(
@@ -228,10 +232,12 @@ def load_engine_from_config(model_config_path: str,
                             speculative_k: int = 0,
                             speculative_ngram: int = 3,
                             kv_cache_dtype: str = "bf16", *, device=None,
-                            seed: int = 0):
-    """The worker's engine from a model YAML, weights drawn from ``seed``
-    (checkpoint loading is not ported yet), on ``device`` (``cuda`` unless
-    named; raises without a GPU). ``batched`` gives a
+                            seed: int = 0, fake_tokenizer: bool = False):
+    """The worker's engine from a model YAML (the comprehension assembly or
+    SEED), weights drawn from ``seed`` (checkpoint loading is not ported
+    yet), on ``device`` (``cuda`` unless named; raises without a GPU);
+    ``fake_tokenizer`` takes the offline ``FakeTokenizer`` at the model's
+    vocab instead of the config's tokenizer. ``batched`` gives a
     :class:`BatchedInferenceEngine` with ``max_prompt = max_len // 2``, as
     the reference's worker. ``kv_cache_dtype`` is ``bf16``, ``fp8`` (e4m3:
     half the cache's memory and its read traffic) or ``f32``."""
@@ -245,7 +251,11 @@ def load_engine_from_config(model_config_path: str,
     llm = instantiate(cfg["language_model"])
     model = instantiate(cfg["mllm_model"], language_model=llm, device=device,
                         seed=seed)
-    tokenizer = _load_tokenizer(cfg["tokenizer"], llm.config.vocab_size)
+    if fake_tokenizer:
+        from mllm_npu_tpu_torch.utils.fake_tokenizer import FakeTokenizer
+        tokenizer = FakeTokenizer(vocab_size=llm.config.vocab_size)
+    else:
+        tokenizer = _load_tokenizer(cfg["tokenizer"], llm.config.vocab_size)
     nq = model.projector.num_queries
     common = dict(model=model, tokenizer=tokenizer,
                   image_transform=instantiate(cfg["processor"]),

@@ -4,15 +4,17 @@
 as nested dicts of numpy arrays and returns the port's weights, whose
 names are the torch names the reference's converters read
 (``mllm_npu_tpu/utils/weights.py``: HF Llama with peft adapters, HF
-SigLIP, the reference resampler), so ``torch_to_flax_assembly`` inverts
-it. It undoes:
+SigLIP, the reference's Qwen ViT and resampler), so
+``torch_to_flax_assembly`` inverts it, for the comprehension assembly and
+for SEED (its output projector too). It undoes:
 
 - the scan-stacked leading layer axis (Llama and SigLIP layers);
 - Dense ``[in, out]`` → Linear ``[out, in]``, LoRA ``lora_a [in, r]`` →
   ``lora_A.weight [r, in]`` and ``lora_b [r, out]`` → ``lora_B.weight``;
 - HWIO → OIHW for the patch conv;
 - split q/k/v/out projections → ``nn.MultiheadAttention``'s fused
-  ``in_proj_weight``/``in_proj_bias`` for the resampler;
+  ``in_proj_weight``/``in_proj_bias`` for the resamplers, and the Qwen
+  ViT's fused ``attn.in_proj`` Linear;
 - quantized Llama leaves (``quantize_llama_params``): ``kernel_q`` [K, N]
   (int8) or [K/2, N] (packed int4) → ``weight_q`` [N, K] or [N, K/2], its
   transpose; ``scale`` [N] and ``scale_g`` [K/G, N] as they are.
@@ -150,13 +152,61 @@ def resampler_from_jax(tree: dict, prefix: str = ""
     return sd
 
 
+def qwen_vit_from_jax(tree: dict, prefix: str = ""
+                      ) -> Dict[str, torch.Tensor]:
+    """``VisionTransformerWithAttnPool`` params (or the tower alone,
+    ``VisionTransformer``) → state_dict (the reference's Qwen names)."""
+    bb = tree.get("backbone", tree)
+    sd = {
+        f"{prefix}conv1.weight": _t(np.asarray(
+            bb["conv1"]["kernel"]).transpose(3, 2, 0, 1)),
+        f"{prefix}positional_embedding": _t(bb["positional_embedding"]),
+        f"{prefix}ln_pre.weight": _t(bb["ln_pre"]["scale"]),
+        f"{prefix}ln_pre.bias": _t(bb["ln_pre"]["bias"]),
+    }
+    blocks = bb["transformer"]["blocks"]
+    attn = blocks["attn"]
+    L = np.asarray(blocks["ln_1"]["scale"]).shape[0]
+    for i in range(L):
+        rb = f"{prefix}transformer.resblocks.{i}."
+        sd[rb + "attn.in_proj.weight"] = torch.cat(
+            [_dense_T(attn[n]["kernel"][i]) for n in ("q_proj", "k_proj",
+                                                      "v_proj")])
+        sd[rb + "attn.in_proj.bias"] = torch.cat(
+            [_t(attn[n]["bias"][i]) for n in ("q_proj", "k_proj", "v_proj")])
+        sd[rb + "attn.out_proj.weight"] = _dense_T(
+            attn["out_proj"]["kernel"][i])
+        sd[rb + "attn.out_proj.bias"] = _t(attn["out_proj"]["bias"][i])
+        for name, node in (("mlp.c_fc", blocks["mlp_fc"]),
+                           ("mlp.c_proj", blocks["mlp_proj"])):
+            sd[rb + name + ".weight"] = _dense_T(node["kernel"][i])
+            sd[rb + name + ".bias"] = _t(node["bias"][i])
+        for ln in ("ln_1", "ln_2"):
+            sd[rb + ln + ".weight"] = _t(blocks[ln]["scale"][i])
+            sd[rb + ln + ".bias"] = _t(blocks[ln]["bias"][i])
+    if "attn_pool" in tree:
+        sd.update(resampler_from_jax(tree["attn_pool"], f"{prefix}attn_pool."))
+        sd[f"{prefix}ln_post.weight"] = _t(tree["ln_post"]["scale"])
+        sd[f"{prefix}ln_post.bias"] = _t(tree["ln_post"]["bias"])
+        sd[f"{prefix}proj"] = _t(tree["proj"])
+        if "patch_pos_embed" in tree:
+            sd[f"{prefix}patch_pos_embed"] = _t(tree["patch_pos_embed"])
+    return sd
+
+
 def from_jax_params(tree: dict) -> Dict[str, torch.Tensor]:
-    """Reference ``GeneralizedMultimodalModel`` params → the port's
-    state_dict (fp32 CPU tensors; ``load_state_dict`` casts and moves)."""
+    """Reference ``GeneralizedMultimodalModel`` or ``SEED`` params (SigLIP
+    or Qwen-ViT tower) → the port's state_dict (fp32 CPU tensors;
+    ``load_state_dict`` casts and moves)."""
     sd = {}
     sd.update(llama_from_jax(tree["language_model"], "language_model."))
-    sd.update(siglip_from_jax(tree["vision_encoder"], "vision_encoder."))
+    vision = tree["vision_encoder"]
+    tower = qwen_vit_from_jax if "backbone" in vision else siglip_from_jax
+    sd.update(tower(vision, "vision_encoder."))
     sd.update(resampler_from_jax(tree["projector"], "projector."))
+    if "output_projector" in tree:
+        sd.update(resampler_from_jax(tree["output_projector"],
+                                     "output_projector."))
     if "patch_pos_embed" in tree:
         sd["patch_pos_embed"] = _t(tree["patch_pos_embed"])
     return sd

@@ -114,6 +114,17 @@ K1_CASES = [
     (2, 600, 600, 32, 8, 128, True, "packed", "bshd"),
     (2, 200, 200, 8, 8, 72, True, "packed", "fused"),
     (1, 300, 300, 4, 4, 128, False, None, "fused"),
+    # SEED-X: Qwen-ViT-G (q, k, v views of its fused in_proj, D = 104),
+    # its attention pool, the input projector (D = 160), the output
+    # projector, the Llama-2-13B prefill (MHA 40/40); head dims past 128
+    (5, 1024, 1024, 16, 16, 104, False, None, "fused"),
+    (5, 256, 1024, 32, 32, 128, False, None, "bshd"),
+    (5, 64, 256, 32, 32, 160, False, None, "bshd"),
+    (1, 64, 64, 32, 32, 128, False, None, "bshd"),
+    (1, 341, 341, 40, 40, 128, True, None, "bshd"),
+    (2, 129, 129, 8, 2, 136, True, 100, "bshd"),
+    (1, 300, 300, 4, 4, 152, False, None, "fused"),
+    (2, 65, 63, 8, 8, 160, True, None, "bshd"),
 ]
 
 
@@ -122,6 +133,12 @@ def test_k1_matches_plain(cuda, block_q, B, Sq, Sk, Hq, Hkv, D, causal, seg,
                           layout):
     q, k, v, sids = _k1_inputs(cuda, B, Sq, Sk, Hq, Hkv, D, seg, layout)
     before = flash_attention.launches
+    if fa.k1_smem_bytes(block_q, D) > fa.K1_MAX_SMEM:
+        # a tile the plan never picks at this head dim: refused, not run
+        with pytest.raises(ValueError, match="shared memory"):
+            flash_attention(q, k, v, causal=causal, segment_ids=sids)
+        assert flash_attention.launches == before
+        return
     out = flash_attention(q, k, v, causal=causal, segment_ids=sids)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
@@ -149,7 +166,7 @@ def test_k1_rejects_what_it_does_not_take(cuda):
         flash_attention(q, q, q)                       # fp32
     qb = torch.randn(1, 8, 2, 256, device=cuda).bfloat16()
     with pytest.raises(ValueError):
-        flash_attention(qb, qb, qb)                    # D > 128
+        flash_attention(qb, qb, qb)                    # D > 160
     flat = torch.randn(2 * 8 * 2 * 64 + 8, device=cuda).bfloat16()
     shifted = flat[1:1 + 2 * 8 * 2 * 64].view(2, 8, 2, 64)
     with pytest.raises(ValueError):
@@ -349,6 +366,9 @@ def test_k2_k3_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         flash_bwd_dkv(wide, wide[:, :, :2], wide[:, :, :2], wide,
                       lse, delta)                           # D > 128
+    d160 = torch.zeros(1, 64, 4, 160, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="item 13b"):
+        flash_bwd_dq(d160, d160, d160, d160, lse, delta)    # K1 takes it
     assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == n
 
 
@@ -429,6 +449,12 @@ QUANT_CASES = [
     # (8 × 5 = 40) and at k = 63 (8 × 64 = 512)
     (bits, M, 4096, N, 256 if bits == 4 else None) for bits in (8, 4)
     for N in (6144, 28672) for M in (1, 5, 8, 40, 512)
+] + [
+    # Llama-2-13B (SEED-X): q/k/v/o, gate/up, down and the lm_head (its
+    # 32330 vocab) at decode (1), a worker step (8) and the image prefill
+    (bits, M, K, N, 256 if bits == 4 else None) for bits in (8, 4)
+    for K, N in ((5120, 5120), (5120, 13824), (13824, 5120), (5120, 32330))
+    for M in (1, 8, 339)
 ]
 
 

@@ -1,6 +1,9 @@
 """The slices as a whole on the CPU: the tiny port engine against the JAX
 ``InferenceEngine`` with the same weights, image and question, in bf16 and
 with int8 and int4 weights (greedy ids and text must be identical), the
+tiny SEED with the Qwen tower the same way, and its
+``text_to_image_features`` (ids and text identical, the features within
+the bf16 cache's rounding), the SEED-X YAML under ``DEBUG_FLAG``, the
 weight round trip through the reference's converter, the port's import
 hygiene, and the device rule of its entry points."""
 
@@ -29,6 +32,7 @@ from mllm_npu_tpu_torch.serve.engine import InferenceEngine
 from mllm_npu_tpu_torch.utils.fake_tokenizer import FakeTokenizer
 from mllm_npu_tpu_torch.utils.testing import TinySpec, build_tiny_mllm
 from mllm_npu_tpu_torch.utils.weights import from_jax_params
+from test_torch_seedx import seed_pair
 
 REPO = Path(__file__).resolve().parents[1]
 COMMON = dict(resolution_grids=("1x1", "1x2", "2x1", "2x2"),
@@ -151,6 +155,57 @@ def test_both_quantizations_raise():
                         quantize_int8=True, quantize_int4=True, **COMMON)
 
 
+@pytest.fixture(scope="module")
+def seed_engines():
+    """The reference's tiny SEED with the Qwen tower and the port's with
+    its weights, each in its engine with the serving defaults."""
+    jm, params, jl, tm = seed_pair("qwen")
+    je = JEngine(model=jm, lm_config=jl, params=params, tokenizer=JTok(),
+                 image_transform=JProc(height=56, width=56), **COMMON)
+    te = InferenceEngine(model=tm, tokenizer=FakeTokenizer(),
+                         image_transform=ImageProcessor(height=56, width=56),
+                         device="cpu", **COMMON)
+    return je, te
+
+
+@pytest.mark.parametrize("image", ["896x896", "none"])
+def test_seed_comprehension_identical_to_reference(seed_engines, image):
+    je, te = seed_engines
+    b64 = "" if image == "none" else _png_b64(896, 896)
+    q = "what is shown in this picture?"
+    np.testing.assert_array_equal(te.comprehension_ids(q, b64),
+                                  _reference_ids(je, q, b64))
+    assert te.comprehension(q, b64) == je.comprehension(q, b64)
+
+
+# the engines store the weights and the KV cache in bf16: a key that
+# rounds to the other neighbour on one side moves the features by a few
+# bf16 ulps of the attention's output
+SEED_FEAT_ATOL = 2e-3
+
+
+def test_text_to_image_features_identical_to_reference(seed_engines):
+    """A caption through both engines: the forced ladder, the same ids and
+    text, and the output projector's features for the one image."""
+    je, te = seed_engines
+    ref = je.text_to_image_features("a red cat on a mat")
+    got = te.text_to_image_features("a red cat on a mat")
+    assert got["generate_ids"][0].tolist() == np.asarray(
+        ref["generate_ids"])[0].tolist()
+    assert got["text"] == ref["text"]
+    assert got["has_img_output"] and got["num_gen_imgs"] == 1 == \
+        ref["num_gen_imgs"]
+    assert tuple(got["img_gen_feat"].shape) == (1, 4, 128)
+    np.testing.assert_allclose(got["img_gen_feat"].float().numpy(),
+                               np.asarray(ref["img_gen_feat"], np.float32),
+                               atol=SEED_FEAT_ATOL, rtol=0)
+    # a budget below the ladder leaves no image
+    short = te.text_to_image_features("a red cat on a mat", max_new_tokens=3)
+    assert not short["has_img_output"] and short["img_gen_feat"] is None
+    with pytest.raises(NotImplementedError, match="item 14"):
+        te.generation("a red cat on a mat")
+
+
 def test_generate_right_padded_batch_identical_to_reference(engines):
     """Two prompts of different lengths, right-padded into one batch: the
     prompt mask becomes segment ids and positions in both generators."""
@@ -203,7 +258,9 @@ def test_port_imports_no_jax_and_no_reference():
         " 'train.scheduler', 'train.trackers', 'data.streams',"
         " 'data.datapipes', 'data.dataloader', 'data.data_utils',"
         " 'data.tasks.image_caption', 'serve.batched_engine',"
-        " 'serve.prefix_cache', 'serve.worker', 'serve.serve_utils'):\n"
+        " 'serve.prefix_cache', 'serve.worker', 'serve.serve_utils',"
+        " 'models.multimodal_encoder.qwenvl_vit', 'models.mllm',"
+        " 'models.generation.generate'):\n"
         "    assert 'mllm_npu_tpu_torch.' + m in names, m\n"
         "print('BAD', bad)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -267,3 +324,43 @@ def test_existing_checkpoint_path_is_not_replaced(tmp_path):
     from mllm_npu_tpu_torch.models.factory import build_siglip
     with pytest.raises(NotImplementedError):
         build_siglip(pretrained_model_name_or_path=str(tmp_path))
+
+
+def test_seedx_builders_refuse_an_existing_checkpoint(tmp_path):
+    """The SEED-X builders: a tower, a Llama or an assembly checkpoint
+    path that exists raises (loading them is queue 1 item 16)."""
+    from mllm_npu_tpu_torch.models import factory
+    for build in (factory.build_qwen_vit, factory.build_llama2):
+        with pytest.raises(NotImplementedError):
+            build(pretrained_model_name_or_path=str(tmp_path))
+    with pytest.raises(NotImplementedError):
+        factory.build_seed(pretrained_model_path=str(tmp_path))
+
+
+def test_seedx_yaml_builds_and_serves_tiny_on_cpu(monkeypatch):
+    """The port's SEED-X YAML through the worker's loader under
+    DEBUG_FLAG: the SEED assembly with the tiny Qwen tower and its pool,
+    r32 LoRA and the 32330 vocab, the Qwen processor at 448, the offline
+    tokenizer; it answers a question on an image and turns a caption into
+    image features."""
+    monkeypatch.setenv("DEBUG_FLAG", "True")
+    from mllm_npu_tpu_torch.models.mllm import SEED
+    from mllm_npu_tpu_torch.models.multimodal_encoder.qwenvl_vit import (
+        VisionTransformerWithAttnPool)
+    from mllm_npu_tpu_torch.serve.worker import load_engine_from_config
+    eng = load_engine_from_config("models/seedx_llama2_13b_qwenvl_vitg.yaml",
+                                  max_new_tokens=8, device="cpu")
+    model = eng.generator.model
+    assert isinstance(model, SEED) and model.vit_down and model.mse
+    assert isinstance(model.vision_encoder, VisionTransformerWithAttnPool)
+    lm_cfg = model.language_model.config
+    assert (lm_cfg.lora_rank, lm_cfg.vocab_size) == (32, 32330)
+    assert model.num_img_out_tokens == model.projector.num_queries == 4
+    assert isinstance(eng.tokenizer, FakeTokenizer)
+    assert eng.tokenizer.vocab_size == 32330
+    proc = eng.image_transform
+    assert (proc.height, proc.do_rescale, proc.resample) == (448, False, 2)
+    assert isinstance(eng.comprehension("hi", _png_b64(500, 300)), str)
+    out = eng.text_to_image_features("a cat")
+    assert out["has_img_output"]
+    assert tuple(out["img_gen_feat"].shape) == (1, 4, 128)

@@ -1,8 +1,9 @@
 """The Python side of K1's Hopper design (``ops/flash_attention.py``): the
-tile shape a call gets, the split of the head dim between the two swizzles
-of its tensor maps, and the mirror of the kernel's rule for which K/V
-tiles it loads and which of them it masks, held against the dense mask of
-the plain version on seeded shapes. Runs on the CPU."""
+tile shape a call gets and its shared memory (head dims to 160), the split
+of the head dim between the two swizzles of its tensor maps, and the
+mirror of the kernel's rule for which K/V tiles it loads and which of them
+it masks, held against the dense mask of the plain version on seeded
+shapes. Runs on the CPU."""
 
 import importlib
 
@@ -34,16 +35,60 @@ def test_k1_block_q_follows_the_card():
     assert fa.k1_block_q(1, 339, 32, num_sms=97) == 64
 
 
-@pytest.mark.parametrize("D", range(8, 129, 8))
+@pytest.mark.parametrize("D", range(8, 161, 8))
 def test_k1_head_split(D):
     hi, lo = fa.k1_head_split(D)
     assert hi % 64 == 0 and lo in (0, 16, 32, 48)
     assert hi + lo == -(-D // 16) * 16       # the wgmma k-granule
     assert hi + lo - D in (0, 8)             # TMA zero-fills at most 8
     expect = {8: (0, 16), 32: (0, 32), 64: (64, 0), 72: (64, 16),
-              80: (64, 16), 104: (64, 48), 128: (128, 0)}
+              80: (64, 16), 104: (64, 48), 128: (128, 0), 136: (128, 16),
+              160: (128, 32)}
     if D in expect:
         assert (hi, lo) == expect[D]
+
+
+@pytest.mark.parametrize("B,Sq,Hq,D,expect", [
+    (5, 1024, 16, 104, 128),   # Qwen-ViT-G: 8 × 16 × 5 = 640 blocks
+    (5, 256, 32, 128, 128),    # its attention pool: 2 × 32 × 5 = 320
+    (5, 64, 32, 160, 64),      # the SEED-X input projector: Sq = 64
+    (1, 64, 32, 128, 64),      # the SEED-X output projector
+    (1, 339, 40, 128, 64),     # Llama-2-13B prefill: 120 blocks idle SMs
+    (5, 1024, 16, 160, 64),    # a full grid, but 128 rows do not fit
+    (5, 1024, 16, 144, 128),   # 216 KB at 128 rows: fits
+])
+def test_k1_plan_at_the_seedx_shapes(B, Sq, Hq, D, expect):
+    """The tile each SEED-X shape gets, and a shared-memory plan within the
+    227 KB a block may use, from the 1- and 2-warpgroup tiles."""
+    block_q, smem = fa.k1_plan(B, Sq, Hq, D, num_sms=132)
+    assert block_q == expect == fa.k1_block_q(B, Sq, Hq, 132, D)
+    assert smem == fa.k1_smem_bytes(block_q, D) <= fa.K1_MAX_SMEM
+
+
+def test_k1_smem_bytes_mirrors_the_kernel():
+    """Cfg::SMEM of csrc/flash_fwd.cu: 6 tiles of rows × DP bf16, the
+    segment ids, the barriers and the 1024-byte alignment. At 128 rows
+    D = 104 (DP 112) needs about 170 KB and D = 160 240 KB, over the
+    limit; at 64 rows D = 160 takes 120 KB."""
+    assert fa.k1_smem_bytes(128, 104) == 6 * 128 * 112 * 2 + 1040 + 96 + 1024
+    assert fa.k1_smem_bytes(128, 128) < fa.K1_MAX_SMEM
+    assert fa.k1_smem_bytes(128, 144) < fa.K1_MAX_SMEM
+    assert fa.k1_smem_bytes(128, 160) > fa.K1_MAX_SMEM
+    assert fa.k1_smem_bytes(64, 160) == 6 * 64 * 160 * 2 + 528 + 96 + 1024
+    assert fa.K1_MAX_SMEM == 227 * 1024
+
+
+@pytest.mark.parametrize("D", [168, 256, 100, 4])
+def test_k1_plan_refuses_head_dims_it_does_not_take(D):
+    with pytest.raises(ValueError, match="head dim"):
+        fa.k1_plan(5, 1024, 16, D, num_sms=132)
+
+
+def test_k1_plan_refuses_a_tile_that_does_not_fit(monkeypatch):
+    monkeypatch.setattr(fa, "k1_block_q", lambda *a, **k: 128)
+    assert fa.k1_plan(5, 64, 32, 128, num_sms=132)[0] == 128
+    with pytest.raises(ValueError, match="shared memory"):
+        fa.k1_plan(5, 64, 32, 160, num_sms=132)
 
 
 def _segments(kind, B, Sq, Sk, rs):

@@ -5,7 +5,8 @@ its verify window (per-row positions, S > 1), its multi-token cached step
 (a scalar position, S > 1: the chunked prefill), and ``decode_attention``
 under a per-row mask, all to atol 1e-5 (the difference is summation
 order); the same steps over fp8 and f32 caches, the fp8 cache write's
-bytes, and fused projections."""
+bytes, and fused projections; and each of them again with as many KV heads
+as query heads (MHA, as Llama-2-13B's 40/40)."""
 
 import dataclasses
 
@@ -26,12 +27,17 @@ from mllm_npu_tpu_torch.utils.weights import llama_from_jax
 
 ATOL = 1e-5
 B, MAX_LEN = 3, 24
+# the tiny config's KV heads: GQA 4/2, and MHA 4/4 (Llama-2-13B's layout)
+GQA, MHA = 2, 4
 
 
-@pytest.fixture(scope="module")
-def pair():
+def _tiny(cls, kv_heads=GQA, **kw):
+    return dataclasses.replace(cls.tiny(**kw), num_key_value_heads=kv_heads)
+
+
+def _pair(kv_heads):
     kw = dict(lora_rank=8, rope_theta=500000.0)
-    jcfg = JConfig.tiny(vocab_size=512, **kw)
+    jcfg = _tiny(JConfig, kv_heads, vocab_size=512, **kw)
     jm = JLlama(jcfg, dtype=jnp.float32)
     tree = jm.init(jax.random.PRNGKey(0), jnp.ones((1, 8), jnp.int32))
     rs = np.random.RandomState(3)
@@ -39,10 +45,20 @@ def pair():
         lambda path, x: (rs.normal(0, 0.05, x.shape).astype(np.float32)
                          if path[-1].key == "lora_b" else np.asarray(x)),
         tree["params"])
-    tm = LlamaForCausalLM(LlamaConfig.tiny(vocab_size=512, **kw),
+    tm = LlamaForCausalLM(_tiny(LlamaConfig, kv_heads, vocab_size=512, **kw),
                           dtype=torch.float32)
     tm.load_state_dict(llama_from_jax(tree), strict=True)
     return jm, {"params": tree}, jcfg, tm
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return _pair(GQA)
+
+
+@pytest.fixture(scope="module")
+def mha_pair():
+    return _pair(MHA)
 
 
 def _random_cache(cfg, batch, seed):
@@ -183,7 +199,7 @@ def test_write_decode_column_per_row_matches():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("Hq,Hkv", [(4, 2), (8, 1)])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 2), (8, 1), (4, 4)])
 def test_decode_attention_per_row_mask_matches(Hq, Hkv):
     rs = np.random.RandomState(7)
     Sk, D = 40, 16
@@ -264,24 +280,26 @@ def test_fp8_cache_write_matches_the_reference_bytes():
                                   [0x7F, 0x7F, 0x7F, 0xFF, 0xFF])
 
 
-@pytest.mark.parametrize("model_dtype,cache_dtype,atol", [
-    ("float32", "float8_e4m3fn", ATOL),
-    ("bfloat16", "float32", 8e-2),
-    ("bfloat16", "float8_e4m3fn", 8e-2)])
+CACHE_DTYPE_CASES = [("float32", "float8_e4m3fn", ATOL),
+                     ("bfloat16", "float32", 8e-2),
+                     ("bfloat16", "float8_e4m3fn", 8e-2)]
+
+
+@pytest.mark.parametrize("model_dtype,cache_dtype,atol", CACHE_DTYPE_CASES)
 def test_cached_steps_with_other_cache_dtypes(model_dtype, cache_dtype,
-                                              atol):
+                                              atol, kv_heads=GQA):
     """The chunk step narrows (fp8) or widens (f32) its keys into the cache
     and reads the cache back in the compute dtype, and the per-row step
     reads a 1-byte cache in bf16, as the reference's; logits within
     ``atol`` (fp32 model: summation order; bf16 model: every product
     rounded to bf16 in another order, up to ~10 bf16 steps at the tiny
     model's |logit| <= 2), the written bytes equal (fp32 model)."""
-    jcfg = JConfig.tiny(vocab_size=512, rope_theta=500000.0)
+    jcfg = _tiny(JConfig, kv_heads, vocab_size=512, rope_theta=500000.0)
     jm = JLlama(jcfg, dtype=getattr(jnp, model_dtype))
     tree = jm.init(jax.random.PRNGKey(0), jnp.ones((1, 8), jnp.int32))
     tree = jax.tree_util.tree_map(np.asarray, tree["params"])
-    tm = LlamaForCausalLM(LlamaConfig.tiny(vocab_size=512,
-                                           rope_theta=500000.0),
+    tm = LlamaForCausalLM(_tiny(LlamaConfig, kv_heads, vocab_size=512,
+                                rope_theta=500000.0),
                           dtype=getattr(torch, model_dtype))
     tm.load_state_dict(llama_from_jax(tree), strict=True)
     jdt, tdt = getattr(jnp, cache_dtype), getattr(torch, cache_dtype)
@@ -330,7 +348,7 @@ def _fused_tree(tree):
 
 
 @pytest.mark.parametrize("bits", [0, 8, 4])
-def test_fused_projections_match(bits):
+def test_fused_projections_match(bits, kv_heads=GQA):
     """qkv_proj and gate_up_proj (the reference's fused tree, carried over
     by ``llama_from_jax``): the prefill and a cached step give the fused
     JAX model's logits, and the port's own ``fuse_llama_projections_``
@@ -341,7 +359,7 @@ def test_fused_projections_match(bits):
     from mllm_npu_tpu_torch.utils.weights import (fuse_llama_projections_,
                                                   quantize_llama_)
     kw = dict(vocab_size=512, rope_theta=500000.0)
-    jcfg = JConfig.tiny(**kw)
+    jcfg = _tiny(JConfig, kv_heads, **kw)
     jm = JLlama(jcfg, dtype=jnp.float32)
     ids = np.random.RandomState(14).randint(3, 512, (2, 8)).astype(np.int32)
     tree = jax.tree_util.tree_map(np.asarray, jm.init(
@@ -354,7 +372,7 @@ def test_fused_projections_match(bits):
                                      quant_group_size=64)
     jf = JLlama(jf_cfg, dtype=jnp.float32)
     jl, _, _ = jf.apply({"params": jf_tree}, jnp.asarray(ids))
-    tcfg = LlamaConfig.tiny(**kw)
+    tcfg = _tiny(LlamaConfig, kv_heads, **kw)
     tf = LlamaForCausalLM(dataclasses.replace(
         tcfg, fused_projections=True,
         quantization=f"int{bits}" if bits else "none", quant_group_size=64),
@@ -394,6 +412,35 @@ def test_fused_projections_match(bits):
         h, _ = tf(torch.from_numpy(ids[:, :1]).long(), cache=tc)
         np.testing.assert_allclose(tf.logits(h).numpy(), np.asarray(jl),
                                    atol=ATOL)
+
+
+@pytest.mark.parametrize("case", ["per_row", "per_row_default",
+                                  "multi_token", "verify_window"])
+def test_mha_cached_steps_match(mha_pair, case):
+    """The batched engine's cached steps with MHA (q, k and v each the
+    model's width, as Llama-2-13B): each GQA test above on the MHA pair."""
+    if case == "per_row":
+        test_per_row_position_step_matches(mha_pair)
+    elif case == "per_row_default":
+        test_per_row_positions_default_from_the_cache(mha_pair)
+    elif case == "multi_token":
+        for off, S in ((0, 8), (6, 5)):
+            test_multi_token_cached_step_matches(mha_pair, off, S)
+    else:
+        test_per_row_verify_window_matches(mha_pair, 5)
+
+
+@pytest.mark.parametrize("model_dtype,cache_dtype,atol", CACHE_DTYPE_CASES)
+def test_mha_cached_steps_with_other_cache_dtypes(model_dtype, cache_dtype,
+                                                  atol):
+    test_cached_steps_with_other_cache_dtypes(model_dtype, cache_dtype, atol,
+                                              kv_heads=MHA)
+
+
+@pytest.mark.parametrize("bits", [0, 8, 4])
+def test_mha_fused_projections_match(bits):
+    """qkv_proj at MHA: q, k and v each the model's width."""
+    test_fused_projections_match(bits, kv_heads=MHA)
 
 
 def test_fuse_refuses_lora_and_shards():

@@ -38,7 +38,8 @@ def _oracle_both(next_of, V, real, Sp, k, T, first, ladder=None, eos=-1):
         logits = torch.nn.functional.one_hot(
             torch.tensor(np.asarray(next_of(toks.numpy()))).long(),
             V).float() * 10.0
-        return logits, {**cache, "pos": cache["pos"] + toks.shape[1]}
+        h = torch.zeros(toks.shape + (4,))
+        return logits, h, {**cache, "pos": cache["pos"] + toks.shape[1]}
 
     jl = None if ladder is None else jsampler.ImageTokenLadder(ids=ladder)
     tl = None if ladder is None else ImageTokenLadder(ids=ladder)
@@ -47,8 +48,8 @@ def _oracle_both(next_of, V, real, Sp, k, T, first, ladder=None, eos=-1):
         jnp.asarray([first], jnp.int32), jnp.zeros((1, 4), jnp.float32),
         jsampler.SamplingConfig(**cfg_kw), jnp.asarray(ctx), ladder=jl, k=k,
         ngram=2, prompt_len=jnp.asarray(len(real), jnp.int32))
-    tt, _, tn = speculative_decode_loop(
-        t_step, {"pos": len(real)}, torch.tensor([first]),
+    tt, _, _, tn = speculative_decode_loop(
+        t_step, {"pos": len(real)}, torch.tensor([first]), torch.zeros(1, 4),
         SamplingConfig(**cfg_kw), torch.from_numpy(ctx), ladder=tl, k=k,
         ngram=2, prompt_len=len(real))
     return (np.asarray(jt[0]).tolist(), int(jn)), (tt[0].tolist(), tn)

@@ -375,6 +375,47 @@ def test_load_engine_from_config_serves_tiny_on_cpu(monkeypatch):
         eng.close()
 
 
+def test_seedx_worker_config_serves_tiny_on_cpu(monkeypatch, caplog):
+    """The port's copy of the reference's shipped worker config: its own
+    SEED-X YAML, the reference's values (8 slots, a 2048-token cache,
+    speculative_k 63) and no generation_config (the de-tokenizer, item 14).
+    Under DEBUG_FLAG it builds the tiny SEED stack on the CPU, whose worker
+    answers an image, a text and an image_gen request (code 3, the log
+    naming item 14)."""
+    monkeypatch.setenv("DEBUG_FLAG", "True")
+    path = "mllm_npu_tpu_torch/configs/workers/seedx_worker.json"
+    raw = json.load(open(path))
+    assert "generation_config" not in raw
+    assert not any("mllm_npu_tpu/" in str(v) for v in raw.values())
+    args = worker_mod.parse_worker_args(["--worker-config", path,
+                                         "--device", "cpu"])
+    assert args.model_name == "seed-x" and args.batched
+    assert (args.num_slots, args.max_cache_len, args.speculative_k) == (
+        8, 2048, 63)
+    assert args.model_config.endswith("seedx_llama2_13b_qwenvl_vitg.yaml")
+    eng = worker_mod.load_engine_from_config(
+        args.model_config, max_new_tokens=6, batched=args.batched,
+        num_slots=args.num_slots, max_len=args.max_cache_len,
+        speculative_k=args.speculative_k, device=args.device)
+    served = _Served(eng, no_register=True, limit_model_concurrency=4)
+    try:
+        assert eng.batch_engine.speculative_k == 63
+        for q, b64 in (("what is shown?", _png_b64(500, 300)), ("hi", "")):
+            msgs = _chunks(_post(served.url + "/worker_generate",
+                                 {"input_text": q, "image": b64}))
+            assert [m["error_code"] for m in msgs] == [0]
+            assert msgs[0]["text"] == InferenceEngine.comprehension(
+                eng, q, b64)
+        with caplog.at_level(logging.ERROR, logger="model_worker"):
+            msgs = _chunks(_post(served.url + "/worker_generate",
+                                 {"input_text": "a cat", "image_gen": True}))
+        assert [m["error_code"] for m in msgs] == [3]
+        assert "item 14" in caplog.text
+    finally:
+        served.close()
+        eng.close()
+
+
 def test_serve_utils_logger_and_semaphore(tmp_path, monkeypatch):
     monkeypatch.setattr(serve_utils, "handler", None)
     log = serve_utils.build_logger("t_port_logger", "t.log",
