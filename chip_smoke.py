@@ -24,9 +24,12 @@ exits non-zero. Phases, in order:
    SEED-X's shapes from its YAML (Qwen-ViT-G's D = 104 over 1024 patches,
    its attention pool, the input projector's D = 160, the output
    projector, the Llama-2-13B MHA prefill at the image request's and the
-   caption's lengths); a sweep over the edges of K1's design (head dims 8
-   to 160, lengths off the tile, causal Sq != Sk, GQA, segments inside a
-   tile, fused strided q/k/v);
+   caption's lengths), and at the SDXL UNet's at 1024² (phase 11: the
+   CFG batch of 2, D = 64, self-attention at S = 4096 over 10 heads and
+   1024 over 20, cross-attention over the resampler's 64 tokens at both);
+   a sweep over the edges of K1's design (head dims 8 to 160, lengths off
+   the tile, causal Sq != Sk, GQA, segments inside a tile, fused strided
+   q/k/v);
    then K4 (int8) and K5 (int4) against theirs at the Llama's decode
    (M = 1) and prefill (M = 339) shapes and at the batched worker's: its
    decode block (M = 8, the lm_head included), its image admissions
@@ -38,7 +41,10 @@ exits non-zero. Phases, in order:
 4. the bf16 path: ``InferenceEngine.comprehension`` on an 896×896 image
    (2×2 grid + thumbnail), a 384×1152 image and a text-only question,
    with every kernel's launch count set to 0 before and asserted after
-   each request;
+   each request; the decode step is a replayed CUDA graph, and the three
+   requests run again with it eager: identical ids, ms/token of both;
+   then the generator's graphs dropped and the three requests twice in
+   interleaved order: the graph cache's hits, TTFT and capture times;
 4b. the batched worker over the same model (``BatchedInferenceEngine``,
    the reference worker's defaults: 8 slots, a 2048-token static cache,
    prompts to 1024 in buckets of 128, decode blocks of 16 steps captured
@@ -59,7 +65,8 @@ exits non-zero. Phases, in order:
    preamble (hits and tokens saved), its eager twin's rows against the
    monolithic engine's and the single-request engine's by the same rule;
    one graphed tick under ``torch.profiler``, and ``decode_attention``'s
-   cost (and its fp32 widening's) per tick;
+   cost per tick over the cache as stored (no allocation or copy kernel
+   of the cache's size);
 4c. sampled, speculative, fp8/f32-cache and fused serving over the same
    model (4 images of 896×896 and 4 texts at once; counts set to 0 before
    and read after): a. the worker's engine with speculation (k = 4 and
@@ -136,21 +143,42 @@ exits non-zero. Phases, in order:
    a text one); the image request's prefill logits with K1 against K1's
    plain version everywhere; ``text_to_image_features`` on a caption (64
    forced image tokens, ``img_gen_feat`` [1, 64, 4096] against the same
-   request on K1's plain version, 41 K1 launches); the worker from the
-   port's ``seedx_worker.json`` (speculative_k 63, 8 slots, a 2048-token
-   cache) on 127.0.0.1: 4 image and 4 text POSTs at once (code 0), an
-   ``image_gen`` POST (code 3, the log naming item 14), graphed = eager
-   ids, ms per verify tick against a speculative_k = 0 twin's step,
-   tokens/s, the cache's size, ``decode_attention``'s share of the step;
-   then the Llama quantized to int8 in place, one image request (281 K4
-   launches a forward) and its prefill logits with K4 against the plain
-   quantized linears.
+   request on K1's plain version, 41 K1 launches; the graphed decode's
+   ids and features equal the eager decode's; a control: the plain
+   version with P rounded to bf16, against the plain version); the graph
+   cache under the three requests and the caption, twice interleaved; the
+   worker from the port's ``seedx_worker.json`` (speculative_k 63, 8 slots,
+   a 2048-token cache) on 127.0.0.1: 4 image and 4 text POSTs at once (code
+   0), graphed = eager ids, ms per verify tick against a speculative_k = 0
+   twin's step, tokens/s, the cache's size, ``decode_attention``'s share of
+   the step and a replayed step under ``torch.profiler`` (no copy of the
+   cache among its longest kernels); then the Llama quantized to int8 in
+   place, one image request (281 K4 launches a forward) and its prefill
+   logits with K4 against the plain quantized linears;
+11. the SDXL de-tokenizer, after phase 10's model is dropped: the worker's
+   engine from ``seedx_worker.json`` with its ``generation_config``
+   (``configs/generation/sd_xl_resampler.yaml``) through
+   ``load_engine_from_config`` (SEED-X as in phase 10; the SDXL-base UNet,
+   2.57 B parameters, the SDXL VAE and the ResamplerXLV2, bf16, weights
+   from seed 0; the negative through SEED-X's own Qwen-ViT-G), served on
+   127.0.0.1: one ``image_gen`` POST at the reference engine's defaults
+   (1024×1024, Euler, 50 steps, guidance 7.5) with every kernel's count
+   set to 0 before: code 0, a JPEG that decodes to 1024×1024, K1's
+   launches (41 for the features, 49 for the zero-image negative, 140 a
+   UNet forward); the time to features, the denoise loop, ms per UNet
+   step, the VAE decode, the request and the peak; then the request's
+   first UNet forward and the final latents of a 4-step run of the same
+   seed with K1, with K1's plain version and with the plain version
+   rounding P to bf16 (the control): ε and the latents cos ≥ 0.99 K1
+   against plain, with the relative RMS and the control's beside them;
+   one UNet forward on CUDA events and under ``torch.profiler``.
 
 The last lines are the kernels' JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
 import base64
+import functools
 import gc
 import io
 import json
@@ -1114,10 +1142,14 @@ def serve(engine, requests, preps, label, lm_cfg):
     """Each request once, with every kernel's count set to 0 just before
     and read just after; asserts K1's count and, for a quantized engine,
     K4's or K5's: 225 per forward (7 projections × 32 layers + lm_head) ×
-    (1 + decode steps), the other quantized kernel never, and of those 224
-    in the prefill regime (M > 16) where the prompt is longer than 16
-    tokens. Returns the launches summed over the requests, and the
-    prefill-regime launches of K4 and K5 summed likewise."""
+    the forwards the host ran (the prefill, each decode step run eagerly,
+    among them the first step of a request that captured the decode
+    step's CUDA graph, and that capture's recording; a replayed step
+    launches without the host, uncounted),
+    the other quantized kernel never, and of those 224 in the prefill
+    regime (M > 16) where the prompt is longer than 16 tokens. Returns the
+    launches summed over the requests, and the prefill-regime launches of
+    K4 and K5 summed likewise."""
     import torch
 
     from mllm_npu_tpu_torch.ops import quant as tq
@@ -1144,8 +1176,10 @@ def serve(engine, requests, preps, label, lm_cfg):
         prefill_got = (tq.int8_matmul.prefill_launches,
                        tq.int4_matmul.prefill_launches)
         prefill_expect = [0, 0]
+        replays = tm["graph_replays"]
         if quant != "none":
-            expect[f"{quant}_matmul"] = per_forward * (1 + steps)
+            expect[f"{quant}_matmul"] = per_forward * (
+                1 + steps - replays + tm["graph_captured"])
             # the prefill's 224 products at M = prompt length run the
             # prefill kernel where the prompt is longer than 16 tokens;
             # the lm_head (last row) and every decode step run the decode
@@ -1163,8 +1197,11 @@ def serve(engine, requests, preps, label, lm_cfg):
               f"{prefill_expect[1]}); vision+projector "
               f"{tm['embed_s'] * 1e3:.1f} ms; prefill "
               f"{tm['prefill_s'] * 1e3:.1f} ms; ttft "
-              f"{tm['ttft_s'] * 1e3:.1f} ms; decode {steps} steps, "
-              f"{tm['decode_s'] * 1e3 / max(steps, 1):.2f} ms/token; wall "
+              f"{tm['ttft_s'] * 1e3:.1f} ms; decode {steps} steps ("
+              f"{replays} graph replays"
+              + (f", captured here in {tm['capture_s'] * 1e3:.1f} ms"
+                 if tm['graph_captured'] else '') + "), "
+              f"{ms_per_token(tm):.2f} ms/token; wall "
               f"{wall:.2f} s; peak "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; text "
               f"{text[:60]!r}", flush=True)
@@ -1180,6 +1217,91 @@ def serve(engine, requests, preps, label, lm_cfg):
         prefill_total[4] += prefill_got[1]
     return total, prefill_total
 
+
+def single_graph_check(engine, requests, label):
+    """Each request again through the single-request generator with its
+    decode step replayed from the CUDA graph and run eagerly: the ids must
+    be identical; ms/token of both. → summary."""
+    out = []
+    gen = engine.generator
+    for q, b64 in requests:
+        runs = {}
+        for graphed in (True, False):
+            gen.cuda_graph = graphed
+            try:
+                ids = engine.comprehension_ids(q, b64)
+            finally:
+                gen.cuda_graph = True
+            tm = gen.last_timings
+            runs[graphed] = (ids.tolist(), ms_per_token(tm),
+                             tm["graph_replays"] + tm["graph_captured"],
+                             tm["decode_steps"])
+        (ids_g, ms_g, rep, steps), (ids_e, ms_e, rep_e, _) = (runs[True],
+                                                             runs[False])
+        print(f"[{label}] {'image' if b64 else 'text'} request: decode "
+              f"{steps} steps, graphed {ms_g:.2f} ms/token ({rep} replays), "
+              f"eager {ms_e:.2f} ms/token; ids identical: {ids_g == ids_e}",
+              flush=True)
+        check(ids_g == ids_e, f"{label}: graphed and eager ids differ")
+        check(rep == steps and rep_e == 0, f"{label}: {rep} replayed or "
+              f"captured of {steps} steps graphed, {rep_e} eager")
+        out.append({"image": bool(b64), "steps": steps,
+                    "graphed_ms_per_token": ms_g,
+                    "eager_ms_per_token": ms_e})
+    return out
+
+def ms_per_token(tm):
+    """A single-request decode's ms per token, its capture left out (a
+    capturing call's first step runs eagerly, then the step is recorded:
+    ``capture_s``, reported on its own)."""
+    n = tm["decode_steps"] - tm["graph_captured"]
+    return (tm["decode_s"] - tm["capture_s"]) * 1e3 / max(n, 1)
+
+
+def graph_mix(gen, calls, label):
+    """The single-request generator's graph cache under a mix: every kept
+    graph dropped, then ``calls`` ((name, fn) pairs, each serving one
+    request) run twice in interleaved order. Prints each request's TTFT,
+    ms per token, whether it found its graph kept (a hit) or captured one
+    (a miss, and the capture's time), then the hit rate and the graphs
+    kept with the memory they hold. Every request of the second round must
+    hit. → summary."""
+    import torch
+
+    from mllm_npu_tpu_torch.models.generation import generate as gen_mod
+    gen.drop_graphs()
+    torch.cuda.empty_cache()
+    rows = []
+    for rnd in (1, 2):
+        for name, fn in calls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            wall = time.perf_counter() - t0
+            tm = gen.last_timings
+            rows.append({"round": rnd, "request": name,
+                         "hit": not tm["graph_captured"],
+                         "ttft_ms": tm["ttft_s"] * 1e3,
+                         "capture_ms": tm["capture_s"] * 1e3,
+                         "ms_per_token": ms_per_token(tm), "wall_s": wall})
+            r = rows[-1]
+            print(f"[{label} graph mix] round {rnd}, {name}: "
+                  + ("hit" if r["hit"] else
+                     f"miss, captured in {r['capture_ms']:.1f} ms")
+                  + f"; ttft {r['ttft_ms']:.1f} ms, {r['ms_per_token']:.2f} "
+                  f"ms/token, wall {wall:.3f} s", flush=True)
+    kept = list(gen._graphs.values())
+    out = {"requests": rows, "hits": sum(r["hit"] for r in rows),
+           "graphs_kept": len(kept),
+           "graphs_gib": sum(g.nbytes for g in kept) / 2**30,
+           "budget_gib": gen_mod.DECODE_GRAPH_MEMORY_SHARE
+           * torch.cuda.get_device_properties(0).total_memory / 2**30}
+    print(f"[{label} graph mix] {out['hits']} hits of {len(rows)}; "
+          f"{out['graphs_kept']} graphs kept holding {out['graphs_gib']:.3f} "
+          f"GiB (budget {out['budget_gib']:.2f} GiB)", flush=True)
+    check(all(r["hit"] for r in rows if r["round"] == 2),
+          f"{label}: a request of the mix's second round captured anew")
+    return out
 
 # the batched worker (phase 4b, and int8 in phase 7): the reference worker's
 # engine defaults, a concurrency limit that fills every slot twice over
@@ -1305,7 +1427,9 @@ def ttft_stats(reqs):
 def single_stream(engine, q, b64):
     """The single-request engine's greedy ids for one request, and at each
     position its logits after the ladder (fp32 [V], on the card): the
-    logits each greedy choice was made from."""
+    logits each greedy choice was made from. The decode step runs eagerly
+    here (a replayed graph calls no Python to record with); phase 4 holds
+    the graphed ids to the eager ones."""
     from mllm_npu_tpu_torch.models.generation import generate as gen_mod
     from mllm_npu_tpu_torch.models.generation import sampler
     rows, orig = [], sampler._sample
@@ -1314,10 +1438,12 @@ def single_stream(engine, q, b64):
         rows.append(logits[0].float().clone())
         return orig(logits)
     sampler._sample = gen_mod._sample = recording
+    engine.generator.cuda_graph = False
     try:
         ids = engine.comprehension_ids(q, b64)
     finally:
         sampler._sample = gen_mod._sample = orig
+        engine.generator.cuda_graph = True
     return [int(t) for t in ids], rows
 
 
@@ -1718,8 +1844,17 @@ def traced_replay_checks(lm_cfg, block_steps):
 
 def decode_attention_cost(engine, lm_cfg, tick_ms):
     """``decode_attention`` at the decode block's shapes (one layer: every
-    slot's query over the whole static cache) and its fp32 widening of K
-    and V alone, on CUDA events; × layers, against one tick."""
+    slot's query over the whole static cache, as stored) on CUDA events,
+    × layers, against one tick; and that call once under the allocator's
+    peak and once under ``torch.profiler``: it reads the cache in place,
+    so the memory it takes beyond its inputs (fp32 logits of every query
+    head, a few times over) stays under half of one layer's K, where a copy
+    of K or V would take all of it and the fp32 widening four times it;
+    and none of its five longest kernels is a copy as long as the least a
+    copy of that K could take (reading and writing it at the card's
+    peak). Then the same call over an fp8 copy of that layer's cache,
+    reported only: an 8-bit cache is widened to bf16 before the products
+    (as the reference does), a copy of K and V each call."""
     import torch
 
     from mllm_npu_tpu_torch.ops import decode_attention
@@ -1727,22 +1862,56 @@ def decode_attention_cost(engine, lm_cfg, tick_ms):
     k, v = st["k"][0], st["v"][0]
     B, H, D = engine.B, lm_cfg.num_attention_heads, lm_cfg.head_dim
     L = lm_cfg.num_hidden_layers
+    k_bytes = k.numel() * k.element_size()
     with torch.inference_mode():
         q = torch.randn(B, 1, H, D, device=k.device).bfloat16()
         cur = torch.randn(B, 1, lm_cfg.num_key_value_heads, D,
                           device=k.device).bfloat16()
         mask = torch.ones(B, 1, 1, k.shape[1], dtype=torch.bool,
                           device=k.device)
-        attn = time_ms(lambda: decode_attention(q, k, v, mask, k_cur=cur,
-                                                v_cur=cur)) * L
-        widen = time_ms(lambda: (k.float(), v.float())) * L
+
+        def call():
+            return decode_attention(q, k, v, mask, k_cur=cur, v_cur=cur)
+        attn = time_ms(call) * L
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        call()
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        prof = profile_call(call)
+        k8, v8 = k.to(torch.float8_e4m3fn), v.to(torch.float8_e4m3fn)
+
+        def call8():
+            return decode_attention(q, k8, v8, mask, k_cur=cur, v_cur=cur)
+        attn8 = time_ms(call8) * L
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        call8()
+        torch.cuda.synchronize()
+        extra8 = torch.cuda.max_memory_allocated() - base
+        del k8, v8
+    copy_ms = 2 * k_bytes / H100_BYTES_PER_S * 1e3
+    copies = [(n, t / 1e3) for n, t in prof[2] if "copy" in n.lower()
+              and t / 1e3 >= copy_ms]
     print(f"[worker] decode_attention over the [{B}, {engine.max_len}] "
-          f"static cache: {attn:.3f} ms a tick ({L} layers, "
-          f"{100 * attn / tick_ms:.1f}% of the graphed tick); its fp32 "
-          f"widening of K and V alone {widen:.3f} ms "
-          f"({100 * widen / tick_ms:.1f}%; "
-          f"{2 * k.numel() * 4 * L / 1e9:.2f} GB of fp32 copies)", flush=True)
-    return {"attention_ms_per_tick": attn, "widening_ms_per_tick": widen}
+          f"static cache ({k.dtype}, as stored): {attn:.3f} ms a tick ({L} "
+          f"layers, {100 * attn / tick_ms:.1f}% of the graphed tick); one "
+          f"layer's call allocates {extra / 2**20:.2f} MiB beyond its inputs "
+          f"(K alone {k_bytes / 2**20:.1f} MiB); its kernels: "
+          + "; ".join(f"{n[:60]} {t / 1e3:.3f} ms" for n, t in prof[2]),
+          flush=True)
+    print(f"[worker] decode_attention over an fp8 copy of that cache: "
+          f"{attn8:.3f} ms a tick; one layer's call allocates "
+          f"{extra8 / 2**20:.2f} MiB beyond its inputs (the bf16 widening "
+          f"of K and V: {2 * k_bytes / 2**20:.1f} MiB)", flush=True)
+    check(extra < 0.5 * k_bytes, f"decode_attention allocated {extra} "
+          f"bytes beyond its inputs: a copy of the cache?")
+    check(not copies, f"decode_attention ran cache-sized copies: {copies}")
+    return {"attention_ms_per_tick": attn, "extra_bytes": extra,
+            "top_kernels": prof[2], "fp8_attention_ms_per_tick": attn8,
+            "fp8_extra_bytes": extra8}
 
 
 def single_engine_check(single, eager, label, traffic, labels, ids_of):
@@ -2388,8 +2557,7 @@ def fused_check(single, prep, label, items):
         out[which] = {"launches_per_forward": n,
                       "step_ms": run["step_ms"],
                       "tokens_per_s": run["tokens_per_s"],
-                      "single_ms_per_token": tm["decode_s"] * 1e3
-                      / max(tm["decode_steps"], 1)}
+                      "single_ms_per_token": ms_per_token(tm)}
         del engine
     d = (logits["fused"] - logits["unfused"]).abs().max().item()
     check(d <= bound, f"{label} fused: prefill logits max |delta| {d:.4f} "
@@ -2564,32 +2732,15 @@ def seedx_kernel_cases(n_tiles, s_img, caption_len):
     ]
 
 
-class LogTail(list):
-    """A logging handler that keeps the messages of one logger."""
-
-    def __init__(self, name):
-        import logging
-        super().__init__()
-        self.handler = logging.Handler()
-        self.handler.emit = lambda rec: self.append(
-            rec.getMessage() + (str(rec.exc_info[1]) if rec.exc_info
-                                else ""))
-        logging.getLogger(name).addHandler(self.handler)
-
-    def close(self, name):
-        import logging
-        logging.getLogger(name).removeHandler(self.handler)
-
-
 def seedx_worker_check(single, lm_cfg):
     """Phase 10's worker: the port's seedx_worker.json parsed as the
     worker's command line would, its engine (speculative_k 63, 8 slots, a
     2048-token cache) over the single engine's model, served on 127.0.0.1
     port 0: 4 image and 4 text POSTs at once (code 0, K1's launches per
-    admission), an image_gen POST (code 3, the log naming item 14); then,
-    the worker stopped, the same requests graphed and eager (identical
-    ids), a speculative_k = 0 twin, and decode_attention's share of its
-    step on CUDA events. → summary."""
+    admission); then, the worker stopped, the same requests graphed and
+    eager (identical ids), a speculative_k = 0 twin, and decode_attention's
+    share of its step (phase 11 serves the config's image_gen requests).
+    → summary."""
     import torch
 
     from mllm_npu_tpu_torch.serve.engine import BatchedInferenceEngine
@@ -2652,17 +2803,6 @@ def seedx_worker_check(single, lm_cfg):
           flush=True)
     check(got == expect, f"seedx worker burst: launches {got}, expected "
           f"{expect}")
-    log = LogTail("model_worker")
-    try:
-        chunks = post_worker(served.url, {"input_text": SEEDX_CAPTION,
-                                          "image_gen": True})
-    finally:
-        log.close("model_worker")
-    named = any("item 14" in m for m in log)
-    print(f"[seedx worker] image_gen POST: {chunks}; the worker's log names "
-          f"item 14: {named}", flush=True)
-    check([c["error_code"] for c in chunks] == [3] and named,
-          f"seedx image_gen: {chunks}, log {list(log)}")
     served.close()
 
     items = [batched._prepare_comprehension(q, b) for _, q, b in traffic]
@@ -2679,6 +2819,19 @@ def seedx_worker_check(single, lm_cfg):
     plain_engine = twin_of(be, speculative_k=0)
     plain = timed_ticks(plain_engine, items, SEEDX_TOKENS)
     attn = decode_attention_cost(plain_engine, lm_cfg, plain["step_ms"])
+    # a replayed tick of the k = 0 twin under the profiler: none of the
+    # five longest kernels is a copy as long as the least a copy of one
+    # layer's K could take (read and written at the peak), summed over the
+    # tick's steps and layers as the profiler sums a kernel's events
+    prof = profile_block(plain_engine, single, "seedx k=0")
+    k_bytes = plain_engine.state["k"][0].numel() * 2
+    copy_ms = (2 * k_bytes / H100_BYTES_PER_S * 1e3
+               * plain_engine.block_steps * lm_cfg.num_hidden_layers)
+    copies = [(nm, t / 1e3) for nm, t in prof[2]
+              if "copy" in nm.lower() and t / 1e3 >= copy_ms]
+    check(not copies, f"seedx k=0 tick: cache-sized copies {copies}")
+    attn["tick_profile"] = {"wall_ms": prof[0], "busy_ms": prof[1],
+                            "top": prof[2]}
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[seedx worker] {len(items)} requests x {SEEDX_TOKENS} tokens, "
           f"every slot busy: k = 63 verify tick {graphed['tick_ms']:.2f} ms "
@@ -2693,7 +2846,7 @@ def seedx_worker_check(single, lm_cfg):
     gc.collect()
     torch.cuda.empty_cache()
     strip = lambda d: {k: v for k, v in d.items() if k != "ids"}
-    return {"launches": got, "burst_s": burst_s, "image_gen": chunks,
+    return {"launches": got, "burst_s": burst_s,
             "spec_graphed": strip(graphed), "spec_eager": strip(eager),
             "plain_graphed": strip(plain), "decode_attention": attn,
             "cache_gib": cache_gib, "peak_gib": peak}
@@ -2755,12 +2908,17 @@ def seedx_phase(s_img):
         launches[k] += got[k]
     k1_logits, _ = k1_vs_plain_prefill(model, preps[0], "SEED-X")
 
-    # caption → features with K1, then with K1's plain version everywhere
-    feats = {}
-    for which, fn in (("K1", flash_attention),
-                      ("plain", flash_attention_reference)):
+    # caption → features with K1 (the decode step graphed, then eager),
+    # with K1's plain version everywhere, and with that plain version
+    # rounding P to bf16 (the control)
+    feats, t2i_ids, t2i_ms = {}, {}, {}
+    for which, fn, graphed in (
+            ("K1", flash_attention, True), ("K1 eager", flash_attention, False),
+            ("plain", flash_attention_reference, True),
+            ("plain_p_bf16", plain_attention_p_bf16, True)):
         port_ops.flash_attention = fn
         flash_attention.launches = 0
+        single.generator.cuda_graph = graphed
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2770,6 +2928,7 @@ def seedx_phase(s_img):
             wall = time.perf_counter() - t0
         finally:
             port_ops.flash_attention = flash_attention
+            single.generator.cuda_graph = True
         ids = res["generate_ids"][0].tolist()
         ladder = list(single.generator.ladder.ids)
         f = res["img_gen_feat"]
@@ -2779,7 +2938,8 @@ def seedx_phase(s_img):
             1, model.num_img_out_tokens, model.output_projector.embed_dim)
               and bool(torch.isfinite(f.float()).all()),
               f"seedx {which}: img_gen_feat {None if f is None else f.shape}")
-        expect = lm_cfg.num_hidden_layers + 1 if which == "K1" else 0
+        expect = (lm_cfg.num_hidden_layers + 1 if fn is flash_attention
+                  else 0)
         check(flash_attention.launches == expect, f"seedx {which} "
               f"text_to_image_features launched K1 "
               f"{flash_attention.launches} times, expected {expect}")
@@ -2789,15 +2949,33 @@ def seedx_phase(s_img):
               f"forced image tokens and </img> in {len(ids)} tokens, "
               f"img_gen_feat {tuple(f.shape)}; K1 {expect} launches; ttft "
               f"{tm['ttft_s'] * 1e3:.1f} ms, decode "
-              f"{tm['decode_s'] * 1e3 / max(tm['decode_steps'], 1):.2f} "
+              f"{ms_per_token(tm):.2f} "
               f"ms/token, wall {wall:.2f} s", flush=True)
         feats[which] = f.float()
-    a, b = feats["K1"].flatten(), feats["plain"].flatten()
-    t2i = {"cos": torch.nn.functional.cosine_similarity(a, b, dim=0).item(),
-           "rel_rms": ((a - b).norm() / b.norm()).item()}
+        t2i_ids[which] = ids
+        t2i_ms[which] = ms_per_token(tm)
+    check(t2i_ids["K1"] == t2i_ids["K1 eager"]
+          and torch.equal(feats["K1"], feats["K1 eager"]),
+          "seedx caption: the graphed decode's ids or features differ from "
+          "the eager decode's")
+    t2i = agreement(feats["K1"], feats["plain"])
+    t2i["control"] = agreement(feats["plain_p_bf16"], feats["plain"])
+    t2i["ms_per_token"] = {"graphed": t2i_ms["K1"],
+                           "eager": t2i_ms["K1 eager"]}
     print(f"[check] SEED-X img_gen_feat, K1 vs plain attention: cos "
-          f"{t2i['cos']:.6f}, relative RMS {t2i['rel_rms']:.4f}", flush=True)
+          f"{t2i['cos']:.6f}, relative RMS {t2i['rel_rms']:.4f}; control "
+          f"(plain with P in bf16 vs plain): cos "
+          f"{t2i['control']['cos']:.6f}, relative RMS "
+          f"{t2i['control']['rel_rms']:.4f}; graphed = eager (ids and "
+          f"features), {t2i_ms['K1']:.2f} vs {t2i_ms['K1 eager']:.2f} "
+          f"ms/token", flush=True)
     check(t2i["cos"] >= T2I_COS, f"seedx img_gen_feat disagree: {t2i}")
+    t2i["graph_mix"] = graph_mix(single.generator, [
+        (lab, functools.partial(single.comprehension, q, b))
+        for lab, (q, b) in zip(("896x896", "448x448", "text"), requests)
+    ] + [("caption", functools.partial(
+        single.text_to_image_features, SEEDX_CAPTION,
+        max_new_tokens=T2I_TOKENS))], "seedx")
 
     worker = seedx_worker_check(single, lm_cfg)
     for k in launches:
@@ -2828,6 +3006,256 @@ def seedx_phase(s_img):
     torch.cuda.empty_cache()
     return {"launches": launches, "int8_prefill_launches": got_prefill[8],
             "params": parts, "t2i": t2i, "worker": worker}
+
+
+# -- phase 11: the SDXL de-tokenizer -------------------------------------
+# the reference engine's defaults for an image_gen request
+# (mllm_npu_tpu/serve/engine.py:168-184)
+GEN_STEPS = 50
+GEN_GUIDANCE = 7.5
+GEN_SEED = 42
+# the de-tokenizer's native size: SDXL-base's 128 latents × the VAE's 8
+GEN_SIZE = 1024
+GEN_CONFIG = "mllm_npu_tpu_torch/configs/generation/sd_xl_resampler.yaml"
+# the UNet's ε and the final latents with K1 against the plain attention
+UNET_COS = 0.99
+# steps of the short runs whose final latents are compared
+SHORT_STEPS = 4
+
+
+def plain_attention_p_bf16(q, k, v, *, causal=False, segment_ids=None,
+                           scale=None, return_lse=False):
+    """K1's plain version with one change: P rounded to bf16 before P·V,
+    where K1 rounds it. Against the plain version it is the bf16 control:
+    what that rounding alone moves, beside what K1 moves."""
+    import torch
+
+    from mllm_npu_tpu_torch.ops.flash_attention import _masked_logits
+    B, Sq, Hq, D = q.shape
+    scale = D ** -0.5 if scale is None else scale
+    logits, _ = _masked_logits(q, k, causal, segment_ids, scale)
+    m = logits.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(logits - m)
+    l = p.sum(dim=-1, keepdim=True)
+    p = (p / torch.where(l > 0, l, torch.ones_like(l))).bfloat16().float()
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def agreement(a, b):
+    """cos and relative RMS of ``a`` against ``b`` (flattened, fp32)."""
+    import torch
+    a, b = a.float().flatten(), b.float().flatten()
+    return {"cos": torch.nn.functional.cosine_similarity(a, b, dim=0).item(),
+            "rel_rms": ((a - b).norm() / b.norm()).item()}
+
+
+def unet_kernel_cases():
+    """Phase 3's K1 cases at the SDXL UNet's attentions at 1024² (from
+    ``UNetConfig.sdxl_base`` and the generation config's resampler): the
+    CFG batch of 2, self-attention over each cross-attention level's
+    positions and cross-attention over the resampler's tokens. → (rows,
+    {shape: launches a UNet forward})."""
+    from mllm_npu_tpu_torch.configs import load_config
+    from mllm_npu_tpu_torch.models.generation.unet import UNetConfig
+    cfg = UNetConfig.sdxl_base()
+    n_ctx = load_config(ROOT / GEN_CONFIG)["resampler"]["num_queries"]
+    n = len(cfg.block_out_channels)
+    rows, mix = [], {}
+    for i, (btype, ch) in enumerate(zip(cfg.down_block_types,
+                                        cfg.block_out_channels)):
+        if btype != "CrossAttnDownBlock2D":
+            continue
+        S = (cfg.sample_size >> i) ** 2
+        H = cfg.num_attention_heads[i]
+        # down: layers_per_block attentions, up: one more, mid at the last
+        blocks = cfg.transformer_layers_per_block[i] * (
+            2 * cfg.layers_per_block + 1 + (i == n - 1))
+        for kind, Sk in (("self", S), ("cross", n_ctx)):
+            name = f"unet_{kind}_s{S}"
+            rows.append(kernel_case(name, 2, S, Sk, H, H, ch // H, False))
+            mix[name] = blocks
+    return rows, mix
+
+
+def detokenizer_phase():
+    """Phase 11 (see the module's docstring). → summary, its launches
+    among them."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    import mllm_npu_tpu_torch.ops as port_ops
+    from mllm_npu_tpu_torch.models.generation.adapter_modules import (
+        compute_time_ids)
+    from mllm_npu_tpu_torch.models.generation.unet import CrossAttention
+    from mllm_npu_tpu_torch.models.multimodal_encoder.qwenvl_vit import (
+        VisualAttention)
+    from mllm_npu_tpu_torch.models.vit_common import TorchMHA
+    from mllm_npu_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_reference)
+    from mllm_npu_tpu_torch.serve.worker import (load_engine_from_config,
+                                                 parse_worker_args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    args = parse_worker_args(["--worker-config", str(ROOT / SEEDX_WORKER),
+                              "--host", "127.0.0.1", "--port", "0",
+                              "--no-register"])
+    check(args.generation_config == GEN_CONFIG,
+          f"seedx_worker.json: generation_config {args.generation_config}")
+    # the worker's main() path: load_engine_from_config from these args
+    t0 = time.perf_counter()
+    engine = load_engine_from_config(
+        str(ROOT / args.model_config), max_new_tokens=MAX_NEW_TOKENS,
+        batched=args.batched, num_slots=args.num_slots,
+        max_len=args.max_cache_len, prefill_chunk=args.prefill_chunk,
+        prefix_cache=args.prefix_cache, prompt_bucket=args.prompt_bucket,
+        quantize_int8=args.quantize_int8, quantize_int4=args.quantize_int4,
+        fuse_projections=args.fuse_projections,
+        speculative_k=args.speculative_k,
+        speculative_ngram=args.speculative_ngram,
+        kv_cache_dtype=args.kv_cache_dtype,
+        generation_config=str(ROOT / args.generation_config), device="cuda",
+        seed=0, fake_tokenizer=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ad = engine.adapter
+    model = engine.generator.model
+    L = model.language_model.config.num_hidden_layers
+    n = lambda m: sum(p.numel() for p in m.parameters())
+    parts = {"unet": n(ad.unet), "vae": n(ad.vae),
+             "resampler": n(ad.resampler)}
+    check(ad.visual_encoder is model.vision_encoder,
+          "the adapter's negative is not the SEED model's vision encoder")
+    print(f"[detok] the worker's engine from {SEEDX_WORKER} with "
+          f"{args.generation_config} built in {build_s:.1f} s: SEED-X "
+          f"{n(model) / 1e9:.3f} B params, the de-tokenizer "
+          + ", ".join(f"{k} {v / 1e9:.3f} B" for k, v in parts.items())
+          + f" (bf16); {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"resident with the worker's {args.num_slots} x "
+          f"{args.max_cache_len} cache", flush=True)
+
+    served = ServedWorker(engine, model_name=args.model_name,
+                          concurrency=max(args.limit_model_concurrency,
+                                          args.num_slots))
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    unet_attn = sum(isinstance(m, CrossAttention) for m in ad.unet.modules())
+    vis_attn = sum(isinstance(m, (VisualAttention, TorchMHA))
+                   for m in ad.visual_encoder.modules())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    chunks = post_worker(served.url, {"input_text": SEEDX_CAPTION,
+                                      "image_gen": True}, timeout=1200)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    served.close()
+    got = {k: fn.launches for k, fn in counters.items()}
+    expect = dict.fromkeys(counters, 0)
+    # the caption's prefill and the output projector, the zero image's
+    # vision tower and pool (once), 140 attentions a UNet forward
+    expect["flash_fwd"] = L + 1 + vis_attn + unet_attn * GEN_STEPS
+    check([c["error_code"] for c in chunks] == [0],
+          f"image_gen: {[(c['error_code'], c['text']) for c in chunks]}")
+    jpeg = base64.b64decode(chunks[0]["image"])
+    img = Image.open(io.BytesIO(jpeg))
+    img.load()
+    t = engine.last_timings
+    ms_step = t["denoise_s"] * 1e3 / t["steps"]
+    print(f"[detok] image_gen POST ({SEEDX_CAPTION!r}): code 0, a "
+          f"{img.format} of {img.size[0]}x{img.size[1]} ({len(jpeg)} bytes) "
+          f"in {wall:.2f} s: features {t['features_s']:.3f} s, embeds "
+          f"{t['embeds_s'] * 1e3:.1f} ms, denoise {t['denoise_s']:.3f} s "
+          f"({t['steps']} steps, {ms_step:.2f} ms a UNet step at batch 2), "
+          f"VAE decode {t['vae_s'] * 1e3:.1f} ms, request "
+          f"{t['request_s']:.3f} s; peak {peak:.2f} GiB; launches {got} "
+          f"(expected {expect}: K1 {L + 1} + {vis_attn} + {unet_attn} x "
+          f"{GEN_STEPS})", flush=True)
+    size = ad.unet.config.sample_size * ad.vae.config.spatial_scale_factor
+    check(img.format == "JPEG" and img.size == (size, size) == (
+        GEN_SIZE, GEN_SIZE) and img.mode == "RGB",
+          f"image_gen image {img.format} {img.size}")
+    check(np.asarray(img).std() > 0, "image_gen: a flat image")
+    check(got == expect, f"image_gen launches {got}, expected {expect}")
+
+    # the request's first UNet forward, and short runs of the same seed,
+    # with K1, K1's plain version and the plain version with P in bf16
+    attn = {"K1": flash_attention, "plain": flash_attention_reference,
+            "plain_p_bf16": plain_attention_p_bf16}
+    with torch.inference_mode():
+        feats = engine.text_to_image_features(
+            SEEDX_CAPTION, max_new_tokens=engine.num_img_out_tokens + 2)[
+                "img_gen_feat"]
+        pe, pe_neg, pooled, pooled_neg = ad.get_image_embeds(
+            image_embeds=feats, image_size=engine.base_resolution)
+        f = ad.vae.config.spatial_scale_factor
+        g = torch.Generator(device=dev)
+        g.manual_seed(GEN_SEED)
+        lat = torch.randn((1, 4, size // f, size // f), generator=g,
+                          device=dev)
+        ts, sigmas = ad.scheduler.make_schedule(GEN_STEPS, device=dev)
+        lat_in = ad.scheduler.scale_model_input(
+            torch.cat([lat, lat]) * ad.scheduler.init_noise_sigma, sigmas[0])
+        tids = torch.as_tensor(compute_time_ids((size, size), (0, 0), size),
+                               device=dev)
+        added = {"text_embeds": torch.cat([pooled_neg, pooled]),
+                 "time_ids": torch.cat([tids, tids])}
+        prompt = torch.cat([pe_neg, pe])
+
+        def unet_forward():
+            return ad.unet(lat_in, ts[0].expand(2), prompt, added_cond=added)
+        eps, lats = {}, {}
+        for which, fn in attn.items():
+            port_ops.flash_attention = fn
+            flash_attention.launches = 0
+            try:
+                eps[which] = unet_forward().float()
+                want = unet_attn if which == "K1" else 0
+                check(flash_attention.launches == want,
+                      f"UNet forward ({which}): {flash_attention.launches} "
+                      f"K1 launches, expected {want}")
+                lats[which] = ad.denoise(
+                    lat * ad.scheduler.init_noise_sigma, pe, pe_neg, pooled,
+                    pooled_neg, tids, GEN_GUIDANCE, SHORT_STEPS)
+            finally:
+                port_ops.flash_attention = flash_attention
+        unet_ms = time_ms(unet_forward, iters=5)
+        prof = profile_call(unet_forward)
+    for x in (*eps.values(), *lats.values()):
+        check(bool(torch.isfinite(x).all()), "non-finite UNet output")
+    eps_k1 = agreement(eps["K1"], eps["plain"])
+    eps_ctl = agreement(eps["plain_p_bf16"], eps["plain"])
+    lat_k1 = agreement(lats["K1"], lats["plain"])
+    lat_ctl = agreement(lats["plain_p_bf16"], lats["plain"])
+    print(f"[check] SDXL UNet ε at the request's first step (full width, "
+          f"{list(lat_in.shape)}), K1 vs plain attention: cos "
+          f"{eps_k1['cos']:.6f}, relative RMS {eps_k1['rel_rms']:.4f}; "
+          f"control (plain with P in bf16 vs plain): cos "
+          f"{eps_ctl['cos']:.6f}, relative RMS {eps_ctl['rel_rms']:.4f}",
+          flush=True)
+    print(f"[check] final latents of a {SHORT_STEPS}-step run (seed "
+          f"{GEN_SEED}), K1 vs plain: cos {lat_k1['cos']:.6f}, relative RMS "
+          f"{lat_k1['rel_rms']:.4f}; control: cos {lat_ctl['cos']:.6f}, "
+          f"relative RMS {lat_ctl['rel_rms']:.4f}", flush=True)
+    check(eps_k1["cos"] >= UNET_COS, f"UNet ε K1 vs plain: {eps_k1}")
+    check(lat_k1["cos"] >= UNET_COS, f"final latents K1 vs plain: {lat_k1}")
+    print(f"[detok] one UNet forward (batch 2, K1): {unet_ms:.2f} ms on "
+          f"CUDA events, back to back", flush=True)
+    print_profile("one UNet forward (batch 2, 1024²)", *prof)
+    engine.close()
+    del engine, model, ad, served, eps, lats, feats
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": got, "params": parts, "build_s": build_s,
+            "wall_s": wall, "timings": t, "ms_per_unet_step": ms_step,
+            "peak_gib": peak, "image": [img.format, *img.size],
+            "unet_forward_ms": unet_ms, "eps": eps_k1, "eps_control": eps_ctl,
+            "latents": lat_k1, "latents_control": lat_ctl,
+            "profile": {"wall_ms": prof[0], "busy_ms": prof[1],
+                        "top": prof[2]}}
 
 
 def main():
@@ -2932,6 +3360,8 @@ def main():
     caption_len = 1 + len(engine.tokenizer.encode(SEEDX_CAPTION + BOI_TOKEN))
     seedx_cases = seedx_kernel_cases(n_tiles, s_img, caption_len)
     edges = k1_edge_sweep()
+    # the SDXL UNet's attentions at 1024² (phase 11's request)
+    unet_cases, unet_mix = unet_kernel_cases()
     qrows = quant_rows(lm_cfg, s_img, bucket, WORKER["num_slots"])
     seedx_lm = seedx_specs()[3]
     qrows13 = quant_rows(seedx_lm, s_img, bucket, WORKER["num_slots"],
@@ -2942,6 +3372,13 @@ def main():
     # -- 4. the bf16 path, counts set to 0 before each request ---------
     launches, quant_prefill = serve(engine, requests, preps, "bf16",
                                     lm_cfg)
+    single_graph = {"bf16": single_graph_check(engine, requests,
+                                               "bf16 graphed vs eager")}
+    single_graph["bf16_mix"] = graph_mix(
+        engine.generator,
+        [(lab, functools.partial(engine.comprehension, q, b))
+         for lab, (q, b) in zip(("896x896", "384x1152", "text"), requests)],
+        "bf16")
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 4b",
           flush=True)
@@ -2970,7 +3407,9 @@ def main():
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 6",
           flush=True)
-    # -- 6. how busy the device is during a text-only request ----------
+    # -- 6. how busy the device is during a text-only request (its decode
+    #       step's graph captured by a first call, outside the trace) ----
+    engine.comprehension(*requests[2], PROFILED_TOKENS)
     print_profile(f"text request ({PROFILED_TOKENS} tokens)", *profile_call(
         lambda: engine.comprehension(*requests[2], PROFILED_TOKENS)))
 
@@ -3077,6 +3516,29 @@ def main():
         launches[k] += seedx["launches"][k]
     quant_prefill[8] += seedx["int8_prefill_launches"]
 
+    print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 11",
+          flush=True)
+    # -- 11. the SDXL de-tokenizer: an image_gen POST through the worker -
+    detok = detokenizer_phase()
+    for k in launches:
+        launches[k] += detok["launches"][k]
+    unet_forward = k1_mix(unet_cases, unet_mix, "one SDXL UNet forward "
+                          "(CFG batch 2, 1024x1024)")
+    unet_image = {k: v * GEN_STEPS if k in ("ms", "plain_ms", "bound_ms",
+                                           "library_ms") else v
+                  for k, v in unet_forward.items()}
+    unet_image["ms_basis"] = (f"one {GEN_STEPS}-step 1024x1024 image: "
+                              + unet_forward["ms_basis"] + f", x {GEN_STEPS}")
+    print(f"[K1] SDXL UNet per forward ({sum(unet_mix.values()) // 2} "
+          f"transformer blocks, {sum(unet_mix.values())} launches): "
+          f"kernel {unet_forward['ms']:.3f} ms, plain "
+          f"{unet_forward['plain_ms']:.3f} ms, SDPA "
+          f"{unet_forward['library_ms']:.3f} ms, bound "
+          f"{unet_forward['bound_ms']:.3f} ms ({unet_forward['bound_by']}, "
+          f"{100 * unet_forward['bound_share']:.1f}% of it); per image x "
+          f"{GEN_STEPS}: kernel {unet_image['ms']:.1f} ms, SDPA "
+          f"{unet_image['library_ms']:.1f} ms", flush=True)
+
     L13 = seedx_lm.num_hidden_layers
     seedx_image = k1_mix(seedx_cases, {
         "seedx_llama2_prefill": L13, "seedx_qwen_vit": seedx_specs()[0].layers,
@@ -3090,7 +3552,8 @@ def main():
         "source": "mllm_npu_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "mllm_npu_tpu/ops/flash_attention.py:100",
         "launches": launches["flash_fwd"],
-        "max_abs_err": max(c["max_abs_err"] for c in cases + seedx_cases),
+        "max_abs_err": max(c["max_abs_err"]
+                           for c in cases + seedx_cases + unet_cases),
         **k1_mix(cases, {"llama_prefill": lm_cfg.num_hidden_layers,
                          "siglip": vis_cfg.num_hidden_layers,
                          "resampler": 1}, "one 896x896 request"),
@@ -3101,6 +3564,10 @@ def main():
         "seedx_image_request": seedx_image,
         "seedx_caption_request": seedx_caption,
         "seedx_shapes": seedx_cases,
+        "unet_forward": unet_forward,
+        "unet_image": unet_image,
+        "unet_shapes": unet_cases,
+        "detokenizer_request_launches": detok["launches"]["flash_fwd"],
     }]
     tmix = {"llama_train": lm_cfg.num_hidden_layers, "resampler_train": 1}
     tby = {b["flash_bwd_dq"]["shape"]: b for b in bwd}
@@ -3240,7 +3707,9 @@ def main():
     print("[train] summary " + json.dumps(
         {k: v for k, v in train.items() if k != "profile"}))
     print("[worker] summary " + json.dumps(worker, default=str))
+    print("[single] summary " + json.dumps(single_graph))
     print("[seedx] summary " + json.dumps(seedx, default=str))
+    print("[detok] summary " + json.dumps(detok, default=str))
     print(f"[time] {time.perf_counter() - t_start:.1f} s: all phases done",
           flush=True)
     print(json.dumps({"kernels": rows}))

@@ -1,6 +1,6 @@
 """Builders targeted by the port's YAML configs (twins of
 ``mllm_npu_tpu/models/factory.py`` :123, :137, :149, :231, :245, :264,
-:291, :318).
+:291, :318, and the de-tokenizer's :410 ``build_sdxl_adapter``).
 
 Component builders return a :class:`ModelSpec` (config plus constructor)
 and build nothing; :func:`build_mllm` and :func:`build_seed` build the
@@ -174,7 +174,8 @@ def init_random_(module: nn.Module, seed: int = 0, std: float = 0.02
                  ) -> nn.Module:
     """Fill every parameter from one seeded generator on its device:
     normal(0, std) for weights (LoRA B included, so adapters compute),
-    zeros for biases, ones for norm scales."""
+    zeros for biases, ones for norm scales (RMS, layer and group
+    norms)."""
     dev = next(module.parameters()).device
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
@@ -185,7 +186,7 @@ def init_random_(module: nn.Module, seed: int = 0, std: float = 0.02
             else:
                 p.normal_(0.0, std, generator=g)
         for m in module.modules():
-            if isinstance(m, (RMSNorm, nn.LayerNorm)):
+            if isinstance(m, (RMSNorm, nn.LayerNorm, nn.GroupNorm)):
                 m.weight.fill_(1.0)
     return module
 
@@ -299,3 +300,71 @@ def _materialize_assembly(make, freeze_vision_encoder, *, device,
             return frozen_parameter_names(model, freeze_vision_encoder)
     return materialize(make, device=device, param_dtype=param_dtype,
                        seed=seed, frozen=frozen)
+
+
+def build_sdxl_adapter(resampler: Optional[dict] = None,
+                       unet_checkpoint: Optional[str] = None,
+                       vae_checkpoint: Optional[str] = None,
+                       adapter_checkpoint: Optional[str] = None,
+                       vit_down: bool = False,
+                       with_latent_image: bool = False,
+                       visual_encoder: Optional[nn.Module] = None,
+                       scheduler=None, *, device=None,
+                       param_dtype=torch.bfloat16, seed: int = 0):
+    """The SDXL de-tokenizer (twin of the reference's
+    ``build_sdxl_adapter``, ``factory.py:410-506``): the SDXL-base UNet,
+    the SDXL VAE and the resampler (``resampler``: its keywords, a node of
+    the generation config; a ``_target_`` picks the class, ResamplerXL by
+    default), seeded weights on ``device`` (``cuda`` unless named) stored
+    and computed in ``param_dtype``, an Euler scheduler unless another is
+    given, and ``visual_encoder`` (the SEED model's vision encoder) for the
+    zero-image negative. Under ``DEBUG_FLAG`` everything is the tiny
+    configs (the resampler's input width the tiny vision encoder's, as
+    the tiny SEED output projector's). A configured checkpoint path that
+    exists raises (loading is queue 1 item 16); the 8-channel edit UNet
+    (``with_latent_image``) is queue 1 item 14b."""
+    from mllm_npu_tpu_torch.configs import resolve_target
+    from mllm_npu_tpu_torch.models.generation.adapter_modules import (
+        SDXLAdapter)
+    from mllm_npu_tpu_torch.models.generation.resampler import ResamplerXL
+    from mllm_npu_tpu_torch.models.generation.schedulers import (
+        EulerDiscreteScheduler)
+    from mllm_npu_tpu_torch.models.generation.unet import (
+        UNet2DConditionModel, UNetConfig)
+    from mllm_npu_tpu_torch.models.generation.vae import (AutoencoderKL,
+                                                          VAEConfig)
+
+    if with_latent_image:
+        raise NotImplementedError(
+            "SDXLAdapterWithLatentImage (the 8-channel edit UNet) is not "
+            "ported yet (ROADMAP queue 1 item 14b)")
+    for path in (unet_checkpoint, vae_checkpoint, adapter_checkpoint):
+        _no_checkpoint(path)
+    resampler = dict(resampler or {})
+    cls = resolve_target(resampler.pop("_target_")) \
+        if "_target_" in resampler else ResamplerXL
+    if _debug():
+        ucfg, vcfg = UNetConfig.tiny(), VAEConfig.tiny()
+        # the features' width: the tiny vision encoder's (the negative)
+        # and the tiny output projector's are both 128
+        width = (visual_encoder.config.output_dim if visual_encoder
+                 is not None else 128)
+        rkw = dict(dim=32, depth=1, dim_head=8, heads=4, num_queries=4,
+                   embedding_dim=width, output1_dim=32, output2_dim=32)
+    else:
+        ucfg, vcfg = UNetConfig.sdxl_base(), VAEConfig.sdxl()
+        rkw = dict(dim=1024, depth=4, dim_head=64, heads=16, num_queries=64,
+                   embedding_dim=4096, output1_dim=768, output2_dim=1280)
+        rkw.update({k: v for k, v in resampler.items()
+                    if not k.startswith("_")})
+    dt = param_dtype
+    mk = lambda make, s: materialize(make, device=device, param_dtype=dt,
+                                     seed=s)
+    adapter = SDXLAdapter(
+        unet=mk(lambda: UNet2DConditionModel(ucfg, dtype=dt), seed),
+        resampler=mk(lambda: cls(**rkw, dtype=dt), seed + 1),
+        vit_down=vit_down)
+    adapter.init_pipe(mk(lambda: AutoencoderKL(vcfg, dtype=dt), seed + 2),
+                      scheduler or EulerDiscreteScheduler(),
+                      visual_encoder=visual_encoder)
+    return adapter

@@ -2,8 +2,9 @@
 prompt-lookup speculative (twin of
 ``mllm_npu_tpu/models/generation/sampler.py``: ``ImageTokenLadder``,
 ``ladder_from_tokenizer``, ``apply_image_ladder``, ``ladder_propose``,
-``sample_rows``, ``_sample``, ``decode_loop``, ``speculative_decode_loop``
-and ``extract_img_windows``). The decode loops return each emitted token's
+``sample_rows``, ``_sample``, ``speculative_decode_loop`` and
+``extract_img_windows``; the one-token ``decode_loop`` is
+``generate.py DecodeStep``). The decode loops return each emitted token's
 hidden state beside it, from which the SEED path cuts the image windows.
 
 Random numbers: ``jax.random``'s bits are not reproduced. A sampled row's
@@ -196,45 +197,6 @@ def pick(logits: torch.Tensor, cfg: SamplingConfig, seeds: torch.Tensor,
                        full(True, torch.bool))
 
 
-def decode_loop(step_fn: Callable, cache, first_token: torch.Tensor,
-                first_hidden: torch.Tensor, cfg: SamplingConfig,
-                ladder: Optional[ImageTokenLadder] = None,
-                seeds: Optional[torch.Tensor] = None):
-    """step_fn(token [B, 1], cache) → (logits [B, V] fp32, hidden [B, D],
-    cache).
-
-    Returns (tokens [B, max_new_tokens], hiddens [B, max_new_tokens, D],
-    done [B], steps run): the first token and its hidden state
-    (``first_hidden`` [B, D], the prompt's last position) from the prefill,
-    then one of each per step until every row has emitted EOS; a row pads
-    with ``pad_token_id`` after its EOS, and steps after all rows are done
-    are not run (their columns stay 0, as in the reference). Column t of
-    ``hiddens`` is the hidden state token t was chosen from. With
-    ``cfg.do_sample`` row b samples with ``seeds[b]``."""
-    B = first_token.shape[0]
-    T = cfg.max_new_tokens
-    dev = first_token.device
-    tokens = torch.zeros((B, T), dtype=torch.long, device=dev)
-    hiddens = torch.zeros((B, T, first_hidden.shape[-1]),
-                          dtype=first_hidden.dtype, device=dev)
-    tokens[:, 0] = first_token
-    hiddens[:, 0] = first_hidden
-    done = first_token == cfg.eos_token_id
-    t = 1
-    while t < T and not bool(done.all()):
-        cur = tokens[:, t - 1:t]
-        logits, h, cache = step_fn(cur, cache)
-        if ladder is not None:
-            logits = apply_image_ladder(logits, cur[:, 0], ladder)
-        nxt = pick(logits, cfg, seeds, t)
-        nxt = torch.where(done, torch.full_like(nxt, cfg.pad_token_id), nxt)
-        tokens[:, t] = nxt
-        hiddens[:, t] = h
-        done = done | (nxt == cfg.eos_token_id)
-        t += 1
-    return tokens, hiddens, done, t - 1
-
-
 def lookup_proposals(hist: torch.Tensor, end: torch.Tensor, k: int,
                      ngram: int, pad: int, first: int = 0) -> torch.Tensor:
     """Prompt-lookup proposals for every row: the k tokens that followed
@@ -274,7 +236,8 @@ def speculative_decode_loop(step_multi: Callable, cache,
     ``speculative_decode_loop``): each iteration proposes k tokens from
     the context's own history (the ladder's forced chain inside it),
     verifies [cur, proposals] in one forward and keeps the matching
-    prefix and the token after it, so the ids equal :func:`decode_loop`'s.
+    prefix and the token after it, so the ids equal the one-token decode's
+    (``generate.py DecodeStep``).
 
     step_multi(toks [1, k+1], cache) → (logits [1, k+1, V], hidden
     [1, k+1, D], cache): the forward writes k+1 keys from ``cache["pos"]``
@@ -285,7 +248,7 @@ def speculative_decode_loop(step_multi: Callable, cache,
     needs k of headroom. Returns (tokens [1, T], hiddens [1, T, D], done
     [1], verify forwards): an emitted token's hidden state is the verify
     forward's row at its position (``first_hidden`` [1, D] the prefill's),
-    as :func:`decode_loop`'s; past the last token both are 0."""
+    as the one-token decode's; past the last token both are 0."""
     if cfg.do_sample:
         raise ValueError("speculative decode is greedy-only")
     if first_token.shape[0] != 1:

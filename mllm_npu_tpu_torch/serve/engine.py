@@ -10,7 +10,10 @@ projector's features. ``InferenceEngine`` serves one request per call;
 the continuous-batching engine and the rest through its single-request
 generator. Both take the reference's serving options: the KV cache's
 dtype, fused projections and prompt-lookup speculation. ``generation``
-(the de-tokenizer, features → image) raises until queue 1 item 14.
+(caption → image): the features through the SDXL de-tokenizer
+(``adapter``, ``models/generation/adapter_modules.SDXLAdapter``) at its
+native size, 50 Euler steps, guidance 7.5, as a b64 JPEG; it runs on the
+calling thread through the single-request generator, as the reference's.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import logging
 import queue
 import re
 import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -53,9 +57,10 @@ class InferenceEngine:
     weights and ``fuse_projections`` with fused q/k/v and gate/up products
     (``MLLMGenerator``, converted in place on ``device``); ``cache_dtype``
     is the KV cache's; ``speculative_k`` > 0 decodes a request by
-    prompt-lookup speculation."""
+    prompt-lookup speculation. ``adapter`` is the de-tokenizer that
+    :meth:`generation` needs (None: it raises)."""
 
-    def __init__(self, *, model, tokenizer, image_transform,
+    def __init__(self, *, model, tokenizer, image_transform, adapter=None,
                  resolution_grids=DEFAULT_RESOLUTION_GRIDS,
                  base_resolution: int = 448,
                  num_img_in_tokens: int = NUM_IMG_TOKENS,
@@ -66,6 +71,8 @@ class InferenceEngine:
                  cache_dtype: torch.dtype = CACHE_DTYPE,
                  speculative_k: int = 0, speculative_ngram: int = 3):
         self.device = resolve_device(device)
+        self.adapter = adapter
+        self.last_timings: dict = {}
         self.tokenizer = tokenizer
         self.image_transform = image_transform
         self.base_resolution = base_resolution
@@ -187,10 +194,35 @@ class InferenceEngine:
     def generation(self, input_text: str, num_inference_steps: int = 50
                    ) -> str:
         """Caption → b64 JPEG: the features of
-        :meth:`text_to_image_features` through the SDXL de-tokenizer."""
-        raise NotImplementedError(
-            "image generation needs the SDXL de-tokenizer, which is not "
-            "ported yet (ROADMAP queue 1 item 14)")
+        :meth:`text_to_image_features` through the SDXL de-tokenizer at its
+        native size (the UNet's sample size times the VAE's scale: 1024 for
+        SDXL-base), guidance 7.5, the zero-image negative at
+        ``base_resolution``.
+        ``last_timings`` records the features' and the adapter's times."""
+        if self.adapter is None:
+            raise RuntimeError("no de-tokenizer adapter loaded (the worker's "
+                               "--generation-config)")
+        t0 = time.perf_counter()
+        # the forced ladder and </img> (one more for the margin): the first
+        # window's hidden states, all the adapter reads, do not depend on
+        # the tokens after it, so the decode stops there
+        out = self.text_to_image_features(
+            input_text, max_new_tokens=self.num_img_out_tokens + 2)
+        if not out.get("has_img_output"):
+            raise RuntimeError("model produced no image tokens")
+        features_s = time.perf_counter() - t0
+        size = (self.adapter.unet.config.sample_size
+                * self.adapter.vae.config.spatial_scale_factor)
+        images = self.adapter.generate(
+            image_embeds=out["img_gen_feat"], height=size, width=size,
+            num_inference_steps=num_inference_steps,
+            input_image_size=self.base_resolution)
+        buf = io.BytesIO()
+        images[0].save(buf, format="JPEG")
+        self.last_timings = {"features_s": features_s,
+                             **self.adapter.last_timings,
+                             "request_s": time.perf_counter() - t0}
+        return base64.b64encode(buf.getvalue()).decode("utf-8")
 
 
 class BatchedInferenceEngine(InferenceEngine):

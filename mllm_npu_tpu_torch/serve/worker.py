@@ -112,9 +112,9 @@ class ModelWorker:
     def generate_gate(self, params: dict):
         """Generator of ``b"\\0"``-delimited JSON chunks with the
         reference's error codes: 0 ok, 1 a ``ValueError`` (a bad image or
-        prompt), 3 anything else (an ``image_gen`` request among them,
-        until the de-tokenizer is ported: its ``NotImplementedError`` names
-        queue 1 item 14 in the worker's log)."""
+        prompt), 3 anything else (an ``image_gen`` request to a worker
+        built without ``--generation-config`` among them). An ``image_gen``
+        reply carries the b64 JPEG in ``image``."""
         try:
             if params.get("image_gen"):
                 image_b64 = self.engine.generation(params["input_text"])
@@ -231,7 +231,8 @@ def load_engine_from_config(model_config_path: str,
                             fuse_projections: bool = False,
                             speculative_k: int = 0,
                             speculative_ngram: int = 3,
-                            kv_cache_dtype: str = "bf16", *, device=None,
+                            kv_cache_dtype: str = "bf16",
+                            generation_config=None, *, device=None,
                             seed: int = 0, fake_tokenizer: bool = False):
     """The worker's engine from a model YAML (the comprehension assembly or
     SEED), weights drawn from ``seed`` (checkpoint loading is not ported
@@ -240,7 +241,11 @@ def load_engine_from_config(model_config_path: str,
     vocab instead of the config's tokenizer. ``batched`` gives a
     :class:`BatchedInferenceEngine` with ``max_prompt = max_len // 2``, as
     the reference's worker. ``kv_cache_dtype`` is ``bf16``, ``fp8`` (e4m3:
-    half the cache's memory and its read traffic) or ``f32``."""
+    half the cache's memory and its read traffic) or ``f32``.
+    ``generation_config`` (a YAML, ``configs/generation/sd_xl_resampler.
+    yaml``) builds the SDXL de-tokenizer (``factory.build_sdxl_adapter``,
+    weights from ``seed``) over the SEED model's vision encoder, for
+    ``image_gen`` requests."""
     from mllm_npu_tpu_torch.configs import instantiate, load_config
     from mllm_npu_tpu_torch.serve.engine import (BatchedInferenceEngine,
                                                  InferenceEngine)
@@ -257,7 +262,13 @@ def load_engine_from_config(model_config_path: str,
     else:
         tokenizer = _load_tokenizer(cfg["tokenizer"], llm.config.vocab_size)
     nq = model.projector.num_queries
-    common = dict(model=model, tokenizer=tokenizer,
+    adapter = None
+    if generation_config:
+        from mllm_npu_tpu_torch.models.factory import build_sdxl_adapter
+        adapter = build_sdxl_adapter(**load_config(generation_config),
+                                     visual_encoder=model.vision_encoder,
+                                     device=device, seed=seed)
+    common = dict(model=model, tokenizer=tokenizer, adapter=adapter,
                   image_transform=instantiate(cfg["processor"]),
                   num_img_in_tokens=nq, num_img_out_tokens=nq,
                   max_new_tokens=max_new_tokens, device=device,
@@ -280,7 +291,6 @@ UNPORTED_FLAGS = {
     "tensor_parallel": (1, "tensor-parallel serving, queue 1 item 12"),
     "params_checkpoint": (None, "loading orbax checkpoints, queue 1 item "
                                 "16"),
-    "generation_config": (None, "the SDXL de-tokenizer, queue 1 item 14"),
     "cast_bf16": (True, "serving fp32 weights (--no-cast-bf16: fp32 "
                         "serving needs K1 for fp32 operands), queue 1 "
                         "item 10c"),
@@ -303,7 +313,7 @@ def parse_worker_args(argv=None):
     parser.add_argument("--model-name", type=str, default="seed-x")
     parser.add_argument("--model-config", type=str, default=None)
     parser.add_argument("--generation-config", type=str, default=None,
-                        help="not ported yet (raises)")
+                        help="the de-tokenizer's YAML (image_gen requests)")
     parser.add_argument("--limit-model-concurrency", type=int, default=5)
     parser.add_argument("--no-register", action="store_true")
     parser.add_argument("--batched", action=argparse.BooleanOptionalAction,
@@ -396,7 +406,8 @@ def main(argv=None):
         fuse_projections=args.fuse_projections,
         speculative_k=args.speculative_k,
         speculative_ngram=args.speculative_ngram,
-        kv_cache_dtype=args.kv_cache_dtype, device=args.device,
+        kv_cache_dtype=args.kv_cache_dtype,
+        generation_config=args.generation_config, device=args.device,
         seed=args.seed)
     if args.batched:
         args.limit_model_concurrency = max(args.limit_model_concurrency,

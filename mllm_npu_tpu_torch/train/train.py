@@ -108,7 +108,7 @@ def _refuse_unported(args: TrainArgs) -> None:
     if bad:
         raise NotImplementedError(
             f"{bad}: meshes over several devices are the parallel slice "
-            "(ROADMAP queue 1, slice 4 item 12), not ported yet")
+            "(ROADMAP queue 1 item 12), not ported yet")
     if args.quantize_base:
         raise NotImplementedError(
             "--quantize_base (LoRA over an int8/int4 base and the quantized "

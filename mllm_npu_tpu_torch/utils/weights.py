@@ -19,6 +19,17 @@ for SEED (its output projector too). It undoes:
   (int8) or [K/2, N] (packed int4) → ``weight_q`` [N, K] or [N, K/2], its
   transpose; ``scale`` [N] and ``scale_g`` [K/G, N] as they are.
 
+The de-tokenizer's parts go across by name rules instead
+(:func:`unet_from_jax`, :func:`vae_from_jax`, :func:`perceiver_from_jax`,
+also reached from :func:`from_jax_params`): every leaf keeps its module
+path with the reference's flattened block names turned into diffusers'
+(``down_1_attn_0/blocks_0`` → ``down_blocks.1.attentions.0.
+transformer_blocks.0``) or the perceiver checkpoint's (``core/attn_0`` →
+``layers.0.0``), a 4-D ``kernel`` HWIO → OIHW, a 2-D one transposed, a
+norm's ``scale`` → ``weight``; the inverses are the reference's
+``torch_to_flax_unet``, ``torch_to_flax_vae`` and
+``torch_to_flax_perceiver``.
+
 It also holds the port's serving transforms, :func:`merge_lora_`,
 :func:`fuse_llama_projections_` and :func:`quantize_llama_` (twins of
 ``merge_lora_params``, ``fuse_llama_projections`` with one shard and
@@ -30,6 +41,7 @@ so a full-width model is never held twice.
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Dict
 
 import numpy as np
@@ -194,10 +206,94 @@ def qwen_vit_from_jax(tree: dict, prefix: str = ""
     return sd
 
 
+def _named_leaves(node: dict, path=()):
+    for k, v in node.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def _renamed(tree: dict, rules) -> Dict[str, torch.Tensor]:
+    """Every leaf of ``tree`` under its dotted path rewritten by ``rules``
+    (regex, replacement), applied in order: kernels to torch's layout,
+    norm scales to ``weight``."""
+    sd = {}
+    for path, x in _named_leaves(tree):
+        x = np.asarray(x)
+        *mods, leaf = path
+        if leaf == "kernel":
+            leaf, x = "weight", (x.transpose(3, 2, 0, 1) if x.ndim == 4
+                                 else x.T)
+        elif leaf == "scale":
+            leaf = "weight"
+        key = ".".join(mods + [leaf])
+        for pat, rep in rules:
+            key = re.sub(pat, rep, key)
+        sd[key] = _t(x)
+    return sd
+
+
+_BLOCK_RULES = (
+    (r"^(\w+\.)?down_(\d+)_res_(\d+)\.", r"\1down_blocks.\2.resnets.\3."),
+    (r"^(\w+\.)?up_(\d+)_res_(\d+)\.", r"\1up_blocks.\2.resnets.\3."),
+    (r"^down_(\d+)_attn_(\d+)\.", r"down_blocks.\1.attentions.\2."),
+    (r"^up_(\d+)_attn_(\d+)\.", r"up_blocks.\1.attentions.\2."),
+    # the UNet's resamplers hold a ``conv``; the VAE's are the conv itself
+    (r"^down_(\d+)_downsample\.", r"down_blocks.\1.downsamplers.0."),
+    (r"^up_(\d+)_upsample\.", r"up_blocks.\1.upsamplers.0."),
+    (r"^(\w+)\.down_(\d+)_downsample\.", r"\1.down_blocks.\2.downsamplers.0.conv."),
+    (r"^(\w+)\.up_(\d+)_upsample\.", r"\1.up_blocks.\2.upsamplers.0.conv."),
+    (r"^(\w+\.)?mid_res_(\d+)\.", r"\1mid_block.resnets.\2."),
+    (r"^(\w+\.)?mid_attn\.", r"\1mid_block.attentions.0."),
+    (r"\.blocks_(\d+)\.", r".transformer_blocks.\1."),
+    (r"\.to_out\.", ".to_out.0."),
+    (r"\.ff\.proj\.", ".ff.net.0.proj."),
+    (r"\.ff\.out\.", ".ff.net.2."),
+)
+
+
+def unet_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
+    """Reference ``UNet2DConditionModel`` params → the port's state_dict
+    (diffusers names; the IP-Adapter's ``to_k_ip``/``to_v_ip`` too)."""
+    return _renamed(tree, _BLOCK_RULES)
+
+
+def vae_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
+    """Reference ``AutoencoderKL`` params → state_dict (diffusers names,
+    the modern ``to_q``/``to_out.0`` attention layout)."""
+    return _renamed(tree, _BLOCK_RULES)
+
+
+_PERCEIVER_RULES = (
+    (r"^core\.latents$", "latents"),
+    (r"^core\.attn_(\d+)\.", r"layers.\1.0."),
+    (r"^core\.ff_(\d+)\.norm\.", r"layers.\1.1.0."),
+    (r"^core\.ff_(\d+)\.fc1\.", r"layers.\1.1.1."),
+    (r"^core\.ff_(\d+)\.fc2\.", r"layers.\1.1.3."),
+)
+
+
+def perceiver_from_jax(tree: dict, prefix: str = ""
+                       ) -> Dict[str, torch.Tensor]:
+    """Reference ``Resampler`` / ``ResamplerXL(V2)`` params → state_dict
+    (the reference's torch checkpoint names)."""
+    return {prefix + k: v for k, v in _renamed(tree, _PERCEIVER_RULES).items()}
+
+
 def from_jax_params(tree: dict) -> Dict[str, torch.Tensor]:
     """Reference ``GeneralizedMultimodalModel`` or ``SEED`` params (SigLIP
-    or Qwen-ViT tower) → the port's state_dict (fp32 CPU tensors;
-    ``load_state_dict`` casts and moves)."""
+    or Qwen-ViT tower), or one of the de-tokenizer's parts (the UNet, the
+    VAE, a perceiver resampler), → the port's state_dict (fp32 CPU
+    tensors; ``load_state_dict`` casts and moves)."""
+    if "language_model" not in tree:
+        if "core" in tree:
+            return perceiver_from_jax(tree)
+        if "encoder" in tree and "decoder" in tree:
+            return vae_from_jax(tree)
+        if "conv_in" in tree and "time_embedding" in tree:
+            return unet_from_jax(tree)
+        raise ValueError(f"unknown parameter tree: {sorted(tree)[:8]}")
     sd = {}
     sd.update(llama_from_jax(tree["language_model"], "language_model."))
     vision = tree["vision_encoder"]

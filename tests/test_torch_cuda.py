@@ -1,7 +1,8 @@
 """K1 (with and without its LSE), K2, K3, K4 and K5 on the GPU against
-their plain versions, and the batched engine's decode block captured as a
-CUDA graph against the same block run eagerly (skipped without a CUDA
-card).
+their plain versions, the batched engine's decode block and the
+single-request generator's decode step captured as CUDA graphs against the
+same work run eagerly, and ``decode_attention`` over the cache as stored
+(skipped without a CUDA card).
 
 Run on the GPU machine with
 ``python -m pytest --noconftest tests/test_torch_cuda.py`` (the suite's
@@ -125,6 +126,12 @@ K1_CASES = [
     (2, 129, 129, 8, 2, 136, True, 100, "bshd"),
     (1, 300, 300, 4, 4, 152, False, None, "fused"),
     (2, 65, 63, 8, 8, 160, True, None, "bshd"),
+    # the SDXL UNet at 1024² (CFG batch 2, D = 64): self-attention at the
+    # 64×64 and 32×32 levels, cross-attention over the resampler's 64 tokens
+    (2, 4096, 4096, 10, 10, 64, False, None, "bshd"),
+    (2, 1024, 1024, 20, 20, 64, False, None, "bshd"),
+    (2, 4096, 64, 10, 10, 64, False, None, "bshd"),
+    (2, 1024, 64, 20, 20, 64, False, None, "bshd"),
 ]
 
 
@@ -755,3 +762,108 @@ def test_graphed_sampled_rows_match_eager(cuda, k):
     got = run(graphed, prompts, range(6))
     assert got == want
     assert run(graphed, prompts[2:3], [2]) == [got[2]]
+
+
+# -- the single-request decode step as a CUDA graph ------------------------
+
+def _generator(model, graphed, T=20):
+    from mllm_npu_tpu_torch.models.generation.generate import MLLMGenerator
+    from mllm_npu_tpu_torch.models.generation.sampler import SamplingConfig
+    from mllm_npu_tpu_torch.models.generation.sampler import (
+        ImageTokenLadder)
+    from mllm_npu_tpu_torch.utils.fake_tokenizer import FakeTokenizer
+    tok = FakeTokenizer()
+    ladder = ImageTokenLadder(ids=tuple(
+        [tok.special["<img>"]] + [tok.special[f"<img_{i:05d}>"]
+                                  for i in range(4)]
+        + [tok.special["</img>"]]))
+    return MLLMGenerator(model, sampling=SamplingConfig(max_new_tokens=T),
+                         ladder=ladder, cuda_graph=graphed)
+
+
+@pytest.mark.parametrize("bits", [None, 8])
+def test_graphed_single_request_decode_matches_eager(cuda, bits):
+    """One generator replays a captured decode step, the other runs it
+    eagerly, on the same model: the same ids and hidden states for single
+    prompts (one ending in <img>: the forced ladder), a right-padded batch
+    of two and sampled rows; a graph is captured once per (batch, cache
+    bucket, greedy or sampled) by a call's first decode step, each later
+    token is one replay, and other temperatures, top-p values and token
+    budgets replay the same graph."""
+    import dataclasses
+    model = _tiny_serving_model(cuda, bits)
+    g, e = _generator(model, True), _generator(model, False)
+    prompts = _prompts(3, seed=4) + [[3, 17, 10]]
+    for i, p in enumerate(prompts):
+        ids = torch.tensor([p], device=cuda)
+        got, want = g.generate(ids), e.generate(ids)
+        assert got["generate_ids"].tolist() == want["generate_ids"].tolist()
+        assert torch.equal(got["hidden_states"], want["hidden_states"])
+        t = g.last_timings
+        assert t["graph_captured"] == (i == 0)
+        assert t["graph_replays"] + (i == 0) == t["decode_steps"] > 0
+        assert e.last_timings["graph_replays"] == 0
+    assert got["generate_ids"][0, :5].tolist() == [20, 21, 22, 23, 11]
+    a, b = prompts[0], prompts[1]
+    n = max(len(a), len(b))
+    ids = torch.tensor([a + [0] * (n - len(a)), b + [0] * (n - len(b))],
+                       device=cuda)
+    pm = torch.tensor([[1] * len(a) + [0] * (n - len(a)),
+                       [1] * len(b) + [0] * (n - len(b))], device=cuda)
+    sampled = dataclasses.replace(g.sampling, do_sample=True,
+                                  temperature=0.7, top_p=0.9)
+    hotter = dataclasses.replace(sampled, temperature=1.3, top_p=0.8,
+                                 max_new_tokens=12)
+    for kw, captures in (
+            (dict(prompt_mask=pm), True),
+            (dict(prompt_mask=pm, sampling=sampled, seed=5), True),
+            (dict(prompt_mask=pm, sampling=hotter, seed=6), False)):
+        got, want = g.generate(ids, **kw), e.generate(ids, **kw)
+        assert got["generate_ids"].tolist() == want["generate_ids"].tolist()
+        assert g.last_timings["graph_captured"] == captures
+    assert len(g._graphs) == 3
+
+
+def test_decode_attention_reads_the_cache_as_stored(cuda):
+    """A SEED-X-sized slot cache in bf16 (8 rows × 2048 × 40 heads × 128):
+    the attention allocates nothing of the cache's size (the fp32 widening
+    took two copies of twice its size), and agrees with the widened fp32
+    products within the bf16 rounding of P (2e-3 on outputs of order 1)."""
+    from mllm_npu_tpu_torch.ops.attention import decode_attention
+    g = torch.Generator(device=cuda).manual_seed(0)
+    B, Sk, H, D = 8, 2048, 40, 128
+    k = torch.randn(B, Sk, H, D, device=cuda, generator=g).bfloat16()
+    v = torch.randn(B, Sk, H, D, device=cuda, generator=g).bfloat16()
+    q = torch.randn(B, 1, H, D, device=cuda, generator=g).bfloat16()
+    kc = torch.randn(B, 1, H, D, device=cuda, generator=g).bfloat16()
+    vc = torch.randn(B, 1, H, D, device=cuda, generator=g).bfloat16()
+    lens = torch.randint(1, Sk, (B,), device=cuda, generator=g)
+    am = (torch.arange(Sk, device=cuda)[None] < lens[:, None])[:, None, None]
+    decode_attention(q, k, v, am, k_cur=kc, v_cur=vc)     # warm cuBLAS
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = decode_attention(q, k, v, am, k_cur=kc, v_cur=vc)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert extra < 0.1 * k.numel() * k.element_size(), extra
+    ref = decode_attention(q.cpu(), k.cpu(), v.cpu(), am.cpu(), k_cur=kc.cpu(),
+                           v_cur=vc.cpu())
+    assert ((out.float().cpu() - ref.float()).abs() <= 2e-3
+            + 1e-2 * ref.float().abs()).all()
+
+
+def test_decode_graph_follows_weights_changed_in_place(cuda):
+    """A graph reads the weights at their captured addresses: after the
+    Llama is quantized in place the generator drops its graphs and
+    captures anew, so the graphed ids still equal the eager ones."""
+    from mllm_npu_tpu_torch.utils.weights import quantize_llama_
+    model = _tiny_serving_model(cuda)
+    g, e = _generator(model, True), _generator(model, False)
+    ids = torch.tensor([_prompts(1, seed=9)[0]], device=cuda)
+    g.generate(ids)
+    assert g.last_timings["graph_captured"]
+    quantize_llama_(model.language_model, bits=8, group_size=128)
+    got, want = g.generate(ids), e.generate(ids)
+    assert g.last_timings["graph_captured"] and len(g._graphs) == 1
+    assert got["generate_ids"].tolist() == want["generate_ids"].tolist()

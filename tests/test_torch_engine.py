@@ -202,7 +202,8 @@ def test_text_to_image_features_identical_to_reference(seed_engines):
     # a budget below the ladder leaves no image
     short = te.text_to_image_features("a red cat on a mat", max_new_tokens=3)
     assert not short["has_img_output"] and short["img_gen_feat"] is None
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # an engine built without the de-tokenizer cannot make the image
+    with pytest.raises(RuntimeError, match="de-tokenizer"):
         te.generation("a red cat on a mat")
 
 
@@ -260,7 +261,10 @@ def test_port_imports_no_jax_and_no_reference():
         " 'data.tasks.image_caption', 'serve.batched_engine',"
         " 'serve.prefix_cache', 'serve.worker', 'serve.serve_utils',"
         " 'models.multimodal_encoder.qwenvl_vit', 'models.mllm',"
-        " 'models.generation.generate'):\n"
+        " 'models.generation.generate', 'models.generation.schedulers',"
+        " 'models.generation.resampler', 'models.generation.unet',"
+        " 'models.generation.vae', 'models.generation.discrete_models',"
+        " 'models.generation.adapter_modules', 'demo_txt2img'):\n"
         "    assert 'mllm_npu_tpu_torch.' + m in names, m\n"
         "print('BAD', bad)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -289,12 +289,20 @@ def test_worker_config_json_and_unknown_keys(tmp_path):
 @pytest.mark.parametrize("flags,item", [
     (["--tensor-parallel", "2"], "item 12"),
     (["--params-checkpoint", "ckpt"], "item 16"),
-    (["--generation-config", "gen.yaml"], "item 14"),
     (["--no-cast-bf16"], "item 10c"),
 ])
 def test_unported_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         worker_mod.parse_worker_args(["--model-config", "m.yaml"] + flags)
+
+
+def test_generation_config_flag_is_taken():
+    """The de-tokenizer's flag is ported: it parses, and the worker's main
+    hands it to ``load_engine_from_config``."""
+    args = worker_mod.parse_worker_args(["--model-config", "m.yaml",
+                                         "--generation-config", "gen.yaml"])
+    assert args.generation_config == "gen.yaml"
+    assert "generation_config" not in worker_mod.UNPORTED_FLAGS
 
 
 def test_unported_key_in_worker_config_raises(tmp_path):
@@ -375,17 +383,17 @@ def test_load_engine_from_config_serves_tiny_on_cpu(monkeypatch):
         eng.close()
 
 
-def test_seedx_worker_config_serves_tiny_on_cpu(monkeypatch, caplog):
+def test_seedx_worker_config_serves_tiny_on_cpu(monkeypatch):
     """The port's copy of the reference's shipped worker config: its own
-    SEED-X YAML, the reference's values (8 slots, a 2048-token cache,
-    speculative_k 63) and no generation_config (the de-tokenizer, item 14).
-    Under DEBUG_FLAG it builds the tiny SEED stack on the CPU, whose worker
-    answers an image, a text and an image_gen request (code 3, the log
-    naming item 14)."""
+    SEED-X YAML and generation config, the reference's values (8 slots, a
+    2048-token cache, speculative_k 63). Under DEBUG_FLAG it builds the
+    tiny SEED stack and the tiny de-tokenizer on the CPU, whose worker
+    answers an image, a text and an image_gen request (code 0, a JPEG of
+    the tiny UNet's native size)."""
     monkeypatch.setenv("DEBUG_FLAG", "True")
     path = "mllm_npu_tpu_torch/configs/workers/seedx_worker.json"
     raw = json.load(open(path))
-    assert "generation_config" not in raw
+    assert raw["generation_config"].endswith("sd_xl_resampler.yaml")
     assert not any("mllm_npu_tpu/" in str(v) for v in raw.values())
     args = worker_mod.parse_worker_args(["--worker-config", path,
                                          "--device", "cpu"])
@@ -396,21 +404,26 @@ def test_seedx_worker_config_serves_tiny_on_cpu(monkeypatch, caplog):
     eng = worker_mod.load_engine_from_config(
         args.model_config, max_new_tokens=6, batched=args.batched,
         num_slots=args.num_slots, max_len=args.max_cache_len,
-        speculative_k=args.speculative_k, device=args.device)
+        speculative_k=args.speculative_k,
+        generation_config=args.generation_config, device=args.device)
     served = _Served(eng, no_register=True, limit_model_concurrency=4)
     try:
         assert eng.batch_engine.speculative_k == 63
+        assert eng.adapter.visual_encoder is eng.generator.model.vision_encoder
         for q, b64 in (("what is shown?", _png_b64(500, 300)), ("hi", "")):
             msgs = _chunks(_post(served.url + "/worker_generate",
                                  {"input_text": q, "image": b64}))
             assert [m["error_code"] for m in msgs] == [0]
             assert msgs[0]["text"] == InferenceEngine.comprehension(
                 eng, q, b64)
-        with caplog.at_level(logging.ERROR, logger="model_worker"):
-            msgs = _chunks(_post(served.url + "/worker_generate",
-                                 {"input_text": "a cat", "image_gen": True}))
-        assert [m["error_code"] for m in msgs] == [3]
-        assert "item 14" in caplog.text
+        msgs = _chunks(_post(served.url + "/worker_generate",
+                             {"input_text": "a cat", "image_gen": True}))
+        assert [m["error_code"] for m in msgs] == [0]
+        jpeg = base64.b64decode(msgs[0]["image"])
+        assert jpeg[:3] == b"\xff\xd8\xff"
+        assert Image.open(io.BytesIO(jpeg)).size == (16, 16)
+        t = eng.last_timings
+        assert t["steps"] == 50 and t["request_s"] >= t["denoise_s"] > 0
     finally:
         served.close()
         eng.close()
