@@ -171,7 +171,35 @@ exits non-zero. Phases, in order:
    seed with K1, with K1's plain version and with the plain version
    rounding P to bf16 (the control): ε and the latents cos ≥ 0.99 K1
    against plain, with the relative RMS and the control's beside them;
-   one UNet forward on CUDA events and under ``torch.profiler``.
+   one UNet forward on CUDA events and under ``torch.profiler``;
+12. the evaluator (``mllm_npu_tpu_torch.evaluate``), every count set to 0
+   before each part and read after it: b. on the resident 8B models (bf16
+   after phase 6, int8 in phase 7 before check e),
+   ``bench_eval_speed``'s probes through ``EvalModel``, two readings
+   each: the mmlu probe (10 synthetic 5-shot items of ~700 words,
+   10-token answers) on the single-request engine and (48 items, six
+   waves) through a batched engine of 8 slots with an 8-entry prefix
+   cache (hits and tokens saved checked), the mme probe (5 768×1024
+   JPEGs, 2 questions each): the warm pass, steady items/s and the
+   readings' spread, the hours projected to the full MMLU and MME, the
+   peak; on bf16 one
+   ``lm_loss`` call (K1 60 launches, asserted), on int8 its refusal of
+   the quantized weights; a. after phase 11, SEED-X at full width through
+   ``evaluate.run.build_eval_model`` (``FakeTokenizer``, seed 0; answers
+   with an image cut to 32 new tokens, run.py's engine takes 512): the
+   seven benchmarks on ``tests/fixtures`` through ``run.dispatch``, each
+   result file checked against its fixture's keys and rows; every
+   ``lm_loss`` call's K1 launches asserted (91: the tower, its pool, the
+   two resamplers, 40 Llama layers) and timed; one question's four
+   choices with K1 against K1's plain version everywhere, every loss term
+   within twice the bf16 control's largest reading and the ranking the
+   same where the two lowest losses differ by more; then run.py's
+   prefix-cache engine (2 slots, 2560 tokens, prompts to 2048 in buckets
+   of 512, 4 entries) over the same model on the four text benchmarks and
+   a synthetic subject whose preamble passes the 512-token alignment
+   (hits and tokens saved), its prompts alone through an eager twin
+   against the single-request engine by the logit rule, and the graphed
+   engine's answers equal to the twin's.
 
 The last lines are the kernels' JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -2859,7 +2887,7 @@ def seedx_phase(s_img):
 
     import mllm_npu_tpu_torch.ops as port_ops
     from mllm_npu_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_reference)
+        flash_attention, flash_attention_reference, plain_attention_p_bf16)
     from mllm_npu_tpu_torch.serve.engine import InferenceEngine
     from mllm_npu_tpu_torch.serve.worker import load_engine_from_config
     gc.collect()
@@ -3023,26 +3051,6 @@ UNET_COS = 0.99
 SHORT_STEPS = 4
 
 
-def plain_attention_p_bf16(q, k, v, *, causal=False, segment_ids=None,
-                           scale=None, return_lse=False):
-    """K1's plain version with one change: P rounded to bf16 before P·V,
-    where K1 rounds it. Against the plain version it is the bf16 control:
-    what that rounding alone moves, beside what K1 moves."""
-    import torch
-
-    from mllm_npu_tpu_torch.ops.flash_attention import _masked_logits
-    B, Sq, Hq, D = q.shape
-    scale = D ** -0.5 if scale is None else scale
-    logits, _ = _masked_logits(q, k, causal, segment_ids, scale)
-    m = logits.amax(dim=-1, keepdim=True)
-    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    p = torch.exp(logits - m)
-    l = p.sum(dim=-1, keepdim=True)
-    p = (p / torch.where(l > 0, l, torch.ones_like(l))).bfloat16().float()
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return out.reshape(B, Sq, Hq, D).to(q.dtype)
-
-
 def agreement(a, b):
     """cos and relative RMS of ``a`` against ``b`` (flattened, fp32)."""
     import torch
@@ -3094,7 +3102,7 @@ def detokenizer_phase():
         VisualAttention)
     from mllm_npu_tpu_torch.models.vit_common import TorchMHA
     from mllm_npu_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_reference)
+        flash_attention, flash_attention_reference, plain_attention_p_bf16)
     from mllm_npu_tpu_torch.serve.worker import (load_engine_from_config,
                                                  parse_worker_args)
     gc.collect()
@@ -3258,6 +3266,578 @@ def detokenizer_phase():
                         "top": prof[2]}}
 
 
+# -- phase 12: the evaluator ----------------------------------------------
+EVAL_FIXTURES = ROOT / "tests" / "fixtures"
+# run.py's dataset names and their fixture directories
+EVAL_SETS = (("mmlu", "mmlu"), ("cmmlu", "cmmlu"), ("ceval", "ceval"),
+             ("bbh", "bbh"), ("mme", "mme"), ("mm_vet", "mmvet"),
+             ("seed_bench", "seed_bench2"))
+EVAL_TEXT_SETS = ("mmlu", "cmmlu", "ceval", "bbh")
+# generate_with_image answers at the engine's max_new_tokens (run.py: 512;
+# random weights never emit EOS): cut to this many here
+EVAL_IMAGE_TOKENS = 32
+EVAL_PREFIX_CACHE = 4
+# the synthetic 5-shot subject (bench_eval_speed.mk_mmlu) run through the
+# prefix-cache engine: its ~700-token prompts share a preamble longer than
+# the 512-token alignment, which the fixtures' (~150 tokens) are not
+EVAL_SYNTH_ITEMS = 4
+# the speed probes on the 8B (phase 12b): the reference harness's defaults
+# (10 mmlu items, 5 mme images), the prefix-cache probe's items (six waves
+# through the slots, so the steady pass outlasts the ramp), and readings
+# of each probe in one run
+SPEED_MMLU_ITEMS = 10
+SPEED_MME_IMAGES = 5
+SPEED_SLOTS = 8
+SPEED_PREFIX_ITEMS = 6 * SPEED_SLOTS
+SPEED_READINGS = 2
+
+
+def k1_per_loss(model):
+    """K1 launches of one ``lm_loss`` forward: every attention of the vision
+    tower (its pool included), of the projector and, for SEED, of the
+    output projector (``compute_losses`` runs it over the generation slots
+    even when none holds a target), and one a Llama layer."""
+    n = k1_per_image(model) + model.language_model.config.num_hidden_layers
+    if hasattr(model, "output_projector"):
+        from mllm_npu_tpu_torch.models.vit_common import TorchMHA
+        n += sum(isinstance(m, TorchMHA)
+                 for m in model.output_projector.modules())
+    return n
+
+
+class EvalRecorder:
+    """The ``EvalModel`` the benchmark functions see: every call passes
+    through; text prompts and answers are recorded, and each ``lm_loss``
+    call is timed with its K1 launches counted."""
+
+    def __init__(self, em):
+        self.em, self.texts, self.losses = em, [], []
+
+    def __getattr__(self, name):
+        return getattr(self.em, name)
+
+    def generate_text(self, prompt, max_new_tokens=10):
+        text = self.em.generate_text(prompt, max_new_tokens)
+        self.texts.append((prompt, text))
+        return text
+
+    def generate_text_many(self, prompts, max_new_tokens=10):
+        texts = self.em.generate_text_many(prompts, max_new_tokens)
+        self.texts += list(zip(prompts, texts))
+        return texts
+
+    def lm_loss(self, text, image_paths):
+        import torch
+
+        from mllm_npu_tpu_torch.ops.flash_attention import flash_attention
+        n = flash_attention.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = self.em.lm_loss(text, image_paths)
+        torch.cuda.synchronize()
+        self.losses.append({"s": time.perf_counter() - t0, "loss": loss,
+                            "k1": flash_attention.launches - n,
+                            "images": len(image_paths)})
+        return loss
+
+
+def run_benchmark(model, dataset, fixture, workdir):
+    """``run.dispatch`` of one benchmark on its fixture, in ``workdir``
+    (where its result file goes). → (result, seconds)."""
+    import torch
+
+    from mllm_npu_tpu_torch.evaluate import run
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        t0 = time.perf_counter()
+        res = run.dispatch(model, dataset, str(fixture))
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+
+
+def check_result_file(dataset, fixture, workdir, prompts):
+    """The benchmark's result file exists, parses, and has the fixture's
+    keys and rows (``prompts``: the text prompts it sent). → rows."""
+    from mllm_npu_tpu_torch.evaluate import mm_benchmarks as mm
+    from mllm_npu_tpu_torch.evaluate.table import read_csv
+    wd = Path(workdir)
+    if dataset in ("mmlu", "cmmlu", "ceval"):
+        suffix = {"mmlu": "_test.csv", "cmmlu": ".csv",
+                  "ceval": "_test.csv"}[dataset]
+        subjects = sorted(f[:-len(suffix)]
+                          for f in os.listdir(fixture / "test")
+                          if f.endswith(suffix))
+        rows = sum(read_csv(fixture / "test" / f"{s}{suffix}",
+                            header=None if dataset == "mmlu" else "infer"
+                            ).shape[0] for s in subjects)
+    if dataset == "bbh":
+        subjects = sorted(f[:-5] for f in os.listdir(fixture / "data"))
+        rows = sum(len(json.loads((fixture / "data" / f"{s}.json")
+                                  .read_text())["examples"]) - 5
+                   for s in subjects)
+    if dataset in ("mmlu", "cmmlu", "bbh"):
+        res = json.loads((wd / f"result_{dataset}.json").read_text())
+        check(sorted(res) == sorted(subjects + ["average"])
+              and all(0.0 <= v <= 1.0 for v in res.values()),
+              f"{dataset} result: {res}")
+    elif dataset == "ceval":
+        res = json.loads((wd / "result_ceval.json").read_text())
+        check(sorted(res) == subjects and sum(len(v) for v in res.values())
+              == rows, f"ceval result: {res}")
+    elif dataset == "mme":
+        rows = 0
+        for task in sorted(p for p in fixture.iterdir() if p.is_dir()):
+            qa = (task / "questions_answers_YN" if (
+                task / "questions_answers_YN").is_dir() else task)
+            want = sum(len(line.split("\t")) >= 2 for f in qa.glob("*.txt")
+                       for line in f.read_text().splitlines())
+            lines = (wd / "res_mme" / f"{task.name}.txt").read_text() \
+                .split("\n")
+            check(len(lines) == want and all(len(x.split("\t")) == 4
+                                              for x in lines),
+                  f"mme {task.name}: {lines}")
+            rows += want
+    elif dataset == "mm_vet":
+        res = json.loads((wd / "res_mmvet.json").read_text())
+        want = json.loads((fixture / "mm-vet.json").read_text())
+        check(sorted(res) == sorted(want), f"mm_vet result: {res}")
+        rows = len(res)
+    elif dataset == "seed_bench":
+        qs = mm.filter_questions(json.loads(
+            (fixture / "SEED-Bench_v2_level1_2_3.json").read_text())
+            ["questions"])
+        got = [json.loads(x) for x in
+               (wd / "results.json").read_text().splitlines()]
+        check([g["question_id"] for g in got] == [q["question_id"]
+                                                  for q in qs]
+              and all(g["prediction"] in "ABCD" for g in got),
+              f"seed_bench results: {got}")
+        rows = len(got)
+    if dataset in EVAL_TEXT_SETS:
+        check(len(prompts) == rows, f"{dataset}: {len(prompts)} prompts for "
+              f"{rows} fixture rows")
+    return rows
+
+
+def loss_terms(em, text, paths, fn):
+    """``em.lm_loss`` with ``fn`` as every attention (K1's wrapper, its
+    plain version or the bf16 control), and the loss's terms (the CE at
+    each supervised position, fp32). → (loss, terms, K1 launches)."""
+    import torch
+
+    import mllm_npu_tpu_torch.ops as port_ops
+    from mllm_npu_tpu_torch.ops.flash_attention import flash_attention
+    model = em.model
+    orig, terms = model._lm_loss, []
+
+    def recording(h, labels):
+        logits = model.language_model.logits(h)[:, :-1].float()
+        t = labels[:, 1:]
+        nll = torch.nn.functional.cross_entropy(
+            logits.transpose(1, 2), t.clamp(min=0), reduction="none")
+        terms.append(nll[t != -100])
+        return orig(h, labels)
+    model._lm_loss = recording
+    port_ops.flash_attention = fn
+    n = flash_attention.launches
+    try:
+        loss = em.lm_loss(text, paths)
+    finally:
+        port_ops.flash_attention = flash_attention
+        del model._lm_loss
+    return loss, terms[0], flash_attention.launches - n
+
+
+def loss_rule(em, label, cases):
+    """``lm_loss`` with K1 against K1's plain version everywhere on
+    ``cases`` ((text, paths), the choices of one question): every loss
+    term within twice the bf16 control's largest reading (plain with P
+    rounded to bf16, against plain), so the loss too; where the two lowest
+    plain losses differ by more than that bound, the same choice ranks
+    first. → summary."""
+    from mllm_npu_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_reference, plain_attention_p_bf16)
+    k1n = k1_per_loss(em.model)
+    out = {r: [] for r in ("K1", "plain", "control")}
+    for text, paths in cases:
+        for route, fn in (("K1", flash_attention),
+                          ("plain", flash_attention_reference),
+                          ("control", plain_attention_p_bf16)):
+            loss, terms, n = loss_terms(em, text, paths, fn)
+            check(n == (k1n if route == "K1" else 0),
+                  f"{label} {route} lm_loss launched K1 {n} times")
+            check(abs(terms.mean().item() - loss) < 1e-3 * abs(loss),
+                  f"{label} {route}: the terms' mean {terms.mean().item()} "
+                  f"is not the loss {loss}")
+            out[route].append((loss, terms))
+    d_ctl = max((c[1] - p[1]).abs().max().item()
+                for c, p in zip(out["control"], out["plain"]))
+    d_k1 = max((k[1] - p[1]).abs().max().item()
+               for k, p in zip(out["K1"], out["plain"]))
+    d_loss = max(abs(k[0] - p[0]) for k, p in zip(out["K1"], out["plain"]))
+    bound = LOGIT_BOUND_FACTOR * d_ctl
+    k1_l = [x[0] for x in out["K1"]]
+    pl_l = [x[0] for x in out["plain"]]
+    first, second = sorted(pl_l)[:2]
+    ranked = second - first > bound
+    same_rank = k1_l.index(min(k1_l)) == pl_l.index(min(pl_l))
+    print(f"[check] {label} lm_loss, K1 vs plain attention over "
+          f"{len(cases)} choices ({k1n} K1 launches a call): loss terms max "
+          f"|delta| {d_k1:.5f}, losses max |delta| {d_loss:.6f}; control "
+          f"(plain with P in bf16 vs plain) terms max |delta| {d_ctl:.5f}, "
+          f"bound {bound:.5f}; K1 losses "
+          + ", ".join(f"{x:.5f}" for x in k1_l) + "; plain "
+          + ", ".join(f"{x:.5f}" for x in pl_l)
+          + f"; lowest two plain differ by {second - first:.5f} ("
+          + ("beyond" if ranked else "within") + " the bound): argmin "
+          + ("agrees" if same_rank else "differs"), flush=True)
+    check(d_k1 <= bound and d_loss <= bound,
+          f"{label}: K1's loss terms beyond twice the control's")
+    check(same_rank or not ranked, f"{label}: the ranking differs beyond "
+          "the bound")
+    return {"k1_launches": k1n, "terms_max_delta": d_k1,
+            "loss_max_delta": d_loss, "control_terms_max_delta": d_ctl,
+            "bound": bound, "losses_k1": k1_l, "losses_plain": pl_l,
+            "argmin_agrees": same_rank, "ranking_resolved": ranked}
+
+
+def single_stream_ids(engine, ids, tokens):
+    """The single-request engine's greedy ids for raw prompt ids (the
+    evaluator's ``generate_text``) at ``tokens``, and the logits each
+    choice was made from (the decode step eager, as ``single_stream``)."""
+    import dataclasses
+
+    import torch
+
+    from mllm_npu_tpu_torch.models.generation import generate as gen_mod
+    from mllm_npu_tpu_torch.models.generation import sampler
+    gen = engine.generator
+    rows, orig = [], sampler._sample
+
+    def recording(logits):
+        rows.append(logits[0].float().clone())
+        return orig(logits)
+    sampler._sample = gen_mod._sample = recording
+    gen.cuda_graph = False
+    try:
+        out = gen.generate(
+            torch.as_tensor(ids, dtype=torch.long, device="cuda")[None],
+            sampling=dataclasses.replace(gen.sampling,
+                                         max_new_tokens=tokens))
+    finally:
+        sampler._sample = gen_mod._sample = orig
+        gen.cuda_graph = True
+    return [int(t) for t in out["generate_ids"][0]], rows
+
+
+def prefix_logit_check(single, batched, prompts, tokens=10):
+    """The prefix-cache engine's text prompts held against the
+    single-request engine by the logit rule (phase 4b's): each prompt,
+    in the order the benchmarks sent them, alone through an eager twin of
+    the batched engine with its own prefix cache (so later prompts hit as
+    they did), against the single engine's eager stream; the bound twice
+    the largest control reading over these prompts. → summary."""
+    import numpy as np
+    ids = [np.asarray(single._prompt_ids(p), np.int32) for p in prompts]
+    control = [attention_control(single.model, (x, None, None, None))
+               for x in ids]
+    bound = LOGIT_BOUND_FACTOR * max(control)
+    eng = batched.engine.batch_engine
+    twin = twin_of(eng, prefix_cache=EVAL_PREFIX_CACHE, cuda_graph=False)
+    identical, worst, texts = 0, 0.0, []
+    for i, x in enumerate(ids):
+        b_ids, b_rows = recorded_stream(twin, (x, None, None, None), tokens)
+        s_ids, s_rows = single_stream_ids(single.engine, x, tokens)
+        same, d, desc = logit_rule(f"evaluator prefix prompt {i}", b_ids,
+                                   b_rows, s_ids, s_rows, bound)
+        identical += same
+        worst = max(worst, d)
+        texts.append(batched.engine._decode_text(np.asarray(b_ids)))
+        print(f"[check] evaluator prefix-cache prompt {i} ({len(x)} tokens) "
+              f"vs the single-request engine: {desc}", flush=True)
+    st = twin.stats()["prefix_cache"]
+    check(st["hits"] > 0, f"the eager prefix twin: {st}")
+    return {"control": control, "bound": bound, "identical": identical,
+            "max_abs_delta": worst, "twin_prefix_cache": st,
+            "twin_texts": texts}
+
+
+def seed_question_cases(index=0):
+    """The (text, image paths) of each choice of the fixture's
+    SEED-Bench2 question ``index``, as ``rank_choices`` builds them."""
+    from mllm_npu_tpu_torch.evaluate import mm_benchmarks as mm
+    fx = EVAL_FIXTURES / "seed_bench2"
+    qa = mm.filter_questions(json.loads(
+        (fx / "SEED-Bench_v2_level1_2_3.json").read_text())["questions"])[index]
+    ids = qa["data_id"] if isinstance(qa["data_id"], list) else [qa["data_id"]]
+    paths = [str(fx / "cc3m-image" / p) for p in ids]
+    cases = []
+    for c in "abcd":
+        text = "Question: {}\nAnswer: {}".format(qa["question"],
+                                                 qa[f"choice_{c}"])
+        text = ("<img>" * (len(paths) - text.count("<img>")) + text
+                if len(paths) > 1 else "<img>\n" + text)
+        cases.append((text, paths))
+    return cases
+
+
+def spread(xs):
+    """(max - min) / mean of readings."""
+    return (max(xs) - min(xs)) / (sum(xs) / len(xs))
+
+
+def eval_speed_phase(engine, label):
+    """Phase 12b on a resident 8B engine (phase 4's bf16 model after phase
+    6, phase 7's int8 model): ``bench_eval_speed``'s probes through
+    ``EvalModel``s over its model, with every count set to 0 before and
+    read after: mmlu on the single-request engine, its answers at the
+    harness's 10 tokens (the engine's own budget restored after), mme the
+    same, then mmlu (``SPEED_PREFIX_ITEMS``) through a batched engine of
+    ``SPEED_SLOTS`` slots with an 8-entry prefix cache (the harness's
+    ``--prefix_cache 8 --slots 8``), each probe ``SPEED_READINGS`` times;
+    on bf16 one ``lm_loss`` call with its K1 count asserted, on int8 its
+    refusal of the quantized weights. → summary."""
+    import dataclasses
+
+    import torch
+
+    from mllm_npu_tpu_torch import bench_eval_speed as bes
+    from mllm_npu_tpu_torch.evaluate import run
+    from mllm_npu_tpu_torch.evaluate.evaluator import EvalModel
+    from mllm_npu_tpu_torch.ops import quant as tq
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    tq.int8_matmul.prefill_launches = 0
+    gen = engine.generator
+    model = gen.model
+    em = EvalModel(engine)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    own = gen.sampling
+    gen.sampling = dataclasses.replace(own, max_new_tokens=bes.NEW_TOKENS)
+    try:
+        out["mmlu"], out["mme"] = [], []
+        for _ in range(SPEED_READINGS):
+            out["mmlu"].append(bes.probe_mmlu(em, SPEED_MMLU_ITEMS))
+            # a call's own budget (10) keys no new graph: the steady pass's
+            # items, in the warm pass's cache bucket, replay its capture
+            check(not gen.last_timings["graph_captured"],
+                  f"{label}: an mmlu item of the steady pass captured a "
+                  "graph")
+        for _ in range(SPEED_READINGS):
+            out["mme"].append(bes.probe_mme(em, SPEED_MME_IMAGES))
+    finally:
+        gen.sampling = own
+    t0 = time.perf_counter()
+    emp = run.eval_model_for(
+        model, engine.tokenizer, engine.image_transform,
+        max_new_tokens=bes.NEW_TOKENS, prefix_cache=8,
+        prefix_engine=dict(num_slots=SPEED_SLOTS, **bes.PREFIX_ENGINE),
+        device="cuda", base_resolution=engine.base_resolution)
+    out["prefix_engine_build_s"] = time.perf_counter() - t0
+    try:
+        out["mmlu_prefix"] = [bes.probe_mmlu(emp, SPEED_PREFIX_ITEMS)
+                              for _ in range(SPEED_READINGS)]
+        out["prefix_cache"] = emp.engine.batch_engine.stats()["prefix_cache"]
+    finally:
+        emp.engine.close()
+    if label == "bf16":
+        text, paths = seed_question_cases()[0]
+        k1n = k1_per_loss(model)
+        n = counters["flash_fwd"].launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = em.lm_loss(text, paths)
+        torch.cuda.synchronize()
+        out["lm_loss"] = {"s": time.perf_counter() - t0, "loss": loss,
+                          "k1": counters["flash_fwd"].launches - n}
+        check(out["lm_loss"]["k1"] == k1n and loss == loss,
+              f"8B lm_loss: {out['lm_loss']}, expected {k1n} K1 launches")
+    else:
+        try:
+            em.lm_loss(*seed_question_cases()[0])
+        except ValueError as e:
+            out["lm_loss"] = f"refused: {e}"
+        else:
+            fail(f"{label}: lm_loss scored the quantized weights")
+    torch.cuda.synchronize()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    out["prefill_launches"] = tq.int8_matmul.prefill_launches
+    check(out["launches"]["flash_fwd"] > 0, f"{label} probes: no K1")
+    if label == "int8":
+        check(out["launches"]["int8_matmul"] > 0, "int8 probes: no K4")
+    st = out["prefix_cache"]
+    check(st["hits"] > 0 and st["tokens_saved"] > 0,
+          f"{label} mmlu probe's prefix cache: {st}")
+    for name in ("mmlu", "mmlu_prefix"):
+        rates = [p["steady_items_per_sec"] for p in out[name]]
+        for i, p in enumerate(out[name]):
+            print(f"[eval speed] 8B {label} mmlu probe"
+                  + (f" (prefix cache 8, {SPEED_SLOTS} slots)"
+                     if name == "mmlu_prefix" else " (single-request)")
+                  + f", reading {i + 1} of {len(rates)}: {p['items']} items "
+                  f"of ~700 words, warm pass (2 items) "
+                  f"{p['first2_with_compile_s']} s, steady "
+                  f"{p['steady_items_per_sec']} items/s "
+                  f"({p['steady_sec_per_item']} s/item, "
+                  f"{p['items'] * p['steady_sec_per_item']} s in all), "
+                  f"projected full MMLU (14042 items) "
+                  f"{p['projected_full_mmlu_hours']} h", flush=True)
+        print(f"[eval speed] 8B {label} mmlu probe ({name}): readings "
+              f"{rates} items/s, spread (max - min) / mean "
+              f"{spread(rates)}", flush=True)
+    rates = [p["steady_qa_per_sec"] for p in out["mme"]]
+    for i, p in enumerate(out["mme"]):
+        print(f"[eval speed] 8B {label} mme probe, reading {i + 1} of "
+              f"{len(rates)}: {p['qa_pairs']} QA pairs on {p['images']} "
+              f"768x1024 JPEGs, warm pass {p['first_with_compile_s']} s, "
+              f"steady {p['steady_qa_per_sec']} QA/s "
+              f"({p['steady_sec_per_qa']} s/QA, "
+              f"{p['qa_pairs'] * p['steady_sec_per_qa']} s in all), "
+              f"projected full MME (2374 pairs) "
+              f"{p['projected_full_mme_hours']} h", flush=True)
+    print(f"[eval speed] 8B {label} mme probe: readings {rates} QA/s, spread "
+          f"(max - min) / mean {spread(rates)}; prefix cache {st}; lm_loss "
+          f"{out['lm_loss']}; peak {out['peak_gib']:.2f} GiB; launches "
+          f"{out['launches']}", flush=True)
+    return out
+
+
+def evaluator_phase():
+    """Phase 12a (see the module's docstring). → summary, its launches
+    among them."""
+    import torch
+
+    from mllm_npu_tpu_torch import bench_eval_speed as bes
+    from mllm_npu_tpu_torch.evaluate import run
+    gc.collect()
+    torch.cuda.empty_cache()
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    em = run.build_eval_model(str(ROOT / SEEDX_YAML),
+                              max_new_tokens=EVAL_IMAGE_TOKENS, device="cuda",
+                              seed=0, fake_tokenizer=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    model = em.model
+    lm_cfg = model.language_model.config
+    k1n = k1_per_loss(model)
+    check(hasattr(model, "output_projector") and lm_cfg.num_hidden_layers
+          == 40 and lm_cfg.vocab_size == 32330, "phase 12: not SEED-X")
+    print(f"[eval] run.build_eval_model({SEEDX_YAML}, FakeTokenizer, seed 0) "
+          f"in {build_s:.1f} s: {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB resident; generate_with_image answers cut to "
+          f"{EVAL_IMAGE_TOKENS} new tokens (run.py's engine: 512); lm_loss "
+          f"{k1n} K1 launches a call", flush=True)
+    rec = EvalRecorder(em)
+    per = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        for ds, fx in EVAL_SETS:
+            wd = Path(tmp) / ds
+            wd.mkdir()
+            n = len(rec.texts)
+            _, secs = run_benchmark(rec, ds, EVAL_FIXTURES / fx, wd)
+            rows = check_result_file(ds, EVAL_FIXTURES / fx, wd,
+                                     rec.texts[n:])
+            per[ds] = {"items": rows, "s": secs, "items_per_s": rows / secs}
+            print(f"[eval] {ds} on tests/fixtures/{fx}: {rows} items in "
+                  f"{secs:.3f} s ({rows / secs:.3f} items/s); result file "
+                  "checked", flush=True)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    calls = rec.losses
+    check(len(calls) == 4 * per["seed_bench"]["items"]
+          and all(c["k1"] == k1n for c in calls),
+          f"lm_loss calls {[c['k1'] for c in calls]}, expected {k1n} each")
+    secs = [c["s"] for c in calls]
+    loss_s = {"calls": len(calls), "k1_each": k1n,
+              "mean_s": sum(secs) / len(secs), "min_s": min(secs),
+              "max_s": max(secs)}
+    print(f"[eval] SEED-X lm_loss: {len(calls)} calls (seed_bench, one image "
+          f"each), {k1n} K1 launches each (asserted); "
+          f"{loss_s['mean_s']:.4f} s per call (min {min(secs):.4f}, max "
+          f"{max(secs):.4f})", flush=True)
+    rule = loss_rule(em, "SEED-X", seed_question_cases())
+
+    # the text benchmarks through run.py's prefix-cache engine over the
+    # same model, counts set to 0 before and read after
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    emp = run.eval_model_for(model, em.tokenizer, em.engine.image_transform,
+                             max_new_tokens=EVAL_IMAGE_TOKENS,
+                             prefix_cache=EVAL_PREFIX_CACHE, device="cuda")
+    torch.cuda.synchronize()
+    pbuild_s = time.perf_counter() - t0
+    recp = EvalRecorder(emp)
+    held, prefix_per = [], {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+            for ds in EVAL_TEXT_SETS + ("synthetic",):
+                wd = Path(tmp) / ds
+                wd.mkdir()
+                fx = EVAL_FIXTURES / ds
+                if ds == "synthetic":
+                    fx = Path(tmp) / "synthetic_mmlu"
+                    bes.mk_mmlu(fx, EVAL_SYNTH_ITEMS)
+                n = len(recp.texts)
+                _, secs = run_benchmark(recp, "mmlu" if ds == "synthetic"
+                                        else ds, fx, wd)
+                rows = check_result_file("mmlu" if ds == "synthetic" else ds,
+                                         fx, wd, recp.texts[n:])
+                prefix_per[ds] = {"items": rows, "s": secs}
+                new = [p for p, _ in recp.texts[n:]]
+                held += new if ds == "synthetic" else new[:1]
+        st = emp.engine.batch_engine.stats()["prefix_cache"]
+    finally:
+        emp.engine.close()
+    for k, fn in counters.items():
+        launches[k] += fn.launches
+    check(st["hits"] > 0 and st["tokens_saved"] > 0,
+          f"prefix-cache engine: {st}")
+    single_text = dict(rec.texts)
+    graphed = dict(recp.texts)
+    same_single = sum(graphed[p] == t for p, t in single_text.items()
+                      if p in graphed)
+    print(f"[eval] prefix-cache engine (run.py's: 2 slots, a 2560-token "
+          f"cache, prompts to 2048 in buckets of 512, {EVAL_PREFIX_CACHE} "
+          f"entries; built and captured in {pbuild_s:.2f} s): "
+          + ", ".join(f"{k} {v['items']} items {v['s']:.3f} s"
+                      for k, v in prefix_per.items())
+          + f"; prefix cache {st} (the fixtures' prompts are shorter than "
+          f"the 512-token alignment: the synthetic subject's hit); answers "
+          f"equal to the single-request engine's on {same_single} of "
+          f"{len(single_text)} fixture prompts", flush=True)
+    chk = prefix_logit_check(em, emp, held)
+    same_twin = sum(graphed[p] == t for p, t in zip(held, chk["twin_texts"]))
+    print(f"[check] evaluator prefix-cache prompts vs the single-request "
+          f"engine by the logit rule: {len(held)} prompts, control max "
+          f"|delta| {max(chk['control']):.4f}, bound {chk['bound']:.4f}, "
+          f"worst {chk['max_abs_delta']:.4f}, identical streams "
+          f"{chk['identical']} of {len(held)}; the graphed run's answers "
+          f"equal the eager twin's on {same_twin} of {len(held)}", flush=True)
+    check(same_twin == len(held),
+          f"the graphed prefix-cache engine's answers equal the eager twin's "
+          f"on {same_twin} of {len(held)} prompts")
+    del em, emp, rec, recp, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "build_s": build_s, "benchmarks": per,
+            "lm_loss": loss_s, "loss_rule": rule, "prefix_cache": st,
+            "prefix_benchmarks": prefix_per, "prefix_build_s": pbuild_s,
+            "prefix_same_as_single": same_single,
+            "prefix_logit_rule": {k: v for k, v in chk.items()
+                                  if k != "twin_texts"},
+            "prefix_same_as_twin": same_twin}
+
+
 def main():
     # the training phase runs near the card's memory: let the allocator grow
     # segments instead of fragmenting (read when CUDA initialises)
@@ -3413,6 +3993,14 @@ def main():
     print_profile(f"text request ({PROFILED_TOKENS} tokens)", *profile_call(
         lambda: engine.comprehension(*requests[2], PROFILED_TOKENS)))
 
+    print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 12b (bf16)",
+          flush=True)
+    # -- 12b: the evaluator's speed probes on the resident bf16 model, counts
+    #        set to 0 before and read after
+    evaluator = {"speed_bf16": eval_speed_phase(engine, "bf16")}
+    for k, n in evaluator["speed_bf16"]["launches"].items():
+        launches[k] += n
+
     print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 4c check e "
           "starts", flush=True)
     # -- 4c, check e (bf16): the model's LoRA merged, then its projections
@@ -3460,6 +4048,13 @@ def main():
             for k, n in w["spec"]["launches"].items():
                 launches[k] += n
             quant_prefill[8] += w["spec"]["prefill_launches"]
+            # 12b on the int8 model (before check e fuses it)
+            print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 12b "
+                  "(int8)", flush=True)
+            e8 = evaluator["speed_int8"] = eval_speed_phase(engine, "int8")
+            for k, n in e8["launches"].items():
+                launches[k] += n
+            quant_prefill[8] += e8["prefill_launches"]
 
         kernel = getattr(tq, f"{label}_matmul")
         ql, qp = quant_vs_plain_prefill(model, preps[0], bits, "full-width",
@@ -3522,6 +4117,14 @@ def main():
     detok = detokenizer_phase()
     for k in launches:
         launches[k] += detok["launches"][k]
+
+    print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 12a",
+          flush=True)
+    # -- 12a. the evaluator on SEED-X: run.py's build, the seven benchmarks
+    #         on the fixtures, lm_loss against plain attention, prefix cache
+    evaluator["seedx"] = ev = evaluator_phase()
+    for k in launches:
+        launches[k] += ev["launches"][k]
     unet_forward = k1_mix(unet_cases, unet_mix, "one SDXL UNet forward "
                           "(CFG batch 2, 1024x1024)")
     unet_image = {k: v * GEN_STEPS if k in ("ms", "plain_ms", "bound_ms",
@@ -3568,6 +4171,9 @@ def main():
         "unet_image": unet_image,
         "unet_shapes": unet_cases,
         "detokenizer_request_launches": detok["launches"]["flash_fwd"],
+        "evaluator_lm_loss_launches": {
+            "seedx": ev["lm_loss"]["k1_each"],
+            "llama3_8b": evaluator["speed_bf16"]["lm_loss"]["k1"]},
     }]
     tmix = {"llama_train": lm_cfg.num_hidden_layers, "resampler_train": 1}
     tby = {b["flash_bwd_dq"]["shape"]: b for b in bwd}
@@ -3710,6 +4316,7 @@ def main():
     print("[single] summary " + json.dumps(single_graph))
     print("[seedx] summary " + json.dumps(seedx, default=str))
     print("[detok] summary " + json.dumps(detok, default=str))
+    print("[eval] summary " + json.dumps(evaluator, default=str))
     print(f"[time] {time.perf_counter() - t_start:.1f} s: all phases done",
           flush=True)
     print(json.dumps({"kernels": rows}))

@@ -80,10 +80,13 @@ def _masked_logits(q, k, causal, segment_ids, scale):
 def flash_attention_reference(q, k, v, *, causal: bool = False,
                               segment_ids: Optional[SegmentIds] = None,
                               scale: Optional[float] = None,
-                              return_lse: bool = False):
+                              return_lse: bool = False,
+                              p_bf16: bool = False):
     """The plain version of K1, in fp32: same masks, same GQA mapping, and
     0 for a fully masked row. Returns q's dtype; with ``return_lse`` also
-    the fp32 [B, Hq, Sq] natural-log LSE (0 for a fully masked row)."""
+    the fp32 [B, Hq, Sq] natural-log LSE (0 for a fully masked row). With
+    ``p_bf16`` P is rounded to bf16 before P·V, where K1 rounds it (see
+    ``plain_attention_p_bf16``)."""
     B, Sq, Hq, D = q.shape
     if scale is None:
         scale = D ** -0.5
@@ -93,12 +96,21 @@ def flash_attention_reference(q, k, v, *, causal: bool = False,
     p = torch.exp(logits - m)
     l = p.sum(dim=-1, keepdim=True)
     p = p / torch.where(l > 0, l, torch.ones_like(l))
+    if p_bf16:
+        p = p.bfloat16().float()
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     out = out.reshape(B, Sq, Hq, D).to(q.dtype)
     if not return_lse:
         return out
     lse = torch.where(l > 0, m + torch.log(torch.where(l > 0, l, 1.0)), 0.0)
     return out, lse.reshape(B, Hq, Sq)
+
+
+def plain_attention_p_bf16(q, k, v, **kw):
+    """The bf16 control: K1's plain version with P rounded to bf16 before
+    P·V, where K1 rounds it. Against the plain version it shows what that
+    rounding alone moves, beside what K1 moves."""
+    return flash_attention_reference(q, k, v, p_bf16=True, **kw)
 
 
 def _probs(q, k, lse, causal, segment_ids, scale):

@@ -867,3 +867,67 @@ def test_decode_graph_follows_weights_changed_in_place(cuda):
     got, want = g.generate(ids), e.generate(ids)
     assert g.last_timings["graph_captured"] and len(g._graphs) == 1
     assert got["generate_ids"].tolist() == want["generate_ids"].tolist()
+
+
+def test_tiny_lm_loss_kernels_match_plain(cuda, tmp_path):
+    """``EvalModel.lm_loss`` on a tiny bf16 assembly (two images, a prompt
+    off the tile): K1 launched once a vision layer, once for the
+    resampler and once a Llama layer; against K1's plain version every
+    loss term (the CE at each position) within twice the bf16 control's
+    largest reading, so the loss too."""
+    import numpy as np
+    from PIL import Image
+
+    from mllm_npu_tpu_torch.data.processor import ImageProcessor
+    from mllm_npu_tpu_torch.evaluate.evaluator import EvalModel
+    from mllm_npu_tpu_torch.serve.engine import InferenceEngine
+    from mllm_npu_tpu_torch.utils.fake_tokenizer import FakeTokenizer
+    from mllm_npu_tpu_torch.utils.testing import TinySpec, build_tiny_mllm
+    model, lm_cfg, vis_cfg = build_tiny_mllm(TinySpec(dtype=torch.bfloat16),
+                                             device=cuda)
+    em = EvalModel(InferenceEngine(
+        model=model, tokenizer=FakeTokenizer(),
+        image_transform=ImageProcessor(height=56, width=56),
+        resolution_grids=("1x1", "1x2", "2x1"), num_img_in_tokens=4,
+        num_img_out_tokens=4, device=cuda))
+    rs = np.random.RandomState(0)
+    paths = []
+    for i, (w, h) in enumerate(((60, 60), (120, 50))):
+        paths.append(str(tmp_path / f"{i}.png"))
+        Image.fromarray((rs.rand(h, w, 3) * 255).astype(np.uint8)).save(
+            paths[-1])
+    text = ("<img>first<img>\nQuestion: " + " ".join(
+        f"w{rs.randint(1000)}" for _ in range(131)) + "\nAnswer: a dog")
+    terms, orig = {}, model._lm_loss
+
+    def recording(h, labels):
+        logits = model.language_model.logits(h)[:, :-1].float()
+        t = labels[:, 1:]
+        nll = torch.nn.functional.cross_entropy(
+            logits.transpose(1, 2), t.clamp(min=0), reduction="none")
+        terms[route] = nll[t != -100]
+        return orig(h, labels)
+    model._lm_loss = recording
+    losses = {}
+    try:
+        for route, fn in (("K1", flash_attention),
+                          ("plain", flash_attention_reference),
+                          ("control", fa.plain_attention_p_bf16)):
+            port_ops.flash_attention = fn
+            n = flash_attention.launches
+            try:
+                losses[route] = em.lm_loss(text, paths)
+            finally:
+                port_ops.flash_attention = flash_attention
+            want = (vis_cfg.num_hidden_layers + 1 + lm_cfg.num_hidden_layers
+                    if route == "K1" else 0)
+            assert flash_attention.launches - n == want, route
+    finally:
+        del model._lm_loss
+    S = len(em.loss_inputs(text, paths)["input_ids"][0])
+    assert S % 64, S                                   # off the tile
+    bound = 2 * (terms["control"] - terms["plain"]).abs().max().item()
+    got = (terms["K1"] - terms["plain"]).abs().max().item()
+    assert 0 < got <= bound, (got, bound)
+    assert abs(losses["K1"] - losses["plain"]) <= bound
+    assert abs(terms["K1"].mean().item() - losses["K1"]) < 1e-4
