@@ -199,7 +199,38 @@ exits non-zero. Phases, in order:
    a synthetic subject whose preamble passes the 512-token alignment
    (hits and tokens saved), its prompts alone through an eager twin
    against the single-request engine by the logit rule, and the graphed
-   engine's answers equal to the twin's.
+   engine's answers equal to the twin's;
+13. SEED-X pretraining at full width, after phase 12a's model is dropped
+   (the counts set to 0 before each training step and read after it): b.
+   ``train.main`` on ``seedx_llama2_13b_qwenvl_vitg.yaml`` (Llama-2-13B
+   with r32 LoRA, Qwen-ViT-G's 48 layers, both resamplers, vocab 32330,
+   bf16 frozen and fp32 trainable weights, seed 0) and the port's
+   ``pretrain_data.yaml`` with both entries at the recipe's values
+   (caption tars and LLaVAR-style OCR jsonl, 1.0 : 0.2, img_first_ratio
+   0.1), over one batch's worth of seeded data each, the caption batch cut
+   from 28 to the largest of 4, 2 that fits (printed), with the SEED-X
+   launcher's lr, cosine schedule, warmup and bf16: every step's K1, K2,
+   K3 counts (131, 42, 42 under remat; K2/K3 by head dim: one each at
+   D = 160, the input projector; all in the Hopper regime) asserted for
+   either entry's batch, both entries run, a finite loss, ``rec_loss`` >
+   0 on a caption batch, a checkpoint; then a few steps on one repeated
+   batch at lr 1e-4 (the loss falls), one step taken apart (forward,
+   backward, optimizer) and one under ``torch.profiler``; c. one step's
+   gradients with K1/K2/K3 against plain attention (remat ``nothing``,
+   dropout off): the LoRA, the input projector, the output projector and
+   ``patch_pos_embed`` cos ≥ 0.99; d. the int4 QLoRA recipe
+   (``--quantize_base int4``) the same way, K5 asserted per step (561:
+   the 280 quantized bases twice under remat, and the lm_head) and K4
+   never, its peak against the bf16 recipe's and the loss falling on a
+   repeated batch, then one int8 step (K4 561); a. with the model
+   dropped: K2 and K3 at head dims 144 and 160 against their plain
+   versions across an edge sweep (causal GQA with segments, lengths off
+   the tile, Sq != Sk, MHA at 600), then K1 with its LSE, K2 and K3 at the
+   run's shapes (the input projector's windows × 64 × 256 keys, 32 heads
+   of 160; the Llama-2-13B layer, 40/40 heads of 128 at the run's batch
+   and length; the output projector) and at D = 144, timed beside SDPA's
+   backward and the bound; and K4 / K5 at the training rows (batch × 600)
+   of the 13B's projections and lm_head.
 
 The last lines are the kernels' JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -3838,6 +3869,595 @@ def evaluator_phase():
             "prefix_same_as_twin": same_twin}
 
 
+# -- phase 13: SEED-X pretraining at full width ---------------------------
+PRETRAIN_DATA = "mllm_npu_tpu_torch/configs/dataset/pretrain_data.yaml"
+# the recipe's caption batch of 28, reckoned down: a frozen bf16 base of
+# ~29 GiB, ~0.67 B trainable parameters at 14 bytes (~9 GiB), activations
+# about 1.5x the 8B's a token (phase 8 fits 8 rows of 600, not 16); 8 rows
+# ran out of memory at its first backward on an H100 80GB (76.8 GiB
+# allocated at the peak), so no run rebuilds the 15 B model to try them
+SEEDX_TRAIN_BATCHES = (4, 2)
+SEEDX_TRAIN_STEPS = 6
+SEEDX_QLORA_STEPS = 4
+# optimizer steps on one repeated batch, after the mixture's run
+SEEDX_REPEAT_STEPS = 3
+
+
+def ocr_data(root, n, seed=0):
+    """``n`` seeded OCR/conversation records as LLaVAR's pretraining jsonl
+    holds them (``{"image", "data": [question, answer, ...]}``, one or two
+    exchanges) over seeded JPEGs of 448 to 1400 pixels a side. Returns
+    (jsonl dir, image dir)."""
+    import numpy as np
+    from PIL import Image
+    rs = np.random.RandomState(seed)
+    jdir, idir = root / "ocr_jsonl", root / "ocr_images"
+    jdir.mkdir(parents=True)
+    idir.mkdir(parents=True)
+    lines = []
+    for i in range(n):
+        w, h = (int(x) for x in rs.randint(448, 1401, 2))
+        Image.fromarray((rs.rand(h, w, 3) * 255).astype(np.uint8)).save(
+            idir / f"{i:06d}.jpg", format="JPEG", quality=85)
+        turns = []
+        for _ in range(1 + i % 2):
+            turns += ["what does the text in the image say",
+                      " ".join(rs.choice(WORDS, int(rs.randint(10, 40))))]
+        lines.append(json.dumps({"image": f"{i:06d}.jpg", "data": turns}))
+    (jdir / "part-000000.jsonl").write_text("\n".join(lines) + "\n")
+    return jdir, idir
+
+
+def seedx_train_yaml(workdir, B):
+    """The port's ``pretrain_data.yaml`` with both entries at the recipe's
+    values, pointed at one batch's worth of seeded data each (a caption
+    tar of ``B`` samples; an OCR jsonl of the OCR entry's batch), the
+    caption batch cut from 28 to ``B`` (the OCR batch of 4 to ``B`` if
+    less). → (the YAML's path, {entry: (recipe batch, batch)})."""
+    import yaml
+    root = workdir / f"seedx_data_b{B}"
+    (root / "tars").mkdir(parents=True)
+    caption_tar(root / "tars" / "shard-000000.tar", B, seed=13)
+    ds = yaml.safe_load((ROOT / PRETRAIN_DATA).read_text())
+    cuts = {}
+    for node in ds["datapipes"]:
+        recipe = node["batch_size"]
+        node["batch_size"] = min(recipe, B)
+        cuts[node["dataset_name"]] = (recipe, node["batch_size"])
+        node["cycle_count"] = 100000
+        if node["_target_"].endswith("build_ocr_datapipes_caption"):
+            jdir, idir = ocr_data(root, node["batch_size"], seed=14)
+            node.update(data_dir=str(jdir), image_dir=str(idir))
+        else:
+            node["data_dir"] = [str(root / "tars")]
+    path = workdir / f"seedx_data_b{B}.yaml"
+    path.write_text(yaml.safe_dump(ds))
+    return path, cuts
+
+
+class HeadDimCounts:
+    """Within the block, K2 and K3 launches counted by head dim: a shim
+    around ``FlashAttention.backward`` reads the wrappers' own counts
+    before and after each call (which count as ever)."""
+
+    def __enter__(self):
+        import importlib
+        fa = importlib.import_module("mllm_npu_tpu_torch.ops.flash_attention")
+        self.cls, self.saved, self.counts = fa.FlashAttention, None, {}
+        self.saved = fa.FlashAttention.backward
+        original = self.saved
+
+        def backward(ctx, do):
+            D = do.shape[-1]    # dO is shaped like q
+            before = {k: getattr(fa, k).launches
+                      for k in ("flash_bwd_dq", "flash_bwd_dkv")}
+            out = original(ctx, do)
+            for k, n in before.items():
+                if getattr(fa, k).launches > n:
+                    self.counts[(k, D)] = (self.counts.get((k, D), 0)
+                                           + getattr(fa, k).launches - n)
+            return out
+        self.cls.backward = staticmethod(backward)
+        return self
+
+    def take(self):
+        out, self.counts = self.counts, {}
+        return out
+
+    def __exit__(self, *exc):
+        self.cls.backward = staticmethod(self.saved)
+
+
+def seedx_expected(model, quant=""):
+    """One training step's launches, from the model's structure: the
+    frozen Qwen-ViT-G (no gradient: K1 alone) and its attention pool; the
+    input projector (K1 with its LSE, K2, K3 at its head dim); each Llama
+    layer (K1 with its LSE, twice under remat, K2, K3); the output
+    projector (as the input one, over the generation slots); with
+    ``quant`` the quantized projections (every adapter's base, run again
+    by remat) and the lm_head through K4 or K5. → (the counts, K2/K3
+    launches by head dim)."""
+    vis = model.vision_encoder.config
+    lm = model.language_model.config
+    L = lm.num_hidden_layers
+    fwd = 2 if lm.remat else 1
+    d_in = model.projector.embed_dim // model.projector.attn.num_heads
+    d_out = (model.output_projector.embed_dim
+             // model.output_projector.attn.num_heads)
+    counts = {k: 0 for k in kernel_counters()}
+    counts.update(flash_fwd=vis.layers + 1 + 1 + fwd * L + 1,
+                  flash_bwd_dq=L + 2, flash_bwd_dkv=L + 2,
+                  flash_bwd_dq_wgmma=L + 2, flash_bwd_dkv_wgmma=L + 2)
+    if quant:
+        n_proj = L * len(lm.lora_targets)
+        counts[f"{quant}_matmul"] = fwd * n_proj + 1
+    by_dim = {}
+    for d, n in ((d_in, 1), (lm.head_dim, L), (d_out, 1)):
+        for k in ("flash_bwd_dq", "flash_bwd_dkv"):
+            by_dim[(k, d)] = by_dim.get((k, d), 0) + n
+    return counts, by_dim
+
+
+def seedx_train_run(workdir, argv_extra, steps, batches, label):
+    """``train.main`` on the SEED-X YAML over the pretrain mixture at the
+    first batch of ``batches`` that fits, every step's launches read (and
+    by head dim) and set to 0. → (run, per-step [(record, launches,
+    by head dim)], batch, cuts, peak GiB, wall s)."""
+    import torch
+
+    from mllm_npu_tpu_torch.train import train as trainer
+    counters = kernel_counters()
+    (workdir / label).mkdir(parents=True, exist_ok=True)
+    for B in batches:
+        data_yaml, cuts = seedx_train_yaml(workdir / label, B)
+        argv = ["--model", str(ROOT / SEEDX_YAML),
+                "--train_dataset", str(data_yaml),
+                "--output_dir", str(workdir / label / f"out_b{B}"),
+                "--max_steps", str(steps), "--save_steps", str(steps),
+                "--log_steps", "1",
+                # the SEED-X launcher's recipe, its mesh flags taken out
+                "--learning_rate", "1e-4", "--lr_scheduler_type", "cosine",
+                "--warmup_steps", "500", "--min_lr_ratio", "0.05",
+                "--mixed_precision", "bf16",
+                "--fake_tokenizer", "--device", "cuda", "--seed", "0",
+                *argv_extra]
+        per_step = []
+
+        with HeadDimCounts() as dims:
+            def on_step(rec):
+                got = {k: fn.launches for k, fn in counters.items()}
+                for k in ("flash_bwd_dq", "flash_bwd_dkv"):
+                    got[f"{k}_wgmma"] = counters[k].wgmma_launches
+                    counters[k].wgmma_launches = 0
+                for fn in counters.values():
+                    fn.launches = 0
+                per_step.append((rec, got, dims.take()))
+                print(f"[seedx-train] {label} B{B} step {rec['step']} "
+                      f"({'+'.join(str(d) for d in rec['datasets'])}): loss "
+                      f"{rec['loss']:.4f} (lm {rec['lm_loss']:.4f}, rec "
+                      f"{rec['rec_loss']:.4f}), grad_norm "
+                      f"{rec['grad_norm']:.4f}, sec/step "
+                      f"{rec['sec/step']:.3f}, tokens/s "
+                      f"{rec['tokens/s']:.0f}, images/s "
+                      f"{rec['images/s']:.1f}; launches " + ", ".join(
+                          f"{k} {v}" for k, v in got.items() if v),
+                      flush=True)
+
+            for fn in counters.values():
+                fn.launches = 0
+            counters["flash_bwd_dq"].wgmma_launches = 0
+            counters["flash_bwd_dkv"].wgmma_launches = 0
+            dims.take()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            try:
+                run = trainer.main(argv, on_step=on_step)
+            except (torch.cuda.OutOfMemoryError, RuntimeError) as e:
+                # the card full: the caching allocator's error, or a
+                # library's own allocation failing (cuBLAS's handle)
+                if not isinstance(e, torch.cuda.OutOfMemoryError) and \
+                        "ALLOC_FAILED" not in str(e):
+                    raise
+                print(f"[seedx-train] {label}: batch {B} does not fit "
+                      f"({type(e).__name__} at step {len(per_step) + 1}, "
+                      f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                      "allocated at the peak); trying a smaller one",
+                      flush=True)
+                run = None
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if run is not None:
+            return (run, per_step, B, cuts,
+                    torch.cuda.max_memory_allocated() / 2**30,
+                    time.perf_counter() - t0)
+    fail(f"{label}: no batch of {batches} fits")
+
+
+def check_seedx_steps(per_step, model, label, quant=""):
+    """Every step's launches against ``seedx_expected``, whatever its
+    batch's mixture entry; the loss finite. → the launches summed."""
+    import math
+    expect, by_dim = seedx_expected(model, quant)
+    for rec, got, dims in per_step:
+        kinds = "+".join(str(d) for d in rec["datasets"])
+        check(got == expect, f"{label} step {rec['step']} ({kinds}): "
+              f"launches {got}, expected {expect}")
+        check(dims == by_dim, f"{label} step {rec['step']} ({kinds}): K2/K3 "
+              f"by head dim {dims}, expected {by_dim}")
+        check(math.isfinite(rec["loss"]), f"{label} step {rec['step']}: "
+              f"loss {rec['loss']}")
+    return {k: sum(g[k] for _, g, _ in per_step) for k in expect}
+
+
+def repeated_batch_steps(model, optimizer, batch, label):
+    """``SEEDX_REPEAT_STEPS`` optimizer steps on one batch at a constant lr
+    of 1e-4 (the recipe's peak, where its warmup has not reached): the
+    loss must fall. → the losses."""
+    from mllm_npu_tpu_torch.train import train as trainer
+    from mllm_npu_tpu_torch.train.train_state import make_train_step
+    optimizer.schedule = lambda count: 1e-4
+    step = make_train_step(model, trainer.mllm_loss, optimizer)
+    losses = [float(step(batch)[0]) for _ in range(SEEDX_REPEAT_STEPS + 1)]
+    print(f"[seedx-train] {label}: {SEEDX_REPEAT_STEPS + 1} steps on one "
+          f"repeated batch: losses {[round(x, 4) for x in losses]}",
+          flush=True)
+    check(losses[-1] < losses[0], f"{label}: the loss did not fall on a "
+          f"repeated batch: {losses}")
+    return losses
+
+
+def seedx_grad_check(model, batch):
+    """Phase 13c: one step's gradients with K1/K2/K3 against the same step
+    with the plain attention forward and backward, remat 'nothing' and
+    dropout off for both: cos ≥ GRAD_COS over the LoRA, the input
+    projector, the output projector and patch_pos_embed."""
+    import torch
+
+    import mllm_npu_tpu_torch.ops as port_ops
+    from mllm_npu_tpu_torch.models.language_models.llama import (
+        set_lora_dropout_seed)
+    from mllm_npu_tpu_torch.ops.flash_attention import (
+        flash_attention_reference)
+    from mllm_npu_tpu_torch.train import train as trainer
+    from mllm_npu_tpu_torch.train.train_state import compute_grads
+    from mllm_npu_tpu_torch.utils.weights import set_llama_config
+    set_lora_dropout_seed(model, None)
+    set_llama_config(model.language_model, remat_policy="nothing")
+    parts = {"lora": lambda n: "lora_" in n,
+             "input_projector": lambda n: n.startswith("projector."),
+             "output_projector": lambda n: n.startswith("output_projector."),
+             "patch_pos_embed": lambda n: n == "patch_pos_embed"}
+    grads, losses = {}, {}
+    for route in ("kernels", "plain"):
+        fns = (port_ops.flash_attention, port_ops.flash_attention_trainable)
+        if route == "plain":
+            port_ops.flash_attention = flash_attention_reference
+            port_ops.flash_attention_trainable = flash_attention_reference
+        try:
+            loss, metrics = compute_grads(model, trainer.mllm_loss, [batch])
+        finally:
+            port_ops.flash_attention, port_ops.flash_attention_trainable = \
+                fns
+        losses[route] = {"loss": float(loss),
+                         **{k: float(v) for k, v in metrics.items()}}
+        grads[route] = {
+            part: torch.cat([p.grad.float().flatten()
+                             for n, p in model.named_parameters()
+                             if p.requires_grad and sel(n)])
+            for part, sel in parts.items()}
+        for p in model.parameters():
+            p.grad = None
+    out = {"losses": losses, "cos": {}}
+    for part in parts:
+        a, b = grads["kernels"][part], grads["plain"][part]
+        check(a.numel() > 0, f"no {part} gradient")
+        cos = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+        out["cos"][part] = cos
+        print(f"[check] SEED-X training step's {part} gradients "
+              f"({a.numel() / 1e6:.2f} M), K1/K2/K3 vs plain attention: cos "
+              f"{cos:.6f}, |g| {a.norm().item():.4e} vs "
+              f"{b.norm().item():.4e}", flush=True)
+        check(cos >= GRAD_COS, f"SEED-X {part} gradients disagree (cos "
+              f"{cos})")
+    print(f"[check] SEED-X step losses, kernels {losses['kernels']} vs plain "
+          f"{losses['plain']}", flush=True)
+    return out
+
+
+def k23_wide_sweep():
+    """K2 and K3 against their plain versions at head dims 144 and 160 (one
+    block an SM; K3's two consumer warpgroups) across the edges the
+    training shapes hold: causal with GQA and packed segments, lengths off
+    the tile, Sq != Sk both ways, rows whose keys are all masked, MHA;
+    each in the Hopper regime."""
+    import torch
+
+    from mllm_npu_tpu_torch import bench_flash_bwd as bench
+    from mllm_npu_tpu_torch.ops.flash_attention import (
+        attention_delta, flash_attention, flash_bwd_dkv,
+        flash_bwd_dkv_reference, flash_bwd_dq, flash_bwd_dq_reference)
+    cases = [  # B, Sq, Sk, Hq, Hkv, causal, segments
+        (2, 300, 300, 8, 2, True, True),
+        (1, 77, 77, 4, 2, True, True),
+        (2, 100, 130, 8, 2, False, False),
+        (2, 130, 100, 8, 8, True, False),
+        (1, 1, 70, 4, 1, False, False),
+        (2, 65, 63, 8, 1, True, False),
+        (2, 600, 600, 40, 40, True, True),
+    ]
+    worst, n = 0.0, 0
+    for D in (144, 160):
+        for i, (B, Sq, Sk, Hq, Hkv, causal, segs) in enumerate(cases):
+            q, k, v, do, seg = bench.inputs(B, Sq, Sk, Hq, Hkv, D, segs,
+                                            seed=200 + i)
+            kw = dict(causal=causal, segment_ids=seg)
+            o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+            delta = attention_delta(o, do)
+            w = (flash_bwd_dq.wgmma_launches, flash_bwd_dkv.wgmma_launches)
+            got = (flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+                   *flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+            torch.cuda.synchronize()
+            check((flash_bwd_dq.wgmma_launches, flash_bwd_dkv.wgmma_launches)
+                  == (w[0] + 1, w[1] + 1), "K2/K3 left the Hopper regime")
+            ref = (flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw),
+                   *flash_bwd_dkv_reference(q, k, v, do, lse, delta, **kw))
+            name = (f"K2/K3 edge B{B} Sq{Sq} Sk{Sk} H{Hq}/{Hkv} D{D}"
+                    f"{' causal' if causal else ''}"
+                    f"{' segments' if seg is not None else ''}")
+            for g, r, which in zip(got, ref, ("dq", "dk", "dv")):
+                g, r = g.float(), r.float()
+                diff = (g - r).abs()
+                check(bool(torch.isfinite(g).all()), f"{name} {which}: "
+                      "non-finite")
+                check(bool((diff <= BWD_RTOL * r.abs()
+                            + BWD_ATOL_FRAC * r.abs().max()).all()),
+                      f"{name} {which}: max abs err {diff.max().item()}")
+                worst = max(worst, diff.max().item())
+            n += 1
+            del q, k, v, do, o, lse, delta, got, ref
+    torch.cuda.empty_cache()
+    print(f"[K2/K3] head dims 144 and 160: {n} edge shapes agree with the "
+          f"plain versions in the Hopper regime, max abs err {worst:.3e}",
+          flush=True)
+    return {"shapes": n, "max_abs_err": worst}
+
+
+def seedx_train_fields(seedtrain, lm):
+    """Phase 13's fields of each kernel's row in the JSON line: K1's
+    launches a training step and its LSE rows; K2's and K3's times per
+    SEED-X training step (40 Llama layers at D = 128, the input projector
+    at D = 160, the output projector), their rows and the D = 144 / 160
+    edge sweep; K4's and K5's per QLoRA step."""
+    smix = {"seedx_llama2_train": lm.num_hidden_layers,
+            "seedx_input_projector_train": 1,
+            "seedx_output_projector_train": 1}
+    sby = {r["flash_bwd_dq"]["shape"]: r for r in seedtrain["bwd"]}
+    b = seedtrain["bf16"]
+    out = {"flash_fwd": {
+        "seedx_train_launches_per_step": b["expected_per_step"]["flash_fwd"],
+        "seedx_train_lse_shapes": [r["lse"] for r in seedtrain["bwd"]]}}
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        t_c = sum(sby[s][name]["flops"] * n
+                  for s, n in smix.items()) / H100_BF16_FLOPS
+        t_m = sum(sby[s][name]["bytes"] * n
+                  for s, n in smix.items()) / H100_BYTES_PER_S
+        out[name] = {
+            "seedx_step": {
+                **{key: sum(sby[s][name][key] * n for s, n in smix.items())
+                   for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                               "pr4_ms")},
+                "bound_by": "operations" if t_c >= t_m else "bytes",
+                "ms_basis": f"one SEED-X training step at batch "
+                            f"{b['batch']}: the launch mix " + ", ".join(
+                                f"{n} x {s}" for s, n in smix.items()),
+                "launches_per_step": b["k23_by_head_dim"]},
+            "seedx_shapes": [r[name] for r in seedtrain["bwd"]],
+            "d144_d160_edge_sweep": seedtrain["k23_sweep"]}
+    for bits in (8, 4):
+        out[f"int{bits}_matmul"] = {"seedx_qlora_step": seedx_qlora_mix(
+            seedtrain["quant"][bits], lm, b["batch"] * b["seq"],
+            seedtrain[f"int{bits}"])}
+    return out
+
+
+def seedx_qlora_mix(rows, lm, M, run):
+    """K4's or K5's rows at one SEED-X training step's shapes (M = batch ×
+    sequence) summed over its launch mix: every adapter's quantized base
+    in the forward and again under remat, and the lm_head once."""
+    hs, inter = lm.hidden_size, lm.intermediate_size
+    fwd = 2 if lm.remat else 1
+    L = lm.num_hidden_layers
+    agg = quant_row_mix(rows, {(hs, hs): fwd * 4 * L,
+                               (hs, inter): fwd * 2 * L,
+                               (inter, hs): fwd * L,
+                               (hs, lm.vocab_size): 1})
+    return {**{k: agg[k] for k in ("ms", "plain_ms", "bound_ms",
+                                   "library_ms", "bound_by", "bound_share")},
+            "ms_basis": f"one SEED-X QLoRA training step (M={M}): the "
+                        "launch mix " + agg["launch_mix"],
+            "launches_per_step": sum(run["launches"][k] for k in (
+                "int8_matmul", "int4_matmul")) // run["steps"],
+            "peak_gib": run["peak_gib"], "sec_per_step": run["sec_per_step"],
+            "shapes": rows}
+
+
+def seedx_train_phase(workdir):
+    """Phase 13: the SEED-X launcher's recipe through ``train.main`` (b),
+    one step's gradients against plain attention (c), the int4 QLoRA
+    recipe and one int8 step (d), then K2/K3 at head dims 144 and 160, K1
+    with its LSE and K4/K5 at the run's training shapes (a)."""
+    import torch
+    out = {}
+    # -- b. the bf16 recipe ---------------------------------------------
+    run, per_step, B, cuts, peak, wall = seedx_train_run(
+        workdir, [], SEEDX_TRAIN_STEPS, SEEDX_TRAIN_BATCHES, "bf16")
+    model = run.model
+    kinds = {d for rec, _, _ in per_step for d in rec["datasets"]}
+    check(kinds == set(cuts), f"the mixture's entries {sorted(cuts)}: only "
+          f"{sorted(kinds)} ran")
+    launches = check_seedx_steps(per_step, model, "bf16")
+    gen = [rec["rec_loss"] for rec, _, _ in per_step
+           if "laion-coco" in rec["datasets"]]
+    check(any(r > 0 for r in gen), f"no caption step has rec_loss > 0: {gen}")
+    ckpt = workdir / "bf16" / f"out_b{B}" / f"checkpoint_{SEEDX_TRAIN_STEPS}"
+    check((ckpt / "state.pt").is_file(), f"no checkpoint at {ckpt}")
+    n_train = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    steady = [rec for rec, _, _ in per_step[1:]]
+    batch = run.last_batches
+    caption = [rec for rec, _, _ in per_step[1:]
+               if rec["datasets"] == ["laion-coco"]]
+    b = {
+        "batch": B, "cuts": cuts, "steps": SEEDX_TRAIN_STEPS,
+        "datasets": [rec["datasets"] for rec, _, _ in per_step],
+        "losses": [rec["loss"] for rec, _, _ in per_step],
+        "rec_losses": [rec["rec_loss"] for rec, _, _ in per_step],
+        "sec_per_step": sum(r["sec/step"] for r in steady) / len(steady),
+        "tokens_per_s": sum(r["tokens/s"] for r in steady) / len(steady),
+        "images_per_s": sum(r["images/s"] for r in steady) / len(steady),
+        "caption_sec_per_step": (sum(r["sec/step"] for r in caption)
+                                 / len(caption) if caption else None),
+        "peak_gib": peak, "wall_s": wall, "trainable_m": n_train / 1e6,
+        "checkpoint_gib": (ckpt / "state.pt").stat().st_size / 2**30,
+        "launches": dict(launches),
+        "expected_per_step": {k: v for k, v in seedx_expected(model)[0]
+                              .items() if v},
+        "k23_by_head_dim": {f"{k}_D{d}": n for (k, d), n
+                            in seedx_expected(model)[1].items()},
+        "seq": int(batch[0]["input_ids"].shape[1]),
+        "images": int(batch[0]["images"].shape[0]),
+    }
+    print(f"[seedx-train] bf16 recipe at batch {B} (cuts {cuts}): "
+          f"{SEEDX_TRAIN_STEPS} steps in {wall:.1f} s with the build; "
+          f"steps 2-{SEEDX_TRAIN_STEPS}: {b['sec_per_step']:.3f} sec/step, "
+          f"{b['tokens_per_s']:.0f} tokens/s, {b['images_per_s']:.1f} "
+          f"images/s; peak {peak:.2f} GiB; {b['trainable_m']:.1f} M "
+          f"trainable; checkpoint {b['checkpoint_gib']:.2f} GiB; per step "
+          f"{b['expected_per_step']}, K2/K3 by head dim "
+          f"{b['k23_by_head_dim']}", flush=True)
+    import shutil
+    shutil.rmtree(workdir / "bf16" / f"out_b{B}", ignore_errors=True)
+    b["repeated_losses"] = repeated_batch_steps(model, run.optimizer, batch,
+                                                "bf16")
+    # one step taken apart, each part ending in a synchronize
+    from mllm_npu_tpu_torch.train import train as trainer
+    from mllm_npu_tpu_torch.train.train_state import make_train_step
+    parts = {}
+    for p in model.parameters():
+        p.grad = None
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss, _ = trainer.mllm_loss(model, batch[0])
+    torch.cuda.synchronize()
+    parts["forward"] = time.perf_counter() - t
+    t = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    parts["backward"] = time.perf_counter() - t
+    t = time.perf_counter()
+    run.optimizer.step()
+    torch.cuda.synchronize()
+    parts["optimizer"] = time.perf_counter() - t
+    b["step_parts_s"] = parts
+    del loss
+    print(f"[seedx-train] one step at batch {B} taken apart: " + ", ".join(
+        f"{k} {v * 1e3:.1f} ms" for k, v in parts.items()), flush=True)
+    step = make_train_step(model, trainer.mllm_loss, run.optimizer)
+    b["profile"] = profile_call(lambda: step(batch))
+    print_profile(f"one SEED-X training step at batch {B}", *b["profile"])
+    out["bf16"] = b
+    for fn in kernel_counters().values():    # the extra steps: not counted
+        fn.launches = 0
+    # -- c. one step's gradients against plain attention -----------------
+    check(bool(batch[0]["ids_gen_mask"].any()), "the last step's batch has "
+          "no generation slot: the output projector's gradient would be 0")
+    run.optimizer = None
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["grads"] = seedx_grad_check(model, batch[0])
+    del run, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- d. the int4 QLoRA recipe, then one int8 step --------------------
+    for quant, steps in (("int4", SEEDX_QLORA_STEPS), ("int8", 1)):
+        batches = tuple(x for x in SEEDX_TRAIN_BATCHES if x <= B)
+        if quant == "int8":
+            batches = (out["int4"]["batch"],)
+        qrun, qsteps, QB, qcuts, qpeak, qwall = seedx_train_run(
+            workdir, ["--quantize_base", quant], steps, batches, quant)
+        qlaunch = check_seedx_steps(qsteps, qrun.model, quant, quant)
+        other = "int8" if quant == "int4" else "int4"
+        check(qlaunch[f"{other}_matmul"] == 0, f"{quant}: {other} launched")
+        q = {"batch": QB, "steps": steps, "peak_gib": qpeak, "wall_s": qwall,
+             "datasets": [rec["datasets"] for rec, _, _ in qsteps],
+             "losses": [rec["loss"] for rec, _, _ in qsteps],
+             "sec_per_step": (sum(r["sec/step"] for r, _, _ in
+                                  qsteps[1:] or qsteps)
+                              / len(qsteps[1:] or qsteps)),
+             "launches": qlaunch,
+             "trainable_m": sum(p.numel() for p in qrun.model.parameters()
+                                if p.requires_grad) / 1e6,
+             "resident_gib_after": torch.cuda.memory_allocated() / 2**30}
+        print(f"[seedx-train] {quant} QLoRA at batch {QB}: {steps} steps in "
+              f"{qwall:.1f} s with the build and quantization; "
+              f"{q['sec_per_step']:.3f} sec/step; peak {qpeak:.2f} GiB "
+              f"(bf16 recipe {peak:.2f} GiB at batch {B}); "
+              f"{q['trainable_m']:.1f} M trainable; K{5 if quant == 'int4' else 4}"
+              f" {qlaunch[f'{quant}_matmul'] // steps} a step", flush=True)
+        if quant == "int4":
+            q["repeated_losses"] = repeated_batch_steps(
+                qrun.model, qrun.optimizer, qrun.last_batches, quant)
+            for fn in kernel_counters().values():
+                fn.launches = 0
+        out[quant] = q
+        for k, n in qlaunch.items():
+            launches[k] = launches.get(k, 0) + n
+        import shutil
+        shutil.rmtree(workdir / quant, ignore_errors=True)
+        del qrun
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    # -- a. the kernels at this run's shapes, the model dropped -----------
+    out.update(seedx_kernel_phase(B, out["bf16"]["seq"],
+                                  out["bf16"]["images"]))
+    return out
+
+
+def seedx_kernel_phase(B, S, n_img):
+    """Phase 13a: K2/K3 at head dims 144 and 160 across the edge sweep,
+    then K1 with its LSE, K2 and K3 at the training run's shapes (batch
+    ``B`` of ``S`` tokens, ``n_img`` image slots) and at D = 144, and K4 /
+    K5 at its training rows (M = B·S)."""
+    out = {}
+    vis, proj, outp, lm = seedx_specs()
+    out["k23_sweep"] = k23_wide_sweep()
+    d_in = proj["embed_dim"] // proj["num_heads"]
+    d_out = outp["embed_dim"] // outp["num_heads"]
+    out["bwd"] = [
+        bwd_case("seedx_input_projector_train", n_img, proj["num_queries"],
+                 vis.n_queries, proj["num_heads"], proj["num_heads"], d_in,
+                 False),
+        bwd_case("seedx_llama2_train", B, S, S, lm.num_attention_heads,
+                 lm.num_key_value_heads, lm.head_dim, True, segments=True),
+        bwd_case("seedx_output_projector_train", n_img,
+                 outp["num_queries"], outp["num_queries"],
+                 outp["num_heads"], outp["num_heads"], d_out, False),
+        bwd_case("wide_d144_causal_gqa", 2, 300, 300, 8, 2, 144, True,
+                 segments=True),
+    ]
+    hs, inter = lm.hidden_size, lm.intermediate_size
+    M = B * S
+    out["quant"] = {bits: [dict(quant_case(bits, M, k, n,
+                                           lm.quant_group_size),
+                                regime="train")
+                           for k, n in ((hs, hs), (hs, inter), (inter, hs),
+                                        (hs, lm.vocab_size))]
+                    for bits in (8, 4)}
+    return out
+
+
 def main():
     # the training phase runs near the card's memory: let the allocator grow
     # segments instead of fragmenting (read when CUDA initialises)
@@ -4125,6 +4745,16 @@ def main():
     evaluator["seedx"] = ev = evaluator_phase()
     for k in launches:
         launches[k] += ev["launches"][k]
+
+    print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 13",
+          flush=True)
+    # -- 13. SEED-X pretraining at full width: the launcher's recipe
+    #        through the trainer, the gradients against plain attention,
+    #        int4 QLoRA and an int8 step, then the kernels at its shapes
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_seedx_") as tmp:
+        seedtrain = seedx_train_phase(Path(tmp))
+    for k in launches:
+        launches[k] += seedtrain["launches"][k]
     unet_forward = k1_mix(unet_cases, unet_mix, "one SDXL UNet forward "
                           "(CFG batch 2, 1024x1024)")
     unet_image = {k: v * GEN_STEPS if k in ("ms", "plain_ms", "bound_ms",
@@ -4206,7 +4836,8 @@ def main():
             "source": "mllm_npu_tpu_torch/csrc/flash_bwd.cu",
             "replaces": replaces,
             "launches": launches[name],
-            "wgmma_launches": train["launches"][f"{name}_wgmma"],
+            "wgmma_launches": (train["launches"][f"{name}_wgmma"]
+                               + seedtrain["launches"][f"{name}_wgmma"]),
             "max_abs_err": max(b[name]["max_abs_err"] for b in bwd),
             **agg,
             "bound_by": "operations" if t_c >= t_m else "bytes",
@@ -4310,6 +4941,9 @@ def main():
             "shapes": qrows[bits],
             "seedx": seedx_quant(qrows13[bits], seedx_lm, s_img),
         })
+    extra = seedx_train_fields(seedtrain, seedx_lm)
+    for row in rows:
+        row.update(extra[row["name"]])
     print("[train] summary " + json.dumps(
         {k: v for k, v in train.items() if k != "profile"}))
     print("[worker] summary " + json.dumps(worker, default=str))
@@ -4317,6 +4951,11 @@ def main():
     print("[seedx] summary " + json.dumps(seedx, default=str))
     print("[detok] summary " + json.dumps(detok, default=str))
     print("[eval] summary " + json.dumps(evaluator, default=str))
+    print("[seedx-train] summary " + json.dumps(
+        {k: ({kk: vv for kk, vv in v.items() if kk != "profile"}
+             if isinstance(v, dict) else v)
+         for k, v in seedtrain.items() if k not in ("bwd", "quant")},
+        default=str))
     print(f"[time] {time.perf_counter() - t_start:.1f} s: all phases done",
           flush=True)
     print(json.dumps({"kernels": rows}))

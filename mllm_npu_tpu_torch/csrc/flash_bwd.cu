@@ -34,7 +34,7 @@
 // resampler needs K and V read, and dK and dV written, at the memory's
 // rate.
 //
-// Design (the Hopper regime, head dims 32 to 128):
+// Design (the Hopper regime, head dims 32 to 160):
 //  * Persistent blocks of 256 threads, two per SM, as many as fit (at most
 //    one per work tile), each walking work tiles i, i + gridDim.x, ... K2's
 //    work tile is 64 query rows of one (batch, query head); causal, the
@@ -102,16 +102,34 @@
 //    (72 → 64 + 16, 104 → 64 + 48, 32 → 0 + 32), with K1's descriptors.
 //  * GQA reads KV head h·Hkv/Hq directly; K/V are never repeated.
 //
+//  * Head dims 144 and 160 (SEED-X's input projector: 64 queries over 256
+//    keys, 32 heads of 160). A tile is then 20 KB, so a K2 or K3 block
+//    takes about 122 KB of shared memory and one block fits on an SM, not
+//    two (at 144, 110 KB: two K2 blocks fit). K2 keeps its design (dQ is
+//    80 fp32 a thread). K3's one consumer
+//    warpgroup would hold dK and dV (2 · 80 fp32 a thread) beside Sᵀ and
+//    dPᵀ (64): more than a thread's 255 registers. So above DP 128 a K3
+//    block has two consumer warpgroups over the same 64 keys and ring
+//    stage (384 threads; setmaxnreg 208, producer 40): the first computes
+//    Sᵀ, Pᵀ and dV += Pᵀ·dO, the second Sᵀ, dPᵀ, dSᵀ and dK += dSᵀ·Q.
+//    The cost: Sᵀ = K·Qᵀ is computed twice, five products a pair instead
+//    of four, and the second warpgroup does three of them.
+//
 // The mma.sync regime (namespace mma_sync, the first design of these
 // kernels, unchanged): head dims below 32, chosen by shape in k23_regime.
 // mma.sync m16n8k16 from cp.async double-buffered shared tiles, 4 warps a
-// block, scalar B-operand gathers for the products over the sequence.
+// block, scalar B-operand gathers for the products over the sequence; it
+// takes head dims 8 to 160 when forced (the card tests run every case in
+// it too).
 //
-// Registers (ptxas, sm_90a): every Hopper instantiation at the launch
-// bounds' 128 (two blocks of 256 threads per SM), split by setmaxnreg into
-// producer 32 and consumers 224: no spills, no C7513. (At 24 / 232 K3's
-// producer spilled 32 bytes; at 40 / 216 K3's consumers spilled and ran
-// slower.)
+// Registers (ptxas, sm_90a): the Hopper instantiations up to DP 128 at
+// the launch bounds' 128 (two blocks of 256 threads per SM), split by
+// setmaxnreg into producer 32 and consumers 224, no C7513; K2 spills 8
+// bytes at DP 96 to 128, K3 40 to 56 bytes. (At 24 / 232 K3's producer
+// spilled 32 bytes; at 40 / 216 K3's consumers spilled and ran slower.)
+// K3 above DP 128: 168 at the launch bounds (one block of 384 threads),
+// producer 40 and consumers 208, 8 bytes spilled; K2 at DP 144 none, at
+// 160 8 bytes.
 
 // Develop with MLLM_NVCC_EXTRA=-DMBAR_TRAP_CYCLES=... (csrc/hopper.cuh):
 // a lost mbarrier arrival then traps instead of hanging the card.
@@ -585,6 +603,12 @@ struct Cfg3 {
   static constexpr int SMEM = BAR_OFF + 8 * (2 + 2 * STAGES) + 1024;
   static_assert(BYTES % 1024 == 0,
                 "buffers stay 1024-byte aligned for the 128-byte swizzle");
+  // consumer warpgroups: one holds dK and dV up to DP = 128; above, dV's
+  // and dK's accumulators (80 fp32 a thread each at DP = 160) with Sᵀ and
+  // dPᵀ would pass a thread's registers, so one warpgroup holds dV and
+  // recomputes Sᵀ for it, the other dK (dk_dv_split below)
+  static constexpr int CW = DP > 128 ? 2 : 1;
+  static constexpr int THREADS = 128 * (CW + 1);
 };
 
 // K3's work tiles in the order the persistent blocks take them. Causal:
@@ -609,11 +633,135 @@ struct Work3 {
   }
 };
 
-template <int DP>
-__global__ void __launch_bounds__(THREADS, 2)
-    flash_bwd_dkv_kernel(const __grid_constant__ Params p) {
+// DP > 128, one of the two consumer warpgroups of a K3 block (the other
+// holds the other accumulator): 64 keys, 16 a warp (`wi`). DK false: Sᵀ,
+// Pᵀ and dV += Pᵀ·dO; DK true: Sᵀ and dPᵀ, dSᵀ and dK += dSᵀ·Q. Both wait
+// on the same ring stage and release it, with the walk, masks and stores
+// of the one-warpgroup consumer.
+template <int DP, bool DK>
+__device__ __forceinline__ void dk_dv_split(const Params& p, const Work3& work,
+                                            int n_tiles, uint32_t base,
+                                            const int* meta, uint32_t bar_kf,
+                                            uint32_t bar_ke, uint32_t bar_qf,
+                                            uint32_t bar_qe, int wi,
+                                            int lane) {
   using C = Cfg3<DP>;
   constexpr int HI = C::HI, LO = C::LO;
+  const int g = lane / 4, t4 = lane % 4;
+  const float sl2 = p.scale_log2;
+  float acc_hi[HI / 2], acc_lo[LO ? LO / 2 : 1];
+  float st[32], dpt[DK ? 32 : 1];  // Sᵀ (then Pᵀ) and dPᵀ (then dSᵀ)
+  uint32_t xa[4][4];               // Pᵀ or dSᵀ in bf16: the A operand
+  int it = 0;                      // pairs consumed so far
+  for (int t = blockIdx.x, tc = 0; t < n_tiles; t += gridDim.x, ++tc) {
+    int k0, hk, b;
+    work.tile(t, k0, hk, b);
+    const int kw = k0 + 16 * wi;  // this warp's first key
+    const int c0 = kw + g, c1 = c0 + 8;
+    int ks0 = 0, ks1 = 0, wseg = 0;
+    bool wuni = false;
+    if (p.kseg != nullptr) {
+      const int* ks = p.kseg + static_cast<long long>(b) * p.Sk;
+      int lo = INT_MAX, hi = INT_MIN;
+      if (c0 < p.Sk) {
+        ks0 = ks[c0];
+        lo = min(lo, ks0);
+        hi = max(hi, ks0);
+      }
+      if (c1 < p.Sk) {
+        ks1 = ks[c1];
+        lo = min(lo, ks1);
+        hi = max(hi, ks1);
+      }
+      warp_range(lo, hi);
+      wuni = lo == hi;
+      wseg = lo;
+    }
+#pragma unroll
+    for (int i = 0; i < HI / 2; ++i) acc_hi[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < (LO ? LO / 2 : 1); ++i) acc_lo[i] = 0.f;
+    mbar_wait(bar_kf, tc & 1);
+    for (;;) {
+      const int s = it % STAGES;
+      const int* m = meta + s * C::META;
+      const float* ml = reinterpret_cast<const float*>(m);
+      const uint32_t qb = base + C::Q_OFF + s * 2 * C::BYTES;
+      mbar_wait(bar_qf + 8 * s, (it / STAGES) & 1);
+      const int q0 = m[3 * TILE], last = m[3 * TILE + 1];
+      wg_fence();
+      mma_abt<HI, LO>(st, base, qb);
+      if constexpr (DK) mma_abt<HI, LO>(dpt, base + C::BYTES, qb + C::BYTES);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(st);
+      if constexpr (DK) fence_regs(dpt);
+      bool need = kw < p.Sk &&
+                  (q0 + TILE > p.Sq || (p.causal && kw + 15 > q0));
+      if (p.qseg != nullptr && kw < p.Sk && !need)
+        need = !(wuni && m[3 * TILE + 2] == wseg && m[3 * TILE + 3] == wseg);
+      const int hi_c = p.Sq - q0 - 2 * t4;
+      const int lo0 = (p.causal ? c0 - q0 : 0) - 2 * t4;
+      const int lo1 = (p.causal ? c1 - q0 : 0) - 2 * t4;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 l = *reinterpret_cast<const float2*>(ml + 8 * n + 2 * t4);
+        float e0 = ex2(fmaf(st[4 * n], sl2, -l.x));
+        float e1 = ex2(fmaf(st[4 * n + 1], sl2, -l.y));
+        float e2 = ex2(fmaf(st[4 * n + 2], sl2, -l.x));
+        float e3 = ex2(fmaf(st[4 * n + 3], sl2, -l.y));
+        if (need) {
+          int2 id = make_int2(ks0, ks1);
+          if (p.qseg != nullptr)
+            id = *reinterpret_cast<const int2*>(m + 2 * TILE + 8 * n + 2 * t4);
+          if (!(8 * n >= lo0 && 8 * n < hi_c && id.x == ks0)) e0 = 0.f;
+          if (!(8 * n + 1 >= lo0 && 8 * n + 1 < hi_c && id.y == ks0)) e1 = 0.f;
+          if (!(8 * n >= lo1 && 8 * n < hi_c && id.x == ks1)) e2 = 0.f;
+          if (!(8 * n + 1 >= lo1 && 8 * n + 1 < hi_c && id.y == ks1)) e3 = 0.f;
+        }
+        if constexpr (DK) {
+          const float2 dl =
+              *reinterpret_cast<const float2*>(ml + TILE + 8 * n + 2 * t4);
+          dpt[4 * n] = e0 * (dpt[4 * n] - dl.x);
+          dpt[4 * n + 1] = e1 * (dpt[4 * n + 1] - dl.y);
+          dpt[4 * n + 2] = e2 * (dpt[4 * n + 2] - dl.x);
+          dpt[4 * n + 3] = e3 * (dpt[4 * n + 3] - dl.y);
+        } else {
+          st[4 * n] = e0;
+          st[4 * n + 1] = e1;
+          st[4 * n + 2] = e2;
+          st[4 * n + 3] = e3;
+        }
+      }
+      if constexpr (DK) pack_a(xa, dpt);
+      else pack_a(xa, st);
+      // dK += dSᵀ·Q or dV += Pᵀ·dO, Q or dO the MN-major B from the stage
+      wg_fence();
+      mma_xb<HI, LO>(acc_hi, acc_lo, xa, DK ? qb : qb + C::BYTES);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(acc_hi);
+      fence_regs(acc_lo);
+      fence_regs(xa);
+      release(bar_qe + 8 * s, lane);
+      ++it;
+      if (last) break;
+    }
+    release(bar_ke, lane);
+    if constexpr (DK)
+      store_rows<HI, LO>(p.dk + b * p.dk_sb + hk * p.dk_sh, p.dk_ss, c0, c1,
+                         p.Sk, p.D, t4, acc_hi, acc_lo, p.scale);
+    else
+      store_rows<HI, LO>(p.dv + b * p.dv_sb + hk * p.dv_sh, p.dv_ss, c0, c1,
+                         p.Sk, p.D, t4, acc_hi, acc_lo, 1.f);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(Cfg3<DP>::THREADS, 3 - Cfg3<DP>::CW)
+    flash_bwd_dkv_kernel(const __grid_constant__ Params p) {
+  using C = Cfg3<DP>;
+  constexpr int HI = C::HI, LO = C::LO, CW = C::CW;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -629,20 +777,23 @@ __global__ void __launch_bounds__(THREADS, 2)
 
   if (tid == 0) {
     mbar_init(bar_kf, 1);
-    mbar_init(bar_ke, 4);  // every consumer warp
+    mbar_init(bar_ke, 4 * CW);  // every consumer warp
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(bar_qf + 8 * s, 32);  // the producer warp's 32 lanes
-      mbar_init(bar_qe + 8 * s, 4);
+      mbar_init(bar_qe + 8 * s, 4 * CW);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (warp >= 4) {
+  if (warp >= 4 * CW) {
     // ---- producer: its first warp loads K, V, then Q, dO, the LSE, δ and
     // the q ids of every pair ------------------------------------------
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 32;\n" ::: "memory");
-    if (warp > 4) return;
+    if constexpr (CW == 1)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 32;\n" ::: "memory");
+    else
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp > 4 * CW) return;
     if (lane == 0) {
       if (HI) {
         prefetch_map(&p.q128);
@@ -734,6 +885,18 @@ __global__ void __launch_bounds__(THREADS, 2)
       send(pi, pg, true);
       __syncwarp();
     }
+    return;
+  }
+
+  if constexpr (CW == 2) {
+    // ---- two consumer warpgroups: dV (warps 0-3) and dK (4-7) ----------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 208;\n" ::: "memory");
+    if (warp < 4)
+      dk_dv_split<DP, false>(p, work, n_tiles, base, meta, bar_kf, bar_ke,
+                             bar_qf, bar_qe, warp, lane);
+    else
+      dk_dv_split<DP, true>(p, work, n_tiles, base, meta, bar_kf, bar_ke,
+                            bar_qf, bar_qe, warp - 4, lane);
     return;
   }
 
@@ -901,7 +1064,8 @@ cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
   static int blocks[MAX_DEVICES] = {};
   const long long tiles =
       static_cast<long long>((p.Sk + TILE - 1) / TILE) * p.Hkv * p.B;
-  return launch_persistent(flash_bwd_dkv_kernel<DP>, THREADS, Cfg3<DP>::SMEM,
+  return launch_persistent(flash_bwd_dkv_kernel<DP>, Cfg3<DP>::THREADS,
+                           Cfg3<DP>::SMEM,
                            tiles, blocks, p, stream);
 }
 
@@ -917,6 +1081,10 @@ cudaError_t launch_dp(const Params& p, cudaStream_t stream) {
       return DKV ? launch_dkv<112>(p, stream) : launch_dq<112>(p, stream);
     case 8:
       return DKV ? launch_dkv<128>(p, stream) : launch_dq<128>(p, stream);
+    case 9:
+      return DKV ? launch_dkv<144>(p, stream) : launch_dq<144>(p, stream);
+    case 10:
+      return DKV ? launch_dkv<160>(p, stream) : launch_dq<160>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1492,7 +1660,7 @@ Params make_params(const void* q, const void* k, const void* v,
 
 bool valid(const Params& p) {
   return (p.qseg == nullptr) == (p.kseg == nullptr) && p.D % 8 == 0 &&
-         p.D >= 8 && p.D <= 128 && p.Hkv > 0 && p.Hq % p.Hkv == 0;
+         p.D >= 8 && p.D <= 160 && p.Hkv > 0 && p.Hq % p.Hkv == 0;
 }
 
 cudaError_t dq(const Params& p, cudaStream_t st) {
@@ -1504,7 +1672,9 @@ cudaError_t dq(const Params& p, cudaStream_t st) {
     case 5: return launch_dq<80>(p, st);
     case 6: return launch_dq<96>(p, st);
     case 7: return launch_dq<112>(p, st);
-    default: return launch_dq<128>(p, st);
+    case 8: return launch_dq<128>(p, st);
+    case 9: return launch_dq<144>(p, st);
+    default: return launch_dq<160>(p, st);
   }
 }
 
@@ -1517,7 +1687,9 @@ cudaError_t dkv(const Params& p, cudaStream_t st) {
     case 5: return launch_dkv<80>(p, st);
     case 6: return launch_dkv<96>(p, st);
     case 7: return launch_dkv<112>(p, st);
-    default: return launch_dkv<128>(p, st);
+    case 8: return launch_dkv<128>(p, st);
+    case 9: return launch_dkv<144>(p, st);
+    default: return launch_dkv<160>(p, st);
   }
 }
 
@@ -1531,7 +1703,7 @@ cudaError_t dkv(const Params& p, cudaStream_t st) {
 // dk, dv in that order (dq or dk/dv unused by one entry point); q_seg and
 // kv_seg may be null. lse (natural log) and delta are fp32 [B, Hq, Sq],
 // contiguous. wgmma picks the regime: 1 the Hopper kernels (head dims 32
-// to 128), 0 the mma.sync ones.
+// to 160), 0 the mma.sync ones (8 to 160).
 extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, const void* q_seg,
@@ -1548,7 +1720,7 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
   }
   Params p;
   if ((q_seg == nullptr) != (kv_seg == nullptr) || D % 8 != 0 || D < 32 ||
-      D > 128 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || B <= 0 ||
+      D > 160 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || B <= 0 ||
       wgmma != 1 ||
       !make_params(p, q, k, v, dout, lse, delta, q_seg, kv_seg, dq, nullptr,
                    nullptr, B, Sq, Sk, Hq, Hkv, D, strides, scale, causal))
@@ -1573,7 +1745,7 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k,
   }
   Params p;
   if ((q_seg == nullptr) != (kv_seg == nullptr) || D % 8 != 0 || D < 32 ||
-      D > 128 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || B <= 0 ||
+      D > 160 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || B <= 0 ||
       wgmma != 1 ||
       !make_params(p, q, k, v, dout, lse, delta, q_seg, kv_seg, nullptr, dk,
                    dv, B, Sq, Sk, Hq, Hkv, D, strides, scale, causal))

@@ -5,8 +5,8 @@ port's copy of ``mllm_npu_tpu/data/streams.py``; tars are read with
 Replaces the reference's datapipes graph (FileLister→cycle→shuffle→
 sharding_filter→open→load_from_tar_wo_exception→webdataset grouping,
 reference data/tasks/image_caption.py:600-611) with plain composable
-generators. Robustness semantics are preserved: corrupt tar shards are
-warned-and-skipped, never fatal (reference
+generators. Robustness semantics are preserved: corrupt tar shards and
+unreadable jsonl files are warned-and-skipped, never fatal (reference
 data/datapipes.py:52-56,74-79).
 
 Host sharding: shard_for_host() splits the *shard list* across the
@@ -141,6 +141,36 @@ def iter_tar_members(path: str) -> Iterator[tuple[str, bytes]]:
                 yield f"{path}/{info.name}", f.read()
     except Exception as e:  # noqa: BLE001 — web-scale robustness
         log.warning("corrupt tar %s skipped: %s", path, e)
+
+
+def permuted_lines(path: str, seed: int, file_idx: int
+                   ) -> Iterator[bytes]:
+    """Non-empty raw lines of a jsonl file in a deterministic per-file
+    permutation derived from (seed, file_idx), read through an offset
+    table (one pass to record each line's offset and length, one to seek
+    in the permuted order), so the file never sits in memory. Unreadable
+    files are warned-and-skipped (the reference's JsonlParser)."""
+    offsets: list[tuple[int, int]] = []
+    try:
+        with open(path, "rb") as f:
+            off = 0
+            for ln in f:
+                if ln.strip():
+                    offsets.append((off, len(ln)))
+                off += len(ln)
+    except Exception as e:  # noqa: BLE001
+        log.warning("unreadable jsonl %s skipped: %s", path, e)
+        return
+    order = list(range(len(offsets)))
+    derive_rng(seed, "lines", file_idx).shuffle(order)
+    try:
+        with open(path, "rb") as f:
+            for i in order:
+                start, n = offsets[i]
+                f.seek(start)
+                yield f.read(n)
+    except Exception as e:  # noqa: BLE001
+        log.warning("unreadable jsonl %s skipped: %s", path, e)
 
 
 def group_webdataset(members: Iterable[tuple[str, Any]]

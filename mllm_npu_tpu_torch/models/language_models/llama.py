@@ -27,12 +27,13 @@ int4 (K5) (``LlamaConfig.quantization``; every projection and the
 product each when ``fused_projections`` is set
 (``utils.weights.fuse_llama_projections_``). Trained here: LoRA with
 adapter dropout, per-segment positions (:func:`packed_positions`), the
-dense and chunked causal-LM losses, and per-layer remat (``remat_policy``
-``nothing`` or ``dots``); attention then runs K1 with its LSE forward and
-K2/K3 backward. The reference's tensor-parallel fused layout
-(``fused_shards > 1``), LoRA over a quantized base and the
-``dots_no_batch``, ``dots_lite`` and ``hoist_attn`` policies are not
-ported yet.
+dense and chunked causal-LM losses, per-layer remat (``remat_policy``
+``nothing`` or ``dots``), and LoRA over a frozen int8 / int4 base
+(QLoRA: ``LoRALinear(base=...)``, the product's gradient through
+``ops.quant.QuantMatmul``); attention then runs K1 with its LSE forward
+and K2/K3 backward. The reference's tensor-parallel fused layout
+(``fused_shards > 1``) and the ``dots_no_batch``, ``dots_lite`` and
+``hoist_attn`` policies are not ported yet.
 """
 
 from __future__ import annotations
@@ -73,8 +74,9 @@ class LlamaConfig:
     lora_dropout: float = 0.0
     lora_targets: tuple = ("q_proj", "k_proj", "v_proj", "o_proj",
                            "gate_proj", "up_proj", "down_proj")
-    # weight-only serving: "none" | "int8" | "int4" (every projection and
-    # the lm_head; utils.weights.quantize_llama_ converts a float model)
+    # weight-only storage: "none" | "int8" | "int4" (every projection and
+    # the lm_head; with LoRA, the adapters' frozen bases: QLoRA training;
+    # utils.weights.quantize_llama_ converts a float model)
     quantization: str = "none"
     # int4 group size along K (falls back to K where it does not divide)
     quant_group_size: int = 256
@@ -120,12 +122,19 @@ class LoRALinear(nn.Module):
     module is training and a dropout seed is set, and ``x`` otherwise
     (peft ``lora_dropout``; the reference's ``LoRADense``). The mask is a
     function of (seed, ``dropout_key``) alone, so a layer re-run by
-    activation checkpointing draws the same mask."""
+    activation checkpointing draws the same mask. W is ``weight``, or with
+    ``base`` (an ``Int8Linear`` / ``Int4Linear``: QLoRA, the reference's
+    ``LoRADense(quantization=...)``) the frozen quantized ``base``, whose
+    product passes a gradient to x alone."""
 
     def __init__(self, in_features: int, out_features: int, rank: int,
-                 alpha: float, dtype: torch.dtype, dropout: float = 0.0):
+                 alpha: float, dtype: torch.dtype, dropout: float = 0.0,
+                 base: Optional[nn.Module] = None):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        if base is None:
+            self.weight = nn.Parameter(torch.empty(out_features,
+                                                   in_features))
+        self.base = base
         self.lora_A = Linear(in_features, rank, bias=False, dtype=dtype)
         self.lora_B = Linear(rank, out_features, bias=False, dtype=dtype)
         self.scale = alpha / rank
@@ -147,7 +156,8 @@ class LoRALinear(nn.Module):
 
     def forward(self, x):
         x = x.to(self.compute_dtype)
-        y = F.linear(x, self.weight.to(self.compute_dtype))
+        y = (F.linear(x, self.weight.to(self.compute_dtype))
+             if self.base is None else self.base(x))
         return y + self.lora_B(self.lora_A(self._dropout(x))) * self.scale
 
 
@@ -179,15 +189,14 @@ def quantized_linear(cfg: LlamaConfig, in_f: int, out_f: int, dtype):
 
 def _dense(cfg: LlamaConfig, name: str, in_f: int, out_f: int, dtype):
     lora = cfg.lora_rank > 0 and name in cfg.lora_targets
-    if cfg.quantization != "none":
-        if lora:
-            raise NotImplementedError(
-                "LoRA over a quantized base is not ported yet: merge the "
-                "adapters before quantizing")
-        return quantized_linear(cfg, in_f, out_f, dtype)
+    quantized = cfg.quantization != "none"
     if lora:
         return LoRALinear(in_f, out_f, cfg.lora_rank, cfg.lora_alpha, dtype,
-                          dropout=cfg.lora_dropout)
+                          dropout=cfg.lora_dropout,
+                          base=(quantized_linear(cfg, in_f, out_f, dtype)
+                                if quantized else None))
+    if quantized:
+        return quantized_linear(cfg, in_f, out_f, dtype)
     return Linear(in_f, out_f, bias=False, dtype=dtype)
 
 
@@ -569,7 +578,10 @@ class LlamaForCausalLM(nn.Module):
                          ignore_index: int = IGNORE_INDEX):
         """Causal-LM loss from the final hidden states without the full
         [B, S, V] logits (:func:`chunked_causal_lm_loss`; twin of
-        ``:812``)."""
+        ``:812``); a quantized head takes the dense loss, as the
+        reference's."""
+        if self.config.quantization != "none":
+            return causal_lm_loss(self.logits(h), labels, ignore_index)
         return chunked_causal_lm_loss(
             h, self.lm_head.weight, labels, chunk=chunk,
             compute_dtype=self.lm_head.compute_dtype,

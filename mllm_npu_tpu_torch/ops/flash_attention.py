@@ -28,7 +28,8 @@ producer warp and consumer warpgroups); the Python side of their design is
 here: K1's tile shape and its shared memory (:func:`k1_plan`,
 :func:`k1_block_q`, :func:`k1_smem_bytes`), the split of the head dim
 between the two swizzles of the tensor maps (:func:`k1_head_split`), K2's
-and K3's regime (:func:`k23_regime`) and, mirrored for the tests, which
+and K3's regime (:func:`k23_regime`; head dims 8 to 160) and, mirrored
+for the tests, which
 tiles each kernel visits and which of them it masks (:func:`k1_kv_tiles`,
 :func:`k1_needs_mask`, :func:`k2_kv_tiles`, :func:`k3_q_tiles`,
 :func:`k3_needs_mask`). Each wrapper launches its
@@ -49,10 +50,10 @@ from typing import NamedTuple, Optional
 import torch
 
 KERNEL = "flash_fwd"
-# K1 takes head dims in multiples of 8 up to this (Qwen-ViT-G's 104, the
-# SEED-X input projector's 160); K2 and K3 up to K23_MAX_HEAD_DIM
+# K1, K2 and K3 take head dims in multiples of 8 up to this (Qwen-ViT-G's
+# 104, the SEED-X input projector's 160)
 MAX_HEAD_DIM = 160
-K23_MAX_HEAD_DIM = 128
+K23_MAX_HEAD_DIM = 160
 
 
 class SegmentIds(NamedTuple):
@@ -220,9 +221,7 @@ def _check(q, k, v, segment_ids, name="flash_attention",
 def _check_head_dim(D, max_head_dim, name):
     if D % 8 or not 8 <= D <= max_head_dim:
         raise ValueError(f"head dim {D}: {name} takes multiples of 8 up to "
-                         f"{max_head_dim}"
-                         + (" (the backward above 128 is queue 1 item 13b)"
-                            if max_head_dim == K23_MAX_HEAD_DIM else ""))
+                         f"{max_head_dim}")
 
 
 def _check_bshd(t, nm, name):
@@ -425,9 +424,13 @@ K23_MIN_HEAD_DIM = 32
 
 
 def k23_regime(D: int) -> str:
-    """K2's and K3's regime for head dim D: ``"wgmma"``, the Hopper kernels
-    (TMA rings, wgmma, one consumer warpgroup of 64 rows, two blocks per
-    SM), from 32 on; ``"mma_sync"``, their first design, below."""
+    """K2's and K3's regime for head dim D (a multiple of 8 up to 160, or
+    raise): ``"wgmma"``, the Hopper kernels (TMA rings, wgmma, one consumer
+    warpgroup of 64 rows, two blocks per SM where their shared memory
+    allows; above a padded 128, K3 with two consumer warpgroups, one for dV
+    and one for dK), from 32 on; ``"mma_sync"``, their first design,
+    below."""
+    _check_head_dim(D, K23_MAX_HEAD_DIM, "flash_bwd")
     return "wgmma" if D >= K23_MIN_HEAD_DIM else "mma_sync"
 
 

@@ -22,6 +22,14 @@ prefill kernel on the plan :func:`prefill_plan` makes); for CPU tensors
 they compute the same function with their plain versions.
 There is no shape fallback for CUDA tensors (the reference's ``aligned``
 tests were TPU tiling limits): what the kernel does not take raises.
+
+:class:`QuantMatmul` (:func:`quant_matmul`) is the product with its
+gradient for training through a frozen quantized base (QLoRA; twin of the
+reference's ``quant_matmul`` ``custom_vjp``, ``quant.py:446-485``): the
+forward is K4 or K5, the backward dx = g·dequant(W) as one plain product
+(fp32 sums and output) on the weight dequantized in g's dtype, and no
+gradient for the frozen values and scales. :class:`Int8Linear` and
+:class:`Int4Linear` compute through it.
 """
 
 from __future__ import annotations
@@ -370,6 +378,45 @@ int4_matmul.launches = 0
 int4_matmul.prefill_launches = 0   # of those, the prefill regime (M > 16)
 
 
+# -- the product with its gradient (QLoRA) ------------------------------------
+
+class QuantMatmul(torch.autograd.Function):
+    """``x · dequant(W)ᵀ`` for a frozen int8 (``bits`` 8, per-channel
+    scales) or packed int4 (``bits`` 4, group scales) W: K4 / K5 forward;
+    backward dx = g·dequant(W), the weight dequantized in g's dtype, summed
+    and returned in fp32, then cast to g's dtype (the reference's
+    ``_quant_matmul_bwd``: ``preferred_element_type=f32``); nothing for the
+    values and scales. On the GPU that is one cuBLAS product with an fp32
+    output: with a bf16 output cuBLAS may sum split-K partials in bf16
+    (0.074 off at K = 32330 on an H100 80GB HBM3, past the bound that
+    ``tests/test_torch_cuda.py`` holds the fp32-output product to)."""
+
+    @staticmethod
+    def forward(ctx, x, values, scale, bits):
+        ctx.save_for_backward(values, scale)
+        ctx.bits = bits
+        return (int8_matmul if bits == 8 else int4_matmul)(x, values, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        values, scale = ctx.saved_tensors
+        if ctx.bits == 8:
+            w = dequantize_int8(QuantizedTensor(values, scale), g.dtype)
+        else:
+            w = dequantize_int4(QuantizedTensor4(values, scale), g.dtype)
+        g2 = g.reshape(-1, g.shape[-1])
+        dx = (torch.mm(g2, w, out_dtype=torch.float32) if g.is_cuda
+              else g2.float() @ w.float())
+        return (dx.to(g.dtype).reshape(*g.shape[:-1], w.shape[1]), None,
+                None, None)
+
+
+def quant_matmul(x: torch.Tensor, values: torch.Tensor, scale: torch.Tensor,
+                 bits: int) -> torch.Tensor:
+    """:class:`QuantMatmul` (x's dtype; on the GPU bf16 x)."""
+    return QuantMatmul.apply(x, values, scale, bits)
+
+
 # -- modules ----------------------------------------------------------------
 
 class Int8Linear(nn.Module):
@@ -396,8 +443,8 @@ class Int8Linear(nn.Module):
         return m
 
     def forward(self, x):
-        return int8_matmul(x.to(self.compute_dtype), self.weight_q,
-                           self.scale)
+        return quant_matmul(x.to(self.compute_dtype), self.weight_q,
+                            self.scale, 8)
 
 
 class Int4Linear(nn.Module):
@@ -430,5 +477,5 @@ class Int4Linear(nn.Module):
         return m
 
     def forward(self, x):
-        return int4_matmul(x.to(self.compute_dtype), self.weight_q,
-                           self.scale_g)
+        return quant_matmul(x.to(self.compute_dtype), self.weight_q,
+                            self.scale_g, 4)

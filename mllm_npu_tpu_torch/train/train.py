@@ -1,25 +1,33 @@
-"""Training CLI: LoRA fine-tuning of the comprehension assembly on one
-device (twin of ``mllm_npu_tpu/train/train.py``).
+"""Training CLI: LoRA fine-tuning and pretraining of the comprehension
+assembly and of SEED on one device (twin of
+``mllm_npu_tpu/train/train.py``).
 
     python -m mllm_npu_tpu_torch.train.train \
-        --model mllm_npu_tpu_torch/configs/models/mllm_llama3_8b_siglip_vit.yaml \
-        --train_dataset mllm_npu_tpu_torch/configs/dataset/caption_data.yaml \
+        --model mllm_npu_tpu_torch/configs/models/seedx_llama2_13b_qwenvl_vitg.yaml \
+        --train_dataset mllm_npu_tpu_torch/configs/dataset/pretrain_data.yaml \
         --output_dir out --max_steps 100000 --save_steps 1000 \
-        --learning_rate 1e-4 --lr_scheduler_type cosine --warmup_steps 500
+        --learning_rate 1e-4 --lr_scheduler_type cosine --warmup_steps 500 \
+        --min_lr_ratio 0.05 [--quantize_base int4]
 
 The flags and the log line (``sec/step``, ``tokens/s``, ``images/s``,
-``loss``, ``lr``, ``grad_norm``) are the reference's. The model is built for
-training (``build_mllm(train=True)``: fp32 trainable parameters, frozen
-ones in bf16 at full width) with weights drawn from ``--seed``; every
-attention that needs a gradient runs K1 with its LSE forward and K2/K3
-backward. The run writes ``checkpoint_{step}`` directories and the JSONL
-metrics under ``--output_dir`` and resumes from the latest checkpoint
-there (or under ``--resume_from_checkpoint``) at the exact data position.
+``loss``, ``lr``, ``grad_norm`` and every loss term the model returns:
+``lm_loss``, SEED's ``rec_loss``) are the reference's. The model is built
+for training (``build_mllm`` / ``build_seed(train=True)``: fp32 trainable
+parameters, frozen ones in bf16 at full width) with weights drawn from
+``--seed``; every attention that needs a gradient runs K1 with its LSE
+forward and K2/K3 backward. ``--quantize_base int8|int4`` (QLoRA) then
+quantizes the drawn float base, every LoRA adapter's base and the
+``lm_head`` (``--quant_group_size`` for int4), as the reference's trainer
+does; their products run K4 / K5 forward and pass their gradient to the
+activations alone. The run writes ``checkpoint_{step}`` directories and
+the JSONL metrics under ``--output_dir`` and resumes from the latest
+checkpoint there (or under ``--resume_from_checkpoint``) at the exact
+data position.
 
 It runs on ``--device`` (default ``cuda``) and raises without a GPU unless
 given ``--device cpu``. Not ported yet, and raising when asked for:
-meshes other than one device (``--mesh_*``), ``--quantize_base`` (QLoRA),
-``--params_checkpoint`` and ``--dataloader_workers > 0``.
+meshes other than one device (``--mesh_*``), ``--params_checkpoint`` and
+``--dataloader_workers > 0``.
 """
 
 from __future__ import annotations
@@ -109,10 +117,9 @@ def _refuse_unported(args: TrainArgs) -> None:
         raise NotImplementedError(
             f"{bad}: meshes over several devices are the parallel slice "
             "(ROADMAP queue 1 item 12), not ported yet")
-    if args.quantize_base:
-        raise NotImplementedError(
-            "--quantize_base (LoRA over an int8/int4 base and the quantized "
-            "product's backward) is not ported yet (ROADMAP queue 1)")
+    if args.quantize_base not in ("", "int8", "int4"):
+        raise ValueError(f"--quantize_base takes int8 or int4, got "
+                         f"{args.quantize_base!r}")
     if args.params_checkpoint:
         raise NotImplementedError(
             "--params_checkpoint (orbax params from the JAX package) is not "
@@ -173,17 +180,21 @@ def batch_to_device(batch: dict, device) -> dict:
 
 
 def mllm_loss(model, batch):
-    """The trainer's loss: the assembly's total loss, with ``lm_loss`` as a
-    metric."""
+    """The trainer's loss: the assembly's total loss, with every other term
+    it returns (``lm_loss``; SEED's ``rec_loss``) as a metric, as the
+    reference's ``loss_fn``."""
     out = model(**batch)
-    return out["total_loss"], {"lm_loss": out["lm_loss"]}
+    return out["total_loss"], {k: v for k, v in out.items()
+                                if k != "total_loss"}
 
 
 def main(argv=None, on_step: Optional[Callable[[dict], None]] = None):
     """Run the trainer; returns a namespace with the model, the optimizer,
     the last step's micro-batches and the records of the logged steps
     (unrounded). ``on_step(record)`` is called after every
-    optimizer step, which then also records every step."""
+    optimizer step, which then also records every step; its record also
+    holds ``datasets``, the mixture entry (``dataset_name``) of each of
+    the step's micro-batches."""
     logging.basicConfig(level=logging.INFO)
     args = parse_args(argv)
     _refuse_unported(args)
@@ -206,6 +217,12 @@ def main(argv=None, on_step: Optional[Callable[[dict], None]] = None):
     model = instantiate(model_cfg["mllm"]["mllm_model"],
                         language_model=llm_spec, device=device, train=True,
                         seed=args.seed, ce_loss_chunk=args.ce_loss_chunk)
+    if args.quantize_base:
+        # QLoRA: the float base drawn from the seed, quantized in place
+        from mllm_npu_tpu_torch.utils.weights import quantize_llama_
+        quantize_llama_(model.language_model,
+                        bits=int(args.quantize_base[3:]),
+                        group_size=args.quant_group_size, keep_lora=True)
     model.train()
     params = trainable_parameters(model)
     n_all = sum(p.numel() for p in model.parameters())
@@ -251,7 +268,7 @@ def main(argv=None, on_step: Optional[Callable[[dict], None]] = None):
     writer = build_trackers(args.output_dir, vars(args))
 
     # ---- loop -------------------------------------------------------------
-    micro, records = [], []
+    micro, names, records = [], [], []
     t0 = time.time()
     step = start_step
     epoch_mark = loader.state_dict()["steps"]
@@ -269,9 +286,11 @@ def main(argv=None, on_step: Optional[Callable[[dict], None]] = None):
             data_iter = iter(loader)
             continue
         micro.append(batch_to_device(batch, device))
+        names.append(batch.get("dataset_name"))
         if len(micro) < ga:
             continue
         batches, micro = micro, []
+        datasets, names = names, []
 
         prof = None
         if args.profile_steps and step == args.profile_steps:
@@ -316,7 +335,7 @@ def main(argv=None, on_step: Optional[Callable[[dict], None]] = None):
                                 if k not in ("step", "sec/step", "tokens/s",
                                              "images/s")}, step)
             if on_step is not None:
-                on_step(rec)
+                on_step(dict(rec, datasets=datasets))
         if step % args.save_steps == 0:
             save(step)
 

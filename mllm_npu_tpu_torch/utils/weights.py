@@ -17,7 +17,9 @@ for SEED (its output projector too). It undoes:
   ViT's fused ``attn.in_proj`` Linear;
 - quantized Llama leaves (``quantize_llama_params``): ``kernel_q`` [K, N]
   (int8) or [K/2, N] (packed int4) → ``weight_q`` [N, K] or [N, K/2], its
-  transpose; ``scale`` [N] and ``scale_g`` [K/G, N] as they are.
+  transpose; ``scale`` [N] and ``scale_g`` [K/G, N] as they are; a QLoRA
+  projection's quantized ``base`` → ``….base.weight_q`` / ``scale``
+  beside its adapters.
 
 The de-tokenizer's parts go across by name rules instead
 (:func:`unet_from_jax`, :func:`vae_from_jax`, :func:`perceiver_from_jax`,
@@ -99,7 +101,13 @@ def llama_from_jax(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
                 node = layers[group][name]
                 key = f"{lp}{group}.{name}"
                 if "base" in node:
-                    sd[f"{key}.weight"] = _dense_T(node["base"]["kernel"][i])
+                    # a LoRA projection: float base, or quantized (QLoRA)
+                    if "kernel" in node["base"]:
+                        sd[f"{key}.weight"] = _dense_T(
+                            node["base"]["kernel"][i])
+                    else:
+                        sd.update(linear_from_jax(node["base"],
+                                                  f"{key}.base", i))
                     sd[f"{key}.lora_A.weight"] = _dense_T(node["lora_a"][i])
                     sd[f"{key}.lora_B.weight"] = _dense_T(node["lora_b"][i])
                 else:
@@ -330,6 +338,9 @@ def merge_lora_(lm: nn.Module) -> None:
     names = [n for n, m in lm.named_modules() if isinstance(m, LoRALinear)]
     for name in names:
         mod = lm.get_submodule(name)
+        if mod.base is not None:
+            raise ValueError(f"{name}: an adapter over a quantized base "
+                             "cannot be merged (merge, then quantize)")
         w = mod.weight
         delta = (mod.lora_B.weight.float() @ mod.lora_A.weight.float()
                  ) * mod.scale
@@ -408,30 +419,43 @@ def fuse_llama_projections_(lm: nn.Module) -> None:
     set_llama_config(lm, fused_projections=True)
 
 
+def _quantized(w: torch.Tensor, bits: int, group_size: int, dtype):
+    if bits == 8:
+        return Int8Linear.from_weight(w, dtype)
+    return Int4Linear.from_weight(w, group_size, dtype)
+
+
 @torch.no_grad()
-def quantize_llama_(lm: nn.Module, bits: int = 8,
-                    group_size: int = 256) -> None:
+def quantize_llama_(lm: nn.Module, bits: int = 8, group_size: int = 256,
+                    keep_lora: bool = False) -> None:
     """In place: swap every bias-free ``Linear`` of the Llama ``lm`` (the
     seven projections of each layer and the ``lm_head``; paths with
     ``embed`` are skipped, as the reference) for an ``Int8Linear`` or
     ``Int4Linear`` quantized from its current values on its device (twin of
     ``quantize_llama_params``). Each float weight is freed once its
-    replacement exists. Merge LoRA adapters first (:func:`merge_lora_`)."""
+    replacement exists. Serving merges LoRA adapters first
+    (:func:`merge_lora_`); a model with adapters raises unless
+    ``keep_lora``, the QLoRA layout: each adapter's base is quantized into
+    its ``base`` and the adapters stay float (the reference's trainer with
+    ``--quantize_base``)."""
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
-    if any(isinstance(m, LoRALinear) for m in lm.modules()):
+    adapters = [n for n, m in lm.named_modules() if isinstance(m, LoRALinear)]
+    if adapters and not keep_lora:
         raise ValueError("merge the LoRA adapters (merge_lora_) before "
                          "quantizing")
+    for name in adapters:
+        mod = lm.get_submodule(name)
+        mod.base = _quantized(mod.weight, bits, group_size, mod.compute_dtype)
+        del mod.weight
+    inside = tuple(f"{n}." for n in adapters)
     names = [n for n, m in lm.named_modules()
-             if isinstance(m, Linear) and m.bias is None and "embed" not in n]
+             if isinstance(m, Linear) and m.bias is None and "embed" not in n
+             and not n.startswith(inside)]
     for name in names:
         mod = lm.get_submodule(name)
-        if bits == 8:
-            new = Int8Linear.from_weight(mod.weight, mod.compute_dtype)
-        else:
-            new = Int4Linear.from_weight(mod.weight, group_size,
-                                         mod.compute_dtype)
-        _swap(lm, name, new)
+        _swap(lm, name, _quantized(mod.weight, bits, group_size,
+                                   mod.compute_dtype))
         del mod   # the float weight goes before the next is quantized
     set_llama_config(lm, quantization=f"int{bits}",
                       quant_group_size=group_size)

@@ -245,14 +245,28 @@ BWD_CASES = [
     (2, 520, 520, 8, 8, 72, False, "packed"),    # segment skips, D=72
     (1, 100, 100, 4, 2, 16, True, "packed"),     # D=16: mma.sync regime
 ]
+# every case above the mma.sync one again at head dims 144 and 160 (one
+# K2/K3 block per SM, K3 with two consumer warpgroups), and SEED-X's input
+# projector: 64 queries over 256 keys, 32 heads of 160
+WIDE_BWD_CASES = [c[:5] + (D,) + c[6:] for D in (144, 160)
+                  for c in BWD_CASES if c[5] >= 32] + [
+    (24, 64, 256, 32, 32, 160, False, None),
+]
 
 
-@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,seg_kind", BWD_CASES)
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,seg_kind",
+                         BWD_CASES + WIDE_BWD_CASES)
 def test_k1_lse_matches_plain(cuda, block_q, B, Sq, Sk, Hq, Hkv, D, causal,
                               seg_kind):
     q, k, v, _, seg = _bwd_inputs(cuda, B, Sq, Sk, Hq, Hkv, D, seg_kind)
     kw = dict(causal=causal, segment_ids=seg)
     before = flash_attention.launches
+    if fa.k1_smem_bytes(block_q, D) > fa.K1_MAX_SMEM:
+        # a 128-row tile does not fit at D = 160: refused, never launched
+        with pytest.raises(ValueError, match="shared memory"):
+            flash_attention(q, k, v, return_lse=True, **kw)
+        assert flash_attention.launches == before
+        return
     out, lse = flash_attention(q, k, v, return_lse=True, **kw)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
@@ -265,7 +279,8 @@ def test_k1_lse_matches_plain(cuda, block_q, B, Sq, Sk, Hq, Hkv, D, causal,
         assert (lse[0, :, 1] == 0).all()
 
 
-@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,seg_kind", BWD_CASES)
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,seg_kind",
+                         BWD_CASES + WIDE_BWD_CASES)
 def test_k2_k3_match_plain(cuda, k23_regime, B, Sq, Sk, Hq, Hkv, D, causal,
                            seg_kind):
     q, k, v, do, seg = _bwd_inputs(cuda, B, Sq, Sk, Hq, Hkv, D, seg_kind)
@@ -294,11 +309,13 @@ def test_k2_k3_match_plain(cuda, k23_regime, B, Sq, Sk, Hq, Hkv, D, causal,
 @pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,seg_kind", [
     (8, 600, 600, 32, 8, 128, True, "packed"),   # the Llama training layer
     (56, 64, 729, 32, 32, 128, False, None),     # the resampler's, batch 8
+    (24, 64, 256, 32, 32, 160, False, None),     # SEED-X's input projector
+    (2, 600, 600, 40, 40, 160, True, "packed"),  # D = 160, causal, MHA
 ])
 def test_k2_k3_repeat_bit_identical(cuda, k23_regime, B, Sq, Sk, Hq, Hkv, D,
                                     causal, seg_kind):
     """No atomics, a fixed order of every sum: two launches give the same
-    bits, at the two training shapes, in both regimes."""
+    bits, at the training shapes, in both regimes."""
     q, k, v, do, seg = _bwd_inputs(cuda, B, Sq, Sk, Hq, Hkv, D, seg_kind)
     kw = dict(causal=causal, segment_ids=seg)
     o, lse = flash_attention(q, k, v, return_lse=True, **kw)
@@ -372,10 +389,11 @@ def test_k2_k3_reject_what_they_do_not_take(cuda):
     wide = torch.zeros(1, 64, 4, 256, device=cuda).bfloat16()
     with pytest.raises(ValueError):
         flash_bwd_dkv(wide, wide[:, :, :2], wide[:, :, :2], wide,
-                      lse, delta)                           # D > 128
-    d160 = torch.zeros(1, 64, 4, 160, device=cuda).bfloat16()
-    with pytest.raises(ValueError, match="item 13b"):
-        flash_bwd_dq(d160, d160, d160, d160, lse, delta)    # K1 takes it
+                      lse, delta)                           # D > 160
+    d168 = torch.zeros(1, 64, 4, 168, device=cuda).bfloat16()
+    for fn in (flash_bwd_dq, flash_bwd_dkv):
+        with pytest.raises(ValueError, match="up to 160"):
+            fn(d168, d168, d168, d168, lse, delta)          # D > 160
     assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == n
 
 
@@ -514,6 +532,38 @@ def test_quant_prefill_repeats_bit_identical(cuda, bits, M, K, N, G):
     ref = plain(x, *qt).float()
     assert ((first.float() - ref).abs()
             <= 1e-2 * ref.abs() + 1e-3 * ref.abs().max()).all()
+
+
+@pytest.mark.parametrize("bits,M,K,N,G", [
+    (8, 2400, 5120, 13824, None), (4, 2400, 13824, 5120, 256),
+    (4, 2048, 5120, 32330, 256), (8, 77, 256, 130, None),
+    (4, 77, 256, 130, 128),
+])
+def test_quant_matmul_function_matches_plain(cuda, bits, M, K, N, G):
+    """``QuantMatmul`` (QLoRA's product) on the card: the forward is K4 / K5
+    (one launch, within K4/K5's tolerance of the plain product) and dx is
+    g·dequant(W) with W dequantized in g's dtype (bf16, as the reference's
+    backward) and fp32 sums, against the fp32 product of the same bf16 g
+    and dequantized W (|err| <= 1e-2·|ref| + 1e-3·max|ref|: the output's
+    bf16 rounding and the order of the sums); the values and scales get no
+    gradient. Shapes: SEED-X's training rows (batch × 600 or 512) at its
+    projections and lm_head, and a small ragged one."""
+    qt, kernel, plain = _quantized(bits, N, K, G, cuda)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(7)
+    x = torch.randn(M, K, device=cuda, generator=g).bfloat16()
+    gy = torch.randn(M, N, device=cuda, generator=g).bfloat16()
+    xg = x.clone().requires_grad_()
+    n = kernel.launches
+    y = tq.quant_matmul(xg, *qt, bits)
+    y.backward(gy)
+    torch.cuda.synchronize()
+    assert kernel.launches == n + 1
+    _close(y, plain(x, *qt), 1e-2, 1e-3)
+    deq = (tq.dequantize_int8 if bits == 8 else tq.dequantize_int4)(
+        qt, torch.bfloat16)
+    _close(xg.grad, gy.float() @ deq.float(), 1e-2, 1e-3)
+    assert xg.grad.dtype == torch.bfloat16
 
 
 def test_quant_kernels_take_leading_dims(cuda):

@@ -118,6 +118,45 @@ def test_flash_gradients_with_segment_ids(hq, hkv):
         np.testing.assert_allclose(a, b, atol=ATOL, err_msg=f"d{name}")
 
 
+@pytest.mark.parametrize("D", [144, 160])
+@pytest.mark.parametrize("shape", ["resampler", "causal_segments"])
+def test_wide_head_gradients_match_reference(shape, D):
+    """Head dims 144 and 160 (SEED-X's input projector attends at 160; K2
+    and K3 take them on the card): the plain backward of
+    :class:`FlashAttention` against ``jax.vjp`` of the reference's
+    ``flash_attention_padded`` (the head dim zero-padded to 256, the
+    Pallas kernels in interpret mode), at the input projector's shape (64
+    queries over 256 keys) and causal with GQA, two packed segments and a
+    padded tail."""
+    from mllm_npu_tpu.ops import flash_attention_padded as j_padded
+    if shape == "resampler":
+        B, Sq, Sk, hq, hkv, causal, sid = 2, 64, 256, 4, 4, False, None
+    else:
+        B, Sq, Sk, hq, hkv, causal = 2, 256, 256, 4, 2, True
+        sid = _segments(B, Sq)
+    rs = np.random.RandomState(D)
+    q = rs.randn(B, Sq, hq, D).astype(np.float32)
+    k = rs.randn(B, Sk, hkv, D).astype(np.float32)
+    v = rs.randn(B, Sk, hkv, D).astype(np.float32)
+    do = rs.randn(B, Sq, hq, D).astype(np.float32)
+    ids = None if sid is None else JSeg(jnp.asarray(sid), jnp.asarray(sid))
+
+    def f(q, k, v):
+        return j_padded(q, k, v, causal=causal, segment_ids=ids,
+                        interpret=True)
+    jo, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    jg = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    qt, kt, vt = (_t(x).requires_grad_() for x in (q, k, v))
+    ts = None if sid is None else SegmentIds(_t(sid), _t(sid))
+    o = FlashAttention.apply(qt, kt, vt, causal, ts, D ** -0.5)
+    o.backward(_t(do))
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(jo),
+                               atol=ATOL)
+    for a, b, name in zip((qt.grad, kt.grad, vt.grad), jg, "qkv"):
+        np.testing.assert_allclose(a.numpy(), b, atol=ATOL,
+                                   err_msg=f"d{name}")
+
+
 @pytest.mark.parametrize("case", ["causal_gqa", "masked_rows", "ragged_d72"])
 def test_plain_backward_matches_autograd(case):
     """``flash_attention_bwd_reference`` (P recomputed from the LSE) against

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from mllm_npu_tpu.ops.flash_attention import SegmentIds as JSeg
+from mllm_npu_tpu.ops import flash_attention_padded as j_padded
 from mllm_npu_tpu.ops.flash_attention import flash_attention as j_flash
 
 fa = importlib.import_module("mllm_npu_tpu_torch.ops.flash_attention")
@@ -29,14 +30,20 @@ LOG2E = 1.4426950408889634
 ATOL = 1e-4
 
 
-@pytest.mark.parametrize("D", range(8, 129, 8))
+@pytest.mark.parametrize("D", range(8, 161, 8))
 def test_k23_regime_by_head_dim(D):
-    """The Hopper regime takes every head dim from 32 (the training shapes'
-    128 and 72 among them) with K1's swizzle split; below 32 the mma.sync
-    one."""
+    """The Hopper regime takes every head dim from 32 to 160 (the training
+    shapes' 128, 72 and SEED-X's 160 among them) with K1's swizzle split;
+    below 32 the mma.sync one."""
     assert fa.k23_regime(D) == ("wgmma" if D >= 32 else "mma_sync")
     hi, lo = fa.k1_head_split(D)
     assert hi + lo == -(-D // 16) * 16 and lo in (0, 16, 32, 48)
+
+
+@pytest.mark.parametrize("D", [4, 12, 168, 256])
+def test_k23_regime_refuses_other_head_dims(D):
+    with pytest.raises(ValueError, match="up to 160"):
+        fa.k23_regime(D)
 
 
 def test_training_shapes_take_the_hopper_regime():
@@ -340,6 +347,9 @@ ARITH_CASES = [
     (1, 100, 130, 2, 2, 104, False, "runs"),
     (2, 130, 90, 4, 1, 32, True, None),
     (2, 70, 70, 2, 1, 32, True, "masked_rows"),
+    (2, 64, 256, 4, 4, 160, False, None),     # SEED-X's input projector
+    (2, 200, 200, 4, 2, 160, True, "packed"),
+    (1, 130, 100, 2, 1, 144, True, "runs"),
 ]
 
 
@@ -363,19 +373,24 @@ def test_walks_match_the_plain_backward(B, Sq, Sk, Hq, Hkv, D, causal, kind):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("causal,hq,hkv", [(True, 4, 2), (False, 2, 1)])
-def test_walks_match_the_reference_kernels(causal, hq, hkv):
+@pytest.mark.parametrize("causal,hq,hkv,D", [(True, 4, 2, 128),
+                                              (False, 2, 1, 128),
+                                              (True, 2, 1, 160)])
+def test_walks_match_the_reference_kernels(causal, hq, hkv, D):
     """The walks against ``jax.vjp`` of
     the JAX package's flash attention with its Pallas backward kernels in
-    interpret mode, on two packed segments and a padded tail (segment
-    0)."""
-    B, S, D = 2, 256, 128
+    interpret mode (at D = 160 through ``flash_attention_padded``), on two
+    packed segments and a padded tail (segment 0)."""
+    B, S = 2, 256
     q, k, v, do = _inputs(B, S, S, hq, hkv, D, seed=11)
     sid = np.zeros((B, S), np.int32)
     sid[:, :100], sid[:, 100:200] = 1, 2
     ids = JSeg(jnp.asarray(sid), jnp.asarray(sid))
 
     def f(q, k, v):
+        if D % 128:     # the head dim zero-padded to a lane multiple
+            return j_padded(q, k, v, causal=causal, segment_ids=ids,
+                            interpret=True)
         return j_flash(q, k, v, causal=causal, segment_ids=ids,
                        interpret=True, block_q=128, block_k=128)
     _, vjp = jax.vjp(f, *(jnp.asarray(x.numpy()) for x in (q, k, v)))

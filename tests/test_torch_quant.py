@@ -277,13 +277,23 @@ def test_port_transforms_give_identical_buffers(float_llama, bits):
 
 
 def test_quantize_requires_merged_lora():
+    """Serving quantizes merged weights: a model with adapters raises
+    unless the QLoRA layout is asked for (``keep_lora``), which quantizes
+    each adapter's base and the lm_head and keeps the adapters float, as
+    a QLoRA config builds it."""
     tm = LlamaForCausalLM(LlamaConfig.tiny(vocab_size=64, lora_rank=4),
                           dtype=torch.float32)
     with pytest.raises(ValueError, match="merge"):
         quantize_llama_(tm, bits=8)
-    with pytest.raises(NotImplementedError):
-        LlamaForCausalLM(LlamaConfig.tiny(vocab_size=64, lora_rank=4,
-                                          quantization="int8"))
+    quantize_llama_(tm, bits=8, keep_lora=True)
+    built = LlamaForCausalLM(LlamaConfig.tiny(vocab_size=64, lora_rank=4,
+                                              quantization="int8"))
+    assert sorted(tm.state_dict()) == sorted(built.state_dict())
+    q = built.model.layers[0].self_attn.q_proj
+    assert isinstance(q.base, tq.Int8Linear) and not hasattr(q, "weight")
+    assert isinstance(built.lm_head, tq.Int8Linear)
+    with pytest.raises(ValueError, match="merged"):
+        merge_lora_(built)
 
 
 

@@ -534,11 +534,12 @@ def test_train_cli_refuses_what_is_not_ported(cli_files):
     from mllm_npu_tpu_torch.train.train import main
     tmp, model_yaml, data_yaml = cli_files
     base = _argv(model_yaml, data_yaml, tmp / "x", 1, 1)
-    for extra in (["--mesh_fsdp", "2"], ["--quantize_base", "int8"],
-                  ["--params_checkpoint", str(tmp)],
+    for extra in (["--mesh_fsdp", "2"], ["--params_checkpoint", str(tmp)],
                   ["--dataloader_workers", "2"]):
         with pytest.raises(NotImplementedError):
             main(base + extra)
+    with pytest.raises(ValueError, match="int8 or int4"):
+        main(base + ["--quantize_base", "int2"])
 
 
 def test_train_cli_raises_without_gpu(cli_files, monkeypatch):
