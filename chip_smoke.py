@@ -14,7 +14,7 @@ exits non-zero. Phases, in order:
    (``quant_matmul.cu``);
 2. the full-width model: the port's ``mllm_llama3_8b_siglip_vit.yaml``
    (Llama-3-8B with r32 LoRA, SigLIP-so400m, attention resampler), bf16,
-   weights drawn from a seed, ``FakeTokenizer`` at vocab 128587;
+   weights drawn from seed 0, ``FakeTokenizer`` at vocab 128587;
 3. K1 (flash forward) against its plain PyTorch version on the card at
    the path's own shapes (the batched worker's padded bucket, S = 384,
    among them), with times of the kernel, the plain version,
@@ -116,7 +116,8 @@ exits non-zero. Phases, in order:
    webdataset tar of seeded JPEGs and captions through the caption entry of
    the pretrain mixture (``configs/dataset/caption_data.yaml``: max_length
    600, 64 image tokens, anyres over its grids at base 448), at the largest
-   batch of 28, 16, 8 or 4 that fits, for a few steps on one repeated
+   batch of 8 or 4 that fits (the recipe's 28, and 16, run out of memory
+   on one H100 and are not tried), for a few steps on one repeated
    batch, with a checkpoint at the end. Every step's K1, K2 and K3 counts
    (and that each K2/K3 launch took the Hopper regime) are asserted, its
    loss must be finite, and the loss must fall. Then one step and its
@@ -230,7 +231,37 @@ exits non-zero. Phases, in order:
    of 160; the Llama-2-13B layer, 40/40 heads of 128 at the run's batch
    and length; the output projector) and at D = 144, timed beside SDPA's
    backward and the bound; and K4 / K5 at the training rows (batch × 600)
-   of the 13B's projections and lm_head.
+   of the 13B's projections and lm_head;
+14. the reference's checkpoints, after phase 13 (the counts set to 0
+   before each request and forward, read after): phase 2's seeded 8B
+   assembly built again and written in the reference's layouts under a
+   temporary directory (removed at the end): the base Llama as an HF
+   directory of safetensors shards of at most 5 GB at its own vocabulary
+   of 128256 without adapters, SigLIP as an HF directory, the assembly as
+   a peft ``pytorch_model.bin`` (the adapters as ``lora_*.default``, the
+   norms as ``modules_to_save.default`` beside zeroed ``original_module``
+   copies, the resized ``embed_tokens`` and ``lm_head``, the projector,
+   ``patch_pos_embed``); the engine built from a copy of the 8B YAML
+   naming them: every tensor equal to its source bit for bit, phase 4's
+   three requests' greedy ids and K1 counts (60, 60, 32); the same model
+   loaded again and quantized to int8: phase 7's two requests' ids and
+   K4 counts; the time from
+   a new process's start to the first token, seeded and from the files;
+   ``tools.convert_checkpoint`` on the
+   same YAML in a process of its own, then the worker's engine from
+   ``--params-checkpoint`` on the YAML with null paths: every tensor
+   equal, the same ids and counts; b. phase 11's seeded UNet and VAE
+   written as diffusers directories (the UNet's ``attn2`` ``to_k`` /
+   ``to_v`` zeroed) and the de-tokenizer checkpoint as the resampler and
+   that subset, built through ``sd_xl_resampler.yaml``'s copy: every
+   tensor equal, one UNet forward's ε bit for bit the seeded adapter's,
+   140 K1 launches. Each part prints the GiB written and seconds, the load
+   seconds and GiB/s per component, and the peaks of host and device
+   memory.
+
+Phases 2 to 13 build from copies of the shipped configs with their
+checkpoint paths null (``use_seeded_configs``): the repository holds no
+weights, and a configured path that does not exist raises.
 
 The last lines are the kernels' JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -276,12 +307,20 @@ COLD_BYTES = 150e6
 BWD_RTOL, BWD_ATOL_FRAC = 2e-2, 1e-2
 # K1's LSE against the plain version's (fp32 from the same scores)
 LSE_ATOL = 1e-3
-# training: the recipe's batch first, then smaller ones until one fits
-TRAIN_BATCHES = (28, 16, 8, 4)
+# training: the recipe's batch is 28; 28 and 16 run out of memory on one
+# H100 (PERF.md §4), so the phase starts at 8, then smaller ones until one
+# fits
+TRAIN_RECIPE_BATCH = 28
+TRAIN_BATCHES = (8, 4)
 TRAIN_STEPS = 5
 CE_CHUNK = 128
 # the kernel and the plain attention give one step's gradients this close
 GRAD_COS = 0.99
+LLAMA3_YAML = "mllm_npu_tpu_torch/configs/models/mllm_llama3_8b_siglip_vit.yaml"
+# the checkpoint paths a config names; the shipped ones point at the
+# reference's pretrained/ files, which the repository does not hold
+CHECKPOINT_KEYS = ("pretrained_model_name_or_path", "pretrained_model_path",
+                   "unet_checkpoint", "vae_checkpoint", "adapter_checkpoint")
 
 
 def fail(msg: str):
@@ -292,6 +331,43 @@ def fail(msg: str):
 def check(cond: bool, msg: str):
     if not cond:
         fail(msg)
+
+
+def null_checkpoints(node):
+    """``node`` (a loaded config) with every checkpoint path set to null
+    (seeded weights), the tokenizer's left as it is."""
+    if isinstance(node, dict):
+        return {k: None if k in CHECKPOINT_KEYS else
+                v if k == "tokenizer" else null_checkpoints(v)
+                for k, v in node.items()}
+    return node
+
+
+def use_seeded_configs():
+    """Outside DEBUG_FLAG a configured checkpoint path that does not exist
+    raises. The phases that run on seeded weights take copies of the
+    shipped configs with null checkpoint paths, written under
+    ``build/seeded_configs`` (the worker's JSON pointing at the copies)."""
+    global LLAMA3_YAML, SEEDX_YAML, SEEDX_WORKER, GEN_CONFIG
+    import yaml
+    out = ROOT / "build" / "seeded_configs"
+    out.mkdir(parents=True, exist_ok=True)
+
+    def write(name, text):
+        tmp = out / f".{name}.{os.getpid()}"
+        tmp.write_text(text)
+        os.replace(tmp, out / name)
+        return str(out / name)
+
+    def copy(rel):
+        node = yaml.safe_load((ROOT / rel).read_text())
+        return write(Path(rel).name,
+                     yaml.safe_dump(null_checkpoints(node), sort_keys=False))
+    LLAMA3_YAML, SEEDX_YAML, GEN_CONFIG = map(
+        copy, (LLAMA3_YAML, SEEDX_YAML, GEN_CONFIG))
+    wc = json.loads((ROOT / SEEDX_WORKER).read_text())
+    wc.update(model_config=SEEDX_YAML, generation_config=GEN_CONFIG)
+    SEEDX_WORKER = write(Path(SEEDX_WORKER).name, json.dumps(wc, indent=1))
 
 
 def nvidia_smi() -> str:
@@ -987,8 +1063,7 @@ def train_phase(workdir):
                                                       make_train_step)
     from mllm_npu_tpu_torch.utils.weights import set_llama_config
 
-    model_yaml = (ROOT / "mllm_npu_tpu_torch" / "configs" / "models"
-                  / "mllm_llama3_8b_siglip_vit.yaml")
+    model_yaml = ROOT / LLAMA3_YAML
     ds = yaml.safe_load((ROOT / "mllm_npu_tpu_torch" / "configs" / "dataset"
                          / "caption_data.yaml").read_text())
     counters = kernel_counters()
@@ -1034,6 +1109,14 @@ def train_phase(workdir):
             fn.launches = 0
         counters["flash_bwd_dq"].wgmma_launches = 0
         counters["flash_bwd_dkv"].wgmma_launches = 0
+        # the earlier phases' engines can outlive their names in reference
+        # cycles: collect them, so the peak is the run's own
+        resident = torch.cuda.memory_allocated()
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[train] before batch {B}: {resident / 2**30:.2f} GiB "
+              f"allocated, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+              "after gc.collect", flush=True)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         try:
@@ -1081,7 +1164,7 @@ def train_phase(workdir):
     seq = int(batch[0]["input_ids"].shape[1])
     steady = per_step[1:]
     summary = {
-        "batch": B, "cut_from": TRAIN_BATCHES[0], "seq": seq,
+        "batch": B, "cut_from": TRAIN_RECIPE_BATCH, "seq": seq,
         "images": n_images, "steps": TRAIN_STEPS, "losses": losses,
         "sec_per_step": sum(r["sec/step"] for r, _ in steady) / len(steady),
         "tokens_per_s": sum(r["tokens/s"] for r, _ in steady) / len(steady),
@@ -1091,7 +1174,7 @@ def train_phase(workdir):
         "trainable_m": sum(p.numel() for p in model.parameters()
                            if p.requires_grad) / 1e6,
     }
-    print(f"[train] batch {B} (the recipe's {TRAIN_BATCHES[0]} cut to fit), "
+    print(f"[train] batch {B} (the recipe's {TRAIN_RECIPE_BATCH} cut to fit), "
           f"S {seq}, {n_images} image slots: {TRAIN_STEPS} steps in "
           f"{wall:.1f} s with the build; steps 2-{TRAIN_STEPS}: "
           f"{summary['sec_per_step']:.3f} sec/step, "
@@ -1207,8 +1290,8 @@ def serve(engine, requests, preps, label, lm_cfg):
     launches without the host, uncounted),
     the other quantized kernel never, and of those 224 in the prefill
     regime (M > 16) where the prompt is longer than 16 tokens. Returns the
-    launches summed over the requests, and the prefill-regime launches of
-    K4 and K5 summed likewise."""
+    launches summed over the requests, the prefill-regime launches of K4
+    and K5 summed likewise, and each request's greedy ids."""
     import torch
 
     from mllm_npu_tpu_torch.ops import quant as tq
@@ -1218,14 +1301,17 @@ def serve(engine, requests, preps, label, lm_cfg):
     k1_image = k1_per_image(engine.generator.model)
     total = dict.fromkeys(counters, 0)
     prefill_total = {8: 0, 4: 0}
+    all_ids = []
     for i, ((q, b64), prep) in enumerate(zip(requests, preps), 1):
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
             fn.launches = 0
         tq.int8_matmul.prefill_launches = tq.int4_matmul.prefill_launches = 0
         t0 = time.perf_counter()
-        text = engine.comprehension(q, b64)
+        ids = engine.comprehension_ids(q, b64)
+        text = engine._strip_text(ids)
         wall = time.perf_counter() - t0
+        all_ids.append(ids)
         got = {k: fn.launches for k, fn in counters.items()}
         tm = engine.generator.last_timings
         steps = tm["decode_steps"]
@@ -1274,7 +1360,7 @@ def serve(engine, requests, preps, label, lm_cfg):
             total[k] += got[k]
         prefill_total[8] += prefill_got[0]
         prefill_total[4] += prefill_got[1]
-    return total, prefill_total
+    return total, prefill_total, all_ids
 
 
 def single_graph_check(engine, requests, label):
@@ -1846,8 +1932,9 @@ def traced_replays(tick):
     from mllm_npu_tpu_torch.utils.weights import fuse_llama_projections_
     check(tick in TRACED_TICKS, f"--traced-replays takes one of "
           f"{TRACED_TICKS}")
-    single = build_engine(device="cuda", seed=0, fake_tokenizer=True,
-                          max_new_tokens=MAX_NEW_TOKENS, quantize_int8=True)
+    single = build_engine(LLAMA3_YAML, device="cuda", seed=0,
+                          fake_tokenizer=True, max_new_tokens=MAX_NEW_TOKENS,
+                          quantize_int8=True)
     kw, label = {}, "int8"
     if tick == "verify":
         kw, label = dict(speculative_k=4, speculative_ngram=SPEC_NGRAM), \
@@ -2962,7 +3049,7 @@ def seedx_phase(s_img):
     preps = [single._prepare_comprehension(q, b) for q, b in requests]
     check(len(preps[0][0]) == s_img, f"seedx: the image prompt has "
           f"{len(preps[0][0])} tokens, phase 3 timed {s_img}")
-    got, _ = serve(single, requests, preps, "seedx", lm_cfg)
+    got, _, _ = serve(single, requests, preps, "seedx", lm_cfg)
     for k in launches:
         launches[k] += got[k]
     k1_logits, _ = k1_vs_plain_prefill(model, preps[0], "SEED-X")
@@ -3055,8 +3142,8 @@ def seedx_phase(s_img):
     print(f"[seedx int8] quantized in place in {time.perf_counter() - t0:.1f}"
           f" s: {torch.cuda.memory_allocated() / 2**30:.2f} GiB resident",
           flush=True)
-    got, got_prefill = serve(q8, requests[:1], preps[:1], "seedx int8",
-                             lm_cfg)
+    got, got_prefill, _ = serve(q8, requests[:1], preps[:1], "seedx int8",
+                                lm_cfg)
     for k in launches:
         launches[k] += got[k]
     quant_vs_plain_prefill(model, preps[0], 8, "SEED-X", k1_logits)
@@ -4458,6 +4545,518 @@ def seedx_kernel_phase(B, S, n_img):
     return out
 
 
+# -- phase 14: the reference's checkpoints, written and loaded back -------
+CKPT_SHARD_BYTES = 5 * 10 ** 9        # HF's shard size
+# what the phase holds on disk at once: the 8B assembly's files and the
+# converter's copy (the UNet's and the VAE's come after both are gone)
+CKPT_DISK_BYTES = 40e9
+CKPT_QUESTION = "What is the capital of France?"
+
+
+def page_cache_share(paths):
+    """The share of the bytes of ``paths`` in the page cache (``mincore``
+    over a private mapping of each file, which reads nothing), or None
+    where the system does not say."""
+    import ctypes
+    import mmap
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.mincore.argtypes = (ctypes.c_void_p, ctypes.c_size_t,
+                             ctypes.c_void_p)
+    resident = total = 0
+    try:
+        for p in paths:
+            size = os.path.getsize(p)
+            if not size:
+                continue
+            with open(p, "rb") as f:
+                mm = mmap.mmap(f.fileno(), size, access=mmap.ACCESS_COPY)
+            view = ctypes.c_char.from_buffer(mm)
+            pages = -(-size // mmap.PAGESIZE)
+            vec = (ctypes.c_ubyte * pages)()
+            rc = libc.mincore(ctypes.addressof(view), size, vec)
+            del view
+            mm.close()
+            if rc:
+                return None
+            resident += sum(v & 1 for v in vec) * mmap.PAGESIZE
+            total += pages * mmap.PAGESIZE
+    except (OSError, ValueError, AttributeError):
+        return None
+    return resident / total if total else None
+
+
+def rss_gib():
+    """This process's resident set (``VmRSS``), or None where ``/proc``
+    does not give it."""
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) / 2**20
+    return None
+
+
+class RssPeak:
+    """The peak of :func:`rss_gib` over a block, sampled every 10 ms on a
+    thread (``peak_gib``; None where it cannot be read)."""
+
+    def __enter__(self):
+        import threading
+        self.peak_gib = rss_gib()
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.01):
+                now = rss_gib()
+                if now is not None and self.peak_gib is not None:
+                    self.peak_gib = max(self.peak_gib, now)
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        now = rss_gib()
+        if now is not None and self.peak_gib is not None:
+            self.peak_gib = max(self.peak_gib, now)
+
+
+def first_token(config):
+    """``python3 chip_smoke.py --first-token <yaml>``: the worker's engine
+    from the YAML, then the text question's first token; prints one JSON
+    line with the wall clock at that token, the build's seconds, and the
+    process's peak host and device memory."""
+    import torch
+    from mllm_npu_tpu_torch.serve.worker import load_engine_from_config
+    t0 = time.time()
+    with RssPeak() as rss:
+        engine = load_engine_from_config(
+            config, max_new_tokens=1, device="cuda", seed=0,
+            fake_tokenizer=True)
+        torch.cuda.synchronize()
+        built = time.time()
+        ids = engine.comprehension_ids(CKPT_QUESTION, "", max_new_tokens=1)
+        torch.cuda.synchronize()
+        t1 = time.time()
+    print(json.dumps({"first_token_unix": t1, "build_s": built - t0,
+                      "first_token_s": t1 - built, "id": int(ids[0]),
+                      "host_peak_gib": rss.peak_gib,
+                      "device_peak_gib":
+                          torch.cuda.max_memory_allocated() / 2**30}))
+
+
+def first_token_child(label, config, files=()):
+    """:func:`first_token` in a process of its own: → its JSON plus the
+    seconds from the process's start to its first token, and the share of
+    ``files`` in the page cache when it started."""
+    cache = page_cache_share(files) if files else None
+    argv = [sys.executable, str(ROOT / "chip_smoke.py"), "--first-token",
+            str(config)]
+    t0 = time.time()
+    res = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    check(res.returncode == 0, f"first token ({label}): exit "
+          f"{res.returncode}: {res.stderr[-2000:]}")
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    got.update(start_to_first_token_s=got["first_token_unix"] - t0,
+               page_cache_share=cache)
+    print(f"[ckpt] first token from a new process ({label}): "
+          f"{got['start_to_first_token_s']:.1f} s from its start (the build "
+          f"{got['build_s']:.1f} s, the token {got['first_token_s']:.2f} s); "
+          f"peak host " + ("not measured" if got["host_peak_gib"] is None
+                           else f"{got['host_peak_gib']:.2f} GiB")
+          + f" from the build to the token, device "
+          f"{got['device_peak_gib']:.2f} GiB"
+          + ("" if cache is None else
+             f"; its files {100 * cache:.1f}% in the page cache at its start"),
+          flush=True)
+    return got
+
+
+def load_report(model, label):
+    """Print a build's checkpoint report per component: → {component:
+    {tensors, GiB, s, GiB/s}}."""
+    rep = model.checkpoint_report
+    out = {}
+    for part, r in rep["loaded"].items():
+        gib = r["bytes"] / 2**30
+        out[part] = {"tensors": r["tensors"], "gib": gib, "s": r["seconds"],
+                     "gib_per_s": gib / r["seconds"] if r["seconds"] else None}
+    print(f"[ckpt] {label} loaded per component: " + "; ".join(
+        f"{k} {v['tensors']} tensors, {v['gib']:.3f} GiB in {v['s']:.2f} s "
+        f"({v['gib_per_s']:.2f} GiB/s)" for k, v in out.items())
+        + f"; seeded {rep['seeded']}, skipped {rep['skipped']}", flush=True)
+    return out
+
+
+def same_tensors(a, b, label):
+    """Every tensor of the module ``b`` equals ``a``'s of its name, bit for
+    bit. → the count."""
+    import torch
+    sa, sb = a.state_dict(), b.state_dict()
+    check(sa.keys() == sb.keys(), f"{label}: the state_dicts' names differ")
+    bad = [k for k in sa if sa[k].dtype != sb[k].dtype
+           or not torch.equal(sa[k], sb[k])]
+    check(not bad, f"{label}: {len(bad)} tensors differ from their source, "
+          f"e.g. {bad[:3]}")
+    return len(sa)
+
+
+def timed_writes(work, writers):
+    """Run each ``(part, fn)`` writer (``fn`` fills ``work / part``), sync
+    the disk after it and print its GiB, seconds and files. → {part:
+    (GiB, seconds)}."""
+    written = {}
+    for part, fn in writers:
+        (work / part).mkdir(exist_ok=True)
+        t0 = time.perf_counter()
+        fn(work / part)
+        os.sync()
+        secs = time.perf_counter() - t0
+        files = sorted((work / part).iterdir())
+        gib = sum(f.stat().st_size for f in files) / 2**30
+        written[part] = (gib, secs)
+        print(f"[ckpt] wrote {part}: {gib:.3f} GiB in {secs:.1f} s "
+              f"({gib / secs:.2f} GiB/s): "
+              + ", ".join(f.name for f in files), flush=True)
+    return written
+
+
+def write_8b_layouts(model, work):
+    """The seeded 8B assembly in the reference's layouts: the base Llama as
+    an HF directory of safetensors shards at its own vocabulary without
+    adapters, SigLIP as an HF directory, and the assembly as a peft
+    ``pytorch_model.bin`` (the adapters, the trained norms beside zeroed
+    ``original_module`` copies, the resized ``embed_tokens`` and
+    ``lm_head``, the projector, ``patch_pos_embed``). → ({part: (GiB,
+    seconds)}, the YAML naming them)."""
+    import torch
+    import yaml
+    from mllm_npu_tpu_torch.models.language_models.llama import LlamaConfig
+    from mllm_npu_tpu_torch.utils.checkpoint_files import save_sharded
+    lm = model.language_model.state_dict()
+    base_vocab = LlamaConfig.llama3_8b().vocab_size
+    heads = ("model.embed_tokens.weight", "lm_head.weight")
+    base = {k: (v[:base_vocab] if k in heads else v) for k, v in lm.items()
+            if ".lora_" not in k}
+    peft = "language_model.base_model.model."
+    asm = {"patch_pos_embed": model.patch_pos_embed.detach()}
+    for k, v in lm.items():
+        if ".lora_" in k:
+            asm[peft + k.replace(".lora_A.", ".lora_A.default.").replace(
+                ".lora_B.", ".lora_B.default.")] = v
+        elif k in heads:
+            asm[peft + k] = v
+        elif k.endswith("layernorm.weight") or k == "model.norm.weight":
+            mod = k[:-len(".weight")]
+            asm[f"{peft}{mod}.modules_to_save.default.weight"] = v
+            asm[f"{peft}{mod}.original_module.weight"] = torch.zeros_like(v)
+    asm.update({f"projector.{k}": v
+                for k, v in model.projector.state_dict().items()})
+    written = timed_writes(work, (
+        ("llama", lambda d: save_sharded(base, d, CKPT_SHARD_BYTES)),
+        ("siglip", lambda d: save_sharded(model.vision_encoder.state_dict(),
+                                          d, CKPT_SHARD_BYTES)),
+        ("assembly", lambda d: torch.save(
+            {k: v.detach().cpu() for k, v in asm.items()},
+            d / "pytorch_model.bin"))))
+    cfg = yaml.safe_load(Path(LLAMA3_YAML).read_text())
+    m = cfg["mllm"]
+    m["mllm_model"]["pretrained_model_path"] = str(
+        work / "assembly" / "pytorch_model.bin")
+    m["mllm_model"]["vision_encoder"]["pretrained_model_name_or_path"] = \
+        str(work / "siglip")
+    m["language_model"]["model"]["pretrained_model_name_or_path"] = \
+        str(work / "llama")
+    path = work / "mllm_llama3_8b_siglip_vit.yaml"
+    path.write_text(yaml.safe_dump(cfg, sort_keys=False))
+    return written, path
+
+
+def llama_checkpoint_check(work, requests, preps, lm_cfg, phase4_ids,
+                           phase7_ids, launches):
+    """Phase 14 on the 8B assembly (see the module's docstring)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from mllm_npu_tpu_torch.demo_img2txt import build_engine
+    from mllm_npu_tpu_torch.serve.worker import (load_engine_from_config,
+                                                 parse_worker_args)
+    out = {}
+
+    def serve_ids(engine, label, picked=(0, 1, 2), want=phase4_ids,
+                  phase="phase 4's three requests"):
+        got, _, ids = serve(engine, [requests[i] for i in picked],
+                            [preps[i] for i in picked], label, lm_cfg)
+        for k, n in got.items():
+            launches[k] += n
+        same = all(np.array_equal(a, b) for a, b in zip(ids, want))
+        print(f"[check] {label}: the greedy ids of {phase} "
+              f"{'identical' if same else 'DIFFER'}", flush=True)
+        check(same, f"{label}: greedy ids differ from {phase}")
+        return got
+
+    t0 = time.perf_counter()
+    src = build_engine(LLAMA3_YAML, device="cuda", seed=0,
+                       fake_tokenizer=True, max_new_tokens=MAX_NEW_TOKENS)
+    torch.cuda.synchronize()
+    out["seeded_build_s"] = time.perf_counter() - t0
+    print(f"[ckpt] the seeded 8B assembly (seed 0, phase 2's) built in "
+          f"{out['seeded_build_s']:.1f} s", flush=True)
+    out["written"], yaml_path = write_8b_layouts(src.generator.model, work)
+    files = [f for part in ("llama", "siglip", "assembly")
+             for f in sorted((work / part).iterdir())]
+    out["page_cache_before_load"] = page_cache_share(files)
+    gc.collect()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    host_before = rss_gib()
+    t0 = time.perf_counter()
+    with RssPeak() as rss:
+        eng = build_engine(str(yaml_path), device="cuda", seed=0,
+                           fake_tokenizer=True, max_new_tokens=MAX_NEW_TOKENS)
+        torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    out["load_device_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                   - resident) / 2**30
+    out["load_host_peak_gib"] = (None if rss.peak_gib is None else
+                                 rss.peak_gib - host_before)
+    model = eng.generator.model
+    out["components"] = load_report(model, "the 8B assembly")
+    check(model.checkpoint_report["seeded"] == 0
+          and not model.checkpoint_report["skipped"],
+          f"the loaded 8B assembly seeded or skipped parameters: "
+          f"{model.checkpoint_report}")
+    out["tensors_equal"] = same_tensors(src.generator.model, model,
+                                        "the loaded 8B assembly")
+    print(f"[ckpt] the 8B assembly from its files in {out['load_s']:.1f} s "
+          f"(the YAML's three checkpoints; the page cache held "
+          + ("an unknown share" if out["page_cache_before_load"] is None
+             else f"{100 * out['page_cache_before_load']:.1f}%")
+          + f" of them): {out['tensors_equal']} tensors equal their source "
+          f"bit for bit; device peak above the resident "
+          f"{out['load_device_peak_gib']:.2f} GiB, host peak above the "
+          "resident " + ("not measured" if out["load_host_peak_gib"] is None
+                         else f"{out['load_host_peak_gib']:.2f} GiB"),
+          flush=True)
+    del src
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["served_launches"] = serve_ids(eng, "loaded bf16")
+
+    # the loaded model quantized to int8: phase 7's requests and ids
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    q8 = build_engine(str(yaml_path), device="cuda", seed=0,
+                      fake_tokenizer=True, max_new_tokens=MAX_NEW_TOKENS,
+                      quantize_int8=True)
+    out["int8_launches"] = serve_ids(q8, "loaded int8", (0, 2), phase7_ids,
+                                     "phase 7's int8 requests")
+    del q8
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a first token from a new process: seeded, then from the files
+    out["first_token"] = {
+        "seeded": first_token_child("seeded weights", LLAMA3_YAML),
+        "loaded": first_token_child("the reference's files", yaml_path,
+                                    files=files)}
+
+    # the converter on the same YAML, in a process of its own
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "mllm_npu_tpu_torch.tools.convert_checkpoint",
+         "--model-config", str(yaml_path), "--out", str(work / "converted")],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    check(res.returncode == 0, f"the converter: exit {res.returncode}: "
+          f"{res.stderr[-2000:]}")
+    info = json.loads(res.stdout.strip().splitlines()[-1])
+    info["wall_s"] = time.perf_counter() - t0
+    out["converter"] = info
+    print(f"[ckpt] the converter: {info['n_params'] / 1e9:.3f} B parameters, "
+          f"{info['bytes'] / 2**30:.3f} GiB in {info['shards']} shards, "
+          f"convert_seconds {info['convert_seconds']} ({info['wall_s']:.1f} "
+          f"s with the process's start)", flush=True)
+    for part in ("llama", "siglip", "assembly"):
+        shutil.rmtree(work / part)
+    # the worker from --params-checkpoint, on the YAML with null paths
+    args = parse_worker_args(["--model-config", LLAMA3_YAML,
+                              "--params-checkpoint", str(work / "converted"),
+                              "--no-register", "--host", "127.0.0.1",
+                              "--port", "0"])
+    t0 = time.perf_counter()
+    conv = load_engine_from_config(
+        args.model_config, max_new_tokens=MAX_NEW_TOKENS, device="cuda",
+        seed=0, fake_tokenizer=True,
+        params_checkpoint=args.params_checkpoint)
+    torch.cuda.synchronize()
+    out["params_checkpoint_load_s"] = time.perf_counter() - t0
+    out["params_checkpoint_components"] = load_report(
+        conv.generator.model, "--params-checkpoint")
+    check(conv.generator.model.checkpoint_report["seeded"] == 0,
+          "the converter's directory left parameters seeded")
+    same_tensors(model, conv.generator.model, "--params-checkpoint")
+    print(f"[ckpt] the worker's engine from --params-checkpoint in "
+          f"{out['params_checkpoint_load_s']:.1f} s: every tensor equal to "
+          "the files' load", flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["params_checkpoint_launches"] = serve_ids(conv,
+                                                  "--params-checkpoint")
+    del conv
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(work / "converted")
+    return out
+
+
+def unet_eps(unet, seed=GEN_SEED):
+    """One UNet forward at the CFG batch of 2 on seeded inputs (latents,
+    the resampler's 64 tokens, pooled embeddings, the 1024² time ids)."""
+    import torch
+
+    from mllm_npu_tpu_torch.models.generation.adapter_modules import (
+        compute_time_ids)
+    cfg = unet.config
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    S = cfg.sample_size
+    pooled = cfg.projection_class_embeddings_input_dim \
+        - 6 * cfg.addition_time_embed_dim
+    from mllm_npu_tpu_torch.configs import load_config
+    n_ctx = load_config(ROOT / GEN_CONFIG)["resampler"]["num_queries"]
+    lat = torch.randn((2, cfg.in_channels, S, S), generator=g, device=dev)
+    ctx = torch.randn((2, n_ctx, cfg.cross_attention_dim), generator=g,
+                      device=dev)
+    pool = torch.randn((2, pooled), generator=g, device=dev)
+    tids = torch.as_tensor(compute_time_ids((GEN_SIZE, GEN_SIZE), (0, 0),
+                                            GEN_SIZE), device=dev)
+    with torch.inference_mode():
+        return unet(lat, torch.full((2,), 500.0, device=dev), ctx,
+                    added_cond={"text_embeds": pool,
+                                "time_ids": torch.cat([tids, tids])})
+
+
+def detokenizer_checkpoint_check(work, launches):
+    """Phase 14 on the de-tokenizer (see the module's docstring)."""
+    import torch
+    import yaml
+
+    from mllm_npu_tpu_torch.configs import load_config
+    from mllm_npu_tpu_torch.models.factory import build_sdxl_adapter
+    from mllm_npu_tpu_torch.models.generation.unet import CrossAttention
+    from mllm_npu_tpu_torch.utils.checkpoint_files import save_sharded
+    out = {}
+    gen = load_config(ROOT / GEN_CONFIG)
+    t0 = time.perf_counter()
+    seeded = build_sdxl_adapter(**gen, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    out["seeded_build_s"] = time.perf_counter() - t0
+    eps = unet_eps(seeded.unet)
+    check(torch.equal(eps, unet_eps(seeded.unet)),
+          "two seeded UNet forwards on the same inputs differ")
+    sd = seeded.unet.state_dict()
+    tuned = {k: v for k, v in sd.items()
+             if ".attn2.to_k." in k or ".attn2.to_v." in k}
+    # the directory's tuned keys are zeros: the de-tokenizer checkpoint's
+    # subset must be merged over them for the UNet to be the seeded one
+    unet_file = {k: torch.zeros_like(v) if k in tuned else v
+                 for k, v in sd.items()}
+    diffusers = dict(max_shard_bytes=10 ** 10,
+                     prefix="diffusion_pytorch_model")
+    out["written"] = timed_writes(work, (
+        ("unet", lambda d: save_sharded(unet_file, d, **diffusers)),
+        ("vae", lambda d: save_sharded(seeded.vae.state_dict(), d,
+                                       **diffusers)),
+        ("detokenizer", lambda d: torch.save(
+            {**{f"resampler.{k}": v.cpu() for k, v in
+                seeded.resampler.state_dict().items()},
+             **{f"unet.{k}": v.cpu() for k, v in tuned.items()}},
+            d / "pytorch_model.bin"))))
+    out["tuned_tensors"] = len(tuned)
+    gen.update(unet_checkpoint=str(work / "unet"),
+               vae_checkpoint=str(work / "vae"),
+               adapter_checkpoint=str(work / "detokenizer" /
+                                      "pytorch_model.bin"))
+    path = work / "sd_xl_resampler.yaml"
+    path.write_text(yaml.safe_dump(gen, sort_keys=False))
+    t0 = time.perf_counter()
+    ad = build_sdxl_adapter(**load_config(path), device="cuda", seed=0)
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    out["components"] = {}
+    n = 0
+    for part in ("unet", "vae", "resampler"):
+        mod = getattr(ad, part)
+        out["components"].update(load_report(mod, f"the de-tokenizer's {part}"))
+        check(mod.checkpoint_report["seeded"] == 0,
+              f"the loaded {part} left parameters seeded")
+        n += same_tensors(getattr(seeded, part), mod,
+                          f"the loaded de-tokenizer's {part}")
+    out["tensors_equal"] = n
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    eps_loaded = unet_eps(ad.unet)
+    got = {k: fn.launches for k, fn in counters.items()}
+    for k, v in got.items():
+        launches[k] += v
+    want = dict.fromkeys(counters, 0)
+    want["flash_fwd"] = sum(isinstance(m, CrossAttention)
+                            for m in ad.unet.modules())
+    same = torch.equal(eps_loaded, eps)
+    print(f"[ckpt] the de-tokenizer from {path.name} in {out['load_s']:.1f} s "
+          f"(UNet directory with {len(tuned)} to_k/to_v tensors zeroed, the "
+          f"de-tokenizer checkpoint's subset merged over them): {n} tensors "
+          f"equal their source bit for bit; one UNet forward's ε "
+          f"{'equals' if same else 'DIFFERS from'} the seeded adapter's bit "
+          f"for bit; launches {got} (expected {want})", flush=True)
+    check(same, "the loaded UNet's ε differs from the seeded one's")
+    check(got == want, f"loaded UNet forward: launches {got}, expected "
+          f"{want}")
+    out["unet_launches"] = got["flash_fwd"]
+    del seeded, ad, eps, eps_loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase4_requests():
+    return [("What is unusual in this image?", png_b64(896, 896, 0)),
+            ("Describe the picture.", png_b64(384, 1152, 1)),
+            ("What is the capital of France?", "")]
+
+
+def checkpoint_phase(requests, preps, lm_cfg, phase4_ids, phase7_ids):
+    """Phase 14. → its summary, the launches it counted among them."""
+    import shutil
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    launches = dict.fromkeys(kernel_counters(), 0)
+    try:
+        free = shutil.disk_usage(work).free
+        print(f"[ckpt] writing under {work}: {free / 1e9:.1f} GB free",
+              flush=True)
+        check(free > CKPT_DISK_BYTES, f"phase 14 needs "
+              f"{CKPT_DISK_BYTES / 1e9:.0f} GB of disk, {free / 1e9:.1f} "
+              "free")
+        out = {"llama3_8b": llama_checkpoint_check(
+            work, requests, preps, lm_cfg, phase4_ids, phase7_ids,
+            launches)}
+        print("[ckpt] phase 14 b: the de-tokenizer", flush=True)
+        out["detokenizer"] = detokenizer_checkpoint_check(work, launches)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["launches"] = launches
+    return out
+
+
 def main():
     # the training phase runs near the card's memory: let the allocator grow
     # segments instead of fragmenting (read when CUDA initialises)
@@ -4481,6 +5080,10 @@ def main():
     # einsum; cuDNN would run an fp32 conv in TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--first-token"]:
+        first_token(sys.argv[2])
+        return
+    use_seeded_configs()
     if sys.argv[1:2] == ["--traced-replays"]:
         traced_replays(sys.argv[2] if len(sys.argv) > 2 else "")
         return
@@ -4505,8 +5108,8 @@ def main():
           flush=True)
     # -- 2. full-width model ------------------------------------------
     t0 = time.perf_counter()
-    engine = build_engine(device="cuda", seed=0, fake_tokenizer=True,
-                          max_new_tokens=MAX_NEW_TOKENS)
+    engine = build_engine(LLAMA3_YAML, device="cuda", seed=0,
+                          fake_tokenizer=True, max_new_tokens=MAX_NEW_TOKENS)
     torch.cuda.synchronize()
     model = engine.generator.model
     lm_cfg = model.language_model.config
@@ -4519,9 +5122,7 @@ def main():
           f"vocab {lm_cfg.vocab_size}; siglip {vis_cfg.num_hidden_layers} "
           f"layers; resampler {model.projector.num_queries} queries")
 
-    requests = [("What is unusual in this image?", png_b64(896, 896, 0)),
-                ("Describe the picture.", png_b64(384, 1152, 1)),
-                ("What is the capital of France?", "")]
+    requests = phase4_requests()
     preps = [engine._prepare_comprehension(q, b) for q, b in requests]
     s_img, n_tiles = len(preps[0][0]), preps[0][1].shape[0]
     bucket = -(-s_img // WORKER["batch_prompt_bucket"]) \
@@ -4570,8 +5171,8 @@ def main():
     print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 4",
           flush=True)
     # -- 4. the bf16 path, counts set to 0 before each request ---------
-    launches, quant_prefill = serve(engine, requests, preps, "bf16",
-                                    lm_cfg)
+    launches, quant_prefill, phase4_ids = serve(engine, requests, preps,
+                                                "bf16", lm_cfg)
     single_graph = {"bf16": single_graph_check(engine, requests,
                                                "bf16 graphed vs eager")}
     single_graph["bf16_mix"] = graph_mix(
@@ -4639,10 +5240,12 @@ def main():
     # -- 7. the int8 and int4 paths: the image and the text request each,
     #       then the image prefill with K4 (K5) against the same forward
     #       with its plain version in every quantized linear
+    phase7_ids = {}
     for bits in (8, 4):
         label = f"int{bits}"
         t0 = time.perf_counter()
-        engine = build_engine(device="cuda", seed=0, fake_tokenizer=True,
+        engine = build_engine(LLAMA3_YAML, device="cuda", seed=0,
+                              fake_tokenizer=True,
                               max_new_tokens=MAX_NEW_TOKENS,
                               **{f"quantize_int{bits}": True})
         torch.cuda.synchronize()
@@ -4650,8 +5253,9 @@ def main():
         print(f"[{label}] engine built and quantized in "
               f"{time.perf_counter() - t0:.1f} s: "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident")
-        got, got_prefill = serve(engine, [requests[0], requests[2]],
-                                 [preps[0], preps[2]], label, lm_cfg)
+        got, got_prefill, phase7_ids[bits] = serve(
+            engine, [requests[0], requests[2]], [preps[0], preps[2]], label,
+            lm_cfg)
         for k in launches:
             launches[k] += got[k]
         for b in quant_prefill:
@@ -4755,6 +5359,17 @@ def main():
         seedtrain = seedx_train_phase(Path(tmp))
     for k in launches:
         launches[k] += seedtrain["launches"][k]
+
+    print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 14",
+          flush=True)
+    # -- 14. the reference's checkpoints: phase 4's 8B assembly and phase
+    #        11's de-tokenizer written in the reference's layouts and loaded
+    #        back (bit for bit, phase 4's ids, K1's counts), the converter
+    #        and --params-checkpoint
+    ckpt = checkpoint_phase(requests, preps, lm_cfg, phase4_ids,
+                            phase7_ids[8])
+    for k in launches:
+        launches[k] += ckpt["launches"][k]
     unet_forward = k1_mix(unet_cases, unet_mix, "one SDXL UNet forward "
                           "(CFG batch 2, 1024x1024)")
     unet_image = {k: v * GEN_STEPS if k in ("ms", "plain_ms", "bound_ms",
@@ -4804,6 +5419,12 @@ def main():
         "evaluator_lm_loss_launches": {
             "seedx": ev["lm_loss"]["k1_each"],
             "llama3_8b": evaluator["speed_bf16"]["lm_loss"]["k1"]},
+        "checkpoint_launches": {
+            "loaded_8b_requests": ckpt["llama3_8b"]["served_launches"][
+                "flash_fwd"],
+            "params_checkpoint_requests": ckpt["llama3_8b"][
+                "params_checkpoint_launches"]["flash_fwd"],
+            "loaded_unet_forward": ckpt["detokenizer"]["unet_launches"]},
     }]
     tmix = {"llama_train": lm_cfg.num_hidden_layers, "resampler_train": 1}
     tby = {b["flash_bwd_dq"]["shape"]: b for b in bwd}
@@ -4950,6 +5571,8 @@ def main():
     print("[single] summary " + json.dumps(single_graph))
     print("[seedx] summary " + json.dumps(seedx, default=str))
     print("[detok] summary " + json.dumps(detok, default=str))
+    print("[ckpt] summary " + json.dumps(
+        {k: v for k, v in ckpt.items() if k != "launches"}, default=str))
     print("[eval] summary " + json.dumps(evaluator, default=str))
     print("[seedx-train] summary " + json.dumps(
         {k: ({kk: vv for kk, vv in v.items() if kk != "profile"}

@@ -4,9 +4,11 @@
   python -m mllm_npu_tpu_torch.demo_img2txt --image photo.jpg \\
       --question "What is unusual in the image?" --fake_tokenizer
 
-Builds the model from the port's YAML with weights drawn from ``--seed``
-(checkpoint loading is not ported yet) on ``--device`` (default ``cuda``;
-``--device cpu`` with ``DEBUG_FLAG=True`` runs the tiny stack on a CPU).
+Builds the model from the port's YAML, its weights from the checkpoints
+the YAML names in the reference's ``pretrained/`` layout (a path that does
+not exist raises; a null one is drawn from ``--seed``), on ``--device``
+(default ``cuda``; ``--device cpu`` with ``DEBUG_FLAG=True`` runs the tiny
+stack on a CPU, without checkpoints).
 ``build_engine(quantize_int8=True)`` (or ``quantize_int4=True``) serves
 the Llama's weights in int8 (int4).
 """

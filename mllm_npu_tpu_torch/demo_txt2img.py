@@ -7,9 +7,12 @@ guidance 7.5) and decodes a 1024×1024 image.
   python -m mllm_npu_tpu_torch.demo_txt2img --caption "a brown dog in \\
       the snow" --out out.jpg --fake_tokenizer
 
-Weights are drawn from ``--seed`` (checkpoint loading is not ported yet),
+The weights come from the checkpoints the YAMLs name, in the
+reference's ``pretrained/`` layout (``pretrained/weight.md``); a path
+that does not exist raises, a null one is drawn from ``--seed``. It runs
 on ``--device`` (default ``cuda``); ``DEBUG_FLAG=True ... --device cpu``
-runs the tiny stack (tiny SEED, tiny UNet and VAE) on a CPU.
+runs the tiny stack (tiny SEED, tiny UNet and VAE, no checkpoints) on a
+CPU.
 """
 
 from __future__ import annotations

@@ -6,9 +6,13 @@
 
 Builds the model stack from the port's YAML and runs one of the seven
 benchmarks, writing the reference's result file into the working
-directory. Weights are drawn from ``--seed`` (checkpoint loading is queue
-1 item 16); the stack runs on ``--device`` (default ``cuda``; ``--device
-cpu`` with ``DEBUG_FLAG=True`` runs the tiny stack on a CPU). Without a
+directory. The weights come from the checkpoints the YAML names (what no
+file supplies from ``--seed``), or from ``--params_checkpoint``: the
+converter's directory (``tools/convert_checkpoint.py``), or the port
+trainer's ``--output_dir`` (its trainable parameters over the YAML's
+model), the reference's train → evaluate round trip; the stack runs on
+``--device`` (default ``cuda``; ``--device cpu`` with ``DEBUG_FLAG=True``
+runs the tiny stack on a CPU). Without a
 tokenizer on disk, ``--fake_tokenizer`` (or ``DEBUG_FLAG=True``, as the
 reference) takes the offline ``FakeTokenizer``.
 """
@@ -29,9 +33,10 @@ PREFIX_ENGINE = dict(num_slots=2, max_len=2560, max_prompt=2048,
 
 
 def load_model(config_path: str, *, device=None, seed: int = 0,
-               fake_tokenizer: bool = False):
-    """The YAML's assembly with weights from ``seed`` on ``device``, its
-    tokenizer and image processor → (model, tokenizer, processor). The
+               fake_tokenizer: bool = False, params_checkpoint=None):
+    """The YAML's assembly on ``device`` (from its checkpoints and
+    ``seed``, or the converter's ``params_checkpoint``), its tokenizer and
+    image processor → (model, tokenizer, processor). The
     tokenizer is ``FakeTokenizer`` (at the model's vocab) with
     ``fake_tokenizer``, and under ``DEBUG_FLAG=True`` when the configured
     one is not on disk or does not load, as the reference's."""
@@ -43,7 +48,7 @@ def load_model(config_path: str, *, device=None, seed: int = 0,
     cfg = load_config(config_path)["mllm"]
     llm = instantiate(cfg["language_model"])
     model = instantiate(cfg["mllm_model"], language_model=llm, device=device,
-                        seed=seed)
+                        seed=seed, params_checkpoint=params_checkpoint)
     debug = os.environ.get("DEBUG_FLAG") == "True"
     path = cfg["tokenizer"].get("pretrained_model_name_or_path", "")
     tokenizer = None
@@ -87,16 +92,24 @@ def build_eval_model(config_path: str, max_new_tokens: int = 512,
                      params_checkpoint: str = None, prefix_cache: int = 0,
                      *, device=None, seed: int = 0,
                      fake_tokenizer: bool = False):
-    """The reference's ``build_eval_model``: the YAML's stack (weights from
-    ``seed``) behind the single-request engine, or with ``prefix_cache``
-    the batched engine whose prefix cache prefills a repeated few-shot
-    preamble once."""
-    if params_checkpoint:
-        raise NotImplementedError(
-            "--params_checkpoint (orbax params from the JAX package) is not "
-            "ported yet (ROADMAP queue 1 item 16)")
+    """The reference's ``build_eval_model``: the YAML's stack behind the
+    single-request engine, or with ``prefix_cache`` the batched engine
+    whose prefix cache prefills a repeated few-shot preamble once. The
+    weights are the YAML's checkpoints' (and ``seed``'s), or
+    ``params_checkpoint``'s, either flavour (``utils/convert.py
+    checkpoint_flavour``: the converter's directory fills the model
+    whole; the trainer's replaces its trainable parameters); an orbax
+    directory raises (queue 1 item 16)."""
+    from mllm_npu_tpu_torch.utils.convert import (checkpoint_flavour,
+                                                  restore_trainer_params_)
+    flavour = checkpoint_flavour(params_checkpoint) if params_checkpoint \
+        else None
     model, tokenizer, processor = load_model(
-        config_path, device=device, seed=seed, fake_tokenizer=fake_tokenizer)
+        config_path, device=device, seed=seed, fake_tokenizer=fake_tokenizer,
+        params_checkpoint=params_checkpoint if flavour == "converted"
+        else None)
+    if flavour == "trainer":
+        restore_trainer_params_(model, params_checkpoint)
     return eval_model_for(model, tokenizer, processor,
                           max_new_tokens=max_new_tokens,
                           prefix_cache=prefix_cache, device=device)
@@ -136,8 +149,9 @@ def parse_args(argv=None):
                         default="./evaluate/eval_data/mmlu/")
     parser.add_argument("--max_items", type=int, default=None)
     parser.add_argument("--params_checkpoint", type=str, default=None,
-                        help="orbax params to evaluate: not ported yet "
-                             "(queue 1 item 16), raises")
+                        help="weights to evaluate: a directory of "
+                             "tools/convert_checkpoint.py or a trainer "
+                             "--output_dir")
     parser.add_argument("--prefix_cache", type=int, default=0,
                         help="N-entry prompt-prefix KV cache via the "
                              "batched engine: the repeated few-shot "

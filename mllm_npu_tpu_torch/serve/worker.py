@@ -233,10 +233,14 @@ def load_engine_from_config(model_config_path: str,
                             speculative_ngram: int = 3,
                             kv_cache_dtype: str = "bf16",
                             generation_config=None, *, device=None,
-                            seed: int = 0, fake_tokenizer: bool = False):
+                            seed: int = 0, fake_tokenizer: bool = False,
+                            params_checkpoint=None):
     """The worker's engine from a model YAML (the comprehension assembly or
-    SEED), weights drawn from ``seed`` (checkpoint loading is not ported
-    yet), on ``device`` (``cuda`` unless named; raises without a GPU);
+    SEED), its weights from the checkpoints the YAML names (what none
+    supplies drawn from ``seed``), or from ``params_checkpoint`` (the
+    converter's directory, ``tools/convert_checkpoint.py``: the model
+    built on ``meta`` and filled from it), on ``device`` (``cuda`` unless
+    named; raises without a GPU);
     ``fake_tokenizer`` takes the offline ``FakeTokenizer`` at the model's
     vocab instead of the config's tokenizer. ``batched`` gives a
     :class:`BatchedInferenceEngine` with ``max_prompt = max_len // 2``, as
@@ -244,8 +248,8 @@ def load_engine_from_config(model_config_path: str,
     half the cache's memory and its read traffic) or ``f32``.
     ``generation_config`` (a YAML, ``configs/generation/sd_xl_resampler.
     yaml``) builds the SDXL de-tokenizer (``factory.build_sdxl_adapter``,
-    weights from ``seed``) over the SEED model's vision encoder, for
-    ``image_gen`` requests."""
+    from the UNet, VAE and de-tokenizer checkpoints it names) over the
+    SEED model's vision encoder, for ``image_gen`` requests."""
     from mllm_npu_tpu_torch.configs import instantiate, load_config
     from mllm_npu_tpu_torch.serve.engine import (BatchedInferenceEngine,
                                                  InferenceEngine)
@@ -255,7 +259,7 @@ def load_engine_from_config(model_config_path: str,
     cfg = load_config(model_config_path)["mllm"]
     llm = instantiate(cfg["language_model"])
     model = instantiate(cfg["mllm_model"], language_model=llm, device=device,
-                        seed=seed)
+                        seed=seed, params_checkpoint=params_checkpoint)
     if fake_tokenizer:
         from mllm_npu_tpu_torch.utils.fake_tokenizer import FakeTokenizer
         tokenizer = FakeTokenizer(vocab_size=llm.config.vocab_size)
@@ -289,8 +293,6 @@ def load_engine_from_config(model_config_path: str,
 # raises, naming its ROADMAP item, when set to anything but its default
 UNPORTED_FLAGS = {
     "tensor_parallel": (1, "tensor-parallel serving, queue 1 item 12"),
-    "params_checkpoint": (None, "loading orbax checkpoints, queue 1 item "
-                                "16"),
     "cast_bf16": (True, "serving fp32 weights (--no-cast-bf16: fp32 "
                         "serving needs K1 for fp32 operands), queue 1 "
                         "item 10c"),
@@ -367,11 +369,13 @@ def parse_worker_args(argv=None):
                         help="KV cache storage dtype (fp8: e4m3, half the "
                              "cache memory of bf16)")
     parser.add_argument("--params-checkpoint", type=str, default=None,
-                        help="not ported yet (raises)")
+                        help="a directory of tools/convert_checkpoint.py: "
+                             "the model's weights from it instead of the "
+                             "YAML's checkpoints")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a GPU) or cpu")
     parser.add_argument("--seed", type=int, default=0,
-                        help="seed of the drawn weights")
+                        help="seed of the weights no checkpoint supplies")
 
     # two stages: a --worker-config JSON gives every flag a default, and
     # the flags given on the command line still win
@@ -408,7 +412,7 @@ def main(argv=None):
         speculative_ngram=args.speculative_ngram,
         kv_cache_dtype=args.kv_cache_dtype,
         generation_config=args.generation_config, device=args.device,
-        seed=args.seed)
+        seed=args.seed, params_checkpoint=args.params_checkpoint)
     if args.batched:
         args.limit_model_concurrency = max(args.limit_model_concurrency,
                                            args.num_slots)

@@ -13,21 +13,27 @@ The flags and the log line (``sec/step``, ``tokens/s``, ``images/s``,
 ``loss``, ``lr``, ``grad_norm`` and every loss term the model returns:
 ``lm_loss``, SEED's ``rec_loss``) are the reference's. The model is built
 for training (``build_mllm`` / ``build_seed(train=True)``: fp32 trainable
-parameters, frozen ones in bf16 at full width) with weights drawn from
-``--seed``; every attention that needs a gradient runs K1 with its LSE
-forward and K2/K3 backward. ``--quantize_base int8|int4`` (QLoRA) then
-quantizes the drawn float base, every LoRA adapter's base and the
+parameters, frozen ones in bf16 at full width) with its weights from the
+checkpoints the YAML names (what no file supplies, a loaded base's fresh
+LoRA adapters among them, from ``--seed``), or, as init-time weights,
+from ``--params_checkpoint`` (the converter's directory,
+``tools/convert_checkpoint.py``); every attention that needs a gradient
+runs K1 with its LSE forward and K2/K3 backward. ``--quantize_base
+int8|int4`` (QLoRA) then quantizes the float base, every LoRA adapter's
+base and the
 ``lm_head`` (``--quant_group_size`` for int4), as the reference's trainer
 does; their products run K4 / K5 forward and pass their gradient to the
 activations alone. The run writes ``checkpoint_{step}`` directories and
 the JSONL metrics under ``--output_dir`` and resumes from the latest
 checkpoint there (or under ``--resume_from_checkpoint``) at the exact
-data position.
+data position; a checkpoint holds the trainable parameters alone, and
+the frozen ones come back from the model's files.
 
 It runs on ``--device`` (default ``cuda``) and raises without a GPU unless
 given ``--device cpu``. Not ported yet, and raising when asked for:
-meshes other than one device (``--mesh_*``), ``--params_checkpoint`` and
-``--dataloader_workers > 0``.
+meshes other than one device (``--mesh_*``), an orbax
+``--params_checkpoint`` (the JAX package's) and ``--dataloader_workers >
+0``.
 """
 
 from __future__ import annotations
@@ -120,10 +126,6 @@ def _refuse_unported(args: TrainArgs) -> None:
     if args.quantize_base not in ("", "int8", "int4"):
         raise ValueError(f"--quantize_base takes int8 or int4, got "
                          f"{args.quantize_base!r}")
-    if args.params_checkpoint:
-        raise NotImplementedError(
-            "--params_checkpoint (orbax params from the JAX package) is not "
-            "ported yet (ROADMAP queue 1, slice 8)")
     if args.dataloader_workers > 0:
         raise NotImplementedError(
             "--dataloader_workers > 0 (the multi-process loader) is not "
@@ -216,9 +218,10 @@ def main(argv=None, on_step: Optional[Callable[[dict], None]] = None):
     tokenizer = build_tokenizer(args, model_cfg, llm_spec.config.vocab_size)
     model = instantiate(model_cfg["mllm"]["mllm_model"],
                         language_model=llm_spec, device=device, train=True,
-                        seed=args.seed, ce_loss_chunk=args.ce_loss_chunk)
+                        seed=args.seed, ce_loss_chunk=args.ce_loss_chunk,
+                        params_checkpoint=args.params_checkpoint or None)
     if args.quantize_base:
-        # QLoRA: the float base drawn from the seed, quantized in place
+        # QLoRA: the float base, quantized in place
         from mllm_npu_tpu_torch.utils.weights import quantize_llama_
         quantize_llama_(model.language_model,
                         bits=int(args.quantize_base[3:]),

@@ -19,6 +19,7 @@ from mllm_npu_tpu_torch.models.multimodal_encoder.siglip_vit import (
     SigLIPConfig, SigLIPVisionEncoder)
 from mllm_npu_tpu_torch.models.multimodal_projector.attention_resampler \
     import AttentionResampler
+from mllm_npu_tpu_torch.utils.weights import qwen_vit_state, siglip_state
 
 
 @dataclasses.dataclass
@@ -46,12 +47,13 @@ def build_tiny_mllm(spec: TinySpec = TinySpec(), *, device=None,
         vis_cfg = QwenViTConfig.tiny(image_size=spec.image_size)
         vis_width = vis_cfg.output_dim
         vision = ModelSpec(vis_cfg, dt, lambda: VisionTransformerWithAttnPool(
-            vis_cfg, dt))
+            vis_cfg, dt), convert=qwen_vit_state)
     else:
         vis_cfg = SigLIPConfig.tiny(image_size=spec.image_size)
         vis_width = vis_cfg.hidden_size
         vision = ModelSpec(vis_cfg, dt,
-                           lambda: SigLIPVisionEncoder(vis_cfg, dt))
+                           lambda: SigLIPVisionEncoder(vis_cfg, dt),
+                           convert=siglip_state)
     grid = int(spec.nq ** 0.5)
 
     def resampler(embed_dim, kv_dim):

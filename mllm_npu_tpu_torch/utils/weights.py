@@ -32,6 +32,19 @@ norm's ``scale`` → ``weight``; the inverses are the reference's
 ``torch_to_flax_unet``, ``torch_to_flax_vae`` and
 ``torch_to_flax_perceiver``.
 
+The reference's own checkpoint files go across by the twins of its
+``torch_to_flax_*`` converters (:func:`llama_state`, :func:`siglip_state`,
+:func:`qwen_vit_state`, :func:`vae_state`, :func:`assembly_state`): the
+port keeps the torch names those read, so most of the mapping is a
+prefix or a rename (the resamplers and the UNet keep theirs as they
+are), and what is left is the
+reference's rules: the vocabulary resized by the mean rule, ``lm_head``
+from ``embed_tokens`` when a checkpoint has none, fresh LoRA adapters
+drawn as the reference draws them (:func:`lora_init`), and the peft
+wrapper's names (:func:`normalize_peft_keys`). A value a rule makes is a
+:class:`Lazy`: its shape is known at once, its tensor only made when a
+load needs it.
+
 It also holds the port's serving transforms, :func:`merge_lora_`,
 :func:`fuse_llama_projections_` and :func:`quantize_llama_` (twins of
 ``merge_lora_params``, ``fuse_llama_projections`` with one shard and
@@ -43,8 +56,9 @@ so a full-width model is never held twice.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import re
-from typing import Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -54,6 +68,8 @@ from mllm_npu_tpu_torch.models.language_models.llama import (LlamaConfig,
                                                              LoRALinear)
 from mllm_npu_tpu_torch.models.layers import Linear
 from mllm_npu_tpu_torch.ops.quant import Int4Linear, Int8Linear
+
+log = logging.getLogger(__name__)
 
 
 def _t(x) -> torch.Tensor:
@@ -314,6 +330,335 @@ def from_jax_params(tree: dict) -> Dict[str, torch.Tensor]:
     if "patch_pos_embed" in tree:
         sd["patch_pos_embed"] = _t(tree["patch_pos_embed"])
     return sd
+
+
+# -- the reference's checkpoint files → the port's state_dict ------------
+
+class Lazy:
+    """A tensor a loading rule makes (a resized embedding, a fresh LoRA
+    adapter): its ``shape`` now, the tensor when called."""
+
+    def __init__(self, shape, make: Callable[[], torch.Tensor]):
+        self.shape = torch.Size(shape)
+        self.make = make
+
+    def __call__(self) -> torch.Tensor:
+        return self.make()
+
+
+def resize_embedding(emb: torch.Tensor, new_vocab: int,
+                     mean_mult: float = 1.0) -> torch.Tensor:
+    """``emb`` cut or padded to ``new_vocab`` rows in fp32, each new row
+    ``mean_mult`` × the mean of the old rows (twin of the reference's
+    ``resize_embedding``, ``weights.py:41-54``: 1.0 for the input
+    embeddings, 3.0 for ``lm_head``; ``peft_models.py:56-99``)."""
+    if new_vocab <= emb.shape[0]:
+        return emb[:new_vocab].float()
+    emb = emb.float()
+    mean = emb.mean(dim=0, keepdim=True) * mean_mult
+    return torch.cat([emb, mean.expand(new_vocab - emb.shape[0], -1)])
+
+
+def _resized(emb: torch.Tensor, vocab: int, mult: float):
+    if emb.shape[0] == vocab:
+        return emb
+    return Lazy((vocab, emb.shape[1]),
+                lambda: resize_embedding(emb, vocab, mult))
+
+
+def _lora_dims(cfg: LlamaConfig) -> Dict[str, tuple]:
+    """(in, out) of each LoRA target of a Llama layer."""
+    hs, inter = cfg.hidden_size, cfg.intermediate_size
+    q = cfg.num_attention_heads * cfg.head_dim
+    kv = cfg.num_key_value_heads * cfg.head_dim
+    dims = {"self_attn.q_proj": (hs, q), "self_attn.k_proj": (hs, kv),
+            "self_attn.v_proj": (hs, kv), "self_attn.o_proj": (q, hs),
+            "mlp.gate_proj": (hs, inter), "mlp.up_proj": (hs, inter),
+            "mlp.down_proj": (inter, hs)}
+    return {k: v for k, v in dims.items()
+            if k.split(".")[1] in cfg.lora_targets}
+
+
+def _he_uniform(rs: np.random.RandomState, shape, fan_in: int) -> np.ndarray:
+    return rs.uniform(-1, 1, shape).astype(np.float32) * (3.0 / fan_in) ** 0.5
+
+
+def lora_init(cfg: LlamaConfig, rule: str) -> Dict[str, Lazy]:
+    """Fresh adapters for every LoRA target of ``cfg``, B zero and A drawn
+    with numpy as the reference draws it: ``rule="base"`` for a base
+    loaded from its own checkpoint (``_relayout_lora``, ``factory.py:
+    198-228``: one ``RandomState(0)`` per projection over the scan-stacked
+    [layers, in, r] kernel), ``rule="assembly"`` for an assembly
+    checkpoint without adapters (``torch_to_flax_llama``, ``weights.py:
+    119-125``: ``RandomState(1234 + i)`` for layer i). A is stored
+    transposed, [r, in]."""
+    L, r = cfg.num_hidden_layers, cfg.lora_rank
+    out = {}
+    for mod, (i_dim, o_dim) in _lora_dims(cfg).items():
+        if rule == "base":
+            stack = {}
+
+            def a(i, i_dim=i_dim, stack=stack):
+                if "a" not in stack:
+                    stack["a"] = _he_uniform(np.random.RandomState(0),
+                                             (L, i_dim, r), i_dim)
+                return torch.from_numpy(np.ascontiguousarray(stack["a"][i].T))
+        elif rule == "assembly":
+            def a(i, i_dim=i_dim):
+                return torch.from_numpy(np.ascontiguousarray(_he_uniform(
+                    np.random.RandomState(1234 + i), (i_dim, r), i_dim).T))
+        else:
+            raise ValueError(f"unknown LoRA rule {rule!r}")
+        for i in range(L):
+            key = f"model.layers.{i}.{mod}"
+            out[f"{key}.lora_A.weight"] = Lazy((r, i_dim),
+                                               lambda a=a, i=i: a(i))
+            out[f"{key}.lora_B.weight"] = Lazy(
+                (o_dim, r), lambda o=o_dim: torch.zeros(o, r))
+    return out
+
+
+_LLAMA_IGNORED = re.compile(r"(^|\.)rotary_emb\.inv_freq$")
+
+
+def llama_state(sd: Dict[str, Any], cfg: LlamaConfig, *,
+                lora: Optional[str] = "base", partial: bool = False
+                ) -> Dict[str, Any]:
+    """An HF Llama state dict (``model.`` prefix or none; peft names
+    normalised first) → the port's ``LlamaForCausalLM`` state at
+    ``cfg.vocab_size`` (twin of ``torch_to_flax_llama``, ``weights.py:
+    57-167``): ``lm_head`` falls back to ``embed_tokens`` when absent, the
+    vocabulary is resized by the mean rule (1.0 embeddings, 3.0
+    ``lm_head``), and with LoRA in ``cfg`` the adapters are the
+    checkpoint's ``lora_A`` / ``lora_B`` where it has them, else fresh by
+    :func:`lora_init`'s ``lora`` rule. ``partial`` (an assembly's language
+    model merged over the base): no fallback where the part holds no
+    embeddings, and no fresh adapters where it holds some."""
+    prefix = "model." if any(k.startswith("model.") for k in sd) else ""
+    out: Dict[str, Any] = {}
+    for k, v in sd.items():
+        if _LLAMA_IGNORED.search(k):
+            continue
+        if k.startswith("lm_head.") or not k.startswith(prefix):
+            out[k] = v
+        else:
+            out["model." + k[len(prefix):]] = v
+    emb_key, head_key = "model.embed_tokens.weight", "lm_head.weight"
+    if emb_key in out and head_key not in out:
+        out[head_key] = out[emb_key]
+    if emb_key in out:
+        out[emb_key] = _resized(out[emb_key], cfg.vocab_size, 1.0)
+    if head_key in out:
+        out[head_key] = _resized(out[head_key], cfg.vocab_size, 3.0)
+    if cfg.lora_rank > 0 and lora is not None:
+        has = any(k.endswith(".lora_A.weight") for k in out)
+        if not (partial and has):
+            for k, v in lora_init(cfg, lora).items():
+                out.setdefault(k, v)
+    return out
+
+
+def _find_prefix(sd: Dict[str, Any], head: str, leaf: str, what: str) -> str:
+    """The prefix under which ``sd`` holds a tower: ``head`` when a key
+    starts with it, else whatever precedes the first key ending in
+    ``leaf`` (the reference's search, ``weights.py:176-182, 272-276``)."""
+    if any(k.startswith(head) for k in sd):
+        return head
+    cands = [k for k in sd if k.endswith(leaf)]
+    if not cands:
+        raise KeyError(f"no {what} keys in the checkpoint: {list(sd)[:5]}")
+    return cands[0][:-len(leaf)]
+
+
+# the parts of an HF SigLIP checkpoint the reference does not read
+_SIGLIP_IGNORED = re.compile(r"^(head\.|embeddings\.position_ids$)")
+
+
+def siglip_state(sd: Dict[str, Any], cfg=None) -> Dict[str, Any]:
+    """An HF ``SiglipVisionModel`` state (``vision_model.``, or the nested
+    prefix the reference searches for) → the port's
+    ``SigLIPVisionEncoder`` state (twin of ``torch_to_flax_siglip``). The
+    pooling head and the position-id buffer are left out, as the
+    reference leaves them; keys outside the prefix are not the tower's."""
+    pre = _find_prefix(sd, "vision_model.", "embeddings.patch_embedding."
+                       "weight", "SigLIP")
+    out = {}
+    for k, v in sd.items():
+        if not k.startswith(pre):
+            continue
+        rest = k[len(pre):]
+        if not _SIGLIP_IGNORED.match(rest):
+            out["vision_model." + rest] = v
+    return out
+
+
+_QWEN_IN_PROJ = re.compile(
+    r"^(transformer\.resblocks\.\d+\.attn\.)in_proj_(weight|bias)$")
+
+
+def qwen_vit_state(sd: Dict[str, Any], cfg=None) -> Dict[str, Any]:
+    """A ``qwen_vit_G.pt``-style state (the tower at the root, or under the
+    prefix the reference searches for) → the port's
+    ``VisionTransformerWithAttnPool`` state (twin of
+    ``torch_to_flax_qwen_vit``): a block's attention may be the fused
+    ``attn.in_proj`` Linear (the reference's) or ``nn.MultiheadAttention``'s
+    ``in_proj_weight`` / ``in_proj_bias``, both kept fused.
+    ``patch_pos_embed`` only where ``cfg`` has patch positions."""
+    pre = "" if any(k.startswith("conv1") for k in sd) else _find_prefix(
+        sd, "conv1", "conv1.weight", "Qwen-ViT")
+    out = {}
+    for k, v in sd.items():
+        if not k.startswith(pre):
+            continue
+        rest = _QWEN_IN_PROJ.sub(r"\1in_proj.\2", k[len(pre):])
+        if rest == "patch_pos_embed" and not getattr(cfg, "patch_pos", True):
+            continue
+        out[rest] = v
+    return out
+
+
+_VAE_OLD_ATTN = {"query": "to_q", "key": "to_k", "value": "to_v",
+                 "proj_attn": "to_out.0"}
+_VAE_ATTN = re.compile(r"^(\w+\.mid_block\.attentions\.0\.)"
+                       r"(query|key|value|proj_attn)\.(weight|bias)$")
+
+
+def vae_state(sd: Dict[str, Any], cfg=None) -> Dict[str, Any]:
+    """A diffusers ``AutoencoderKL`` state → the port's (twin of
+    ``torch_to_flax_vae``): the pre-0.15 attention names
+    (``query``/``key``/``value``/``proj_attn``) become the modern ones."""
+    return {_VAE_ATTN.sub(lambda m: m.group(1) + _VAE_OLD_ATTN[m.group(2)]
+                          + "." + m.group(3), k): v for k, v in sd.items()}
+
+
+def normalize_peft_keys(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """A peft-wrapped language model's state → HF-Llama names (twin of the
+    reference's ``normalize_peft_keys``, ``weights.py:668-695``): the
+    ``base_model.model.`` wrapper and ``.base_layer.`` go, the trained
+    ``.modules_to_save.default.`` copy wins over the dropped
+    ``.original_module.``, ``.lora_{A,B}.default.`` → ``.lora_{A,B}.``."""
+    out: Dict[str, Any] = {}
+    for k, v in sd.items():
+        if ".original_module." in k:
+            continue
+        k = k.replace("base_model.model.", "")
+        k = k.replace(".base_layer.", ".")
+        k = k.replace(".modules_to_save.default.", ".")
+        k = k.replace(".lora_A.default.", ".lora_A.")
+        k = k.replace(".lora_B.default.", ".lora_B.")
+        out[k] = v
+    return out
+
+
+def split_assembly_state(sd: Dict[str, Any]) -> Dict[str, Dict[str, Any]]:
+    """An assembly state → {component: its state, prefix stripped}, with
+    ``patch_pos_embed`` under ``__root__`` (twin of the reference's
+    ``split_assembly_state``)."""
+    out: Dict[str, Dict[str, Any]] = {}
+    for k, v in sd.items():
+        if k == "patch_pos_embed":
+            out.setdefault("__root__", {})[k] = v
+            continue
+        head, _, rest = k.partition(".")
+        out.setdefault(head, {})[rest] = v
+    return out
+
+
+def split_adapter_state(sd: Dict[str, Any]) -> tuple:
+    """A de-tokenizer checkpoint → (resampler state, UNet state) (twin of
+    the reference's ``split_adapter_state``)."""
+    res = {k[len("resampler."):]: v for k, v in sd.items()
+           if k.startswith("resampler.")}
+    unet = {k[len("unet."):]: v for k, v in sd.items()
+            if k.startswith("unet.")}
+    return res, unet
+
+
+ASSEMBLY_PARTS = ("language_model", "vision_encoder", "projector",
+                  "output_projector")
+
+
+def assembly_state(sd: Dict[str, Any], lm_config: LlamaConfig,
+                   vision_convert: Callable, vision_config=None
+                   ) -> Dict[str, Any]:
+    """A reference assembly checkpoint (SEED-X's ``pytorch_model.bin``:
+    ``language_model.*`` through peft, ``vision_encoder.*``,
+    ``projector.*``, ``output_projector.*``, ``patch_pos_embed``) → the
+    port's assembly state (twin of ``torch_to_flax_assembly``, ``weights.
+    py:713-737``). The language model goes through :func:`llama_state`
+    at the config's vocab, with fresh adapters by the assembly rule where
+    it holds none; the tower through ``vision_convert``
+    (:func:`siglip_state` or :func:`qwen_vit_state`). An unknown component
+    raises."""
+    out: Dict[str, Any] = {}
+    for head, part in split_assembly_state(sd).items():
+        if head == "__root__":
+            out.update(part)
+            continue
+        if head == "language_model":
+            conv = llama_state(normalize_peft_keys(part), lm_config,
+                               lora="assembly", partial=True)
+        elif head == "vision_encoder":
+            conv = vision_convert(part, vision_config)
+        elif head in ASSEMBLY_PARTS:
+            conv = part
+        else:
+            raise KeyError(f"assembly checkpoint: unknown component "
+                           f"{head!r} ({next(iter(part))!r}, …)")
+        out.update({f"{head}.{k}": v for k, v in conv.items()})
+    return out
+
+
+def merge_partial_state(state: Dict[str, Any], partial: Dict[str, Any],
+                        shapes: Dict[str, torch.Size], what: str) -> int:
+    """Merge ``partial`` into ``state`` key by key, strictly (twin of
+    ``merge_partial_unet_state``, ``weights.py:575-610``): a key the module
+    (``shapes``: its parameters' shapes) does not hold raises ``KeyError``,
+    a shape that does not match raises ``ValueError``. Returns the count
+    merged."""
+    for k, v in partial.items():
+        if k not in shapes:
+            raise KeyError(f"{what}: checkpoint key {k!r} is not a "
+                           "parameter of the model")
+        if tuple(v.shape) != tuple(shapes[k]):
+            raise ValueError(f"{what}: shape mismatch merging {k!r}: "
+                             f"checkpoint {tuple(v.shape)} vs model "
+                             f"{tuple(shapes[k])}")
+        state[k] = v
+    return len(partial)
+
+
+def remove_mismatched_weights(shapes: Dict[str, torch.Size],
+                              state: Dict[str, Any]) -> list:
+    """Drop the entries of ``state`` whose shapes differ from the model's
+    (``shapes``), logging each; returns the dropped keys (twin of
+    ``utils/misc.py:47``; ``init_assembly_params``' skip,
+    ``factory.py:387-403``)."""
+    dropped = []
+    for k in list(state):
+        if k in shapes and tuple(shapes[k]) != tuple(state[k].shape):
+            log.warning("skipping mismatched weight %s: checkpoint %s, "
+                        "model %s", k, tuple(state[k].shape),
+                        tuple(shapes[k]))
+            dropped.append(k)
+            del state[k]
+    return dropped
+
+
+def reload_qwen_vit(pretrained_path, out_path) -> Dict[str, torch.Tensor]:
+    """The visual tower of a whole Qwen-VL checkpoint
+    (``transformer.visual.*`` or ``visual.*``) saved alone to ``out_path``
+    (twin of ``utils/misc.py:31``)."""
+    from mllm_npu_tpu_torch.utils.checkpoint_files import load_torch_file
+    ckpt = load_torch_file(pretrained_path)
+    for pre in ("transformer.visual.", "visual."):
+        visual = {k[len(pre):]: v for k, v in ckpt.items()
+                  if k.startswith(pre)}
+        if visual:
+            break
+    torch.save(visual, out_path)
+    log.info("extracted %d visual tensors -> %s", len(visual), out_path)
+    return visual
 
 
 def set_llama_config(lm: nn.Module, **changes) -> None:

@@ -145,5 +145,10 @@ def test_build_sdxl_adapter_debug_and_refusals(monkeypatch, tmp_path):
     monkeypatch.delenv("DEBUG_FLAG")
     ckpt = tmp_path / "unet"
     ckpt.mkdir()
-    with pytest.raises(NotImplementedError, match="exists"):
+    # outside DEBUG_FLAG a configured directory is read: one holding no
+    # weights raises, and so does a path that does not exist
+    with pytest.raises(FileNotFoundError, match="no weights found"):
         factory.build_sdxl_adapter(unet_checkpoint=str(ckpt), device="cpu")
+    with pytest.raises(FileNotFoundError, match="does not exist"):
+        factory.build_sdxl_adapter(vae_checkpoint=str(tmp_path / "nope"),
+                                   device="cpu")

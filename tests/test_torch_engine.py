@@ -252,8 +252,8 @@ def test_port_imports_no_jax_and_no_reference():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "'mllm_npu_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'mllm_npu_tpu' or m.startswith('mllm_npu_tpu.')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax',"
+        " 'mllm_npu_tpu', 'safetensors', 'transformers')]\n"
         "assert len(names) > 20, names\n"
         "for m in ('train.train', 'train.train_state', 'train.checkpoint',"
         " 'train.scheduler', 'train.trackers', 'data.streams',"
@@ -264,7 +264,9 @@ def test_port_imports_no_jax_and_no_reference():
         " 'models.generation.generate', 'models.generation.schedulers',"
         " 'models.generation.resampler', 'models.generation.unet',"
         " 'models.generation.vae', 'models.generation.discrete_models',"
-        " 'models.generation.adapter_modules', 'demo_txt2img'):\n"
+        " 'models.generation.adapter_modules', 'demo_txt2img',"
+        " 'utils.checkpoint_files', 'utils.convert', 'utils.weights',"
+        " 'tools.convert_checkpoint'):\n"
         "    assert 'mllm_npu_tpu_torch.' + m in names, m\n"
         "print('BAD', bad)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -324,21 +326,31 @@ def test_yaml_builds_and_serves_tiny_on_cpu(monkeypatch):
     assert isinstance(text, str)
 
 
-def test_existing_checkpoint_path_is_not_replaced(tmp_path):
+def test_existing_checkpoint_path_is_not_replaced(tmp_path, monkeypatch):
+    """A configured path that exists is the component's checkpoint: it is
+    read (a directory without weights raises), never replaced by seeded
+    weights."""
+    monkeypatch.delenv("DEBUG_FLAG", raising=False)
     from mllm_npu_tpu_torch.models.factory import build_siglip
-    with pytest.raises(NotImplementedError):
-        build_siglip(pretrained_model_name_or_path=str(tmp_path))
+    spec = build_siglip(pretrained_model_name_or_path=str(tmp_path))
+    assert spec.checkpoint == str(tmp_path)
+    with pytest.raises(FileNotFoundError, match="no weights found"):
+        spec.state()
 
 
-def test_seedx_builders_refuse_an_existing_checkpoint(tmp_path):
+def test_seedx_builders_refuse_an_existing_checkpoint(tmp_path, monkeypatch):
     """The SEED-X builders: a tower, a Llama or an assembly checkpoint
-    path that exists raises (loading them is queue 1 item 16)."""
+    path that exists is read, and one holding no weights raises."""
+    monkeypatch.delenv("DEBUG_FLAG", raising=False)
     from mllm_npu_tpu_torch.models import factory
     for build in (factory.build_qwen_vit, factory.build_llama2):
-        with pytest.raises(NotImplementedError):
-            build(pretrained_model_name_or_path=str(tmp_path))
-    with pytest.raises(NotImplementedError):
-        factory.build_seed(pretrained_model_path=str(tmp_path))
+        spec = build(pretrained_model_name_or_path=str(tmp_path))
+        assert spec.checkpoint == str(tmp_path)
+        with pytest.raises(FileNotFoundError, match="no weights found"):
+            spec.state()
+    with pytest.raises(FileNotFoundError, match="no weights found"):
+        build_tiny_mllm(TinySpec(), device="cpu", seed_x=True, tower="qwen",
+                        pretrained_model_path=str(tmp_path))
 
 
 def test_seedx_yaml_builds_and_serves_tiny_on_cpu(monkeypatch):

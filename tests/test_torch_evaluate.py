@@ -543,11 +543,20 @@ def test_run_dispatches_mme_and_mmvet(monkeypatch, tmp_path):
         "v1_0", "v1_1"}
 
 
-def test_run_refuses_checkpoints_and_keeps_the_prompt_cap(monkeypatch):
+def test_run_refuses_checkpoints_and_keeps_the_prompt_cap(monkeypatch,
+                                                          tmp_path):
+    """An orbax params directory (the JAX package's) raises, naming queue 1
+    item 16, and so does a path that is no directory."""
     monkeypatch.setenv("DEBUG_FLAG", "True")
+    orbax = tmp_path / "orbax" / "checkpoint_0"
+    orbax.mkdir(parents=True)
+    (orbax / "_CHECKPOINT_METADATA").write_text("{}")
     with pytest.raises(NotImplementedError, match="item 16"):
         trun.build_eval_model(str(REPO / YAML_8B), device="cpu",
-                              params_checkpoint="some/dir")
+                              params_checkpoint=str(orbax.parent))
+    with pytest.raises(FileNotFoundError):
+        trun.build_eval_model(str(REPO / YAML_8B), device="cpu",
+                              params_checkpoint=str(tmp_path / "some_dir"))
     em = trun.build_eval_model(str(REPO / YAML_8B), max_new_tokens=2,
                                prefix_cache=2, device="cpu")
     try:

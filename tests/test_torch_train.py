@@ -534,7 +534,11 @@ def test_train_cli_refuses_what_is_not_ported(cli_files):
     from mllm_npu_tpu_torch.train.train import main
     tmp, model_yaml, data_yaml = cli_files
     base = _argv(model_yaml, data_yaml, tmp / "x", 1, 1)
-    for extra in (["--mesh_fsdp", "2"], ["--params_checkpoint", str(tmp)],
+    orbax = tmp / "orbax" / "checkpoint_0"     # the JAX package's layout
+    orbax.mkdir(parents=True)
+    (orbax / "_CHECKPOINT_METADATA").write_text("{}")
+    for extra in (["--mesh_fsdp", "2"],
+                  ["--params_checkpoint", str(orbax.parent)],
                   ["--dataloader_workers", "2"]):
         with pytest.raises(NotImplementedError):
             main(base + extra)
