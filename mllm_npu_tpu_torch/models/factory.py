@@ -521,11 +521,14 @@ def build_sdxl_adapter(resampler: Optional[dict] = None,
     strictly: an unknown key or a shape that differs raises. Under
     ``DEBUG_FLAG`` everything is the tiny configs (the resampler's input
     width the tiny vision encoder's, as the tiny SEED output projector's)
-    and nothing loads. The 8-channel edit UNet (``with_latent_image``) is
-    queue 1 item 14b."""
+    and nothing loads. ``with_latent_image`` builds SEED-X-Edit's
+    ``SDXLAdapterWithLatentImage`` over the 8-channel UNet (a diffusers
+    directory's ``conv_in`` then has 8 input channels); under
+    ``DEBUG_FLAG`` its tiny UNet takes 8 channels too, where the
+    reference's stays at 4, which its edit path cannot run."""
     from mllm_npu_tpu_torch.configs import resolve_target
     from mllm_npu_tpu_torch.models.generation.adapter_modules import (
-        SDXLAdapter)
+        SDXLAdapter, SDXLAdapterWithLatentImage)
     from mllm_npu_tpu_torch.models.generation.resampler import ResamplerXL
     from mllm_npu_tpu_torch.models.generation.schedulers import (
         EulerDiscreteScheduler)
@@ -534,18 +537,16 @@ def build_sdxl_adapter(resampler: Optional[dict] = None,
     from mllm_npu_tpu_torch.models.generation.vae import (AutoencoderKL,
                                                           VAEConfig)
 
-    if with_latent_image:
-        raise NotImplementedError(
-            "SDXLAdapterWithLatentImage (the 8-channel edit UNet) is not "
-            "ported yet (ROADMAP queue 1 item 14b)")
     unet_ckpt, vae_ckpt, adapter_ckpt = (
         _maybe(p) for p in (unet_checkpoint, vae_checkpoint,
                             adapter_checkpoint))
     resampler = dict(resampler or {})
     cls = resolve_target(resampler.pop("_target_")) \
         if "_target_" in resampler else ResamplerXL
+    in_channels = 8 if with_latent_image else 4
     if _debug():
-        ucfg, vcfg = UNetConfig.tiny(), VAEConfig.tiny()
+        ucfg = UNetConfig.tiny(in_channels=in_channels)
+        vcfg = VAEConfig.tiny()
         # the features' width: the tiny vision encoder's (the negative)
         # and the tiny output projector's are both 128
         width = (visual_encoder.config.output_dim if visual_encoder
@@ -553,7 +554,8 @@ def build_sdxl_adapter(resampler: Optional[dict] = None,
         rkw = dict(dim=32, depth=1, dim_head=8, heads=4, num_queries=4,
                    embedding_dim=width, output1_dim=32, output2_dim=32)
     else:
-        ucfg, vcfg = UNetConfig.sdxl_base(), VAEConfig.sdxl()
+        ucfg = UNetConfig.sdxl_base(in_channels=in_channels)
+        vcfg = VAEConfig.sdxl()
         rkw = dict(dim=1024, depth=4, dim_head=64, heads=16, num_queries=64,
                    embedding_dim=4096, output1_dim=768, output2_dim=1280)
         rkw.update({k: v for k, v in resampler.items()
@@ -585,7 +587,9 @@ def build_sdxl_adapter(resampler: Optional[dict] = None,
         return _fill(module, device, s, state, group=name)
 
     dt = param_dtype
-    adapter = SDXLAdapter(
+    adapter_cls = SDXLAdapterWithLatentImage if with_latent_image \
+        else SDXLAdapter
+    adapter = adapter_cls(
         unet=part("unet", lambda: UNet2DConditionModel(ucfg, dtype=dt), seed),
         resampler=part("resampler", lambda: cls(**rkw, dtype=dt), seed + 1),
         vit_down=vit_down)

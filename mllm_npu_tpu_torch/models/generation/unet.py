@@ -5,7 +5,16 @@ The de-tokenizer's denoiser: added conditioning (the pooled embeds and
 six micro-conditioning time ids, Fourier-embedded and merged into the
 time embedding), cross-attention over ``encoder_hidden_states`` of width
 2048 (the resampler's image tokens), and the IP-Adapter's decoupled image
-cross-attention (``ip_num_image_tokens``).
+cross-attention (``ip_num_image_tokens``, ``attention_processor.py``'s
+``IPCrossAttention``, which every attention of the UNet is). Also the
+SD-2.1 and SD-1.5 shapes (``UNetConfig.sd21``, ``sd15``), rank-r LoRA on
+the attentions' ``lora_targets`` (``LoRALinear`` with α = r, as the
+reference's ``LoRADense``: ``to_out`` then has no bias, as there), int8 /
+int4 weights on the transformer blocks' projections (``quantization``,
+``Int8Linear`` / ``Int4Linear`` with their biases: K4 / K5 on the GPU;
+:func:`quantize_unet_params` converts a float state_dict) and ``remat``:
+each resnet and transformer stage is recomputed in the backward pass
+(``torch.utils.checkpoint``), where the reference rematerialises.
 
 Every attention, self and cross, goes through ``ops.multi_head_attention``
 without a mask: K1 (``csrc/flash_fwd.cu``) on the GPU, its plain fp32
@@ -18,8 +27,9 @@ Layout: NCHW, the diffusers module tree and parameter names
 flattened block names; ``utils/weights.py unet_from_jax`` moves the
 reference's parameters across (HWIO → OIHW for the convolutions). Each
 module computes in its ``dtype`` (parameters cast at use), normalisation
-statistics in fp32. ``lora_rank > 0`` and ``quantization`` are not ported
-and raise.
+statistics in fp32. LoRA together with ``quantization`` raises: the
+reference's ``quantize_unet_params`` quantizes the LoRA bases, which its
+LoRA module then cannot read (ROADMAP, known issues of the reference).
 """
 
 from __future__ import annotations
@@ -31,11 +41,22 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from mllm_npu_tpu_torch import ops
+from mllm_npu_tpu_torch.models.generation.attention_processor import (
+    IPCrossAttention, split_ip_context)
+from mllm_npu_tpu_torch.models.language_models.llama import LoRALinear
 from mllm_npu_tpu_torch.models.layers import LayerNorm, Linear
+from mllm_npu_tpu_torch.ops.quant import (Int4Linear, Int8Linear,
+                                          quantize_dense_params)
 
 LN_EPS = 1e-6     # flax's LayerNorm default, the reference's
+# the int4 UNet's group size along K (the reference's QuantDense default)
+UNET_QUANT_GROUP = 256
+# Linear layers outside the transformer blocks stay float under
+# ``quantization`` (reference :515): the timestep MLPs and each resnet's
+# time_emb_proj
+UNET_QUANT_SKIP = ("time_embedding", "add_embedding", "time_emb_proj")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,9 +74,14 @@ class UNetConfig:
     addition_time_embed_dim: int = 256
     projection_class_embeddings_input_dim: int = 2816
     norm_num_groups: int = 32
+    # recompute each resnet and transformer stage in the backward pass
+    remat: bool = True
+    # LoRA (α = rank) on these attention projections
     lora_rank: int = 0
+    lora_targets: tuple = ("to_q", "to_out")
     ip_num_image_tokens: int = 0
     ip_scale: float = 1.0
+    # None | "int8" | "int4": the transformer blocks' projections
     quantization: Optional[str] = None
 
     @property
@@ -65,6 +91,32 @@ class UNetConfig:
     @classmethod
     def sdxl_base(cls, in_channels: int = 4, **kw) -> "UNetConfig":
         return cls(in_channels=in_channels, **kw)
+
+    @classmethod
+    def sd21(cls, **kw) -> "UNetConfig":
+        kw.setdefault("block_out_channels", (320, 640, 1280, 1280))
+        kw.setdefault("down_block_types",
+                      ("CrossAttnDownBlock2D", "CrossAttnDownBlock2D",
+                       "CrossAttnDownBlock2D", "DownBlock2D"))
+        kw.setdefault("transformer_layers_per_block", (1, 1, 1, 1))
+        kw.setdefault("num_attention_heads", (5, 10, 20, 20))
+        kw.setdefault("cross_attention_dim", 1024)
+        kw.setdefault("projection_class_embeddings_input_dim", 0)
+        kw.setdefault("sample_size", 96)
+        return cls(**kw)
+
+    @classmethod
+    def sd15(cls, **kw) -> "UNetConfig":
+        kw.setdefault("block_out_channels", (320, 640, 1280, 1280))
+        kw.setdefault("down_block_types",
+                      ("CrossAttnDownBlock2D", "CrossAttnDownBlock2D",
+                       "CrossAttnDownBlock2D", "DownBlock2D"))
+        kw.setdefault("transformer_layers_per_block", (1, 1, 1, 1))
+        kw.setdefault("num_attention_heads", (8, 8, 8, 8))
+        kw.setdefault("cross_attention_dim", 768)
+        kw.setdefault("projection_class_embeddings_input_dim", 0)
+        kw.setdefault("sample_size", 64)
+        return cls(**kw)
 
     @classmethod
     def tiny(cls, **kw) -> "UNetConfig":
@@ -79,18 +131,67 @@ class UNetConfig:
         kw.setdefault("addition_time_embed_dim", 8)
         kw.setdefault("projection_class_embeddings_input_dim", 8 * 6 + 32)
         kw.setdefault("norm_num_groups", 8)
+        kw.setdefault("remat", False)
         return cls(**kw)
 
 
+def _quantized(cfg: UNetConfig) -> bool:
+    if cfg.quantization in (None, "none"):
+        return False
+    if cfg.quantization not in ("int8", "int4"):
+        raise ValueError(f"unknown quantization {cfg.quantization!r}")
+    return True
+
+
 def _check_config(cfg: UNetConfig) -> None:
-    if cfg.lora_rank > 0:
-        raise NotImplementedError(
-            "UNet LoRA (lora_rank > 0, SDXLText2ImageAndEditAdapter) is not "
-            "ported yet (ROADMAP queue 1 item 14b)")
-    if cfg.quantization is not None:
-        raise NotImplementedError(
-            f"UNet quantization {cfg.quantization!r} (QuantDense) is not "
-            "ported yet (ROADMAP queue 1 item 14b)")
+    if _quantized(cfg) and cfg.lora_rank > 0:
+        raise ValueError(
+            "UNet LoRA over quantized projections: the reference's "
+            "quantize_unet_params quantizes the LoRA bases, which its LoRA "
+            "module cannot read (ROADMAP, known issues of the reference); "
+            "merge the adapters first")
+
+
+# the projections of an attention: where LoRA may go (the feed-forward's and
+# proj_in/proj_out never take it, as in the reference)
+ATTENTION_PROJECTIONS = {"to_q", "to_k", "to_v", "to_out", "to_k_ip",
+                         "to_v_ip"}
+
+
+def unet_dense(cfg: UNetConfig, dtype):
+    """``dense(name, in, out, bias)`` for the transformer blocks: a
+    ``LoRALinear`` (α = rank, no bias) for ``cfg.lora_targets`` when
+    ``lora_rank > 0``, an ``Int8Linear`` / ``Int4Linear`` under
+    ``quantization``, else a ``Linear`` (the reference's
+    ``CrossAttention.dense`` and ``QuantDense``)."""
+    quant = _quantized(cfg)
+    lora = cfg.lora_rank > 0 and set(cfg.lora_targets) & ATTENTION_PROJECTIONS
+
+    def dense(name, cin, cout, bias):
+        if lora and name in lora:
+            return LoRALinear(cin, cout, cfg.lora_rank, float(cfg.lora_rank),
+                              dtype)
+        if quant and cfg.quantization == "int8":
+            return Int8Linear(cin, cout, dtype, bias=bias)
+        if quant:
+            return Int4Linear(cin, cout, UNET_QUANT_GROUP, dtype, bias=bias)
+        return Linear(cin, cout, bias=bias, dtype=dtype)
+    return dense
+
+
+def quantize_unet_params(state: dict, bits: int = 8,
+                         group_size: int = UNET_QUANT_GROUP) -> dict:
+    """A float UNet state_dict → the one ``UNetConfig(quantization=
+    'int8' | 'int4')`` holds (reference :518): every Linear weight of the
+    transformer blocks → ``weight_q`` and its scales; convolutions, norms
+    and the ``UNET_QUANT_SKIP`` layers as they are. A LoRA state raises
+    (see :func:`_check_config`)."""
+    if any(".lora_A." in k for k in state):
+        raise ValueError("quantize_unet_params: the state holds LoRA "
+                         "adapters (the reference would quantize their "
+                         "bases; ROADMAP, known issues of the reference)")
+    return quantize_dense_params(state, skip=UNET_QUANT_SKIP, bits=bits,
+                                 group_size=group_size)
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -172,53 +273,33 @@ class ResnetBlock(nn.Module):
         return x + h
 
 
-class CrossAttention(nn.Module):
+class CrossAttention(IPCrossAttention):
     """Self-attention (no ``context``) or cross-attention; with
     ``ip_tokens`` the last ``ip_tokens`` of the context are image tokens,
     attended through ``to_k_ip``/``to_v_ip`` and added with ``ip_scale``
-    (the reference's IP-Adapter path)."""
+    (the reference's IP-Adapter path, :func:`split_ip_context`)."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  context_dim: Optional[int] = None, ip_tokens: int = 0,
-                 dtype=torch.float32):
-        super().__init__()
-        inner = heads * dim_head
-        kv = context_dim or query_dim
-        self.heads, self.dim_head, self.ip_tokens = heads, dim_head, ip_tokens
-        self.to_q = Linear(query_dim, inner, bias=False, dtype=dtype)
-        self.to_k = Linear(kv, inner, bias=False, dtype=dtype)
-        self.to_v = Linear(kv, inner, bias=False, dtype=dtype)
-        self.to_out = nn.ModuleList([Linear(inner, query_dim, dtype=dtype),
-                                     nn.Identity()])
-        if ip_tokens:
-            self.to_k_ip = Linear(kv, inner, bias=False, dtype=dtype)
-            self.to_v_ip = Linear(kv, inner, bias=False, dtype=dtype)
-
-    def _attend(self, q, ctx, to_k, to_v):
-        B = q.shape[0]
-        k = to_k(ctx).reshape(B, -1, self.heads, self.dim_head)
-        v = to_v(ctx).reshape(B, -1, self.heads, self.dim_head)
-        return ops.multi_head_attention(q, k, v, scale=self.dim_head ** -0.5)
+                 dense=None, dtype=torch.float32):
+        super().__init__(query_dim, heads, dim_head, context_dim,
+                         ip=ip_tokens > 0, dense=dense, dtype=dtype)
+        self.ip_tokens = ip_tokens
 
     def forward(self, x, context=None, ip_scale=None):
-        is_self = context is None
-        context = x if is_self else context
-        B, L, _ = x.shape
-        use_ip = self.ip_tokens > 0 and not is_self
-        text_ctx = context[:, :-self.ip_tokens] if use_ip else context
-        q = self.to_q(x).reshape(B, L, self.heads, self.dim_head)
-        out = self._attend(q, text_ctx, self.to_k, self.to_v)
-        if use_ip:
-            ip = self._attend(q, context[:, -self.ip_tokens:], self.to_k_ip,
-                              self.to_v_ip)
-            out = out + (1.0 if ip_scale is None else ip_scale) * ip
-        return self.to_out[0](out.reshape(B, L, -1))
+        if context is None:
+            return super().forward(x, x)
+        if self.ip_tokens > 0:
+            text, image = split_ip_context(context, self.ip_tokens)
+            return super().forward(x, text, image,
+                                   1.0 if ip_scale is None else ip_scale)
+        return super().forward(x, context)
 
 
 class GEGLU(nn.Module):
-    def __init__(self, dim: int, inner: int, dtype=torch.float32):
+    def __init__(self, dim: int, inner: int, dense):
         super().__init__()
-        self.proj = Linear(dim, inner * 2, dtype=dtype)
+        self.proj = dense("proj", dim, inner * 2, True)
 
     def forward(self, x):
         h, gate = self.proj(x).chunk(2, dim=-1)
@@ -229,11 +310,11 @@ class GEGLUFeedForward(nn.Module):
     """``net.0`` the GEGLU projection, ``net.2`` the output (diffusers'
     names; ``net.1`` is its parameter-free dropout)."""
 
-    def __init__(self, dim: int, mult: int = 4, dtype=torch.float32):
+    def __init__(self, dim: int, dense, mult: int = 4):
         super().__init__()
-        self.net = nn.ModuleList([GEGLU(dim, dim * mult, dtype),
+        self.net = nn.ModuleList([GEGLU(dim, dim * mult, dense),
                                   nn.Identity(),
-                                  Linear(dim * mult, dim, dtype=dtype)])
+                                  dense("out", dim * mult, dim, True)])
 
     def forward(self, x):
         return self.net[2](self.net[0](x))
@@ -241,15 +322,17 @@ class GEGLUFeedForward(nn.Module):
 
 class BasicTransformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int,
-                 ip_tokens: int = 0, dtype=torch.float32):
+                 ip_tokens: int, dense, dtype=torch.float32):
         super().__init__()
         self.norm1 = LayerNorm(dim, LN_EPS, dtype)
-        self.attn1 = CrossAttention(dim, heads, dim_head, dtype=dtype)
+        self.attn1 = CrossAttention(dim, heads, dim_head, dense=dense,
+                                    dtype=dtype)
         self.norm2 = LayerNorm(dim, LN_EPS, dtype)
         self.attn2 = CrossAttention(dim, heads, dim_head, context_dim,
-                                    ip_tokens=ip_tokens, dtype=dtype)
+                                    ip_tokens=ip_tokens, dense=dense,
+                                    dtype=dtype)
         self.norm3 = LayerNorm(dim, LN_EPS, dtype)
-        self.ff = GEGLUFeedForward(dim, dtype=dtype)
+        self.ff = GEGLUFeedForward(dim, dense)
 
     def forward(self, x, context, ip_scale=None):
         x = x + self.attn1(self.norm1(x))
@@ -263,16 +346,16 @@ class Transformer2D(nn.Module):
     residual."""
 
     def __init__(self, channels: int, heads: int, layers: int,
-                 context_dim: int, groups: int = 32, ip_tokens: int = 0,
+                 context_dim: int, groups: int, ip_tokens: int, dense,
                  dtype=torch.float32):
         super().__init__()
         self.norm = GroupNorm(groups, channels, 1e-6, dtype)
-        self.proj_in = Linear(channels, channels, dtype=dtype)
+        self.proj_in = dense("proj_in", channels, channels, True)
         self.transformer_blocks = nn.ModuleList(
             BasicTransformerBlock(channels, heads, channels // heads,
-                                  context_dim, ip_tokens, dtype)
+                                  context_dim, ip_tokens, dense, dtype)
             for _ in range(layers))
-        self.proj_out = Linear(channels, channels, dtype=dtype)
+        self.proj_out = dense("proj_out", channels, channels, True)
 
     def forward(self, x, context, ip_scale=None):
         B, C, H, W = x.shape
@@ -332,10 +415,11 @@ class UNet2DConditionModel(nn.Module):
         temb, g, ip = cfg.time_embed_dim, cfg.norm_num_groups, \
             cfg.ip_num_image_tokens
         ctx = cfg.cross_attention_dim
+        dense = unet_dense(cfg, dtype)
         res = lambda cin, cout: ResnetBlock(cin, cout, g, temb, 1e-5, dtype)
         tr = lambda c, i: Transformer2D(
             c, cfg.num_attention_heads[i],
-            cfg.transformer_layers_per_block[i], ctx, g, ip, dtype)
+            cfg.transformer_layers_per_block[i], ctx, g, ip, dense, dtype)
 
         self.conv_in = Conv2d(cfg.in_channels, ch[0], 3, padding=1,
                               dtype=dtype)
@@ -404,30 +488,35 @@ class UNet2DConditionModel(nn.Module):
             temb = temb + self.add_embedding(add_emb)
         context = encoder_hidden_states.to(dt)
 
+        if cfg.remat and torch.is_grad_enabled():
+            run = lambda stage, *a: checkpoint(stage, *a, use_reentrant=False)
+        else:
+            run = lambda stage, *a: stage(*a)
+
         h = self.conv_in(sample.to(dt))
         skips = [h]
         for block in self.down_blocks:
             attns = getattr(block, "attentions", None)
             for li, resnet in enumerate(block.resnets):
-                h = resnet(h, temb)
+                h = run(resnet, h, temb)
                 if attns is not None:
-                    h = attns[li](h, context, ip_scale)
+                    h = run(attns[li], h, context, ip_scale)
                 skips.append(h)
             if hasattr(block, "downsamplers"):
                 h = block.downsamplers[0](h)
                 skips.append(h)
 
         mid = self.mid_block
-        h = mid.resnets[0](h, temb)
-        h = mid.attentions[0](h, context, ip_scale)
-        h = mid.resnets[1](h, temb)
+        h = run(mid.resnets[0], h, temb)
+        h = run(mid.attentions[0], h, context, ip_scale)
+        h = run(mid.resnets[1], h, temb)
 
         for block in self.up_blocks:
             attns = getattr(block, "attentions", None)
             for li, resnet in enumerate(block.resnets):
-                h = resnet(torch.cat([h, skips.pop()], dim=1), temb)
+                h = run(resnet, torch.cat([h, skips.pop()], dim=1), temb)
                 if attns is not None:
-                    h = attns[li](h, context, ip_scale)
+                    h = run(attns[li], h, context, ip_scale)
             if hasattr(block, "upsamplers"):
                 h = block.upsamplers[0](h)
 

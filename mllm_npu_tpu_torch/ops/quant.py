@@ -29,7 +29,10 @@ reference's ``quant_matmul`` ``custom_vjp``, ``quant.py:446-485``): the
 forward is K4 or K5, the backward dx = g·dequant(W) as one plain product
 (fp32 sums and output) on the weight dequantized in g's dtype, and no
 gradient for the frozen values and scales. :class:`Int8Linear` and
-:class:`Int4Linear` compute through it.
+:class:`Int4Linear` compute through it, with an optional bias added to the
+kernel's output (the reference's ``QuantDense``, ``quant.py:578``: the
+vision towers' and the UNet's biased layers); :func:`quantize_dense_params`
+turns a float state_dict into theirs.
 """
 
 from __future__ import annotations
@@ -419,42 +422,54 @@ def quant_matmul(x: torch.Tensor, values: torch.Tensor, scale: torch.Tensor,
 
 # -- modules ----------------------------------------------------------------
 
+def _bias_after(y: torch.Tensor, bias) -> torch.Tensor:
+    return y if bias is None else y + bias.to(y.dtype)
+
+
 class Int8Linear(nn.Module):
-    """Bias-free Linear with int8 storage and per-channel scales (twin of
-    ``Int8Dense``). ``weight_q`` [N, K] int8 and ``scale`` [N] fp32 are
-    buffers, not parameters, so a cast of the parameters never reaches the
-    scales."""
+    """Linear with int8 storage and per-channel scales (twin of
+    ``Int8Dense``, and with ``bias`` of ``QuantDense(quantization="int8")``:
+    the bias is added to K4's output, in its dtype). ``weight_q`` [N, K]
+    int8 and ``scale`` [N] fp32 are buffers, not parameters, so a cast of
+    the parameters never reaches the scales; ``bias`` [N] is a parameter."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, bias: bool = False):
         super().__init__()
         self.compute_dtype = dtype
         self.register_buffer("weight_q", torch.zeros(
             out_features, in_features, dtype=torch.int8))
         self.register_buffer("scale", torch.ones(out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
     @classmethod
-    def from_weight(cls, w: torch.Tensor, dtype) -> "Int8Linear":
-        """Quantize ``w`` [N, K] on its device."""
+    def from_weight(cls, w: torch.Tensor, dtype,
+                    bias: torch.Tensor = None) -> "Int8Linear":
+        """Quantize ``w`` [N, K] on its device (``bias`` kept as it is)."""
         qt = quantize_int8(w)
         with torch.device("meta"):
-            m = cls(w.shape[1], w.shape[0], dtype)
+            m = cls(w.shape[1], w.shape[0], dtype, bias=bias is not None)
         m.weight_q, m.scale = qt.values, qt.scale
+        if bias is not None:
+            m.bias = nn.Parameter(bias, requires_grad=bias.requires_grad)
         return m
 
     def forward(self, x):
-        return quant_matmul(x.to(self.compute_dtype), self.weight_q,
-                            self.scale, 8)
+        return _bias_after(quant_matmul(x.to(self.compute_dtype),
+                                        self.weight_q, self.scale, 8),
+                           self.bias)
 
 
 class Int4Linear(nn.Module):
-    """Bias-free Linear with packed int4 storage and group-wise scales
-    (twin of ``Int4Dense``). ``weight_q`` [N, K/2] int8 and ``scale_g``
-    [K/G, N] fp32 are buffers; G is ``group_size`` when it divides K, else
-    K."""
+    """Linear with packed int4 storage and group-wise scales (twin of
+    ``Int4Dense``, and with ``bias`` of ``QuantDense(quantization="int4")``,
+    the bias added to K5's output). ``weight_q`` [N, K/2] int8 and
+    ``scale_g`` [K/G, N] fp32 are buffers; G is ``group_size`` when it
+    divides K, else K."""
 
     def __init__(self, in_features: int, out_features: int,
-                 group_size: int = 256, dtype: torch.dtype = torch.bfloat16):
+                 group_size: int = 256, dtype: torch.dtype = torch.bfloat16,
+                 bias: bool = False):
         super().__init__()
         G = group_size_for(in_features, group_size)
         if in_features % 2 or G % 2:
@@ -465,17 +480,49 @@ class Int4Linear(nn.Module):
             out_features, in_features // 2, dtype=torch.int8))
         self.register_buffer("scale_g", torch.ones(in_features // G,
                                                    out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
     @classmethod
-    def from_weight(cls, w: torch.Tensor, group_size: int,
-                    dtype) -> "Int4Linear":
-        """Quantize ``w`` [N, K] on its device."""
+    def from_weight(cls, w: torch.Tensor, group_size: int, dtype,
+                    bias: torch.Tensor = None) -> "Int4Linear":
+        """Quantize ``w`` [N, K] on its device (``bias`` kept as it is)."""
         qt = quantize_int4(w, group_size)
         with torch.device("meta"):
-            m = cls(w.shape[1], w.shape[0], group_size, dtype)
+            m = cls(w.shape[1], w.shape[0], group_size, dtype,
+                    bias=bias is not None)
         m.weight_q, m.scale_g = qt.values, qt.scale
+        if bias is not None:
+            m.bias = nn.Parameter(bias, requires_grad=bias.requires_grad)
         return m
 
     def forward(self, x):
-        return quant_matmul(x.to(self.compute_dtype), self.weight_q,
-                            self.scale_g, 4)
+        return _bias_after(quant_matmul(x.to(self.compute_dtype),
+                                        self.weight_q, self.scale_g, 4),
+                           self.bias)
+
+
+def quantize_dense_params(state: dict, *, skip=("embed",), bits: int = 8,
+                          group_size: int = 256) -> dict:
+    """A float state_dict → the one :class:`Int8Linear` / :class:`Int4Linear`
+    modules hold (twin of ``quantize_dense_params``, ``quant.py:543``):
+    every 2-D ``….weight`` [N, K] whose key has none of ``skip`` becomes
+    ``….weight_q`` with ``….scale`` (int8) or ``….scale_g`` (int4, groups of
+    ``group_size`` along K, or K where that does not divide it), quantized
+    on its device; everything else, biases among it, as it is. The caller
+    picks what ``skip`` keeps float (``unet.UNET_QUANT_SKIP``)."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    out = {}
+    for key, w in state.items():
+        if key.endswith(".weight") and w.ndim == 2 \
+                and not any(s in key for s in skip):
+            mod = key[:-len(".weight")]
+            if bits == 8:
+                qt = quantize_int8(w)
+                out[f"{mod}.weight_q"], out[f"{mod}.scale"] = qt
+            else:
+                qt = quantize_int4(w, group_size)
+                out[f"{mod}.weight_q"], out[f"{mod}.scale_g"] = qt
+        else:
+            out[key] = w
+    return out

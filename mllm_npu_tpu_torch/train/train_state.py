@@ -2,7 +2,8 @@
 for one device).
 
 The trainable set is the model's parameters that require a gradient
-(``models.factory.build_mllm(train=True)`` marks them); the frozen ones
+(``models.factory.build_mllm(train=True)`` marks them, or
+:func:`apply_frozen_patterns` by the reference's regexes); the frozen ones
 never get a gradient or optimizer state, where the reference runs them
 through ``optax.set_to_zero``. :class:`AdamW` is the reference's
 ``clip_by_global_norm → adamw`` chain written as plain tensor functions
@@ -26,6 +27,7 @@ reference's sharded ``compile_train_step`` belongs to the parallel slice.
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
@@ -51,6 +53,19 @@ class OptimizerConfig:
     min_lr_ratio: float = 0.05
     mu_dtype: str = "float32"  # float32 | bfloat16
     optimizer: str = "adamw"   # adafactor is not ported yet
+
+
+def apply_frozen_patterns(model: nn.Module, frozen_patterns) -> None:
+    """Mark the trainable set by name (twin of ``trainable_mask``): a
+    floating-point parameter trains unless one of the regexes
+    ``frozen_patterns`` is found in its dotted name (``re.search``); an
+    integer one (quantized storage) never trains. The de-tokenizers'
+    patterns (``adapter_modules.*_trainable_patterns``) are over their
+    ``parts``' names."""
+    pats = [re.compile(p) for p in frozen_patterns]
+    for name, p in model.named_parameters():
+        p.requires_grad_(p.is_floating_point()
+                         and not any(pat.search(name) for pat in pats))
 
 
 def trainable_parameters(model: nn.Module) -> List[Tuple[str, nn.Parameter]]:

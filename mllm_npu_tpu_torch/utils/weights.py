@@ -231,30 +231,43 @@ def qwen_vit_from_jax(tree: dict, prefix: str = ""
 
 
 def _named_leaves(node: dict, path=()):
+    """(path, leaf, the dict that holds it) for every leaf of ``node``."""
     for k, v in node.items():
         if isinstance(v, dict):
             yield from _named_leaves(v, path + (k,))
         else:
-            yield path + (k,), v
+            yield path + (k,), v, node
 
 
 def _renamed(tree: dict, rules) -> Dict[str, torch.Tensor]:
     """Every leaf of ``tree`` under its dotted path rewritten by ``rules``
     (regex, replacement), applied in order: kernels to torch's layout,
-    norm scales to ``weight``."""
+    norm scales to ``weight``; a ``LoRADense``'s ``base/kernel``,
+    ``lora_a`` and ``lora_b`` to ``LoRALinear``'s ``weight``,
+    ``lora_A.weight`` and ``lora_B.weight`` (transposed); a quantized
+    Dense's int8 ``kernel_q`` to ``weight_q`` (transposed, int8) beside its
+    ``scale`` / ``scale_g`` (fp32, as they are)."""
     sd = {}
-    for path, x in _named_leaves(tree):
+    for path, x, node in _named_leaves(tree):
         x = np.asarray(x)
         *mods, leaf = path
+        quantized = "kernel_q" in node
         if leaf == "kernel":
+            if mods and mods[-1] == "base":
+                mods = mods[:-1]
             leaf, x = "weight", (x.transpose(3, 2, 0, 1) if x.ndim == 4
                                  else x.T)
-        elif leaf == "scale":
+        elif leaf in ("lora_a", "lora_b"):
+            leaf, x = f"lora_{leaf[-1].upper()}.weight", x.T
+        elif leaf == "kernel_q":
+            leaf, x = "weight_q", x.T
+        elif leaf == "scale" and not quantized:
             leaf = "weight"
         key = ".".join(mods + [leaf])
         for pat, rep in rules:
             key = re.sub(pat, rep, key)
-        sd[key] = _t(x)
+        sd[key] = (torch.from_numpy(np.ascontiguousarray(x))
+                   if x.dtype == np.int8 else _t(x))
     return sd
 
 
@@ -271,7 +284,7 @@ _BLOCK_RULES = (
     (r"^(\w+\.)?mid_res_(\d+)\.", r"\1mid_block.resnets.\2."),
     (r"^(\w+\.)?mid_attn\.", r"\1mid_block.attentions.0."),
     (r"\.blocks_(\d+)\.", r".transformer_blocks.\1."),
-    (r"\.to_out\.", ".to_out.0."),
+    (r"(^|\.)to_out\.", r"\1to_out.0."),
     (r"\.ff\.proj\.", ".ff.net.0.proj."),
     (r"\.ff\.out\.", ".ff.net.2."),
 )
@@ -279,7 +292,9 @@ _BLOCK_RULES = (
 
 def unet_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
     """Reference ``UNet2DConditionModel`` params → the port's state_dict
-    (diffusers names; the IP-Adapter's ``to_k_ip``/``to_v_ip`` too)."""
+    (diffusers names; the IP-Adapter's ``to_k_ip``/``to_v_ip``, the LoRA
+    adapters and the int8 / int4 projections of ``quantize_unet_params``
+    too); also an ``IPCrossAttention``'s alone."""
     return _renamed(tree, _BLOCK_RULES)
 
 

@@ -132,6 +132,18 @@ K1_CASES = [
     (2, 1024, 1024, 20, 20, 64, False, None, "bshd"),
     (2, 4096, 64, 10, 10, 64, False, None, "bshd"),
     (2, 1024, 64, 20, 20, 64, False, None, "bshd"),
+    # the de-tokenizer's variants: SEED-X-Edit's three-way batch of 3;
+    # SD-2.1 at 768² (S = 9216 over 5 heads of 64); SD-1.5 with the
+    # IP-Adapter at 512²: D = 40, 80, 160, 77 text keys, 16 image keys
+    (3, 4096, 4096, 10, 10, 64, False, None, "bshd"),
+    (3, 1024, 64, 20, 20, 64, False, None, "bshd"),
+    (3, 9216, 9216, 5, 5, 64, False, None, "bshd"),
+    (2, 4096, 4096, 8, 8, 40, False, None, "bshd"),
+    (2, 4096, 77, 8, 8, 40, False, None, "bshd"),
+    (2, 1024, 1024, 8, 8, 80, False, None, "bshd"),
+    (2, 1024, 16, 8, 8, 80, False, None, "bshd"),
+    (2, 256, 77, 8, 8, 160, False, None, "bshd"),
+    (2, 64, 64, 8, 8, 160, False, None, "bshd"),
 ]
 
 
@@ -254,8 +266,18 @@ WIDE_BWD_CASES = [c[:5] + (D,) + c[6:] for D in (144, 160)
 ]
 
 
+# the de-tokenizer's training (D = 64): the SDXL UNet's self-attention at
+# 64² and 32² latents and its cross-attention over the resampler's tokens
+UNET_BWD_CASES = [
+    (2, 4096, 4096, 10, 10, 64, False, None),
+    (2, 1024, 1024, 20, 20, 64, False, None),
+    (2, 4096, 64, 10, 10, 64, False, None),
+    (2, 1024, 64, 20, 20, 64, False, None),
+]
+
+
 @pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,seg_kind",
-                         BWD_CASES + WIDE_BWD_CASES)
+                         BWD_CASES + WIDE_BWD_CASES + UNET_BWD_CASES)
 def test_k1_lse_matches_plain(cuda, block_q, B, Sq, Sk, Hq, Hkv, D, causal,
                               seg_kind):
     q, k, v, _, seg = _bwd_inputs(cuda, B, Sq, Sk, Hq, Hkv, D, seg_kind)
@@ -280,7 +302,7 @@ def test_k1_lse_matches_plain(cuda, block_q, B, Sq, Sk, Hq, Hkv, D, causal,
 
 
 @pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,seg_kind",
-                         BWD_CASES + WIDE_BWD_CASES)
+                         BWD_CASES + WIDE_BWD_CASES + UNET_BWD_CASES)
 def test_k2_k3_match_plain(cuda, k23_regime, B, Sq, Sk, Hq, Hkv, D, causal,
                            seg_kind):
     q, k, v, do, seg = _bwd_inputs(cuda, B, Sq, Sk, Hq, Hkv, D, seg_kind)
@@ -468,6 +490,16 @@ QUANT_CASES = [
     (8, 17, 4096, 1024, None), (8, 63, 14336, 4096, None),
     (4, 17, 4096, 4096, 256), (4, 63, 4096, 1024, 256),
 ] + [
+    # the int8 / int4 SDXL UNet at 1024² (CFG batch 2): its projections at
+    # the 64² level (M = 8192; K = 640 takes one int4 group of 640), the
+    # 32² level (M = 2048) and the cross-attention's k/v over 2 × 64
+    # context rows
+    (bits, M, K, N, (640 if K == 640 else 256) if bits == 4 else None)
+    for bits in (8, 4)
+    for M, K, N in ((8192, 640, 640), (8192, 640, 5120), (8192, 2560, 640),
+                    (2048, 1280, 10240), (2048, 5120, 1280),
+                    (128, 2048, 1280))
+] + [
     # the fused projections' N (qkv 6144, gate_up 28672) at the rows of
     # sampled and speculative serving: decode (1), the single-request
     # verify (5), a worker step (8), the worker's verify at k = 4
@@ -564,6 +596,30 @@ def test_quant_matmul_function_matches_plain(cuda, bits, M, K, N, G):
         qt, torch.bfloat16)
     _close(xg.grad, gy.float() @ deq.float(), 1e-2, 1e-3)
     assert xg.grad.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("bits,K", [(8, 640), (4, 640), (4, 1280)])
+def test_biased_quant_linear_matches_plain(cuda, bits, K):
+    """``Int8Linear`` / ``Int4Linear`` with a bias (the UNet's projections),
+    quantized once on the CPU: on the card one K4 / K5 launch, then the
+    bias in bf16, against the same module on the CPU (the plain product),
+    within K4/K5's tolerance with one more bf16 rounding (the bias's)."""
+    g = torch.Generator().manual_seed(3)
+    w = (torch.randn(320, K, generator=g) * 0.02).bfloat16()
+    b = torch.randn(320, generator=g).bfloat16()
+    x = torch.randn(2, 77, K, generator=g).bfloat16()
+    if bits == 8:
+        m = tq.Int8Linear.from_weight(w, torch.bfloat16, bias=b)
+    else:
+        m = tq.Int4Linear.from_weight(w, 256, torch.bfloat16, bias=b)
+    kernel = tq.int8_matmul if bits == 8 else tq.int4_matmul
+    with torch.no_grad():
+        ref = m(x).float()
+        before = kernel.launches
+        out = m.to(cuda)(x.to(cuda)).float().cpu()
+    assert kernel.launches == before + 1
+    assert ((out - ref).abs() <= 2e-2 * ref.abs()
+            + 1e-3 * ref.abs().max()).all(), (out - ref).abs().max()
 
 
 def test_quant_kernels_take_leading_dims(cuda):

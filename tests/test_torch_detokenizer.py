@@ -20,6 +20,8 @@ resamplers within 1e-5 absolute, the UNet's ε and the VAE within 1e-4
 absolute (outputs of order 1).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -62,6 +64,26 @@ def perturbed(params, seed=0, scale=0.05):
     return jax.tree_util.tree_map(
         lambda x: (np.asarray(x) + scale * rs.randn(*np.shape(x))
                    ).astype(np.float32), params["params"])
+
+
+def seeded_tree(module, *args, seed=0, scale=0.05):
+    """A parameter tree of ``module`` for ``args`` without running its
+    initialiser (``jax.eval_shape``): every leaf seeded normal, kernels
+    scaled by 1/√fan-in (the product of all but the last axis), norm
+    scales around 1, the rest times ``scale``."""
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *args)
+    rs = np.random.RandomState(seed)
+
+    def fill(path, s):
+        x = rs.randn(*s.shape)
+        if len(s.shape) >= 2:
+            x /= np.sqrt(np.prod(s.shape[:-1]))
+        else:
+            x *= scale
+        if jax.tree_util.keystr(path).endswith("['scale']"):
+            x += 1.0
+        return x.astype(np.float32)
+    return jax.tree_util.tree_map_with_path(fill, shapes["params"])
 
 
 def assert_same_tree(a, b):
@@ -190,8 +212,8 @@ def test_attention_pool_all_tokens_matches_reference():
 def _unet_inputs(cfg, B=2, L=5, seed=7):
     rs = np.random.RandomState(seed)
     S = cfg.sample_size
-    pooled = cfg.projection_class_embeddings_input_dim \
-        - 6 * cfg.addition_time_embed_dim
+    pooled = max(0, cfg.projection_class_embeddings_input_dim
+                 - 6 * cfg.addition_time_embed_dim)
     return dict(sample=rs.randn(B, S, S, cfg.in_channels).astype(np.float32),
                 t=np.array([10.0, 731.0], np.float32)[:B],
                 ctx=rs.randn(B, L + cfg.ip_num_image_tokens,
@@ -201,25 +223,44 @@ def _unet_inputs(cfg, B=2, L=5, seed=7):
                                           np.float32), (B, 1)))
 
 
+def unet_eps(jcfg, tcfg, quant_bits=None, seed=8):
+    """The reference's UNet (``jcfg``) and the port's (``tcfg``) on one
+    seeded input, the port loaded through ``from_jax_params`` from a
+    seeded reference tree (``seeded_tree``; with ``quant_bits``, the tree
+    quantized by the reference's ``quantize_unet_params`` and the
+    reference run at ``jcfg.quantization``), the reference compiled once. → (ε ref NHWC, ε port NHWC, the reference's
+    tree as the port loaded it, the port's module)."""
+    from mllm_npu_tpu.models.generation.unet import (
+        quantize_unet_params as jquantize)
+    x = _unet_inputs(jcfg)
+    added = None
+    if jcfg.projection_class_embeddings_input_dim:
+        added = {"text_embeds": jnp.asarray(x["text_embeds"]),
+                 "time_ids": jnp.asarray(x["time_ids"])}
+    float_cfg = dataclasses.replace(jcfg, quantization=None)
+    args = (jnp.asarray(x["sample"]), jnp.asarray(x["t"]),
+            jnp.asarray(x["ctx"]), added)
+    tree = seeded_tree(JUNet(float_cfg), *args, seed=seed)
+    if quant_bits:
+        tree = jax.tree_util.tree_map(np.asarray,
+                                      jquantize(tree, bits=quant_bits))
+    ref = np.asarray(jax.jit(JUNet(jcfg).apply)({"params": tree}, *args))
+    tm = _load(UNet2DConditionModel(tcfg), tree)
+    t_added = None if added is None else {
+        "text_embeds": torch.from_numpy(x["text_embeds"]),
+        "time_ids": torch.from_numpy(x["time_ids"])}
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x["sample"]).permute(0, 3, 1, 2),
+                 torch.from_numpy(x["t"]), torch.from_numpy(x["ctx"]),
+                 t_added)
+    return ref, got.permute(0, 2, 3, 1).numpy(), tree, tm
+
+
 @pytest.mark.parametrize("ip_tokens", [0, 2])
 def test_unet_matches_reference_and_carries_back(ip_tokens):
     jcfg = JUNetConfig.tiny(ip_num_image_tokens=ip_tokens, ip_scale=0.6)
     tcfg = UNetConfig.tiny(ip_num_image_tokens=ip_tokens, ip_scale=0.6)
-    x = _unet_inputs(jcfg)
-    added = {"text_embeds": jnp.asarray(x["text_embeds"]),
-             "time_ids": jnp.asarray(x["time_ids"])}
-    jm = JUNet(jcfg)
-    args = (jnp.asarray(x["sample"]), jnp.asarray(x["t"]),
-            jnp.asarray(x["ctx"]), added)
-    tree = perturbed(jm.init(jax.random.PRNGKey(0), *args), 8)
-    ref = np.asarray(jm.apply({"params": tree}, *args))
-    tm = _load(UNet2DConditionModel(tcfg), tree)
-    with torch.no_grad():
-        got = tm(torch.from_numpy(x["sample"]).permute(0, 3, 1, 2),
-                 torch.from_numpy(x["t"]), torch.from_numpy(x["ctx"]),
-                 {"text_embeds": torch.from_numpy(x["text_embeds"]),
-                  "time_ids": torch.from_numpy(x["time_ids"])})
-    got = got.permute(0, 2, 3, 1).numpy()
+    ref, got, tree, tm = unet_eps(jcfg, tcfg)
     assert got.shape == ref.shape
     assert np.abs(ref).max() > 0.1
     np.testing.assert_allclose(got, ref, atol=UNET_ATOL, rtol=0)
@@ -239,10 +280,14 @@ def test_unet_scalar_timestep_and_unported_options():
         b = tm(*args, torch.full((2,), 500.0), torch.from_numpy(x["ctx"]),
                added)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
-    for kw, item in ((dict(lora_rank=4), "14b"),
-                     (dict(quantization="int8"), "14b")):
-        with pytest.raises(NotImplementedError, match=item):
-            UNet2DConditionModel(UNetConfig.tiny(**kw))
+    # the options that were refused before they were ported: LoRA and the
+    # int8 projections, each now held against the reference
+    for kw, bits in ((dict(lora_rank=4), None),
+                     (dict(quantization="int8"), 8)):
+        ref, got, _, _ = unet_eps(JUNetConfig.tiny(**kw),
+                                  UNetConfig.tiny(**kw), quant_bits=bits)
+        np.testing.assert_allclose(got, ref, atol=UNET_ATOL, rtol=0,
+                                   err_msg=str(kw))
 
 
 # -- VAE ----------------------------------------------------------------------

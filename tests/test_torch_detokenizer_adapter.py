@@ -6,7 +6,9 @@ adapter through its own ``init_pipe``), the same first noise (JAX's draw
 handed to the port as ``latents``), Euler with guidance 7.5. The u8
 images may differ by at most 1: the fp32 latents agree to about 1e-5, so
 only a value within that of a rounding boundary moves. Also the factory:
-``build_sdxl_adapter`` under ``DEBUG_FLAG`` and its refusals.
+``build_sdxl_adapter`` under ``DEBUG_FLAG``, its refusals of paths that
+do not exist, and its edit adapter (``with_latent_image``) against the
+reference factory's.
 """
 
 import jax
@@ -36,7 +38,7 @@ from mllm_npu_tpu_torch.models.generation.vae import AutoencoderKL, VAEConfig
 from mllm_npu_tpu_torch.models.multimodal_encoder import qwenvl_vit as tq
 from mllm_npu_tpu_torch.utils.weights import (from_jax_params,
                                               qwen_vit_from_jax)
-from test_torch_detokenizer import DEBUG_RESAMPLER, perturbed
+from test_torch_detokenizer import DEBUG_RESAMPLER, perturbed, seeded_tree
 
 U8_MAX_DIFF = 1
 STEPS = 4
@@ -140,8 +142,6 @@ def test_build_sdxl_adapter_debug_and_refusals(monkeypatch, tmp_path):
                        height=16, width=16, num_inference_steps=2,
                        input_image_size=56)
     assert imgs[0].size == (16, 16)
-    with pytest.raises(NotImplementedError, match="14b"):
-        factory.build_sdxl_adapter(with_latent_image=True, device="cpu")
     monkeypatch.delenv("DEBUG_FLAG")
     ckpt = tmp_path / "unet"
     ckpt.mkdir()
@@ -152,3 +152,62 @@ def test_build_sdxl_adapter_debug_and_refusals(monkeypatch, tmp_path):
     with pytest.raises(FileNotFoundError, match="does not exist"):
         factory.build_sdxl_adapter(vae_checkpoint=str(tmp_path / "nope"),
                                    device="cpu")
+    # the edit adapter, refused before it was ported: the factory's
+    # SEED-X-Edit adapter against the reference factory's
+    edit_factory_parity(monkeypatch)
+
+
+def edit_factory_parity(monkeypatch):
+    """``build_sdxl_adapter(with_latent_image=True)`` in both packages
+    (full-width constructors pointed at the tiny configs, the resampler's
+    keywords given at the DEBUG resampler's widths): the
+    port's is an ``SDXLAdapterWithLatentImage`` over an 8-channel UNet, and
+    with the reference factory's weights its edit generate gives the
+    reference's images within 1."""
+    from mllm_npu_tpu.models.factory import build_sdxl_adapter as j_build
+    from mllm_npu_tpu.models.generation.adapter_modules import (
+        SDXLAdapterWithLatentImage as JEdit)
+    from mllm_npu_tpu_torch.models.generation.adapter_modules import (
+        SDXLAdapterWithLatentImage)
+    from checkpoint_sources import patch_tiny
+    patch_tiny(monkeypatch.setattr)
+    vis = jq.VisionTransformerWithAttnPool(jq.QwenViTConfig.tiny())
+    vis_tree = seeded_tree(vis, jnp.ones((1, 56, 56, 3)), seed=5)
+    t_vis = tq.VisionTransformerWithAttnPool(tq.QwenViTConfig.tiny())
+    t_vis.load_state_dict(qwen_vit_from_jax(vis_tree), strict=True)
+    res = dict(DEBUG_RESAMPLER)
+    jad = j_build(resampler=res, vit_down=True, with_latent_image=True)
+    assert isinstance(jad, JEdit)
+    jad.init_pipe(jad.vae_module, jad.vae_params, jad.scheduler,
+                  visual_encoder=(vis, {"params": vis_tree}))
+    ad = factory.build_sdxl_adapter(resampler=res, vit_down=True,
+                                    with_latent_image=True,
+                                    visual_encoder=t_vis.eval(), device="cpu",
+                                    param_dtype=torch.float32)
+    assert isinstance(ad, SDXLAdapterWithLatentImage)
+    assert ad.unet.conv_in.in_channels == 8
+    for module, tree in ((ad.unet, jad.unet_params), (ad.vae, jad.vae_params),
+                         (ad.resampler, jad.resampler_params)):
+        module.load_state_dict(from_jax_params(jax.tree_util.tree_map(
+            np.asarray, tree["params"])), strict=True)
+    size = 16
+    rs = np.random.RandomState(12)
+    feats = rs.randn(1, 4, 128).astype(np.float32)
+    image = rs.uniform(-1, 1, (1, size, size, 3)).astype(np.float32)
+    kw = dict(seed=SEED, height=size, width=size, guidance_scale=7.5,
+              image_guidance_scale=1.5, num_inference_steps=STEPS,
+              input_image_size=56)
+    ref = jad.generate(image_embeds=jnp.asarray(feats),
+                       latent_image=jnp.asarray(image), **kw)
+    lat = np.asarray(jax.random.normal(jax.random.PRNGKey(SEED),
+                                       (1, size // 2, size // 2, 4),
+                                       jnp.float32)).transpose(0, 3, 1, 2)
+    got = ad.generate(image_embeds=torch.from_numpy(feats),
+                      latent_image=torch.from_numpy(np.ascontiguousarray(
+                          image.transpose(0, 3, 1, 2))),
+                      latents=torch.from_numpy(np.ascontiguousarray(lat)),
+                      **kw)
+    diff = np.abs(np.asarray(got[0]).astype(int)
+                  - np.asarray(ref[0]).astype(int))
+    assert diff.max() <= U8_MAX_DIFF, diff.max()
+    assert np.asarray(ref[0]).std() > 1.0
