@@ -124,7 +124,8 @@ exits non-zero. Phases, in order:
    600, 64 image tokens, anyres over its grids at base 448), at the largest
    batch of 8 or 4 that fits (the recipe's 28, and 16, run out of memory
    on one H100 and are not tried), for a few steps on one repeated
-   batch, with a checkpoint at the end. Every step's K1, K2 and K3 counts
+   batch, its checkpoint write skipped (phase 13 writes the trainer's
+   checkpoint). Every step's K1, K2 and K3 counts
    (and that each K2/K3 launch took the Hopper regime) are asserted, its
    loss must be finite, and the loss must fall. Then one step and its
    forward taken apart on the host clock, one step under
@@ -295,9 +296,32 @@ exits non-zero. Phases, in order:
    UNet, a plain ``Resampler``, the SD VAE) at 768² and
    ``IPAdapterSDPipe`` over SD-1.5 with 16 image tokens after 77 zero text
    tokens at 512², a 4-step generate each, and one IP UNet forward's ε
-   (D = 40, 80, 160) against plain attention.
+   (D = 40, 80, 160) against plain attention;
+16. the trainer's host side, right after phase 8 and on its model (no
+   second 8B build), with N = min(8, cores / 2) loader workers and every
+   count set to 0 before each part and read after: a. the loader alone
+   (the caption task at phase 8's batch and ``max_length`` 600 over N
+   tars that each hold the same B 896² JPEGs, so every batch is the same
+   batch): batches/s at 0 workers and N spawned ones, the seconds to the
+   first batch, a ready batch's transfer into the parent (ms), and each
+   worker's modules (no JAX, no CUDA context); b. phase 8's trainer run
+   (``train.main``, its build of the assembly handed phase 8's model) with
+   ``--dataloader_workers N`` (spawned workers, or the phase fails), its
+   sec/step over 3 steps beside phase 8's threaded loader's and beside 3
+   steps fed from memory (one collated batch on the card through
+   ``make_train_step``), each with a traced step's device busy share; c. one step's gradients under each remat policy (``dots``,
+   ``nothing``, ``dots_no_batch``, ``dots_lite``, ``hoist_attn``): s,
+   peak, K1 92 a step (60 under ``hoist_attn``), K2 = K3 = 33, the
+   gradients' cosine against ``dots``' (≥ 0.9999); d. Adafactor
+   (``OptimizerConfig(optimizer="adafactor")``) three steps on the
+   repeated batch without weight decay (every later loss below the
+   first), then one at the default 0.05 and the loss after it, and its
+   state's GiB beside AdamW's; e. caption, interleaved and pure text
+   (1.0 : 0.5 : 0.5) through a pool of one spawned worker, two steps of
+   enough micro-batches that each task reaches the loss (text rows without
+   image slots).
 
-Phases 2 to 15 build from copies of the shipped configs with their
+Phases 2 to 16 build from copies of the shipped configs with their
 checkpoint paths null (``use_seeded_configs``): the repository holds no
 weights, and a configured path that does not exist raises.
 
@@ -311,6 +335,7 @@ import functools
 import gc
 import io
 import json
+import math
 import os
 import signal
 import subprocess
@@ -903,7 +928,6 @@ def profile_call(fn):
     The profiler's own host cost slows the host, so the busy share it
     gives is a lower bound."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()       # only fn's device work in the window
     with profile(activities=[ProfilerActivity.CPU,
@@ -912,6 +936,12 @@ def profile_call(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return device_activity(prof, wall_ms)
+
+
+def device_activity(prof, wall_ms):
+    """``profile_call``'s readings from a finished profiler."""
+    from torch.autograd import DeviceType
     device = [(e.name(), e.start_ns() / 1e3, (e.start_ns() + e.duration_ns())
                / 1e3) for e in prof.profiler.kineto_results.events()
               if e.device_type() == DeviceType.CUDA]
@@ -1028,16 +1058,19 @@ WORDS = ("a photo of the small large red blue green old new city street "
          "standing sitting bright dark view").split()
 
 
-def caption_tar(path, n, seed=0):
+def caption_tar(path, n, seed=0, size=None):
     """A webdataset tar of ``n`` JPEGs of seeded sizes (each side 448 to
-    1400 pixels, so the anyres grids vary) and pixels, with the caption in
-    the JSON metadata, as LAION-COCO's shards hold it."""
+    1400 pixels, so the anyres grids vary; or ``size``² each) and pixels,
+    with the caption in the JSON metadata, as LAION-COCO's shards hold
+    it."""
     import numpy as np
     from PIL import Image
     rs = np.random.RandomState(seed)
     with tarfile.open(path, "w") as tar:
         for i in range(n):
             w, h = (int(x) for x in rs.randint(448, 1401, 2))
+            if size is not None:
+                w = h = size
             buf = io.BytesIO()
             Image.fromarray((rs.rand(h, w, 3) * 255).astype(np.uint8)).save(
                 buf, format="JPEG", quality=85)
@@ -1157,7 +1190,10 @@ def train_phase(workdir):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         try:
-            run = trainer.main(argv, on_step=on_step)
+            # no checkpoint written: phase 13 drives the trainer's save (cut
+            # for the time limit, PERF.md §4)
+            with no_checkpoints():
+                run = trainer.main(argv, on_step=on_step)
         except torch.cuda.OutOfMemoryError:
             print(f"[train] batch {B} does not fit in "
                   f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}"
@@ -1193,9 +1229,6 @@ def train_phase(workdir):
     losses = [rec["loss"] for rec, _ in per_step]
     check(losses[-1] < losses[0], f"the loss did not fall on a repeated "
           f"batch: {losses}")
-    ckpt = workdir / f"out_b{B}" / f"checkpoint_{TRAIN_STEPS}"
-    check((ckpt / "state.pt").is_file(), f"no checkpoint at {ckpt}")
-    ckpt_gib = (ckpt / "state.pt").stat().st_size / 2**30
     batch = run.last_batches
     n_images = int(batch[0]["images"].shape[0])
     seq = int(batch[0]["input_ids"].shape[1])
@@ -1206,7 +1239,7 @@ def train_phase(workdir):
         "sec_per_step": sum(r["sec/step"] for r, _ in steady) / len(steady),
         "tokens_per_s": sum(r["tokens/s"] for r, _ in steady) / len(steady),
         "images_per_s": sum(r["images/s"] for r, _ in steady) / len(steady),
-        "peak_gib": peak, "wall_s": wall, "checkpoint_gib": ckpt_gib,
+        "peak_gib": peak, "wall_s": wall,
         "launches": {k: sum(g[k] for _, g in per_step) for k in expect},
         "trainable_m": sum(p.numel() for p in model.parameters()
                            if p.requires_grad) / 1e6,
@@ -1218,10 +1251,15 @@ def train_phase(workdir):
           f"{summary['tokens_per_s']:.0f} tokens/s, "
           f"{summary['images_per_s']:.1f} images/s; peak "
           f"{peak:.2f} GiB; {summary['trainable_m']:.1f} M trainable; "
-          f"losses {[round(x, 4) for x in losses]}; checkpoint "
-          f"{ckpt_gib:.2f} GiB", flush=True)
+          f"losses {[round(x, 4) for x in losses]}", flush=True)
     import shutil
     shutil.rmtree(workdir / f"out_b{B}", ignore_errors=True)
+    t_part = [time.perf_counter()]
+
+    def part_done(name):
+        now = time.perf_counter()
+        print(f"[time] phase 8 {name}: {now - t_part[0]:.1f} s", flush=True)
+        t_part[0] = now
 
     # one step taken apart on the host clock, each part ending in a
     # synchronize: forward, backward, optimizer (the batch is already on
@@ -1256,10 +1294,13 @@ def train_phase(workdir):
         print(f"[train] the forward taken apart ({mode}): " + ", ".join(
             f"{k} {v * 1e3:.1f} ms" for k, v in fp.items()), flush=True)
 
+    part_done("a step and its forward taken apart")
+
     # one step (gradients and the update) under the profiler
     step = make_train_step(model, trainer.mllm_loss, run.optimizer)
     summary["profile"] = profile_call(lambda: step(batch))
     print_profile(f"one training step at batch {B}", *summary["profile"])
+    part_done("the profiled step")
 
     # one step's gradients with the kernels against the plain attention
     # forward and backward; dropout off, and remat 'nothing' for both so
@@ -1291,10 +1332,636 @@ def train_phase(workdir):
               f"{cos:.6f}, |g| {a.norm().item():.4e} vs "
               f"{b.norm().item():.4e}", flush=True)
         check(cos >= GRAD_COS, f"{part} gradients disagree (cos {cos})")
-    del grads, run, model, batch, step
+    del grads, run, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    part_done("the gradient check")
+
+    # -- 16. the trainer's host side, on this model ----------------------
+    summary["host"] = host_phase(model, batch, workdir, B,
+                                 summary["sec_per_step"])
+    for k, n in summary["host"]["launches"].items():
+        summary["launches"][k] += n
+    del model, batch
     gc.collect()
     torch.cuda.empty_cache()
     return summary
+
+
+# -- phase 16: the trainer's host side, on phase 8's model ----------------
+
+# the loader's worker count: the reference's launcher uses 8, and a worker
+# per two of the host's cores leaves the rest to the training process
+HOST_WORKERS = min(8, (os.cpu_count() or 2) // 2)
+HOST_IMAGE = 896          # each side of 16a/16b's JPEGs (a 2x2 grid + thumb)
+LOADER_BATCHES = 3        # batches per loader reading (16a), 2 a worker
+HOST_STEPS = 5            # the pool-fed trainer run: steps 2-4 timed, 5 traced
+MEMORY_STEPS = 3          # the step fed from memory, timed
+# dots first (the gradients the others are held to) and last (the order's
+# effect on its time)
+REMAT_POLICIES = ("dots", "nothing", "dots_no_batch", "dots_lite",
+                  "hoist_attn", "dots")
+REMAT_COS = 0.9999
+ADAFACTOR_STEPS = 3
+DECAY_STEPS = 1
+# 16e: the mixture, in the YAML's order, and its batch and workers
+MIX = (("interleaved", 0.5), ("caption", 1.0), ("text", 0.5))
+MIX_BATCH = 2
+MIX_WORKERS = 1
+MIX_STEPS = 2
+
+
+def worker_env() -> dict:
+    """What this process has loaded: JAX, the JAX package, a CUDA
+    context."""
+    torch = sys.modules.get("torch")
+    return {"pid": os.getpid(), "jax": "jax" in sys.modules,
+            "reference": any(m.split(".")[0] == "mllm_npu_tpu"
+                             for m in sys.modules),
+            "cuda": bool(torch is not None
+                         and torch.cuda.is_initialized())}
+
+
+class WorkerCheckFactory:
+    """``factory``'s batches, each with its worker's ``worker_env()``
+    (16a's pool: a spawned worker must load neither JAX nor CUDA)."""
+
+    def __init__(self, factory):
+        self.factory = factory
+
+    def __call__(self, seed):
+        env = worker_env()
+        for batch in self.factory(seed):
+            yield dict(batch, worker_env=env)
+
+
+def host_data(root, shards, B, size, seed=0):
+    """``shards`` tars that each hold the same ``B`` JPEGs of size² pixels:
+    with a worker a shard, every batch is the same batch."""
+    root.mkdir(parents=True)
+    caption_tar(root / "shard-000000.tar", B, seed=seed, size=size)
+    for s in range(1, shards):
+        (root / f"shard-{s:06d}.tar").write_bytes(
+            (root / "shard-000000.tar").read_bytes())
+    return root
+
+
+def caption_node(data_dir, B):
+    """The caption entry of ``caption_data.yaml`` over ``data_dir``, every
+    sample image-first (as phase 8's)."""
+    import yaml
+    ds = yaml.safe_load((ROOT / "mllm_npu_tpu_torch" / "configs" / "dataset"
+                         / "caption_data.yaml").read_text())
+    node = ds["datapipes"][0]
+    node.update(data_dir=[str(data_dir)], batch_size=B, img_first_ratio=1.0,
+                cycle_count=100000)
+    return ds, node
+
+
+def host_factory(ds, lm_vocab):
+    from mllm_npu_tpu_torch.configs import instantiate, load_config
+    from mllm_npu_tpu_torch.data.datapipes import PipeFactory
+    from mllm_npu_tpu_torch.utils.fake_tokenizer import FakeTokenizer
+    proc = instantiate(load_config(str(ROOT / LLAMA3_YAML))["mllm"][
+        "processor"])
+    return PipeFactory(ds, FakeTokenizer(vocab_size=lm_vocab), proc)
+
+
+def loader_reading(factory, workers):
+    """16a: the loader alone on the host: s to the first batch, batches/s
+    over LOADER_BATCHES more, and (pool) the parent's ms to take a batch
+    that is ready (its transfer: mapping the worker's shared-memory
+    segment) and the workers' environments."""
+    from mllm_npu_tpu_torch.data.dataloader import (DataLoader,
+                                                    MultiProcessDataLoader)
+    if workers:
+        loader = MultiProcessDataLoader(WorkerCheckFactory(factory),
+                                        num_workers=workers, prefetch=4)
+    else:
+        loader = DataLoader(factory, prefetch=4)
+    envs = []
+    it = iter(loader)
+    try:
+        t0 = time.perf_counter()
+        batch = next(it)
+        first_s = time.perf_counter() - t0
+        n = max(LOADER_BATCHES, 2 * workers)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            envs.append(next(it).pop("worker_env", None))
+        rate = n / (time.perf_counter() - t0)
+        transfer = []
+        if workers:
+            # the queues fill while nothing is read; then each get finds
+            # its batch waiting
+            time.sleep(0.5)
+            for _ in range(workers):
+                t0 = time.perf_counter()
+                next(it)
+                transfer.append(time.perf_counter() - t0)
+    finally:
+        loader.shutdown()
+    batch.pop("worker_env", None)
+    mb = sum(v.nbytes for v in batch.values()
+             if hasattr(v, "nbytes")) / 2**20
+    return {"workers": workers, "first_batch_s": first_s,
+            "batches_per_s": rate, "batch_mib": mb,
+            "transfer_ms": sorted(t * 1e3 for t in transfer),
+            "worker_envs": [e for e in envs if e]}
+
+
+class ProfileWindow:
+    """``torch.profiler`` over a window opened by ``start()`` and closed by
+    ``stop()`` (each after a synchronize); ``stop`` returns
+    ``profile_call``'s (wall ms, busy ms, top, counts)."""
+
+    def start(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        self.prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+        self.prof.__enter__()
+        self.t0 = time.perf_counter()
+
+    def stop(self):
+        import torch
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - self.t0) * 1e3
+        self.prof.__exit__(None, None, None)
+        return device_activity(self.prof, wall_ms)
+
+
+def trainer_argv(data_yaml, out, steps, extra=()):
+    return ["--model", str(ROOT / LLAMA3_YAML),
+            "--train_dataset", str(data_yaml), "--output_dir", str(out),
+            "--max_steps", str(steps), "--save_steps", "1000000",
+            "--log_steps", "1", "--learning_rate", "3e-4",
+            "--lr_scheduler_type", "constant", "--warmup_steps", "0",
+            "--ce_loss_chunk", str(CE_CHUNK), "--fake_tokenizer",
+            "--device", "cuda", "--seed", "0", *extra]
+
+
+@contextlib.contextmanager
+def trained_model(model):
+    """``train.main``'s build of its ``--model`` assembly (the one
+    ``instantiate`` call given ``language_model=``) returns ``model``
+    instead (16b, 16e: phase 8's, on the card with its trainable set
+    marked; no second 8B build)."""
+    from mllm_npu_tpu_torch import configs
+    build = configs.instantiate
+
+    def instantiate(node, *args, **kwargs):
+        if "language_model" in kwargs:
+            return model
+        return build(node, *args, **kwargs)
+
+    configs.instantiate = instantiate
+    try:
+        yield
+    finally:
+        configs.instantiate = build
+
+
+@contextlib.contextmanager
+def no_checkpoints():
+    """The trainer's checkpoint writes skipped (phases 8 and 16: phase 13
+    drives the save; each final save of the 8B run writes 11.27 GiB), and
+    its SIGTERM handler dropped after."""
+    from mllm_npu_tpu_torch.train.checkpoint import CheckpointManager
+    save = CheckpointManager.save
+    CheckpointManager.save = lambda self, *a, **k: None
+    try:
+        yield
+    finally:
+        CheckpointManager.save = save
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)
+
+
+def read_launches(counters):
+    got = {k: fn.launches for k, fn in counters.items()}
+    for fn in counters.values():
+        fn.launches = 0
+    return got
+
+
+def pool_trainer_run(model, data_yaml, workdir, counters):
+    """16b: phase 8's trainer run on the same model, fed by the pool."""
+    from mllm_npu_tpu_torch.train import train as trainer
+    records, window, traced = [], ProfileWindow(), {}
+
+    def on_step(rec):
+        records.append(rec)
+        if rec["step"] == HOST_STEPS - 1:
+            window.start()
+        elif rec["step"] == HOST_STEPS:
+            traced["profile"] = window.stop()
+
+    read_launches(counters)
+    with no_checkpoints(), trained_model(model):
+        run = trainer.main(trainer_argv(
+            data_yaml, workdir / "out_pool", HOST_STEPS,
+            ("--dataloader_workers", str(HOST_WORKERS))), on_step=on_step)
+    check(run.model is model, "16b trained another model than phase 8's")
+    launches = read_launches(counters)
+    kind = run.loader.worker_kind
+    del run
+    gc.collect()
+    check(kind == "spawn", f"the trainer's loader ran {kind} workers, not "
+          "spawned processes: its PipeFactory did not pickle")
+    steady = [r["sec/step"] for r in records[1:HOST_STEPS - 1]]
+    check(all(math.isfinite(r["loss"]) for r in records),
+          f"pool-fed losses {[r['loss'] for r in records]}")
+    return {"worker_kind": kind, "steps": len(records),
+            "sec_per_step": sum(steady) / len(steady),
+            "sec_per_step_each": [r["sec/step"] for r in records],
+            "losses": [r["loss"] for r in records],
+            "profile": traced["profile"], "launches": launches}
+
+
+def memory_fed_steps(model, batch, optimizer):
+    """16b: the step fed from memory: one collated batch already on the
+    card through ``make_train_step``, MEMORY_STEPS each timed as the
+    trainer's loop times its steps (to the loss read after the update),
+    then one more under the profiler."""
+    import torch
+
+    from mllm_npu_tpu_torch.train import train as trainer
+    from mllm_npu_tpu_torch.train.train_state import make_train_step
+    step = make_train_step(model, trainer.mllm_loss, optimizer)
+    torch.cuda.synchronize()
+    secs, losses = [], []
+    for _ in range(MEMORY_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)[0]))
+        secs.append(time.perf_counter() - t0)
+    return {"sec_per_step": sum(secs) / len(secs), "sec_per_step_each": secs,
+            "losses": losses, "profile": profile_call(lambda: step(batch))}
+
+
+def state_gib(optimizer) -> float:
+    return sum(t.numel() * t.element_size()
+               for k in optimizer._STATE
+               for t in getattr(optimizer, k).values()) / 2**30
+
+
+def remat_policies(model, batch, counters, n_vis):
+    """16c: one step's gradients (no update) under each remat policy: s,
+    peak, K1/K2/K3 launches, and the gradients' cosine against ``dots``'."""
+    import torch
+
+    from mllm_npu_tpu_torch.train import train as trainer
+    from mllm_npu_tpu_torch.train.train_state import (compute_grads,
+                                                      trainable_parameters)
+    from mllm_npu_tpu_torch.utils.weights import set_llama_config
+    lm = model.language_model
+    L = lm.config.num_hidden_layers
+    before = (lm.config.remat, lm.config.remat_policy)
+    params = [p for _, p in trainable_parameters(model)]
+    for p in params:
+        p.grad = None
+    out, ref = {}, None
+    for policy in REMAT_POLICIES:
+        set_llama_config(lm, remat=True, remat_policy=policy)
+        read_launches(counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        compute_grads(model, trainer.mllm_loss, batch)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        got = read_launches(counters)
+        k1 = n_vis + 1 + (1 if policy == "hoist_attn" else 2) * L
+        expect_counts(got, f"16c {policy}", flash_fwd=k1,
+                      flash_bwd_dq=L + 1, flash_bwd_dkv=L + 1)
+        if ref is None:
+            ref = [p.grad.clone() for p in params]
+            cos = 1.0
+        else:
+            dot = sum(float((p.grad.float() * r.float()).sum())
+                      for p, r in zip(params, ref))
+            na = sum(float(p.grad.float().pow(2).sum()) for p in params)
+            nb = sum(float(r.float().pow(2).sum()) for r in ref)
+            cos = dot / math.sqrt(na * nb)
+        label = policy if policy not in out else f"{policy} (again)"
+        out[label] = {"sec": sec, "peak_gib": peak / 2**30,
+                       "activations_gib": (peak - resident) / 2**30,
+                       "grad_cos_vs_dots": cos, "launches": got}
+        print(f"[phase 16c] remat {label}: {sec:.3f} s a step's gradients, "
+              f"peak {peak / 2**30:.2f} GiB ({(peak - resident) / 2**30:.2f} "
+              f"above the resident), K1 {got['flash_fwd']}, K2 "
+              f"{got['flash_bwd_dq']}, K3 {got['flash_bwd_dkv']}; gradient "
+              f"cos vs dots {cos:.7f}", flush=True)
+        check(cos >= REMAT_COS, f"remat {policy}: gradients cos {cos} vs "
+              "dots")
+        for p in params:
+            p.grad = None
+    del ref
+    set_llama_config(lm, remat=before[0], remat_policy=before[1])
+    return out
+
+
+def adafactor_steps(model, batch, adamw_gib, counters):
+    """16d: Adafactor (``OptimizerConfig(optimizer="adafactor")``, as the
+    reference's ``build_optimizer`` configures optax's) for ADAFACTOR_STEPS
+    on the repeated batch without weight decay (the losses must fall), then
+    DECAY_STEPS more (and the loss after them) at the default rate 0.05,
+    which the reference adds
+    after the learning rate: each step takes 5% off every trainable weight
+    (ROADMAP, known issues of the reference)."""
+    import torch
+
+    from mllm_npu_tpu_torch.train import train as trainer
+    from mllm_npu_tpu_torch.train.train_state import (
+        OptimizerConfig, build_optimizer, make_train_step,
+        trainable_parameters)
+    read_launches(counters)
+    out = {}
+    for wd, steps in ((0.0, ADAFACTOR_STEPS), (0.05, DECAY_STEPS)):
+        opt = build_optimizer(trainable_parameters(model), OptimizerConfig(
+            optimizer="adafactor", lr=3e-4, warmup_steps=0,
+            scheduler="constant", mu_dtype="bfloat16", weight_decay=wd))
+        step = make_train_step(model, trainer.mllm_loss, opt)
+        t0 = time.perf_counter()
+        losses = [float(step(batch)[0]) for _ in range(steps)]
+        sec = (time.perf_counter() - t0) / steps
+        if wd:
+            with torch.no_grad():       # the loss after the last update
+                losses.append(float(trainer.mllm_loss(model, batch[0])[0]))
+        out[f"weight_decay_{wd:g}"] = {"losses": losses, "sec_per_step": sec}
+        print(f"[phase 16d] Adafactor at weight decay {wd:g}, {steps} "
+              f"step(s) on the repeated batch: losses "
+              f"{[round(x, 5) for x in losses]}"
+              + (" (the last after the update, no gradient)" if wd else "")
+              + f", {sec:.3f} s a step", flush=True)
+        check(all(math.isfinite(x) for x in losses),
+              f"Adafactor's losses {losses}")
+        if wd == 0.0:
+            out["state_gib"] = state_gib(opt)
+            out["factored"] = len(opt.v_row)
+            check(all(x < losses[0] for x in losses[1:]),
+                  f"Adafactor's losses did not fall below the first: "
+                  f"{losses}")
+        del opt, step
+        gc.collect()
+    print(f"[phase 16d] Adafactor's state {out['state_gib']:.3f} GiB "
+          f"({out['factored']} factored tensors) against AdamW's "
+          f"{adamw_gib:.3f} GiB (bf16 mu)", flush=True)
+    out["adamw_state_gib"] = adamw_gib
+    out["launches"] = read_launches(counters)
+    return out
+
+
+def mixture_draws(seed, weights, n):
+    """The multiplexer's first ``n`` picks (``SampleMultiplexer`` while no
+    stream is exhausted)."""
+    from mllm_npu_tpu_torch.data.streams import derive_rng
+    picks = []
+    for d in range(n):
+        r = derive_rng(seed, "mux", d).uniform(0, sum(weights))
+        acc = 0.0
+        for i, w in enumerate(weights):
+            acc += w
+            if r <= acc:
+                picks.append(i)
+                break
+    return picks
+
+
+def interleaved_tar(path, n, seed):
+    """``n`` pickled interleaved records (a 448² JPEG, then text, one to
+    two times) in a tar."""
+    import pickle
+
+    import numpy as np
+    from PIL import Image
+    rs = np.random.RandomState(seed)
+    with tarfile.open(path, "w") as tar:
+        for i in range(n):
+            images, texts = [], []
+            for _ in range(int(rs.randint(1, 3))):
+                buf = io.BytesIO()
+                Image.fromarray((rs.rand(448, 448, 3) * 255).astype(
+                    np.uint8)).save(buf, format="JPEG", quality=85)
+                images += [base64.b64encode(buf.getvalue()).decode(), None]
+                texts += [None, " ".join(rs.choice(WORDS, 40))]
+            data = pickle.dumps({"images": images, "texts": texts})
+            info = tarfile.TarInfo(f"{i:06d}.pkl")
+            info.size = len(data)
+            tar.addfile(info, io.BytesIO(data))
+
+
+def mixture_run(model, workdir, counters, proc_size):
+    """16e: caption, interleaved and pure text (1.0 : 0.5 : 0.5) through
+    the pool, MIX_STEPS steps on phase 8's model; every micro-batch's
+    dataset, image slots and supervised labels recorded where the trainer
+    moves it to the card."""
+    import numpy as np
+    import yaml
+
+    from mllm_npu_tpu_torch.train import train as trainer
+    root = workdir / "mix"
+    caption = host_data(root / "caption", MIX_WORKERS, 2 * MIX_BATCH, 448,
+                        seed=3)
+    (root / "interleaved").mkdir()
+    (root / "text").mkdir()
+    rs = np.random.RandomState(5)
+    for w in range(MIX_WORKERS):
+        interleaved_tar(root / "interleaved" / f"part-{w}.tar", 4, seed=w)
+        (root / "text" / f"part-{w}.jsonl").write_text("".join(
+            json.dumps({"text": " ".join(rs.choice(WORDS, 300))}) + "\n"
+            for _ in range(8)))
+    ds, cap = caption_node(caption, MIX_BATCH)
+    nodes = {
+        "caption": dict(cap, dataset_name="caption"),
+        "interleaved": {
+            "_target_": "mllm_npu_tpu_torch.data.tasks."
+                        "interleaved_image_text."
+                        "build_interleave_datapipes_with_pixels",
+            "data_dir": [str(root / "interleaved")], "max_length": 600,
+            "batch_size": MIX_BATCH, "img_first_ratio": 0.5,
+            "num_img_in_tokens": 64, "num_img_out_tokens": 64,
+            "cycle_count": 100000, "dataset_name": "interleaved"},
+        "text": {
+            "_target_": "mllm_npu_tpu_torch.data.tasks.pure_text."
+                        "build_text_datapipes",
+            "data_dir": [str(root / "text")], "max_length": 600,
+            "batch_size": MIX_BATCH, "image_size": proc_size,
+            "cycle_count": 100000, "dataset_name": "text"},
+    }
+    ds["datapipes"] = [nodes[name] for name, _ in MIX]
+    ds["sample_weights"] = [w for _, w in MIX]
+    data_yaml = workdir / "mix.yaml"
+    data_yaml.write_text(yaml.safe_dump(ds))
+    # every worker's multiplexer draws the same picks from the loader's
+    # seed, so the pool yields MIX_WORKERS batches of each pick in turn:
+    # accumulate enough micro-batches that the steps meet every task
+    picks = mixture_draws(888, [w for _, w in MIX], 64)
+    draws = 1 + max(picks.index(i) for i in range(len(MIX)))
+    ga = -(-MIX_WORKERS * draws // MIX_STEPS)
+    seen, records = [], []
+    to_device = trainer.batch_to_device
+
+    def recording(batch, device):
+        seen.append({
+            "dataset": batch.get("dataset_name"),
+            "image_slots": int(batch["embeds_cmp_mask"].sum()
+                               + batch["embeds_gen_mask"].sum()),
+            "image_tokens": int(batch["ids_cmp_mask"].sum()
+                                + batch["ids_gen_mask"].sum()),
+            "supervised": int((batch["labels"] != -100).sum())})
+        return to_device(batch, device)
+
+    read_launches(counters)
+    trainer.batch_to_device = recording
+    try:
+        with no_checkpoints(), trained_model(model):
+            run = trainer.main(trainer_argv(
+                data_yaml, workdir / "out_mix", MIX_STEPS,
+                ("--dataloader_workers", str(MIX_WORKERS),
+                 "--gradient_accumulation_steps", str(ga))),
+                on_step=records.append)
+    finally:
+        trainer.batch_to_device = to_device
+    check(run.model is model, "16e trained another model than phase 8's")
+    kind = run.loader.worker_kind
+    del run
+    gc.collect()
+    launches = read_launches(counters)
+    names = {s["dataset"] for s in seen}
+    print(f"[phase 16e] mixture {dict(MIX)} through {MIX_WORKERS} {kind} "
+          f"workers, {MIX_STEPS} steps of {ga} micro-batches at batch "
+          f"{MIX_BATCH}: " + "; ".join(
+              f"step {r['step']} loss {r['loss']:.4f} over {r['datasets']}"
+              for r in records) + "; micro-batches " + json.dumps(seen),
+          flush=True)
+    check(kind == "spawn", f"16e ran {kind} workers")
+    check(names == {name for name, _ in MIX}, f"16e met {names}")
+    for s in seen:
+        check(s["supervised"] > 0, f"16e: no supervised label in {s}")
+        if s["dataset"] == "text":
+            check(s["image_slots"] == 0 and s["image_tokens"] == 0,
+                  f"16e: a text-only batch carries image slots: {s}")
+        else:
+            check(s["image_slots"] > 0 and s["image_tokens"] > 0,
+                  f"16e: an image task's batch without images: {s}")
+    check(len(records) == MIX_STEPS
+          and all(math.isfinite(r["loss"]) for r in records),
+          f"16e losses {[r['loss'] for r in records]}")
+    return {"grad_accum": ga, "micro_batches": seen,
+            "losses": [r["loss"] for r in records],
+            "datasets": [r["datasets"] for r in records],
+            "launches": launches}
+
+
+def host_phase(model, batch, workdir, B, threaded_sec):
+    """Phase 16 on phase 8's model; returns its readings."""
+    import torch
+
+    from mllm_npu_tpu_torch.train.train_state import (
+        AdamW, OptimizerConfig, trainable_parameters)
+    t_phase = time.perf_counter()
+    print(f"[phase 16] the trainer's host side on phase 8's model, "
+          f"{HOST_WORKERS} workers ({os.cpu_count()} cores)", flush=True)
+    from mllm_npu_tpu_torch.utils.weights import set_llama_config
+    counters = kernel_counters()
+    n_vis = model.vision_encoder.config.num_hidden_layers
+    vocab = model.language_model.config.vocab_size
+    # phase 8's policy (its gradient check left 'nothing')
+    set_llama_config(model.language_model, remat_policy="dots")
+    out = {"workers": HOST_WORKERS, "cores": os.cpu_count(),
+           "launches": {k: 0 for k in counters}, "part_s": {}}
+    t_part = [time.perf_counter()]
+
+    def add(launches):
+        for k, n in launches.items():
+            out["launches"][k] += n
+
+    def part_done(name):
+        now = time.perf_counter()
+        out["part_s"][name] = now - t_part[0]
+        t_part[0] = now
+        print(f"[time] phase {name}: {out['part_s'][name]:.1f} s", flush=True)
+
+    # 16a: the loader alone
+    data = host_data(workdir / "host_data", HOST_WORKERS, B, HOST_IMAGE)
+    ds, _ = caption_node(data, B)
+    factory = host_factory(ds, vocab)
+    out["loader"] = [loader_reading(factory, w) for w in (0, HOST_WORKERS)]
+    for r in out["loader"]:
+        print(f"[phase 16a] loader, {r['workers']} workers, batch {B} of "
+              f"{HOST_IMAGE}² JPEGs ({r['batch_mib']:.1f} MiB a batch): "
+              f"first batch {r['first_batch_s']:.2f} s, then "
+              f"{r['batches_per_s']:.2f} batches/s"
+              + (f"; a ready batch's transfer {r['transfer_ms'][0]:.1f} to "
+                 f"{r['transfer_ms'][-1]:.1f} ms" if r["workers"] else ""),
+              flush=True)
+    envs = out["loader"][1].pop("worker_envs")
+    check(len({e["pid"] for e in envs}) == HOST_WORKERS,
+          f"16a: batches from {len({e['pid'] for e in envs})} workers")
+    check(not any(e["jax"] or e["reference"] or e["cuda"] for e in envs),
+          f"16a: a worker loaded JAX or CUDA: {envs}")
+    part_done("16a")
+
+    # 16b: the trainer fed by the pool, then a step fed from memory
+    data_yaml = workdir / "host_data.yaml"
+    import yaml
+    data_yaml.write_text(yaml.safe_dump(ds))
+    pool = out["pool"] = pool_trainer_run(model, data_yaml, workdir,
+                                          counters)
+    add(pool.pop("launches"))
+    adamw = AdamW(trainable_parameters(model), OptimizerConfig(
+        lr=3e-4, warmup_steps=0, scheduler="constant", mu_dtype="bfloat16"))
+    read_launches(counters)
+    mem = out["memory"] = memory_fed_steps(model, batch, adamw)
+    add(read_launches(counters))
+    adamw_gib = state_gib(adamw)
+    # freed, not returned to the card: the allocator keeps its segments,
+    # so 16c's first step does not time their regrowth
+    del adamw
+    gc.collect()
+    busy = {k: r["profile"][1] / r["profile"][0] for k, r in
+            (("pool", pool), ("memory", mem))}
+    out["threaded_sec_per_step"] = threaded_sec
+    each = lambda xs: ", ".join(f"{x:.3f}" for x in xs)
+    print(f"[phase 16b] sec/step at batch {B}: the pool ({HOST_WORKERS} "
+          f"{pool['worker_kind']} workers) {pool['sec_per_step']:.3f} (steps "
+          f"2-{HOST_STEPS - 1}; every step {each(pool['sec_per_step_each'])}"
+          f"), the threaded loader (phase 8) {threaded_sec:.3f}, fed from "
+          f"memory {mem['sec_per_step']:.3f} ({each(mem['sec_per_step_each'])}"
+          f"); a traced step's device busy share: "
+          f"pool {100 * busy['pool']:.1f}%, memory {100 * busy['memory']:.1f}%"
+          f"; pool losses {[round(x, 4) for x in pool['losses']]}",
+          flush=True)
+    print_profile("16b: a pool-fed trainer step", *pool["profile"])
+    print_profile("16b: a step fed from memory", *mem["profile"])
+    part_done("16b")
+
+    # 16c: the remat policies
+    out["remat"] = remat_policies(model, batch, counters, n_vis)
+    for r in out["remat"].values():
+        add(r["launches"])
+    gc.collect()
+    part_done("16c")
+
+    # 16d: Adafactor
+    out["adafactor"] = adafactor_steps(model, batch, adamw_gib, counters)
+    add(out["adafactor"].pop("launches"))
+    gc.collect()
+    part_done("16d")
+
+    # 16e: the three-task mixture through the pool
+    proc_size = factory.processor.image_size
+    out["mixture"] = mixture_run(model, workdir, counters, proc_size)
+    add(out["mixture"].pop("launches"))
+    part_done("16e")
+    for k in ("pool", "memory"):
+        out[k]["profile"] = out[k]["profile"][:2]
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[phase 16] done in {out['seconds']:.1f} s", flush=True)
+    return out
 
 
 def k1_per_image(model):
@@ -1486,6 +2153,10 @@ WORKER = dict(num_slots=8, max_len=2048, max_prompt=1024, block_steps=16,
 WORKER_CONCURRENCY = 16
 # tokens per request of the graph-vs-eager check and the decode timing
 LONG_TOKENS = 64
+# tokens per request of checks d and f's recorded (eager) streams, held
+# against the first tokens of the graphed runs' MAX_NEW_TOKENS (cut from 32
+# for the time limit, PERF.md §4)
+CHECK_TOKENS = 16
 # the logit rule of checks d and f: where a batched stream and the
 # single-request engine's are held against each other, their logit rows
 # (fp32, after the ladder) at every position up to the first divergence
@@ -1600,8 +2271,9 @@ def ttft_stats(reqs):
     return {"min": t[0], "median": statistics.median(t), "max": t[-1]}
 
 
-def single_stream(engine, q, b64):
-    """The single-request engine's greedy ids for one request, and at each
+def single_stream(engine, q, b64, tokens=None):
+    """The single-request engine's greedy ids for one request (``tokens``
+    of them, the engine's ``max_new_tokens`` by default), and at each
     position its logits after the ladder (fp32 [V], on the card): the
     logits each greedy choice was made from. The decode step runs eagerly
     here (a replayed graph calls no Python to record with); phase 4 holds
@@ -1616,7 +2288,7 @@ def single_stream(engine, q, b64):
     sampler._sample = gen_mod._sample = recording
     engine.generator.cuda_graph = False
     try:
-        ids = engine.comprehension_ids(q, b64)
+        ids = engine.comprehension_ids(q, b64, max_new_tokens=tokens)
     finally:
         sampler._sample = gen_mod._sample = orig
         engine.generator.cuda_graph = True
@@ -2160,10 +2832,10 @@ def single_engine_check(single, eager, label, traffic, labels, ids_of):
           + f"; bound {bound:.4f}", flush=True)
     identical, worst = 0, {}
     for lab in labels:
-        single_ids, s_rows = single_stream(single, *reqs[lab])
-        ids, b_rows = recorded_stream(eager, preps[lab], MAX_NEW_TOKENS)
-        check(ids == ids_of[lab], f"{label} {lab}: eager ids alone {ids} "
-              f"differ from the graphed worker's {ids_of[lab]}")
+        single_ids, s_rows = single_stream(single, *reqs[lab], CHECK_TOKENS)
+        ids, b_rows = recorded_stream(eager, preps[lab], CHECK_TOKENS)
+        check(ids == ids_of[lab][:len(ids)], f"{label} {lab}: eager ids "
+              f"alone {ids} differ from the graphed worker's {ids_of[lab]}")
         same, worst[lab], desc = logit_rule(f"{label} {lab}", ids, b_rows,
                                             single_ids, s_rows, bound)
         identical += same
@@ -2205,15 +2877,15 @@ def chunked_prefix_check(single, graphed, eager):
     identical = {"monolithic": 0, "single": 0}
     worst = {"monolithic": 0.0, "single": 0.0}
     for i, (t, p) in enumerate(zip(texts, preps)):
-        ids, rows = recorded_stream(twin, p, MAX_NEW_TOKENS)
-        check(ids == reqs[i].tokens, f"prefix request {i}: the eager "
-              f"chunked ids alone {ids} differ from the graphed engine's "
-              f"among four {reqs[i].tokens}")
-        m_ids, m_rows = recorded_stream(eager, p, MAX_NEW_TOKENS)
-        check(m_ids == mono[i].tokens, f"prefix request {i}: the eager "
-              f"monolithic ids {m_ids} differ from the graphed engine's "
-              f"{mono[i].tokens}")
-        s_ids, s_rows = single_stream(single, t, "")
+        ids, rows = recorded_stream(twin, p, CHECK_TOKENS)
+        check(ids == reqs[i].tokens[:len(ids)], f"prefix request {i}: the "
+              f"eager chunked ids alone {ids} differ from the graphed "
+              f"engine's among four {reqs[i].tokens}")
+        m_ids, m_rows = recorded_stream(eager, p, CHECK_TOKENS)
+        check(m_ids == mono[i].tokens[:len(m_ids)], f"prefix request {i}: "
+              f"the eager monolithic ids {m_ids} differ from the graphed "
+              f"engine's {mono[i].tokens}")
+        s_ids, s_rows = single_stream(single, t, "", CHECK_TOKENS)
         for name, ref_ids, ref_rows in (("monolithic", m_ids, m_rows),
                                         ("single", s_ids, s_rows)):
             same, d, desc = logit_rule(f"prefix request {i} (chunked vs "
@@ -2293,12 +2965,17 @@ def int8_worker_phase(single, lm_cfg):
 
 # -- phase 4c: sampled, speculative, fp8/f32-cache and fused serving ------
 # speculation in the worker at these k (3-gram prompt lookup); tokens per
-# request of phase 4c's graphed (timed) runs and of its eager, alone and
-# recorded runs (held against a graphed run's first tokens)
+# request of phase 4c's graphed (timed) runs and of its speculative eager
+# and alone runs and recorded streams (held against a graphed run's first
+# tokens; cut from 32 for the time limit, PERF.md §4)
 SPEC_KS = (4, 63)
 SPEC_NGRAM = 3
 SPEC_TOKENS = 64
-C_TOKENS = 32
+C_TOKENS = 16
+# tokens per request of a timed run through a non-speculative engine other
+# than the timed graphed one: its first tick's block (not timed) takes 16,
+# the rest one more block
+BLOCK_TOKENS = 2 * WORKER["block_steps"]
 # the sampled rows of check c: temperature, top-p, seeds 1-4
 SAMPLED = dict(do_sample=True, temperature=0.7, top_p=0.9)
 # check c's distribution test: draws, rows a call, the nucleus's top ids
@@ -2447,6 +3124,7 @@ def spec_batched_check(plain_graphed, plain_eager, items, plain_tps, rule):
                         "logit_rule": {lab: r[0] for lab, r in rule.items()}}
         if k == SPEC_KS[0]:
             out["k4_ids"] = runs["graphed"]["ids"]
+            out["plain_rows"] = plain_rows
         else:
             out["ladder_burst"] = ladder_burst(graphed, plain_graphed)
         del graphed, eager
@@ -2510,9 +3188,10 @@ def spec_single_check(single, traffic, rule):
     for lab, q, b in traffic:
         if lab not in labels:
             continue
-        plain_ids, rows = single_stream(single, q, b)
+        plain_ids, rows = single_stream(single, q, b, C_TOKENS)
         tp = dict(gen.last_timings)
-        ids = [int(t) for t in spec.comprehension_ids(q, b)]
+        ids = [int(t) for t in spec.comprehension_ids(
+            q, b, max_new_tokens=C_TOKENS)]
         ts = dict(spec.generator.last_timings)
         t = next((i for i, (a, c) in enumerate(zip(ids, plain_ids))
                   if a != c), None)
@@ -2551,14 +3230,15 @@ def sampling_check(single, plain_graphed, items, plain_ids, spec_ids):
     eager = twin_of(plain_graphed, enable_sampling=True, cuda_graph=False)
     timed = timed_ticks(graphed, items, SPEC_TOKENS, sampling)
     g = timed["ids"]
-    e = timed_ticks(eager, items, C_TOKENS, sampling)["ids"]
+    e = timed_ticks(eager, items, BLOCK_TOKENS, sampling)["ids"]
     check(all(a[:len(b)] == b for a, b in zip(g, e)),
           "sampled engine: graphed and eager ids differ")
     for i in range(len(items)):
         if i not in sampled:
             check(g[i] == plain_ids[i][:len(g[i])], f"greedy row {i} among "
                   f"sampled ones differs from the greedy engine's")
-    alone = timed_ticks(graphed, [items[4]], C_TOKENS, [sampling[4]])["ids"]
+    alone = timed_ticks(graphed, [items[4]], BLOCK_TOKENS,
+                        [sampling[4]])["ids"]
     check(alone[0] == g[4][:len(alone[0])],
           "a sampled request alone differs from among 8")
     del graphed, eager
@@ -2642,21 +3322,20 @@ def sampling_distribution(vocab):
             "chi2": stat, "p": pval, "ms_per_call": ms}
 
 
-def cache_dtype_check(single, plain_graphed, plain_eager, items, plain_ids,
-                      rule):
+def cache_dtype_check(single, plain_graphed, items, plain_ids, rule,
+                      bf16_rows):
     """Check d: the same 8 requests with the fp8 and the f32 static cache,
     graphed and eager (identical ids): memory, cache bytes and ms per tick;
     decode_attention with the fp8 cache against the bf16 cache on the
     bf16 worker's own filled cache; two requests' logit rows against the
-    bf16 cache's (f32: the logit rule; fp8: printed)."""
+    bf16 cache's (``bf16_rows``, check a's; f32: the logit rule; fp8:
+    printed)."""
     import torch
 
     from mllm_npu_tpu_torch.models.language_models.llama import to_cache
     from mllm_npu_tpu_torch.ops import decode_attention
     preps, control, bound = rule
     labels = tuple(preps)
-    bf16_rows = {lab: recorded_stream(plain_eager, preps[lab], C_TOKENS)
-                 for lab in labels}
     # fp8 against bf16 on the worker's filled cache (the mixed run's keys)
     st = plain_graphed.state
     gen = torch.Generator(device=st["k"].device)
@@ -2690,7 +3369,7 @@ def cache_dtype_check(single, plain_graphed, plain_eager, items, plain_ids,
         graphed = twin_of(plain_graphed, cache_dtype=dt)
         eager = twin_of(plain_graphed, cache_dtype=dt, cuda_graph=False)
         g = timed_ticks(graphed, items, SPEC_TOKENS)
-        e = timed_ticks(eager, items, C_TOKENS)
+        e = timed_ticks(eager, items, BLOCK_TOKENS)
         check(all(a[:len(b)] == b for a, b in zip(g["ids"], e["ids"])),
               f"{name} cache: graphed and eager ids differ")
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2842,6 +3521,12 @@ def phase_4c(single):
     counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
+    t_part = [time.perf_counter()]
+
+    def part_done(name):
+        now = time.perf_counter()
+        print(f"[time] phase 4c {name}: {now - t_part[0]:.1f} s", flush=True)
+        t_part[0] = now
     traffic, items = mixed_items(single)
     plain_graphed = worker_engine(single)
     plain_eager = worker_engine(single, cuda_graph=False)
@@ -2855,14 +3540,20 @@ def phase_4c(single):
     print(f"[check] phase 4c logit rule: control max |delta| "
           + ", ".join(f"{k} {v:.4f}" for k, v in rule[1].items())
           + f"; bound {rule[2]:.4f}", flush=True)
+    part_done("plain run and control")
     out["a"] = spec_batched_check(plain_graphed, plain_eager, items,
                                   plain["tokens_per_s"], rule)
     spec_ids = out["a"].pop("k4_ids")
+    plain_rows = out["a"].pop("plain_rows")
+    part_done("a")
     out["b"] = spec_single_check(single, traffic, rule)
+    part_done("b")
     out["c"] = sampling_check(single, plain_graphed, items, plain_ids,
                               spec_ids)
-    out["d"] = cache_dtype_check(single, plain_graphed, plain_eager, items,
-                                 plain_ids, rule)
+    part_done("c")
+    out["d"] = cache_dtype_check(single, plain_graphed, items, plain_ids,
+                                 rule, plain_rows)
+    part_done("d")
     out["launches"] = {k: fn.launches for k, fn in counters.items()}
     check(out["launches"]["flash_fwd"] > 0, "phase 4c launched no K1")
     del plain_graphed, plain_eager
@@ -6151,6 +6842,10 @@ def main():
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 3",
           flush=True)
+
+    def sub_stamp(label):
+        print(f"[time] {time.perf_counter() - t_start:.1f} s: phase {label}",
+              flush=True)
     # -- 3. K1, K4 and K5 against their plain versions at the path's shapes
     H, Hkv, D = (lm_cfg.num_attention_heads, lm_cfg.num_key_value_heads,
                  lm_cfg.head_dim)
@@ -6179,14 +6874,18 @@ def main():
     # prompt length; and the caption of its text_to_image_features)
     caption_len = 1 + len(engine.tokenizer.encode(SEEDX_CAPTION + BOI_TOKEN))
     seedx_cases = seedx_kernel_cases(n_tiles, s_img, caption_len)
+    sub_stamp("3, after SEED-X's K1 cases")
     edges = k1_edge_sweep()
+    sub_stamp("3, after K1's edge sweep")
     # the SDXL UNet's attentions at 1024² (phase 11's request)
     unet_cases, unet_mix = unet_kernel_cases()
     # phase 15's UNets: SEED-X-Edit's at batch 3, SD-2.1's at 768², the
     # IP-Adapter's SD-1.5 (D = 40, 80, 160; 77 text keys); K4 / K5 at the
     # int8 / int4 SDXL UNet's projections
     variant_cases, variant_mixes = variant_kernel_cases()
+    sub_stamp("3, after the UNets' K1 cases")
     unet_qrows, unet_qmix = unet_quant_cases()
+    sub_stamp("3, after the UNet's K4/K5 cases")
     qrows = quant_rows(lm_cfg, s_img, bucket, WORKER["num_slots"])
     seedx_lm = seedx_specs()[3]
     qrows13 = quant_rows(seedx_lm, s_img, bucket, WORKER["num_slots"],

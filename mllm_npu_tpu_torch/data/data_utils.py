@@ -1,10 +1,19 @@
-"""Sample-level helpers: the similarity filter, unwrap and select (the
-port's copy of the parts of ``mllm_npu_tpu/data/data_utils.py`` that the
-caption task uses)."""
+"""Sample-level helpers: the similarity filter, unwrap, select and the
+base64 image decode (the port's copy of the parts of
+``mllm_npu_tpu/data/data_utils.py`` that the caption and interleaved tasks
+use)."""
 
 from __future__ import annotations
 
+import base64
+import io
 import json
+
+from PIL import Image
+
+
+def base64_to_image(b64: str) -> Image.Image:
+    return Image.open(io.BytesIO(base64.b64decode(b64))).convert("RGB")
 
 
 def filter_data_with_similarity(item: dict, similarity_thr: float = 0.2,

@@ -31,3 +31,21 @@ def build_multi_datapipes(datapipes, tokenizer=None, image_transform=None,
                                  image_transform=image_transform, **kw))
     weights = {p: w for p, w in zip(pipes, sample_weights)}
     return SampleMultiplexer(weights, seed=seed)
+
+
+class PipeFactory:
+    """seed → the dataset mixture of ``ds_cfg`` (the trainer's; a dataset
+    YAML's dict). It pickles, tokenizer and processor included, so the
+    loader's workers can be spawned processes, and its module imports
+    neither torch nor JAX, so a worker does not either."""
+
+    def __init__(self, ds_cfg: dict, tokenizer, processor):
+        self.ds_cfg = ds_cfg
+        self.tokenizer = tokenizer
+        self.processor = processor
+
+    def __call__(self, seed):
+        return build_multi_datapipes(
+            self.ds_cfg["datapipes"], tokenizer=self.tokenizer,
+            image_transform=self.processor,
+            sample_weights=self.ds_cfg.get("sample_weights"), seed=seed)

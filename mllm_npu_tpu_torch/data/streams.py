@@ -10,7 +10,9 @@ unreadable jsonl files are warned-and-skipped, never fatal (reference
 data/datapipes.py:52-56,74-79).
 
 Host sharding: shard_for_host() splits the *shard list* across the
-``torch.distributed`` ranks (the DistributedReadingService equivalent).
+``torch.distributed`` ranks (the DistributedReadingService equivalent);
+worker fan-out is process-based in dataloader.py (MultiProcessDataLoader),
+composed via set_worker_shard().
 
 Checkpointable streaming (what the reference lacks — it only reseeds on
 resume, reference train/train.py:318-323): every randomness source is
@@ -27,6 +29,7 @@ import logging
 import random
 import re
 import tarfile
+import threading
 from pathlib import Path
 from typing import Any, Callable, Iterable, Iterator, Optional
 
@@ -82,11 +85,57 @@ def process_index_count() -> tuple[int, int]:
     return 0, 1
 
 
+# Shard overrides live in thread-local storage with a process-wide
+# default: worker PROCESSES (spawn) set them from their main thread (= the
+# process default), while the thread-worker fallback of
+# MultiProcessDataLoader sets them per worker THREAD — module globals
+# alone would make concurrent thread workers stomp each other's shard.
+_SHARD_TLS = threading.local()
+_HOST_SHARD_DEFAULT: Optional[tuple[int, int]] = None
+_WORKER_SHARD_DEFAULT: tuple[int, int] = (0, 1)
+
+
+def set_host_shard(index: Optional[int], count: Optional[int]) -> None:
+    """Override the (rank, world size) pair of ``process_index_count`` —
+    used by dataloader workers, which are not ranks of the process
+    group (the parent passes its own pair in)."""
+    val = None if index is None else (int(index), int(count))
+    _SHARD_TLS.host = val
+    if threading.current_thread() is threading.main_thread():
+        global _HOST_SHARD_DEFAULT
+        _HOST_SHARD_DEFAULT = val
+
+
+def set_worker_shard(index: int, count: int) -> None:
+    """Per-dataloader-worker file split, composed on top of the host
+    split (the MultiProcessingReadingService equivalent — reference
+    data/dataloader.py:7-18 runs worker sharding after distributed
+    sharding)."""
+    val = (int(index), int(count))
+    _SHARD_TLS.worker = val
+    if threading.current_thread() is threading.main_thread():
+        global _WORKER_SHARD_DEFAULT
+        _WORKER_SHARD_DEFAULT = val
+
+
+def _host_shard() -> Optional[tuple[int, int]]:
+    return getattr(_SHARD_TLS, "host", _HOST_SHARD_DEFAULT)
+
+
+def _worker_shard() -> tuple[int, int]:
+    return getattr(_SHARD_TLS, "worker", _WORKER_SHARD_DEFAULT)
+
+
 def shard_for_host(items: list, index: Optional[int] = None,
                    count: Optional[int] = None) -> list:
+    """items[host::hosts], then [worker::workers] of that."""
+    if index is None and _host_shard() is not None:
+        index, count = _host_shard()
     if index is None:
         index, count = process_index_count()
-    return items[index::count]
+    items = items[index::count]
+    wi, wc = _worker_shard()
+    return items[wi::wc] if wc > 1 else items
 
 
 def derive_rng(seed, *keys) -> random.Random:

@@ -28,12 +28,12 @@ product each when ``fused_projections`` is set
 (``utils.weights.fuse_llama_projections_``). Trained here: LoRA with
 adapter dropout, per-segment positions (:func:`packed_positions`), the
 dense and chunked causal-LM losses, per-layer remat (``remat_policy``
-``nothing`` or ``dots``), and LoRA over a frozen int8 / int4 base
+``nothing``, ``dots``, ``dots_no_batch``, ``dots_lite`` or
+``hoist_attn``: :func:`remat_layer`), and LoRA over a frozen int8 / int4 base
 (QLoRA: ``LoRALinear(base=...)``, the product's gradient through
 ``ops.quant.QuantMatmul``); attention then runs K1 with its LSE forward
 and K2/K3 backward. The reference's tensor-parallel fused layout
-(``fused_shards > 1``) and the ``dots_no_batch``, ``dots_lite`` and
-``hoist_attn`` policies are not ported yet.
+(``fused_shards > 1``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -257,32 +257,66 @@ def chunked_causal_lm_loss(h: torch.Tensor, weight: torch.Tensor,
     return total / count.clamp(min=1)
 
 
-_DOT_OPS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
-            torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default}
+@torch.library.custom_op("mllm_torch::remat_save", mutates_args=())
+def remat_save(x: torch.Tensor) -> torch.Tensor:
+    """A named identity (a copy) marking a tensor that ``dots_lite`` keeps:
+    the twin of ``checkpoint_name``, since a selective-checkpoint policy
+    sees ops, not names."""
+    return x.clone()
 
 
-def _save_dots(ctx, op, *args, **kwargs):
-    """Selective-checkpoint policy that keeps every matmul's output (the
-    twin of ``jax.checkpoint_policies.checkpoint_dots``)."""
-    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+@remat_save.register_fake
+def _(x):
+    return torch.empty_like(x)
+
+
+remat_save.register_autograd(lambda ctx, grad: grad)
+
+_MM_OPS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+_BATCHED_MM_OPS = {torch.ops.aten.bmm.default,
+                   torch.ops.aten.baddbmm.default}
+# what each selective policy keeps (the twins of jax.checkpoint_policies'
+# checkpoint_dots, checkpoint_dots_with_no_batch_dims and
+# save_only_these_names("remat_qkv", "remat_attn_o")): every product; the
+# products without a batch dim (the projections, whose 3-D inputs reach
+# mm / addmm; not the eager attention's bmm); the post-RoPE q/k/v and the
+# o_proj output (remat_save)
+_SAVED_OPS = {"dots": _MM_OPS | _BATCHED_MM_OPS, "dots_no_batch": _MM_OPS,
+              "dots_lite": {torch.ops.mllm_torch.remat_save.default}}
+REMAT_POLICIES = ("nothing", "dots", "dots_no_batch", "dots_lite",
+                  "hoist_attn")
+
+
+def _saving(ops_to_save, ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy: keep the outputs of ``ops_to_save``,
+    recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in ops_to_save
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 def remat_layer(layer: nn.Module, policy: str, h, **kw):
     """``layer(h, **kw)`` under activation checkpointing (twin of the
-    ``nn.remat`` in ``:599-626``). Non-reentrant, so LoRA dropout's seeded
-    masks and the flash kernels' saved tensors are rebuilt by the replay;
-    the flash forward (K1) therefore runs twice per layer per step."""
+    ``nn.remat`` in ``:599-626``): ``nothing`` keeps only the layer's
+    input, ``dots`` / ``dots_no_batch`` / ``dots_lite`` also the outputs
+    ``_SAVED_OPS`` names, ``hoist_attn`` checkpoints around the attention
+    kernel (``LlamaDecoderLayer.forward_hoist_attn``). Non-reentrant, so
+    LoRA dropout's seeded masks and the flash kernels' saved tensors are
+    rebuilt by the replay: the flash forward (K1) runs twice per layer
+    per step, but once under ``hoist_attn``."""
+    if policy == "hoist_attn":
+        return layer.forward_hoist_attn(
+            h, positions=kw["positions"], segment_ids=kw.get("segment_ids"),
+            attn_mask=kw.get("attn_mask"))
     if policy == "nothing":
         return checkpoint(layer, h, use_reentrant=False, **kw)
-    if policy == "dots":
-        return checkpoint(layer, h, use_reentrant=False,
-                          context_fn=functools.partial(
-                              create_selective_checkpoint_contexts,
-                              _save_dots), **kw)
-    raise NotImplementedError(
-        f"remat_policy {policy!r} is not ported yet (ported: 'nothing', "
-        "'dots')")
+    if policy not in _SAVED_OPS:
+        raise ValueError(f"remat_policy {policy!r}: the reference has "
+                         f"{REMAT_POLICIES}")
+    return checkpoint(layer, h, use_reentrant=False,
+                      context_fn=functools.partial(
+                          create_selective_checkpoint_contexts,
+                          functools.partial(_saving, _SAVED_OPS[policy])),
+                      **kw)
 
 
 FP8_MAX = 448.0
@@ -400,10 +434,11 @@ class LlamaAttention(nn.Module):
             self.v_proj = _dense(cfg, "v_proj", hs, Hkv * D, dtype)
         self.o_proj = _dense(cfg, "o_proj", H * D, hs, dtype)
 
-    def forward(self, x, *, positions, layer_cache=None, cache_pos=None,
-                segment_ids=None, attn_mask=None, prefill=False):
-        """Returns (output, (k, v) of this step for a decode step or a
-        verify window, else None)."""
+    def project_qkv(self, x, positions):
+        """Input-norm'd hidden states → post-RoPE q, k, v ([B, S, H(kv),
+        D]). Split out so ``hoist_attn`` can checkpoint the projections
+        with the attention kernel outside the checkpointed region; under
+        ``dots_lite`` they are the tensors that remat keeps."""
         cfg = self.config
         B, S, _ = x.shape
         H, Hkv, D = (cfg.num_attention_heads, cfg.num_key_value_heads,
@@ -422,6 +457,22 @@ class LlamaAttention(nn.Module):
             scaling_factor=cfg.rope_scaling_factor,
             max_position_embeddings=cfg.max_position_embeddings)
         q, k = ops.apply_rope(q, k, cos, sin)
+        if cfg.remat and cfg.remat_policy == "dots_lite" \
+                and torch.is_grad_enabled():
+            q, k, v = remat_save(q), remat_save(k), remat_save(v)
+        return q, k, v
+
+    def project_out(self, out):
+        """[B, S, H, D] attention output → o_proj'd hidden states."""
+        B, S = out.shape[:2]
+        return self.o_proj(out.reshape(B, S, -1))
+
+    def forward(self, x, *, positions, layer_cache=None, cache_pos=None,
+                segment_ids=None, attn_mask=None, prefill=False):
+        """Returns (output, (k, v) of this step for a decode step or a
+        verify window, else None)."""
+        B, S, _ = x.shape
+        q, k, v = self.project_qkv(x, positions)
 
         new_col = None
         per_row = isinstance(cache_pos, torch.Tensor)
@@ -463,7 +514,7 @@ class LlamaAttention(nn.Module):
                 out = ops.multi_head_attention(
                     q, k, v, causal=True, segment_ids=segment_ids,
                     attn_mask=attn_mask)
-        return self.o_proj(out.reshape(B, S, H * D)), new_col
+        return self.project_out(out), new_col
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -477,8 +528,38 @@ class LlamaDecoderLayer(nn.Module):
 
     def forward(self, x, **kw):
         attn_out, new_col = self.self_attn(self.input_layernorm(x), **kw)
+        cfg = self.self_attn.config
+        if cfg.remat and cfg.remat_policy == "dots_lite" \
+                and torch.is_grad_enabled():
+            # o_proj's output kept: the replay of the MLP branch needs
+            # x + attn_out, not the product itself
+            attn_out = remat_save(attn_out)
         x = x + attn_out
         return x + self.mlp(self.post_attention_layernorm(x)), new_col
+
+    def _pre_attention(self, x, positions):
+        return self.self_attn.project_qkv(self.input_layernorm(x), positions)
+
+    def _post_attention(self, x, out):
+        x = x + self.self_attn.project_out(out)
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+    def forward_hoist_attn(self, x, *, positions, segment_ids=None,
+                           attn_mask=None):
+        """``remat_policy="hoist_attn"`` (the reference's
+        ``_call_hoist_attn``): the projections and, apart, the output
+        projection with the MLP are checkpointed (saving nothing inside),
+        and the attention kernel runs between them outside any
+        checkpointed region, so its saved tensors are kept and K1 runs
+        once per layer and step, not twice. Costs q, k, v and the
+        attention output kept per layer."""
+        q, k, v = checkpoint(self._pre_attention, x, positions,
+                             use_reentrant=False)
+        out = ops.multi_head_attention(q, k, v, causal=True,
+                                       segment_ids=segment_ids,
+                                       attn_mask=attn_mask)
+        return checkpoint(self._post_attention, x, out,
+                          use_reentrant=False), None
 
 
 class LlamaModel(nn.Module):

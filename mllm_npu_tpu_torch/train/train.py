@@ -28,12 +28,15 @@ the JSONL metrics under ``--output_dir`` and resumes from the latest
 checkpoint there (or under ``--resume_from_checkpoint``) at the exact
 data position; a checkpoint holds the trainable parameters alone, and
 the frozen ones come back from the model's files.
+``--dataloader_workers N`` feeds the loop from N spawned worker processes
+(``data/dataloader.py MultiProcessDataLoader``; the run logs which kind of
+worker it got), whose per-worker positions the checkpoint holds, so a
+resume with the same N is exact.
 
 It runs on ``--device`` (default ``cuda``) and raises without a GPU unless
 given ``--device cpu``. Not ported yet, and raising when asked for:
-meshes other than one device (``--mesh_*``), an orbax
-``--params_checkpoint`` (the JAX package's) and ``--dataloader_workers >
-0``.
+meshes other than one device (``--mesh_*``) and an orbax
+``--params_checkpoint`` (the JAX package's).
 """
 
 from __future__ import annotations
@@ -49,6 +52,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from mllm_npu_tpu_torch.data.datapipes import PipeFactory
 
 log = logging.getLogger("mllm_npu_tpu_torch.train")
 
@@ -126,10 +131,6 @@ def _refuse_unported(args: TrainArgs) -> None:
     if args.quantize_base not in ("", "int8", "int4"):
         raise ValueError(f"--quantize_base takes int8 or int4, got "
                          f"{args.quantize_base!r}")
-    if args.dataloader_workers > 0:
-        raise NotImplementedError(
-            "--dataloader_workers > 0 (the multi-process loader) is not "
-            "ported yet (ROADMAP queue 1); use 0")
 
 
 def build_tokenizer(args: TrainArgs, cfg: dict, vocab_size: int):
@@ -144,28 +145,17 @@ def build_tokenizer(args: TrainArgs, cfg: dict, vocab_size: int):
     return instantiate(node)
 
 
-class PipeFactory:
-    """seed → the dataset mixture of ``ds_cfg`` (``build_multi_datapipes``)."""
-
-    def __init__(self, ds_cfg: dict, tokenizer, processor):
-        self.ds_cfg = ds_cfg
-        self.tokenizer = tokenizer
-        self.processor = processor
-
-    def __call__(self, seed):
-        from mllm_npu_tpu_torch.data.datapipes import build_multi_datapipes
-        return build_multi_datapipes(
-            self.ds_cfg["datapipes"], tokenizer=self.tokenizer,
-            image_transform=self.processor,
-            sample_weights=self.ds_cfg.get("sample_weights"), seed=seed)
-
-
 _LONG_KEYS = ("input_ids", "labels")
 
 
 def batch_to_device(batch: dict, device) -> dict:
     """The data layer's numpy batch → the model's keyword arguments on
-    ``device`` (ids and labels as int64)."""
+    ``device`` (ids and labels as int64). To a GPU each array goes through
+    pinned memory (the caching host allocator's), so its copy runs at the
+    link's rate and does not block the host: from pageable memory, a 94.6
+    MiB batch's copy held an H100 for 0.22 s of a 1.6 s step
+    (``chip_smoke.py`` phase 16b)."""
+    pin = torch.device(device).type == "cuda"
     out = {}
     for k, v in batch.items():
         if not isinstance(v, np.ndarray):
@@ -177,6 +167,8 @@ def batch_to_device(batch: dict, device) -> dict:
         t = torch.from_numpy(v if v.flags.writeable else v.copy())
         if k in _LONG_KEYS:
             t = t.long()
+        if pin:
+            t = t.pin_memory()
         out[k] = t.to(device, non_blocking=True)
     return out
 
@@ -192,11 +184,11 @@ def mllm_loss(model, batch):
 
 def main(argv=None, on_step: Optional[Callable[[dict], None]] = None):
     """Run the trainer; returns a namespace with the model, the optimizer,
-    the last step's micro-batches and the records of the logged steps
-    (unrounded). ``on_step(record)`` is called after every
-    optimizer step, which then also records every step; its record also
-    holds ``datasets``, the mixture entry (``dataset_name``) of each of
-    the step's micro-batches."""
+    the data loader (shut down), the last step's micro-batches and the
+    records of the logged steps (unrounded). ``on_step(record)`` is called
+    after every optimizer step, which then also records every step; its
+    record also holds ``datasets``, the mixture entry (``dataset_name``) of
+    each of the step's micro-batches."""
     logging.basicConfig(level=logging.INFO)
     args = parse_args(argv)
     _refuse_unported(args)
@@ -206,7 +198,8 @@ def main(argv=None, on_step: Optional[Callable[[dict], None]] = None):
     from mllm_npu_tpu_torch.train.checkpoint import (
         CheckpointManager, install_sigterm_checkpoint)
     from mllm_npu_tpu_torch.train.train_state import (
-        AdamW, OptimizerConfig, make_train_step, trainable_parameters)
+        OptimizerConfig, build_optimizer, make_train_step,
+        trainable_parameters)
     from mllm_npu_tpu_torch.train.trackers import build_trackers
     from mllm_npu_tpu_torch.utils.device import resolve_device
 
@@ -246,7 +239,7 @@ def main(argv=None, on_step: Optional[Callable[[dict], None]] = None):
         max_grad_norm=args.max_grad_norm, scheduler=args.lr_scheduler_type,
         warmup_steps=args.warmup_steps, total_steps=args.max_steps,
         min_lr_ratio=args.min_lr_ratio, mu_dtype=args.mu_dtype)
-    optimizer = AdamW(params, opt_cfg)
+    optimizer = build_optimizer(params, opt_cfg)
     step_fn = make_train_step(model, mllm_loss, optimizer)
     ga = args.gradient_accumulation_steps
 
@@ -275,78 +268,86 @@ def main(argv=None, on_step: Optional[Callable[[dict], None]] = None):
     t0 = time.time()
     step = start_step
     epoch_mark = loader.state_dict()["steps"]
-    while step < args.max_steps:
-        try:
-            batch = next(data_iter)
-        except StopIteration:
-            # epoch boundary: reseed (the reference's semantics) and restart
-            consumed = loader.state_dict()["steps"]
-            if consumed == epoch_mark:
-                raise RuntimeError("data stream yielded no batches — "
-                                   "check the dataset config paths")
-            epoch_mark = consumed
-            loader.next_epoch(resume_steps=start_step)
-            data_iter = iter(loader)
-            continue
-        micro.append(batch_to_device(batch, device))
-        names.append(batch.get("dataset_name"))
-        if len(micro) < ga:
-            continue
-        batches, micro = micro, []
-        datasets, names = names, []
+    try:
+        while step < args.max_steps:
+            try:
+                batch = next(data_iter)
+            except StopIteration:
+                # epoch boundary: reseed (the reference's semantics) and
+                # restart
+                consumed = loader.state_dict()["steps"]
+                if consumed == epoch_mark:
+                    raise RuntimeError("data stream yielded no batches — "
+                                       "check the dataset config paths")
+                epoch_mark = consumed
+                loader.next_epoch(resume_steps=start_step)
+                data_iter = iter(loader)
+                continue
+            micro.append(batch_to_device(batch, device))
+            names.append(batch.get("dataset_name"))
+            if len(micro) < ga:
+                continue
+            batches, micro = micro, []
+            datasets, names = names, []
 
-        prof = None
-        if args.profile_steps and step == args.profile_steps:
-            prof = torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                *([torch.profiler.ProfilerActivity.CUDA]
-                  if device.type == "cuda" else [])])
-            prof.__enter__()
-        loss, metrics = step_fn(batches)
-        if prof is not None:
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            prof.__exit__(None, None, None)
-            prof.export_chrome_trace(str(Path(args.output_dir)
-                                         / f"profile_step{step}.json"))
+            prof = None
+            if args.profile_steps and step == args.profile_steps:
+                prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    *([torch.profiler.ProfilerActivity.CUDA]
+                      if device.type == "cuda" else [])])
+                prof.__enter__()
+            loss, metrics = step_fn(batches)
+            if prof is not None:
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                prof.__exit__(None, None, None)
+                prof.export_chrome_trace(str(Path(args.output_dir)
+                                             / f"profile_step{step}.json"))
 
-        applied_data_state = loader.state_dict()
-        step += 1
-        state["step"] = step
-        if step % args.log_steps == 0 or on_step is not None:
-            loss_v = float(loss)
-            dt = (time.time() - t0) / (args.log_steps if on_step is None
-                                       else 1)
-            t0 = time.time()
-            tokens = sum(int(b["input_ids"].numel()) for b in batches)
-            n_imgs = int(batches[-1]["images"].shape[0]) \
-                if "images" in batches[-1] else 0
-            rec = {"step": step, "loss": loss_v,
-                   "lr": float(optimizer.schedule(step)), "sec/step": dt,
-                   "tokens/s": tokens / max(dt, 1e-9),
-                   "images/s": n_imgs / max(dt, 1e-9)}
-            rec.update({k: float(v) for k, v in metrics.items()})
-            records.append(rec)
-            if step % args.log_steps == 0:
-                digits = {"sec/step": 3, "tokens/s": 0, "images/s": 2,
-                          "lr": None}
-                log.info(json.dumps({
-                    k: v if digits.get(k, 4) is None
-                    else round(v, digits.get(k, 4)) for k, v in rec.items()}))
-                if writer is not None:
-                    writer.log({k: v for k, v in rec.items()
-                                if k not in ("step", "sec/step", "tokens/s",
-                                             "images/s")}, step)
-            if on_step is not None:
-                on_step(dict(rec, datasets=datasets))
-        if step % args.save_steps == 0:
-            save(step)
+            applied_data_state = loader.state_dict()
+            step += 1
+            state["step"] = step
+            if step % args.log_steps == 0 or on_step is not None:
+                loss_v = float(loss)
+                dt = (time.time() - t0) / (
+                    args.log_steps if on_step is None else 1)
+                t0 = time.time()
+                tokens = sum(int(b["input_ids"].numel()) for b in batches)
+                n_imgs = int(batches[-1]["images"].shape[0]) \
+                    if "images" in batches[-1] else 0
+                rec = {"step": step, "loss": loss_v,
+                       "lr": float(optimizer.schedule(step)),
+                       "sec/step": dt,
+                       "tokens/s": tokens / max(dt, 1e-9),
+                       "images/s": n_imgs / max(dt, 1e-9)}
+                rec.update({k: float(v) for k, v in metrics.items()})
+                records.append(rec)
+                if step % args.log_steps == 0:
+                    digits = {"sec/step": 3, "tokens/s": 0,
+                              "images/s": 2, "lr": None}
+                    log.info(json.dumps({
+                        k: v if digits.get(k, 4) is None
+                        else round(v, digits.get(k, 4))
+                        for k, v in rec.items()}))
+                    if writer is not None:
+                        writer.log({k: v for k, v in rec.items()
+                                    if k not in ("step", "sec/step",
+                                                 "tokens/s", "images/s")},
+                                   step)
+                if on_step is not None:
+                    on_step(dict(rec, datasets=datasets))
+            if step % args.save_steps == 0:
+                save(step)
+    finally:
+        loader.shutdown()
 
     save(step)
     if writer is not None:
         writer.close()
     log.info("training done at step %d", step)
     return types.SimpleNamespace(model=model, optimizer=optimizer,
+                                 loader=loader,
                                  last_batches=batches if step > start_step
                                  else None, records=records)
 

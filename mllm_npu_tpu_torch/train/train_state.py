@@ -7,7 +7,9 @@ The trainable set is the model's parameters that require a gradient
 never get a gradient or optimizer state, where the reference runs them
 through ``optax.set_to_zero``. :class:`AdamW` is the reference's
 ``clip_by_global_norm → adamw`` chain written as plain tensor functions
-with optax's semantics:
+with optax's semantics (:class:`Adafactor`, its ``adafactor`` chain, is
+described in its class; :func:`build_optimizer` picks one by
+``OptimizerConfig.optimizer``):
 
 - the global norm is taken over the trainable gradients, and they are
   scaled by ``min(1, max_norm / norm)`` (no epsilon);
@@ -28,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -52,7 +54,7 @@ class OptimizerConfig:
     total_steps: int = 100_000
     min_lr_ratio: float = 0.05
     mu_dtype: str = "float32"  # float32 | bfloat16
-    optimizer: str = "adamw"   # adafactor is not ported yet
+    optimizer: str = "adamw"   # adamw | adafactor (build_optimizer)
 
 
 def apply_frozen_patterns(model: nn.Module, frozen_patterns) -> None:
@@ -78,29 +80,56 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
 
 
-class AdamW:
-    """AdamW with global-norm clipping over ``params`` (see the module
-    docstring for the exact semantics). ``count`` is the number of updates
-    applied."""
+class _ClippedOptimizer:
+    """What AdamW and Adafactor share: the trainable ``params``, the
+    schedule, ``count`` (the number of updates applied), the global-norm
+    clip and the state as the per-parameter tensor dicts named in
+    ``_STATE``."""
+    _STATE: Tuple[str, ...] = ()
 
     def __init__(self, params: Sequence[Tuple[str, nn.Parameter]],
                  config: OptimizerConfig):
-        if config.optimizer != "adamw":
-            raise NotImplementedError(
-                f"optimizer {config.optimizer!r} is not ported yet (ported: "
-                "adamw)")
         self.params = list(params)
         self.config = config
         self.schedule = get_scheduler(
             config.scheduler, base_lr=config.lr,
             warmup_steps=config.warmup_steps, total_steps=config.total_steps,
             min_lr_ratio=config.min_lr_ratio)
+        self.count = 0
+
+    def _clip(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(the norm of the trainable gradients, the factor that clips them
+        to ``max_grad_norm``: ``min(1, max_norm / norm)``)."""
+        norm = global_norm([p.grad for _, p in self.params])
+        max_norm = self.config.max_grad_norm
+        return norm, torch.where(norm < max_norm, torch.ones_like(norm),
+                                 max_norm / norm)
+
+    def state_dict(self) -> dict:
+        return {"count": self.count,
+                **{k: dict(getattr(self, k)) for k in self._STATE}}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
+        for k in self._STATE:
+            for name, t in getattr(self, k).items():
+                t.copy_(state[k][name])
+
+
+class AdamW(_ClippedOptimizer):
+    """AdamW with global-norm clipping over ``params`` (see the module
+    docstring for the exact semantics)."""
+    _STATE = ("mu", "nu")
+
+    def __init__(self, params: Sequence[Tuple[str, nn.Parameter]],
+                 config: OptimizerConfig):
+        super().__init__(params, config)
         mu_dtype = _MU_DTYPES[config.mu_dtype]
         self.mu = {n: torch.zeros_like(p, dtype=mu_dtype)
                    for n, p in self.params}
         self.nu = {n: torch.zeros_like(p, dtype=torch.float32)
                    for n, p in self.params}
-        self.count = 0
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
@@ -109,15 +138,12 @@ class AdamW:
         changed."""
         cfg = self.config
         b1, b2 = cfg.betas
-        grads = [p.grad for _, p in self.params]
-        norm = global_norm(grads)
-        clip = torch.where(norm < cfg.max_grad_norm, torch.ones_like(norm),
-                           cfg.max_grad_norm / norm)
+        norm, clip = self._clip()
         lr = self.schedule(self.count)
         self.count += 1
         bc1, bc2 = 1.0 - b1 ** self.count, 1.0 - b2 ** self.count
-        for (name, p), g in zip(self.params, grads):
-            g = g.float() * clip
+        for name, p in self.params:
+            g = p.grad.float() * clip
             mu = self.mu[name].float().mul_(b1).add_(g, alpha=1.0 - b1)
             nu = self.nu[name].mul_(b2).addcmul_(g, g, value=1.0 - b2)
             upd = (mu / bc1).div_((nu / bc2).sqrt_().add_(cfg.eps))
@@ -127,16 +153,137 @@ class AdamW:
                 self.mu[name].copy_(mu)
         return norm
 
-    def state_dict(self) -> dict:
-        return {"count": self.count, "mu": dict(self.mu),
-                "nu": dict(self.nu)}
+
+def factored_dims(shape: Sequence[int], min_dim_size_to_factor: int = 128
+                  ) -> Optional[Tuple[int, int]]:
+    """The two largest dims (second largest, largest) of ``shape`` when
+    the second is at least ``min_dim_size_to_factor``, else None (optax's
+    ``_factored_dims``; ties keep the earlier dim first, as its argsort)."""
+    if len(shape) < 2:
+        return None
+    order = sorted(range(len(shape)), key=lambda i: shape[i])
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return order[-2], order[-1]
+
+
+class Adafactor(_ClippedOptimizer):
+    """The reference's ``clip_by_global_norm → optax.adafactor`` chain as
+    ``build_optimizer`` configures it (``min_dim_size_to_factor=128``,
+    ``multiply_by_parameter_scale=False``, ``clipping_threshold=None``,
+    ``momentum=betas[0]``, ``weight_decay_rate=weight_decay``):
+
+    - the clipped gradient's second moment, with β₂ = 1 − (t+1)^−0.8 at the
+      t-th update and ε = 1e-30 added to g²: factored over the two largest
+      dims (:func:`factored_dims`) into a row and a column mean, otherwise
+      full; the update is g / √v̂, with v̂ = row · col / mean(row);
+    - times the schedule's rate, then an EMA of that (``momentum``, no
+      bias correction) stored in ``mu_dtype``, whose fp32 value is used;
+    - then ``weight_decay · p`` is added AFTER the rate: each step takes
+      ``weight_decay`` of every trainable weight away, whatever the rate
+      (the reference's semantics; ROADMAP, known issues of the reference).
+
+    The port's Linear weights are the transposes of the reference's
+    kernels; the factored estimate is symmetric in its two dims, so the
+    update is the same, element for element, up to rounding. A port
+    parameter that stacks several of the reference's along dim 0 (the
+    attention's fused ``in_proj`` weight, q, k and v: ``splits[name] =
+    3``) keeps one second moment per stacked block, as the reference
+    does for each of its kernels."""
+    _STATE = ("mu", "v_row", "v_col", "v")
+
+    def __init__(self, params: Sequence[Tuple[str, nn.Parameter]],
+                 config: OptimizerConfig,
+                 splits: Optional[Dict[str, int]] = None):
+        super().__init__(params, config)
+        mu_dtype = _MU_DTYPES[config.mu_dtype]
+        self.mu = {n: torch.zeros_like(p, dtype=mu_dtype)
+                   for n, p in self.params}
+        # the second moment per block: the parameter itself, or its
+        # splits[name] chunks along dim 0 (keys name[i])
+        self.splits = dict(splits or {})
+        self.dims, self.v_row, self.v_col, self.v = {}, {}, {}, {}
+        for n, p in self.params:
+            for key, block in self._blocks(n, p):
+                dims = self.dims[key] = factored_dims(block.shape)
+                if dims is None:
+                    self.v[key] = torch.zeros_like(block)
+                else:
+                    d1, d0 = dims
+                    self.v_row[key] = torch.zeros_like(block.select(d0, 0))
+                    self.v_col[key] = torch.zeros_like(block.select(d1, 0))
+
+    def _blocks(self, name: str, t: torch.Tensor):
+        n = self.splits.get(name, 1)
+        if n == 1:
+            return [(name, t)]
+        return [(f"{name}[{i}]", b) for i, b in enumerate(t.chunk(n))]
+
+    def _scaled(self, key: str, g: torch.Tensor, beta2: float
+                ) -> torch.Tensor:
+        """g / √v̂ for one block, its second moment updated in place."""
+        g2 = g * g + 1e-30
+        dims = self.dims[key]
+        if dims is None:
+            v = self.v[key].mul_(beta2).add_(g2, alpha=1.0 - beta2)
+            return g * v.rsqrt()
+        d1, d0 = dims
+        row = self.v_row[key].mul_(beta2).add_(g2.mean(d0),
+                                               alpha=1.0 - beta2)
+        col = self.v_col[key].mul_(beta2).add_(g2.mean(d1),
+                                               alpha=1.0 - beta2)
+        row_d1 = d1 - 1 if d1 > d0 else d1
+        row_factor = (row / row.mean(row_d1, keepdim=True)).rsqrt()
+        return g * row_factor.unsqueeze(d0) * col.rsqrt().unsqueeze(d1)
 
     @torch.no_grad()
-    def load_state_dict(self, state: dict) -> None:
-        self.count = int(state["count"])
-        for name in self.mu:
-            self.mu[name].copy_(state["mu"][name])
-            self.nu[name].copy_(state["nu"][name])
+    def step(self) -> torch.Tensor:
+        """One update from the parameters' ``.grad``; returns the gradient
+        norm the clip used (before clipping)."""
+        cfg = self.config
+        b1 = cfg.betas[0]
+        norm, clip = self._clip()
+        lr = self.schedule(self.count)
+        # the decay schedule in fp32, as optax computes it
+        beta2 = float(1.0 - torch.tensor(self.count + 1.0) ** -0.8)
+        self.count += 1
+        for name, p in self.params:
+            g = p.grad.float() * clip
+            upd = torch.cat([self._scaled(key, b, beta2)
+                             for key, b in self._blocks(name, g)])
+            # EMA of the rate-scaled update; decay·mu is a product in mu's
+            # dtype, the decay rounded to it first (JAX's weak-typed scalar)
+            m = self.mu[name]
+            decay = float(torch.tensor(b1, dtype=m.dtype))
+            mu = (m * decay).float().add_(upd.mul_(lr), alpha=1.0 - b1)
+            if m is not mu:
+                m.copy_(mu)
+            p.sub_(torch.add(mu, p, alpha=cfg.weight_decay))
+        return norm
+
+
+def fused_qkv_splits(params: Sequence[Tuple[str, nn.Parameter]]
+                     ) -> Dict[str, int]:
+    """{name: 3} for each fused q/k/v projection weight among ``params``
+    (``…in_proj_weight``, ``…in_proj.weight``), which the reference holds as
+    three kernels."""
+    return {n: 3 for n, p in params
+            if n.endswith(("in_proj_weight", "in_proj.weight"))
+            and p.dim() == 2}
+
+
+def build_optimizer(params: Sequence[Tuple[str, nn.Parameter]],
+                    config: OptimizerConfig) -> _ClippedOptimizer:
+    """``config.optimizer``'s optimizer over ``params`` (the reference's
+    ``build_optimizer``): ``adamw``, or ``adafactor`` with the fused q/k/v
+    weights' blocks (:func:`fused_qkv_splits`)."""
+    if config.optimizer == "adamw":
+        return AdamW(params, config)
+    if config.optimizer == "adafactor":
+        params = list(params)
+        return Adafactor(params, config, splits=fused_qkv_splits(params))
+    raise ValueError(f"optimizer {config.optimizer!r}: the reference has "
+                     "adamw and adafactor")
 
 
 def dropout_seed(step: int) -> int:
@@ -175,7 +322,8 @@ def compute_grads(model: nn.Module, loss_fn: Callable, micro_batches
     return loss_sum, metrics_sum
 
 
-def make_train_step(model: nn.Module, loss_fn: Callable, optimizer: AdamW):
+def make_train_step(model: nn.Module, loss_fn: Callable,
+                    optimizer: _ClippedOptimizer):
     """step(micro_batches) → (loss, metrics): gradients averaged over the
     micro-batches (one for no accumulation), then one optimizer update.
     ``metrics["grad_norm"]`` is the norm over the trainable gradients that

@@ -196,5 +196,12 @@ def test_collates_match_reference():
 
 
 def test_multiprocess_loader_is_refused():
-    with pytest.raises(NotImplementedError):
-        make_dataloader(lambda seed: [], num_workers=2)
+    """No longer refused: ``num_workers > 0`` gives the process pool
+    (held against the reference's in ``tests/test_torch_dataloader.py``),
+    and 0 the threaded loader."""
+    from mllm_npu_tpu_torch.data.dataloader import MultiProcessDataLoader
+    pool = make_dataloader(lambda seed: [], num_workers=2)
+    assert isinstance(pool, MultiProcessDataLoader)
+    assert pool.num_workers == 2
+    assert isinstance(make_dataloader(lambda seed: [], num_workers=0),
+                      DataLoader)

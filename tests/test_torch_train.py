@@ -35,6 +35,7 @@ from PIL import Image
 
 from mllm_npu_tpu.train.scheduler import get_scheduler as j_scheduler
 from mllm_npu_tpu.train.train_state import OptimizerConfig as JOptConfig
+from mllm_npu_tpu.train.train_state import build_optimizer as j_build_opt
 from mllm_npu_tpu.train.train_state import create_train_state
 from mllm_npu_tpu.train.train_state import make_train_step as j_make_step
 from mllm_npu_tpu.utils.testing import TinySpec as JSpec
@@ -46,7 +47,9 @@ from mllm_npu_tpu_torch.models.language_models.llama import (
 from mllm_npu_tpu_torch.ops.flash_attention import FlashAttention
 from mllm_npu_tpu_torch.train.checkpoint import CheckpointManager
 from mllm_npu_tpu_torch.train.scheduler import get_scheduler
-from mllm_npu_tpu_torch.train.train_state import (AdamW, OptimizerConfig,
+from mllm_npu_tpu_torch.train.train_state import (AdamW, Adafactor,
+                                                  OptimizerConfig,
+                                                  build_optimizer,
                                                   compute_grads,
                                                   make_train_step,
                                                   trainable_parameters)
@@ -80,9 +83,9 @@ def reference():
     return jm, params, batch
 
 
-def _port(params, **build_kw):
+def _port(params, llama_kw=LLAMA_KW, **build_kw):
     tm, _, _ = build_tiny_mllm(TinySpec(), device="cpu", train=True,
-                               llama_kw=LLAMA_KW, **build_kw)
+                               llama_kw=llama_kw, **build_kw)
     tm.load_state_dict(from_jax_params(jax.tree_util.tree_map(
         np.asarray, params["params"])), strict=True)
     tm.train()
@@ -258,11 +261,16 @@ def test_frozen_params_unchanged_after_step(reference):
             - lm_before).abs().max() > 0
 
 
-@pytest.mark.parametrize("policy", ["nothing", "dots"])
+REMAT_POLICIES = ["nothing", "dots", "dots_no_batch", "dots_lite",
+                  "hoist_attn"]
+
+
+@pytest.mark.parametrize("policy", REMAT_POLICIES)
 def test_remat_gives_the_same_grads(reference, policy):
     """Per-layer checkpointing (with LoRA dropout on, so the replay must
     draw the same masks) gives the gradients of no checkpointing, and runs
-    the flash forward twice per layer."""
+    the flash forward twice per layer (once under ``hoist_attn``, which
+    keeps the attention outside the checkpointed regions)."""
     _, params, batch = reference
     b = _to_port(batch)
     grads = {}
@@ -287,13 +295,34 @@ def test_remat_gives_the_same_grads(reference, policy):
         finally:
             FlashAttention.forward = staticmethod(orig)
         n_layers = tm.language_model.config.num_hidden_layers
-        # the resampler once, each Llama layer once (twice under remat)
-        assert len(calls) == 1 + n_layers * (2 if remat else 1)
+        # the resampler once, each Llama layer once (twice under remat but
+        # for hoist_attn)
+        runs = 2 if remat and policy != "hoist_attn" else 1
+        assert len(calls) == 1 + n_layers * runs
         grads[remat] = {n: p.grad.clone()
                         for n, p in trainable_parameters(tm)}
     for n, g in grads[False].items():
         np.testing.assert_allclose(grads[True][n].numpy(), g.numpy(),
                                    atol=1e-6, err_msg=n)
+
+
+@pytest.mark.parametrize("policy", REMAT_POLICIES)
+def test_remat_grads_match_reference(policy):
+    """Each policy's gradients against the JAX model's under the same
+    policy (``LlamaConfig(remat=True, remat_policy=...)`` on both sides),
+    fp32, dropout off: within 1e-5."""
+    kw = dict(LLAMA_KW, remat=True, remat_policy=policy)
+    jm, _, _ = j_build(SPEC, llama_kw=kw)
+    batch = synthetic_batch(SPEC, cmp_images=2)
+    params = {"params": _nonzero_lora_b(
+        jm.init(jax.random.PRNGKey(0), **batch)["params"])}
+    jgrads = _named(jax.grad(lambda p: _jax_loss(jm)(p, batch)[0])(
+        params)["params"])
+    tm = _port(params, llama_kw=kw)
+    compute_grads(tm, mllm_loss, [_to_port(batch)])
+    for n, p in trainable_parameters(tm):
+        np.testing.assert_allclose(p.grad.numpy(), jgrads[n], atol=1e-5,
+                                   err_msg=f"{policy}: grad {n}")
 
 
 def test_lora_dropout_active_only_in_training():
@@ -396,6 +425,141 @@ def test_checkpoint_round_trip_is_exact(reference, tmp_path):
         assert torch.equal(opt.mu[n], opt2.mu[n])
         assert opt2.mu[n].dtype == torch.bfloat16
         assert torch.equal(opt.nu[n], opt2.nu[n])
+
+
+# ---- Adafactor ------------------------------------------------------------
+
+ADAFACTOR_SHAPES = {"square": (256, 256), "wide": (192, 384),
+                    "narrow": (64, 300), "vector": (130,),
+                    "stacked": (3, 160, 192)}
+
+
+def _port_layout(x):
+    """A JAX kernel [in, out] → the port's Linear weight [out, in]."""
+    x = np.asarray(x, np.float32)
+    return x.T.copy() if x.ndim == 2 else x
+
+
+@pytest.mark.parametrize("mu_dtype", ["float32", "bfloat16"])
+def test_adafactor_matches_optax_element_for_element(mu_dtype):
+    """Three updates of the port's Adafactor against the reference's
+    ``build_optimizer(optimizer="adafactor")`` on factored (two dims ≥ 128;
+    a 3-D tensor factored over its two largest) and unfactored tensors,
+    the 2-D ones held in the port's transposed layout: the updated values
+    within 1e-7 in fp32, the momentum within 1e-8. With a bf16 momentum, the two round decay·mu alike
+    (in bf16, the decay rounded first), so the stored momentum agrees but
+    for rare ties: equal in 99.9% of elements, the rest within one bf16
+    step (2^-7 relative, or 2^-8 of the tensor's largest |mu| where a sum
+    cancels); the values within one such step (3.1e-5 here, |mu| <
+    8e-3)."""
+    rs = np.random.RandomState(0)
+    init = {k: rs.randn(*sh).astype(np.float32) * 0.1
+            for k, sh in ADAFACTOR_SHAPES.items()}
+    cfg = dict(lr=1e-2, warmup_steps=1, total_steps=10, mu_dtype=mu_dtype,
+               optimizer="adafactor")
+    tx, _ = j_build_opt(JOptConfig(frozen_patterns=(), **cfg),
+                        {"params": init})
+    jparams = {"params": {k: jnp.asarray(v) for k, v in init.items()}}
+    jstate = tx.init(jparams)
+    params = [(k, torch.nn.Parameter(torch.from_numpy(_port_layout(v))))
+              for k, v in init.items()]
+    opt = build_optimizer(params, OptimizerConfig(**cfg))
+    assert isinstance(opt, Adafactor)
+    assert opt.dims == {"square": (0, 1), "wide": (1, 0), "narrow": None,
+                        "vector": None, "stacked": (1, 2)}
+    for step in range(3):
+        grads = {k: rs.randn(*sh).astype(np.float32) * 0.01
+                 for k, sh in ADAFACTOR_SHAPES.items()}
+        upd, jstate = tx.update({"params": {
+            k: jnp.asarray(v) for k, v in grads.items()}}, jstate, jparams)
+        jparams = optax.apply_updates(jparams, upd)
+        for k, p in params:
+            p.grad = torch.from_numpy(_port_layout(grads[k]))
+        opt.step()
+        for k, p in params:
+            want = _port_layout(jparams["params"][k])
+            np.testing.assert_allclose(
+                p.detach().numpy(), want, rtol=0,
+                atol=1e-7 if mu_dtype == "float32" else 3.1e-5,
+                err_msg=f"step {step}: {k}")
+    assert opt.count == 3
+    ema = [s for s in jax.tree_util.tree_leaves(
+        jstate, is_leaf=lambda x: isinstance(x, optax.EmaState))
+        if isinstance(s, optax.EmaState)]
+    for k, _ in params:
+        want = _port_layout(np.asarray(ema[0].ema["params"][k], np.float32))
+        got = opt.mu[k].float().numpy()
+        if mu_dtype == "float32":
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-8)
+        else:
+            # one bf16 step, relative, or of the tensor's largest momentum
+            # (a sum that cancels keeps its operands' absolute error)
+            np.testing.assert_allclose(got, want, rtol=2 ** -7,
+                                       atol=2 ** -8 * np.abs(want).max())
+            assert (got == want).mean() >= 0.999, k
+
+
+def test_adafactor_steps_match_reference(reference):
+    """Three trainer steps with Adafactor (``OptimizerConfig(optimizer=
+    "adafactor")``, fp32 momentum, the default weight decay 0.05 added after
+    the rate) against the reference's: every parameter within 1e-6, but
+    the resampler's key bias. Its gradient is zero in exact arithmetic (the
+    softmax over keys does not see it) and rounding noise (~1e-9) in both,
+    which Adafactor's g/√(g² + 1e-30) turns into steps of ±1 times the
+    rate whose signs are the noise's: it is held to 2·lr a step."""
+    jm, params, batch = reference
+    cfg = dict(lr=1e-3, warmup_steps=1, total_steps=10, optimizer="adafactor")
+    jstate = create_train_state(params, JOptConfig(
+        frozen_patterns=("vision_encoder", "/base/"), **cfg))
+    jstep = jax.jit(j_make_step(_jax_loss(jm)))
+    tm = _port(params)
+    opt = build_optimizer(trainable_parameters(tm), OptimizerConfig(**cfg))
+    tstep = make_train_step(tm, mllm_loss, opt)
+    tbatch = _to_port(batch)
+    for step in range(3):
+        jstate, jloss, _ = jstep(jstate, batch)
+        tloss, _ = tstep([tbatch])
+        assert abs(float(tloss) - float(jloss)) <= 1e-5, step
+        jp = _named(jstate.params["params"])
+        for n, p in tm.named_parameters():
+            got, want = p.detach().numpy(), jp[n]
+            if n == "projector.attn.in_proj_bias":
+                E = got.shape[0] // 3
+                np.testing.assert_allclose(
+                    got[E:2 * E], want[E:2 * E], rtol=0,
+                    atol=2 * cfg["lr"] * (step + 1), err_msg="key bias")
+                got = np.concatenate([got[:E], got[2 * E:]])
+                want = np.concatenate([want[:E], want[2 * E:]])
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-6,
+                                       err_msg=f"{step}: {n}")
+
+
+def test_adafactor_checkpoint_round_trip_is_exact(reference, tmp_path):
+    _, params, batch = reference
+    cfg = OptimizerConfig(lr=1e-3, warmup_steps=0, optimizer="adafactor",
+                          mu_dtype="bfloat16")
+    tm = _port(params)
+    opt = build_optimizer(trainable_parameters(tm), cfg)
+    step = make_train_step(tm, mllm_loss, opt)
+    for _ in range(2):
+        step([_to_port(batch)])
+    assert opt.v_row and opt.v and opt.count == 2
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(2, tm, opt)
+    tm2 = _port(params)
+    opt2 = build_optimizer(trainable_parameters(tm2), cfg)
+    assert mgr.restore(tm2, opt2)[1] == 2
+    assert opt2.count == 2
+    for key in ("mu", "v_row", "v_col", "v"):
+        a, b = getattr(opt, key), getattr(opt2, key)
+        assert a.keys() == b.keys()
+        for n in a:
+            assert a[n].dtype == b[n].dtype and torch.equal(a[n], b[n]), n
+    # and the next step is the same step
+    step([_to_port(batch)])
+    make_train_step(tm2, mllm_loss, opt2)([_to_port(batch)])
+    for (n, a), (_, b) in zip(tm.named_parameters(), tm2.named_parameters()):
+        assert torch.equal(a, b), n
 
 
 # ---- CLI end to end ------------------------------------------------------
@@ -538,12 +702,35 @@ def test_train_cli_refuses_what_is_not_ported(cli_files):
     orbax.mkdir(parents=True)
     (orbax / "_CHECKPOINT_METADATA").write_text("{}")
     for extra in (["--mesh_fsdp", "2"],
-                  ["--params_checkpoint", str(orbax.parent)],
-                  ["--dataloader_workers", "2"]):
+                  ["--params_checkpoint", str(orbax.parent)]):
         with pytest.raises(NotImplementedError):
             main(base + extra)
     with pytest.raises(ValueError, match="int8 or int4"):
         main(base + ["--quantize_base", "int2"])
+
+
+def test_train_cli_with_workers_resumes_exactly(cli_files):
+    """``--dataloader_workers 2`` over two shards: spawned workers, whose
+    positions the checkpoint at step 2 holds; the resumed run's step 3 takes
+    the uninterrupted run's batch, loss and parameters exactly."""
+    from mllm_npu_tpu_torch.train.train import main
+    tmp, model_yaml, data_yaml = cli_files
+    _make_caption_tar(tmp / "shard-001.tar")
+    workers = ["--dataloader_workers", "2"]
+    full = main(_argv(model_yaml, data_yaml, tmp / "full", 3, 100) + workers)
+    assert full.loader.worker_kind == "spawn"
+    out = tmp / "out"
+    main(_argv(model_yaml, data_yaml, out, 2, 2) + workers)
+    state = json.loads((out / "checkpoint_2" / "data.json").read_text())
+    assert state["num_workers"] == 2 and all(state["workers"])
+    resumed = main(_argv(model_yaml, data_yaml, out, 3, 100) + workers)
+    assert [r["step"] for r in resumed.records] == [3]
+    assert resumed.records[0]["loss"] == full.records[2]["loss"]
+    for k, v in full.last_batches[0].items():
+        assert torch.equal(resumed.last_batches[0][k], v), k
+    for (n, a), (_, b) in zip(resumed.model.named_parameters(),
+                              full.model.named_parameters()):
+        assert torch.equal(a, b), n
 
 
 def test_train_cli_raises_without_gpu(cli_files, monkeypatch):
