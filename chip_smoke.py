@@ -11,7 +11,8 @@ exits non-zero. Phases, in order:
    every kernel of the paths from ``mllm_npu_tpu_torch/csrc`` with
    ``nvcc``, one process per source, all started together: K1
    (``flash_fwd.cu``), K2 and K3 (``flash_bwd.cu``), K4 and K5
-   (``quant_matmul.cu``);
+   (``quant_matmul.cu``), and for fp32 operands K1 f32
+   (``flash_fwd_f32.cu``), K4 f32 and K5 f32 (``quant_matmul_f32.cu``);
 2. the full-width model: the port's ``mllm_llama3_8b_siglip_vit.yaml``
    (Llama-3-8B with r32 LoRA, SigLIP-so400m, attention resampler), bf16,
    weights drawn from seed 0, ``FakeTokenizer`` at vocab 128587;
@@ -143,15 +144,16 @@ exits non-zero. Phases, in order:
    as the yardstick, per shape and per training step;
 10. SEED-X at full width, after the Llama-3 models are dropped: the port's
    ``seedx_llama2_13b_qwenvl_vitg.yaml`` through ``load_engine_from_config``
-   (Llama-2-13B with r32 LoRA, vocab 32330; Qwen-ViT-G-448 and its
+   (Llama-2-13B with r32 LoRA, vocab 32330, at ``SEEDX_LAYERS`` = 20 of its
+   40 layers in phases 10-13, a cut of depth; Qwen-ViT-G-448 and its
    attention pool; the input and output resamplers; bf16, weights from
    seed 0, ``FakeTokenizer``): its parameter count and resident memory;
    ``comprehension`` on an 896×896 image, a 448×448 image and a text
-   question with every kernel's count asserted (K1 90 an image request, 40
+   question with every kernel's count asserted (K1 70 an image request, 20
    a text one); the image request's prefill logits with K1 against K1's
    plain version everywhere; ``text_to_image_features`` on a caption (64
    forced image tokens, ``img_gen_feat`` [1, 64, 4096] against the same
-   request on K1's plain version, 41 K1 launches; the graphed decode's
+   request on K1's plain version, 21 K1 launches; the graphed decode's
    ids and features equal the eager decode's; a control: the plain
    version with P rounded to bf16, against the plain version); the graph
    cache under the three requests and the caption, twice interleaved; the
@@ -161,19 +163,21 @@ exits non-zero. Phases, in order:
    twin's step, tokens/s, the cache's size, ``decode_attention``'s share of
    the step and a replayed step under ``torch.profiler`` (no copy of the
    cache among its longest kernels); then the Llama quantized to int8 in
-   place, one image request (281 K4 launches a forward) and its prefill
+   place, one image request (141 K4 launches a forward) and its prefill
    logits with K4 against the plain quantized linears;
 11. the SDXL de-tokenizer, after phase 10's model is dropped: the worker's
    engine from ``seedx_worker.json`` with its ``generation_config``
    (``configs/generation/sd_xl_resampler.yaml``) through
    ``load_engine_from_config`` (SEED-X as in phase 10; the SDXL-base UNet,
-   2.57 B parameters, the SDXL VAE and the ResamplerXLV2, bf16, weights
-   from seed 0; the negative through SEED-X's own Qwen-ViT-G), served on
+   2.57 B parameters, the SDXL VAE and the ResamplerXLV2 in fp32, as the
+   reference's worker builds them, weights from seed 0; the negative
+   through SEED-X's own Qwen-ViT-G), served on
    127.0.0.1: one ``image_gen`` POST at the reference engine's defaults
    (1024×1024, Euler, 50 steps, guidance 7.5) with every kernel's count
    set to 0 before: code 0, a JPEG that decodes to 1024×1024, K1's
-   launches (41 for the features, 49 for the zero-image negative, 140 a
-   UNet forward); the time to features, the denoise loop, ms per UNet
+   launches (21 for the features, 49 for the zero-image negative, in
+   bf16) and K1 f32's (140 a UNet forward); the time to features, the
+   denoise loop, ms per UNet
    step, the VAE decode, the request and the peak; then the request's
    first UNet forward and the final latents of a 4-step run of the same
    seed with K1, with K1's plain version and with the plain version
@@ -218,7 +222,7 @@ exits non-zero. Phases, in order:
    0.1), over one batch's worth of seeded data each, the caption batch cut
    from 28 to the largest of 4, 2 that fits (printed), with the SEED-X
    launcher's lr, cosine schedule, warmup and bf16: every step's K1, K2,
-   K3 counts (131, 42, 42 under remat; K2/K3 by head dim: one each at
+   K3 counts (91, 22, 22 under remat; K2/K3 by head dim: one each at
    D = 160, the input projector; all in the Hopper regime) asserted for
    either entry's batch, both entries run, a finite loss, ``rec_loss`` >
    0 on a caption batch, a checkpoint; then a few steps on one repeated
@@ -227,10 +231,10 @@ exits non-zero. Phases, in order:
    gradients with K1/K2/K3 against plain attention (remat ``nothing``,
    dropout off): the LoRA, the input projector, the output projector and
    ``patch_pos_embed`` cos ≥ 0.99; d. the int4 QLoRA recipe
-   (``--quantize_base int4``) the same way, K5 asserted per step (561:
-   the 280 quantized bases twice under remat, and the lm_head) and K4
+   (``--quantize_base int4``) the same way, K5 asserted per step (281:
+   the 140 quantized bases twice under remat, and the lm_head) and K4
    never, its peak against the bf16 recipe's and the loss falling on a
-   repeated batch, then one int8 step (K4 561); a. with the model
+   repeated batch, then one int8 step (K4 281); a. with the model
    dropped: K2 and K3 at head dims 144 and 160 against their plain
    versions across an edge sweep (causal GQA with segments, lengths off
    the tile, Sq != Sk, MHA at 600), then K1 with its LSE, K2 and K3 at the
@@ -241,7 +245,10 @@ exits non-zero. Phases, in order:
    of the 13B's projections and lm_head;
 14. the reference's checkpoints, after phase 13 (the counts set to 0
    before each request and forward, read after): phase 2's seeded 8B
-   assembly built again and written in the reference's layouts under a
+   assembly at ``CKPT_LAYERS`` = 8 of its 32 layers (a cut of depth; every
+   width full) built, serving phase 4's three requests and, quantized to
+   int8, phase 7's two (the ids every load is held to), and written in
+   the reference's layouts under a
    temporary directory (removed at the end): the base Llama as an HF
    directory of safetensors shards of at most 5 GB at its own vocabulary
    of 128256 without adapters, SigLIP as an HF directory, the assembly as
@@ -249,10 +256,10 @@ exits non-zero. Phases, in order:
    norms as ``modules_to_save.default`` beside zeroed ``original_module``
    copies, the resized ``embed_tokens`` and ``lm_head``, the projector,
    ``patch_pos_embed``); the engine built from a copy of the 8B YAML
-   naming them: every tensor equal to its source bit for bit, phase 4's
-   three requests' greedy ids and K1 counts (60, 60, 32); the same model
-   loaded again and quantized to int8: phase 7's two requests' ids and
-   K4 counts; the time from
+   naming them: every tensor equal to its source bit for bit, the
+   source's three greedy id streams and K1 counts (36, 36, 8); the same
+   model loaded again and quantized to int8: the source's two int8
+   streams and K4 counts; the time from
    a new process's start to the first token, from the files;
    ``tools.convert_checkpoint`` on the
    same YAML in a process of its own, then the worker's engine from
@@ -321,7 +328,27 @@ exits non-zero. Phases, in order:
    enough micro-batches that each task reaches the loss (text rows without
    image slots).
 
-Phases 2 to 16 build from copies of the shipped configs with their
+17. fp32 serving (``--no-cast-bf16``), last: a. K1 f32 against its fp32
+   plain version at the fp32 paths' shapes (the 8B prefill padded to batch
+   2 with segments, SigLIP, the resampler, the fp32 UNet's self- and
+   cross-attention, D = 104 and 160), each beside one-pass TF32 (the same
+   kernel with big·big alone), which must fail the tolerance the kernel
+   passes; b. K4 f32 and K5 f32 against theirs at the 8B's shapes at
+   M = 1, 8 and 339, beside the plain product in TF32; c. the 8B assembly
+   built in fp32 by the worker's ``load_engine_from_config(cast_bf16=
+   False)`` (about 32 GiB, never touched by a bf16 engine), its 896×896
+   request through ``InferenceEngine(cast_params_bf16=False)``: K1 f32's
+   60 launches, TTFT, ms/token graphed and eager, the peak, and its
+   greedy ids against the plain attention's under the logit rule (the
+   control: one-pass TF32); d. the batched worker over that model answers
+   4 POSTs over HTTP, then over the same model quantized to int8 in place
+   (from its fp32 weights) one POST through K4 f32, then the worker's
+   ``--no-cast-bf16 --quantize-int4`` build one request through K5 f32.
+   Both TF32 flags are off for the run (``torch.backends.cuda.matmul``
+   and ``torch.backends.cudnn``): fp32 products and convolutions in full
+   fp32, as printed beside phases 11 and 17.
+
+Phases 2 to 17 build from copies of the shipped configs with their
 checkpoint paths null (``use_seeded_configs``): the repository holds no
 weights, and a configured path that does not exist raises.
 
@@ -343,6 +370,7 @@ import sys
 import tarfile
 import tempfile
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -351,6 +379,9 @@ ROOT = Path(__file__).resolve().parent
 # (before PV) and O to bf16, 2^-9 relative each, so |err| <= ATOL + RTOL·|O|
 BF16_ATOL, BF16_RTOL = 1e-2, 1e-2
 H100_BF16_FLOPS = 989e12
+# the dense TF32 rate: the card's peak for fp32 operands on its tensor
+# cores, the bound of K1 f32, K4 f32 and K5 f32
+H100_TF32_FLOPS = 494.7e12
 H100_BYTES_PER_S = 3.35e12
 MAX_NEW_TOKENS = 32
 # tokens of the text request phase 6 profiles (the profiler's own host
@@ -424,12 +455,15 @@ def use_seeded_configs():
         os.replace(tmp, out / name)
         return str(out / name)
 
-    def copy(rel):
-        node = yaml.safe_load((ROOT / rel).read_text())
+    def copy(rel, layers=None):
+        node = null_checkpoints(yaml.safe_load((ROOT / rel).read_text()))
+        if layers is not None:
+            node["mllm"]["language_model"]["model"]["num_hidden_layers"] = \
+                layers
         return write(Path(rel).name,
-                     yaml.safe_dump(null_checkpoints(node), sort_keys=False))
-    LLAMA3_YAML, SEEDX_YAML, GEN_CONFIG = map(
-        copy, (LLAMA3_YAML, SEEDX_YAML, GEN_CONFIG))
+                     yaml.safe_dump(node, sort_keys=False))
+    LLAMA3_YAML, GEN_CONFIG = map(copy, (LLAMA3_YAML, GEN_CONFIG))
+    SEEDX_YAML = copy(SEEDX_YAML, SEEDX_LAYERS)
     wc = json.loads((ROOT / SEEDX_WORKER).read_text())
     wc.update(model_config=SEEDX_YAML, generation_config=GEN_CONFIG)
     SEEDX_WORKER = write(Path(SEEDX_WORKER).name, json.dumps(wc, indent=1))
@@ -482,21 +516,25 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_case(name, B, Sq, Sk, Hq, Hkv, D, causal, pad_rows=None, seed=0):
-    """K1 against its plain version at one shape; returns the row for the
-    JSON line. ``pad_rows`` {batch row: real length} right-pads rows and
-    turns on segment ids."""
+def kernel_case(name, B, Sq, Sk, Hq, Hkv, D, causal, pad_rows=None, seed=0,
+                f32=False):
+    """K1 (with ``f32``, K1 f32 on fp32 operands, beside its one-pass TF32
+    control) against its plain version at one shape; returns the row for
+    the JSON line. ``pad_rows`` {batch row: real length} right-pads rows
+    and turns on segment ids."""
     import torch
     import torch.nn.functional as F
 
     from mllm_npu_tpu_torch.ops.flash_attention import (
-        SegmentIds, flash_attention, flash_attention_reference, k1_block_q)
+        SegmentIds, flash_attention, flash_attention_f32_one_pass,
+        flash_attention_reference, k1_block_q)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
-    q = torch.randn(B, Sq, Hq, D, device=dev, generator=g).bfloat16()
-    k = torch.randn(B, Sk, Hkv, D, device=dev, generator=g).bfloat16()
-    v = torch.randn(B, Sk, Hkv, D, device=dev, generator=g).bfloat16()
+    dt = torch.float32 if f32 else torch.bfloat16
+    q = torch.randn(B, Sq, Hq, D, device=dev, generator=g).to(dt)
+    k = torch.randn(B, Sk, Hkv, D, device=dev, generator=g).to(dt)
+    v = torch.randn(B, Sk, Hkv, D, device=dev, generator=g).to(dt)
     seg = None
     if pad_rows is not None:
         if Sq != Sk:
@@ -512,9 +550,20 @@ def kernel_case(name, B, Sq, Sk, Hq, Hkv, D, causal, pad_rows=None, seed=0):
     diff = (out.float() - ref).abs()
     err = diff.max().item()
     check(torch.isfinite(out.float()).all().item(), f"{name}: non-finite")
-    check(bool((diff <= BF16_ATOL + BF16_RTOL * ref.abs()).all()),
-          f"{name}: max abs err {err} beyond {BF16_ATOL} + "
-          f"{BF16_RTOL}·|ref|")
+    control = None
+    if f32:
+        check(out.dtype == torch.float32, f"{name}: K1 f32 wrote {out.dtype}")
+        tol = K1_F32_TOL * ref.abs().max().item()
+        control = (flash_attention_f32_one_pass(q, k, v, **kw)
+                   - ref).abs().max().item()
+        check(err <= tol, f"{name}: K1 f32 max abs err {err} beyond "
+              f"{K1_F32_TOL}·max|ref| = {tol}")
+        check(control > tol, f"{name}: one-pass TF32 err {control} within "
+              f"the tolerance {tol}: the check has no power here")
+    else:
+        check(bool((diff <= BF16_ATOL + BF16_RTOL * ref.abs()).all()),
+              f"{name}: max abs err {err} beyond {BF16_ATOL} + "
+              f"{BF16_RTOL}·|ref|")
 
     mask = torch.ones(B, Sq, Sk, dtype=torch.bool, device=dev)
     if causal:
@@ -523,10 +572,11 @@ def kernel_case(name, B, Sq, Sk, Hq, Hkv, D, causal, pad_rows=None, seed=0):
         mask &= seg.q[:, :, None] == seg.kv[:, None, :]
     pairs = int(mask.sum().item()) * Hq
     flops = 4 * D * pairs
-    nbytes = 2 * (2 * B * Sq * Hq * D + 2 * B * Sk * Hkv * D)
+    nbytes = q.element_size() * (2 * B * Sq * Hq * D + 2 * B * Sk * Hkv * D)
     if seg is not None:
         nbytes += 4 * B * (Sq + Sk)
-    t_c, t_m = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    t_c = flops / (H100_TF32_FLOPS if f32 else H100_BF16_FLOPS)
+    t_m = nbytes / H100_BYTES_PER_S
     bound_ms = max(t_c, t_m) * 1e3
 
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -553,6 +603,8 @@ def kernel_case(name, B, Sq, Sk, Hq, Hkv, D, causal, pad_rows=None, seed=0):
         "block_q": k1_block_q(B, Sq, Hq, torch.cuda.get_device_properties(
             0).multi_processor_count, D),
         "max_abs_err": err,
+        **({"one_pass_tf32_err": control,
+            "tolerance": f"{K1_F32_TOL} x max|plain|"} if f32 else {}),
         "ms": ms,
         "plain_ms": time_ms(lambda: flash_attention_reference(q, k, v, **kw),
                             iters=5),
@@ -564,7 +616,12 @@ def kernel_case(name, B, Sq, Sk, Hq, Hkv, D, causal, pad_rows=None, seed=0):
         "tflops": flops / ms / 1e9,
         "flops": flops, "bytes": nbytes,
     }
-    print(f"[K1] {name} (block_q {row['block_q']}): err {err:.3e}  kernel "
+    if f32:
+        del row["block_q"]
+    print(f"[K1{' f32' if f32 else ''}] {name}"
+          + ("" if f32 else f" (block_q {row['block_q']})") + f": err "
+          f"{err:.3e}" + (f" (one-pass TF32 {control:.3e})" if f32 else "")
+          + "  kernel "
           f"{ms:.4f} ms ({row['tflops']:.0f} TFLOP/s, "
           f"{100 * row['bound_share']:.1f}% of the bound)  plain "
           f"{row['plain_ms']:.4f} ms  "
@@ -652,10 +709,11 @@ def k1_edge_sweep():
     return {"shapes": len(cases), "max_abs_err": worst}
 
 
-def quant_case(bits, M, K, N, group=256, seed=0):
+def quant_case(bits, M, K, N, group=256, seed=0, f32=False):
     """K4 (bits 8) or K5 (bits 4) against its plain version at one shape,
-    on bf16 x and a weight quantized from a seeded bf16 matrix; returns the
-    row for the JSON line."""
+    on bf16 x (with ``f32``: K4 f32 / K5 f32 on fp32 x, beside the plain
+    product in TF32 as the control) and a weight quantized from a seeded
+    bf16 matrix; returns the row for the JSON line."""
     import math
 
     import torch
@@ -665,63 +723,86 @@ def quant_case(bits, M, K, N, group=256, seed=0):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
+    dt = torch.float32 if f32 else torch.bfloat16
     w = (torch.randn(N, K, device=dev, generator=g) * 0.02).bfloat16()
-    x = torch.randn(M, K, device=dev, generator=g).bfloat16()
+    x = torch.randn(M, K, device=dev, generator=g).to(dt)
     if bits == 8:
         qt = tq.quantize_int8(w)
         kernel, plain = tq.int8_matmul, tq.int8_matmul_reference
-        w_deq = tq.dequantize_int8(qt)
+        w_deq = tq.dequantize_int8(qt, dt)
     else:
         qt = tq.quantize_int4(w, group)
         kernel, plain = tq.int4_matmul, tq.int4_matmul_reference
-        w_deq = tq.dequantize_int4(qt)
+        w_deq = tq.dequantize_int4(qt, dt)
     del w
-    name = f"{kernel.__name__} M{M} K{K} N{N}"
+    name = f"{kernel.__name__}{'_f32' if f32 else ''} M{M} K{K} N{N}"
+    before = kernel.f32_launches
     out = kernel(x, *qt)
     torch.cuda.synchronize()
     ref = plain(x, *qt).float()
     diff = (out.float() - ref).abs()
     err = diff.max().item()
     check(torch.isfinite(out.float()).all().item(), f"{name}: non-finite")
-    check(bool((diff <= QUANT_RTOL * ref.abs()
-                + QUANT_ATOL_FRAC * ref.abs().max()).all()),
-          f"{name}: max abs err {err} beyond {QUANT_RTOL}·|plain| + "
-          f"{QUANT_ATOL_FRAC}·max|plain|")
+    control = None
+    if f32:
+        check(out.dtype == torch.float32 and kernel.f32_launches
+              == before + 1, f"{name}: not one K4/K5 f32 launch")
+        tol = QUANT_F32_TOL * ref.abs().max().item()
+        check(err <= tol, f"{name}: max abs err {err} beyond "
+              f"{QUANT_F32_TOL}·max|plain| = {tol}")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            control = (plain(x, *qt).float() - ref).abs().max().item()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        if M * K >= 8 * 4096:       # enough terms for TF32's rounding
+            check(control > tol, f"{name}: the plain product in TF32 "
+                  f"(err {control}) is within the tolerance {tol}")
+    else:
+        check(bool((diff <= QUANT_RTOL * ref.abs()
+                    + QUANT_ATOL_FRAC * ref.abs().max()).all()),
+              f"{name}: max abs err {err} beyond {QUANT_RTOL}·|plain| + "
+              f"{QUANT_ATOL_FRAC}·max|plain|")
     del out, ref, diff
 
     w_bytes = qt.values.numel() + 4 * qt.scale.numel()
     flops = 2 * M * N * K
-    nbytes = 2 * M * K + w_bytes + 2 * M * N
-    t_c, t_m = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    nbytes = x.element_size() * (M * K + M * N) + w_bytes
+    t_c = flops / (H100_TF32_FLOPS if f32 else H100_BF16_FLOPS)
+    t_m = nbytes / H100_BYTES_PER_S
     copies = [qt] + [type(qt)(qt.values.clone(), qt.scale.clone())
                      for _ in range(math.ceil(COLD_BYTES / w_bytes) - 1)]
     lib_copies = [w_deq] + [w_deq.clone() for _ in range(
-        math.ceil(COLD_BYTES / (2 * N * K)) - 1)]
+        math.ceil(COLD_BYTES / (w_deq.element_size() * N * K)) - 1)]
     row = {
         "shape": name, "M": M, "K": K, "N": N,
         "group": group if bits == 4 else None,
         "max_abs_err": err,
+        **({"tf32_control_err": control,
+            "tolerance": f"{QUANT_F32_TOL} x max|plain|"} if f32 else {}),
         "ms": time_ms(cycling([lambda c=c: kernel(x, *c) for c in copies])),
         "plain_ms": time_ms(cycling([lambda c=c: plain(x, *c)
                                      for c in copies]), iters=5),
         "library_ms": time_ms(cycling([lambda c=c: F.linear(x, c)
                                        for c in lib_copies])),
-        "library": "F.linear on the weight dequantized to bf16 once, "
-                   "outside the timed region",
+        "library": f"F.linear on the weight dequantized to "
+                   f"{'fp32' if f32 else 'bf16'} once, outside the timed "
+                   "region",
         "bound_ms": max(t_c, t_m) * 1e3,
         "bound_by": "operations" if t_c >= t_m else "bytes",
         "flops": flops, "bytes": nbytes,
     }
-    print(f"[K{4 if bits == 8 else 5}] {name}: err {err:.3e}  kernel "
+    print(f"[K{4 if bits == 8 else 5}] {name}: err {err:.3e}"
+          + (f" (TF32 control {control:.3e})" if f32 else "") + "  kernel "
           f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  F.linear on "
-          f"dequantized bf16 {row['library_ms']:.4f} ms  bound "
+          f"the dequantized weight {row['library_ms']:.4f} ms  bound "
           f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
     del copies, lib_copies, w_deq
     torch.cuda.empty_cache()
     return row
 
 
-def quant_rows(lm_cfg, s_img, bucket, slots, regimes=None):
+def quant_rows(lm_cfg, s_img, bucket, slots, regimes=None, f32=False):
     """K4 and K5 at the Llama's projection shapes: decode (M = 1, the
     lm_head included), the image prefill (M = prompt length), and the
     batched worker's: its decode block (M = ``slots``, the lm_head
@@ -731,7 +812,7 @@ def quant_rows(lm_cfg, s_img, bucket, slots, regimes=None):
     single request's, M = 5, the lm_head included); the fused products
     (qkv and gate_up) at M = 1, 5, ``slots``, ``slots`` × 5 and
     ``slots`` × 64 (k = 63). Each row says its regime; ``regimes`` keeps
-    only those named."""
+    only those named; ``f32`` runs K4 f32 / K5 f32 on fp32 x."""
     hs, inter = lm_cfg.hidden_size, lm_cfg.intermediate_size
     kv = lm_cfg.num_key_value_heads * lm_cfg.head_dim
     # (MHA: k and v have q's shape)
@@ -750,8 +831,8 @@ def quant_rows(lm_cfg, s_img, bucket, slots, regimes=None):
                  for k, n in fused])
     if regimes is not None:
         shapes = [sh for sh in shapes if sh[0] in regimes]
-    return {bits: [dict(quant_case(bits, m, k, n, lm_cfg.quant_group_size),
-                        regime=regime)
+    return {bits: [dict(quant_case(bits, m, k, n, lm_cfg.quant_group_size,
+                                   f32=f32), regime=regime)
                    for regime, m, k, n in shapes] for bits in (8, 4)}
 
 
@@ -782,14 +863,14 @@ def fused_mix(lm_cfg):
             (inter, hs): L, (hs, lm_cfg.vocab_size): 1}
 
 
-def quant_row_mix(rows, mix):
+def quant_row_mix(rows, mix, rate=H100_BF16_FLOPS):
     """The K4/K5 rows of one regime summed over a forward's launch mix:
-    ms, plain_ms, bound_ms, library_ms, bound_by and the basis."""
+    ms, plain_ms, bound_ms, library_ms, bound_by (operations at ``rate``
+    against bytes) and the basis."""
     n_of = {(r["K"], r["N"]): mix[(r["K"], r["N"])] for r in rows}
     agg = {key: sum(r[key] * n_of[(r["K"], r["N"])] for r in rows)
            for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
-    t_c = sum(r["flops"] * n_of[(r["K"], r["N"])]
-              for r in rows) / H100_BF16_FLOPS
+    t_c = sum(r["flops"] * n_of[(r["K"], r["N"])] for r in rows) / rate
     t_m = sum(r["bytes"] * n_of[(r["K"], r["N"])]
               for r in rows) / H100_BYTES_PER_S
     agg["bound_by"] = "operations" if t_c >= t_m else "bytes"
@@ -978,6 +1059,46 @@ def kernel_counters():
     return {"flash_fwd": flash_attention, "flash_bwd_dq": flash_bwd_dq,
             "flash_bwd_dkv": flash_bwd_dkv, "int8_matmul": tq.int8_matmul,
             "int4_matmul": tq.int4_matmul}
+
+
+class _Count:
+    """One attribute of a wrapper read and reset as ``launches`` (K1 f32's
+    and K4/K5 f32's counts live beside the bf16 kernels')."""
+
+    def __init__(self, fn, attr):
+        self.fn, self.attr = fn, attr
+
+    @property
+    def launches(self):
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, n):
+        setattr(self.fn, self.attr, n)
+
+
+def f32_counters():
+    """name → the counter of each fp32-operand kernel."""
+    from mllm_npu_tpu_torch.ops import quant as tq
+    from mllm_npu_tpu_torch.ops.flash_attention import flash_attention
+    return {"flash_fwd_f32": _Count(flash_attention, "f32_launches"),
+            "int8_matmul_f32": _Count(tq.int8_matmul, "f32_launches"),
+            "int4_matmul_f32": _Count(tq.int4_matmul, "f32_launches")}
+
+
+def zero_counts(counters):
+    for c in counters.values():
+        c.launches = 0
+
+
+def read_all(counters):
+    return {k: c.launches for k, c in counters.items()}
+
+
+def tf32_flags() -> str:
+    import torch
+    return (f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
+            f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
 
 def bwd_case(name, B, Sq, Sk, Hq, Hkv, D, causal, segments=False, seed=0):
@@ -3181,7 +3302,8 @@ def spec_single_check(single, traffic, rule):
     spec = copy.copy(single)
     spec.generator = MLLMGenerator(gen.model, sampling=gen.sampling,
                                    ladder=gen.ladder, speculative_k=4,
-                                   speculative_ngram=SPEC_NGRAM)
+                                   speculative_ngram=SPEC_NGRAM,
+                                   cast_params_bf16=True)
     preps, control, bound = rule
     labels = tuple(preps)
     out = {"control": control, "bound": bound}
@@ -3564,6 +3686,10 @@ def phase_4c(single):
 
 # -- phase 10: SEED-X at full width --------------------------------------
 SEEDX_YAML = "mllm_npu_tpu_torch/configs/models/seedx_llama2_13b_qwenvl_vitg.yaml"
+# phases 10-13 run SEED-X's Llama-2-13B at this many of its 40 layers (a
+# cut of depth for the 1200 s limit; every width, the vocabulary, LoRA,
+# Qwen-ViT-G and both resamplers are full)
+SEEDX_LAYERS = 20
 SEEDX_WORKER = "mllm_npu_tpu_torch/configs/workers/seedx_worker.json"
 SEEDX_CAPTION = "A red bicycle leaning on a stone wall in the rain"
 # tokens of the caption → features request: the 64 forced image tokens,
@@ -3576,15 +3702,16 @@ T2I_COS = 0.99
 SEEDX_TOKENS = 32
 
 
-def row_mix(rows, mix, basis, key=lambda r: r["shape"], name=str, sums=()):
+def row_mix(rows, mix, basis, key=lambda r: r["shape"], name=str, sums=(),
+            rate=H100_BF16_FLOPS):
     """A kernel's rows summed over one call's launch mix {key: launches}
     (``key`` gives a row's key, ``name`` prints it): ms, plain_ms,
     bound_ms, library_ms and ``sums``, the share of the bound, what
-    bounds it and the basis."""
+    bounds it (operations at ``rate`` against bytes) and the basis."""
     by = {key(r): r for r in rows}
     agg = {k: sum(by[s][k] * n for s, n in mix.items())
            for k in ("ms", "plain_ms", "bound_ms", "library_ms", *sums)}
-    t_c = sum(by[s]["flops"] * n for s, n in mix.items()) / H100_BF16_FLOPS
+    t_c = sum(by[s]["flops"] * n for s, n in mix.items()) / rate
     t_m = sum(by[s]["bytes"] * n for s, n in mix.items()) / H100_BYTES_PER_S
     return {**agg, "bound_share": agg["bound_ms"] / agg["ms"],
             "bound_by": "operations" if t_c >= t_m else "bytes",
@@ -3951,8 +4078,9 @@ def agreement(a, b):
             "rel_rms": ((a - b).norm() / b.norm()).item()}
 
 
-def unet_kernel_cases():
-    """Phase 3's K1 cases at the SDXL UNet's attentions at 1024² (from
+def unet_kernel_cases(f32=False):
+    """Phase 3's K1 cases (with ``f32`` phase 17's K1 f32 cases: the
+    worker's fp32 UNet) at the SDXL UNet's attentions at 1024² (from
     ``UNetConfig.sdxl_base`` and the generation config's resampler): the
     CFG batch of 2, self-attention over each cross-attention level's
     positions and cross-attention over the resampler's tokens. → (rows,
@@ -3974,7 +4102,8 @@ def unet_kernel_cases():
             2 * cfg.layers_per_block + 1 + (i == n - 1))
         for kind, Sk in (("self", S), ("cross", n_ctx)):
             name = f"unet_{kind}_s{S}"
-            rows.append(kernel_case(name, 2, S, Sk, H, H, ch // H, False))
+            rows.append(kernel_case(name, 2, S, Sk, H, H, ch // H, False,
+                                    f32=f32))
             mix[name] = blocks
     return rows, mix
 
@@ -4019,20 +4148,24 @@ def detokenizer_phase():
              "resampler": n(ad.resampler)}
     check(ad.visual_encoder is model.vision_encoder,
           "the adapter's negative is not the SEED model's vision encoder")
+    dtypes = {p.dtype for part in (ad.unet, ad.vae, ad.resampler)
+              for p in part.parameters()}
+    check(dtypes == {torch.float32}, f"the worker's de-tokenizer is "
+          f"{dtypes}, not fp32 as the reference's")
     print(f"[detok] the worker's engine from {SEEDX_WORKER} with "
           f"{args.generation_config} built in {build_s:.1f} s: SEED-X "
           f"{n(model) / 1e9:.3f} B params, the de-tokenizer "
           + ", ".join(f"{k} {v / 1e9:.3f} B" for k, v in parts.items())
-          + f" (bf16); {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
-          f"resident with the worker's {args.num_slots} x "
+          + f" (fp32, as the reference's worker; TF32 "
+          f"{tf32_flags()}); {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB resident with the worker's {args.num_slots} x "
           f"{args.max_cache_len} cache", flush=True)
 
     served = ServedWorker(engine, model_name=args.model_name,
                           concurrency=max(args.limit_model_concurrency,
                                           args.num_slots))
-    counters = kernel_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    counters = {**kernel_counters(), **f32_counters()}
+    zero_counts(counters)
     unet_attn = attention_count(ad.unet)
     vis_attn = vision_attention_count(ad.visual_encoder)
     torch.cuda.reset_peak_memory_stats()
@@ -4042,11 +4175,13 @@ def detokenizer_phase():
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     served.close()
-    got = {k: fn.launches for k, fn in counters.items()}
+    got = read_all(counters)
     expect = dict.fromkeys(counters, 0)
     # the caption's prefill and the output projector, the zero image's
-    # vision tower and pool (once), 140 attentions a UNet forward
-    expect["flash_fwd"] = L + 1 + vis_attn + unet_attn * GEN_STEPS
+    # vision tower and pool (once; bf16, SEED-X's), 140 attentions a UNet
+    # forward (fp32: K1 f32)
+    expect["flash_fwd"] = L + 1 + vis_attn
+    expect["flash_fwd_f32"] = unet_attn * GEN_STEPS
     check([c["error_code"] for c in chunks] == [0],
           f"image_gen: {[(c['error_code'], c['text']) for c in chunks]}")
     jpeg = base64.b64decode(chunks[0]["image"])
@@ -4061,8 +4196,8 @@ def detokenizer_phase():
           f"({t['steps']} steps, {ms_step:.2f} ms a UNet step at batch 2), "
           f"VAE decode {t['vae_s'] * 1e3:.1f} ms, request "
           f"{t['request_s']:.3f} s; peak {peak:.2f} GiB; launches {got} "
-          f"(expected {expect}: K1 {L + 1} + {vis_attn} + {unet_attn} x "
-          f"{GEN_STEPS})", flush=True)
+          f"(expected {expect}: K1 {L + 1} + {vis_attn}, K1 f32 "
+          f"{unet_attn} x {GEN_STEPS})", flush=True)
     size = ad.unet.config.sample_size * ad.vae.config.spatial_scale_factor
     check(img.format == "JPEG" and img.size == (size, size) == (
         GEN_SIZE, GEN_SIZE) and img.mode == "RGB",
@@ -4091,9 +4226,10 @@ def detokenizer_phase():
             f"final latents of a {SHORT_STEPS}-step run (seed {GEN_SEED})")
         unet_ms = time_ms(unet_forward, iters=5)
         prof = profile_call(unet_forward)
-    print(f"[detok] one UNet forward (batch 2, K1): {unet_ms:.2f} ms on "
-          f"CUDA events, back to back", flush=True)
-    print_profile("one UNet forward (batch 2, 1024²)", *prof)
+    print(f"[detok] one fp32 UNet forward (batch 2, K1 f32): {unet_ms:.2f} "
+          f"ms on CUDA events, back to back (TF32 {tf32_flags()})",
+          flush=True)
+    print_profile("one fp32 UNet forward (batch 2, 1024²)", *prof)
     engine.close()
     del engine, model, ad, served, x, feats
     gc.collect()
@@ -4103,7 +4239,8 @@ def detokenizer_phase():
             "peak_gib": peak, "image": [img.format, *img.size],
             "unet_forward_ms": unet_ms, "eps": eps["k1"],
             "eps_control": eps["control"], "latents": lats["k1"],
-            "latents_control": lats["control"],
+            "latents_control": lats["control"], "dtype": "float32",
+            "tf32": tf32_flags(),
             "profile": {"wall_ms": prof[0], "busy_ms": prof[1],
                         "top": prof[2]}}
 
@@ -4573,7 +4710,8 @@ def evaluator_phase():
     lm_cfg = model.language_model.config
     k1n = k1_per_loss(model)
     check(hasattr(model, "output_projector") and lm_cfg.num_hidden_layers
-          == 40 and lm_cfg.vocab_size == 32330, "phase 12: not SEED-X")
+          == SEEDX_LAYERS and lm_cfg.vocab_size == 32330,
+          "phase 12: not SEED-X")
     print(f"[eval] run.build_eval_model({SEEDX_YAML}, FakeTokenizer, seed 0) "
           f"in {build_s:.1f} s: {torch.cuda.memory_allocated() / 2**30:.2f} "
           f"GiB resident; generate_with_image answers cut to "
@@ -5253,6 +5391,11 @@ def seedx_kernel_phase(B, S, n_img):
 
 # -- phase 14: the reference's checkpoints, written and loaded back -------
 CKPT_SHARD_BYTES = 5 * 10 ** 9        # HF's shard size
+# phase 14 writes, loads and converts the 8B assembly at this many of its
+# 32 layers (a cut of depth for the 1200 s limit; every width, the
+# vocabulary, LoRA, SigLIP and the projector are full), and holds each
+# load to that seeded source's tensors and ids
+CKPT_LAYERS = 8
 # what the phase holds on disk at once: the 8B assembly's files and the
 # converter's copy (the UNet's and the VAE's come after both are gone)
 CKPT_DISK_BYTES = 40e9
@@ -5465,7 +5608,7 @@ def write_8b_layouts(model, work):
         ("assembly", lambda d: torch.save(
             {k: v.detach().cpu() for k, v in asm.items()},
             d / "pytorch_model.bin"))))
-    cfg = yaml.safe_load(Path(LLAMA3_YAML).read_text())
+    cfg = yaml.safe_load(Path(ckpt_yaml(work)).read_text())
     m = cfg["mllm"]
     m["mllm_model"]["pretrained_model_path"] = str(
         work / "assembly" / "pytorch_model.bin")
@@ -5478,9 +5621,24 @@ def write_8b_layouts(model, work):
     return written, path
 
 
-def llama_checkpoint_check(work, requests, preps, lm_cfg, phase4_ids,
-                           phase7_ids, launches):
-    """Phase 14 on the 8B assembly (see the module's docstring)."""
+def ckpt_yaml(work):
+    """The seeded 8B YAML with its Llama cut to ``CKPT_LAYERS`` layers,
+    written under ``work`` (its checkpoint paths null)."""
+    import yaml
+    path = Path(work) / f"seeded_l{CKPT_LAYERS}.yaml"
+    if not path.exists():
+        cfg = yaml.safe_load(Path(LLAMA3_YAML).read_text())
+        cfg["mllm"]["language_model"]["model"]["num_hidden_layers"] = \
+            CKPT_LAYERS
+        path.write_text(yaml.safe_dump(cfg, sort_keys=False))
+    return str(path)
+
+
+def llama_checkpoint_check(work, requests, preps, launches):
+    """Phase 14 on the 8B assembly (see the module's docstring), at
+    ``CKPT_LAYERS`` layers: the seeded source serves phase 4's three
+    requests (bf16) and its int8 twin phase 7's two, and every load is
+    held to those ids."""
     import shutil
 
     import numpy as np
@@ -5490,26 +5648,41 @@ def llama_checkpoint_check(work, requests, preps, lm_cfg, phase4_ids,
     from mllm_npu_tpu_torch.serve.worker import (load_engine_from_config,
                                                  parse_worker_args)
     out = {}
+    seeded_yaml = ckpt_yaml(work)
 
-    def serve_ids(engine, label, picked=(0, 1, 2), want=phase4_ids,
-                  phase="phase 4's three requests"):
+    def serve_ids(engine, label, picked=(0, 1, 2), want=None,
+                  phase="the seeded source's three requests"):
+        lm_cfg = engine.generator.model.language_model.config
         got, _, ids = serve(engine, [requests[i] for i in picked],
                             [preps[i] for i in picked], label, lm_cfg)
         for k, n in got.items():
             launches[k] += n
+        if want is None:
+            return got, ids
         same = all(np.array_equal(a, b) for a, b in zip(ids, want))
         print(f"[check] {label}: the greedy ids of {phase} "
               f"{'identical' if same else 'DIFFER'}", flush=True)
         check(same, f"{label}: greedy ids differ from {phase}")
-        return got
+        return got, ids
 
+    # the source's int8 ids first (phase 7's two requests), then its bf16
+    q8 = build_engine(seeded_yaml, device="cuda", seed=0,
+                      fake_tokenizer=True, max_new_tokens=MAX_NEW_TOKENS,
+                      quantize_int8=True)
+    _, src8_ids = serve_ids(q8, "seeded source int8", (0, 2))
+    del q8
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    src = build_engine(LLAMA3_YAML, device="cuda", seed=0,
+    src = build_engine(seeded_yaml, device="cuda", seed=0,
                        fake_tokenizer=True, max_new_tokens=MAX_NEW_TOKENS)
     torch.cuda.synchronize()
     out["seeded_build_s"] = time.perf_counter() - t0
-    print(f"[ckpt] the seeded 8B assembly (seed 0, phase 2's) built in "
+    out["layers"] = CKPT_LAYERS
+    print(f"[ckpt] the seeded 8B assembly (seed 0, phase 2's widths, "
+          f"{CKPT_LAYERS} of 32 layers) built in "
           f"{out['seeded_build_s']:.1f} s", flush=True)
+    _, src_ids = serve_ids(src, "seeded source bf16")
     out["written"], yaml_path = write_8b_layouts(src.generator.model, work)
     files = [f for part in ("llama", "siglip", "assembly")
              for f in sorted((work / part).iterdir())]
@@ -5549,7 +5722,7 @@ def llama_checkpoint_check(work, requests, preps, lm_cfg, phase4_ids,
     del src
     gc.collect()
     torch.cuda.empty_cache()
-    out["served_launches"] = serve_ids(eng, "loaded bf16")
+    out["served_launches"] = serve_ids(eng, "loaded bf16", want=src_ids)[0]
 
     # the loaded model quantized to int8: phase 7's requests and ids
     del eng
@@ -5558,8 +5731,8 @@ def llama_checkpoint_check(work, requests, preps, lm_cfg, phase4_ids,
     q8 = build_engine(str(yaml_path), device="cuda", seed=0,
                       fake_tokenizer=True, max_new_tokens=MAX_NEW_TOKENS,
                       quantize_int8=True)
-    out["int8_launches"] = serve_ids(q8, "loaded int8", (0, 2), phase7_ids,
-                                     "phase 7's int8 requests")
+    out["int8_launches"] = serve_ids(q8, "loaded int8", (0, 2), src8_ids,
+                                     "the seeded source's int8 requests")[0]
     del q8
     gc.collect()
     torch.cuda.empty_cache()
@@ -5586,7 +5759,7 @@ def llama_checkpoint_check(work, requests, preps, lm_cfg, phase4_ids,
     for part in ("llama", "siglip", "assembly"):
         shutil.rmtree(work / part)
     # the worker from --params-checkpoint, on the YAML with null paths
-    args = parse_worker_args(["--model-config", LLAMA3_YAML,
+    args = parse_worker_args(["--model-config", seeded_yaml,
                               "--params-checkpoint", str(work / "converted"),
                               "--no-register", "--host", "127.0.0.1",
                               "--port", "0"])
@@ -5608,8 +5781,8 @@ def llama_checkpoint_check(work, requests, preps, lm_cfg, phase4_ids,
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    out["params_checkpoint_launches"] = serve_ids(conv,
-                                                  "--params-checkpoint")
+    out["params_checkpoint_launches"] = serve_ids(
+        conv, "--params-checkpoint", want=src_ids)[0]
     del conv
     gc.collect()
     torch.cuda.empty_cache()
@@ -5735,7 +5908,7 @@ def phase4_requests():
             ("What is the capital of France?", "")]
 
 
-def checkpoint_phase(requests, preps, lm_cfg, phase4_ids, phase7_ids):
+def checkpoint_phase(requests, preps):
     """Phase 14. → its summary, the launches it counted among them."""
     import shutil
 
@@ -5751,9 +5924,8 @@ def checkpoint_phase(requests, preps, lm_cfg, phase4_ids, phase7_ids):
         check(free > CKPT_DISK_BYTES, f"phase 14 needs "
               f"{CKPT_DISK_BYTES / 1e9:.0f} GB of disk, {free / 1e9:.1f} "
               "free")
-        out = {"llama3_8b": llama_checkpoint_check(
-            work, requests, preps, lm_cfg, phase4_ids, phase7_ids,
-            launches)}
+        out = {"llama3_8b": llama_checkpoint_check(work, requests, preps,
+                                                   launches)}
         print("[ckpt] phase 14 b: the de-tokenizer", flush=True)
         out["detokenizer"] = detokenizer_checkpoint_check(work, launches)
     finally:
@@ -5948,7 +6120,8 @@ def attention_routes():
 def route_outputs(fn, n_k1, label):
     """``fn()`` with K1, with K1's plain version and with the plain version
     rounding P to bf16 (the control): {route: fp32 output}, K1's launches
-    checked (``n_k1`` with K1, none otherwise); then the agreements of K1
+    (K1 f32's for an fp32 model) checked (``n_k1`` with K1, none
+    otherwise); then the agreements of K1
     and of the control with plain, each printed and K1's checked."""
     import torch
 
@@ -5957,14 +6130,16 @@ def route_outputs(fn, n_k1, label):
     out = {}
     for which, attn in attention_routes().items():
         port_ops.flash_attention = attn
-        flash_attention.launches = 0
+        flash_attention.launches = flash_attention.f32_launches = 0
         try:
             out[which] = fn().float()
         finally:
             port_ops.flash_attention = flash_attention
+        # K1 or K1 f32, by the UNet's dtype
+        got = flash_attention.launches + flash_attention.f32_launches
         want = n_k1 if which == "K1" else 0
-        check(flash_attention.launches == want, f"{label} ({which}): "
-              f"{flash_attention.launches} K1 launches, expected {want}")
+        check(got == want, f"{label} ({which}): {got} K1 launches, "
+              f"expected {want}")
         check(bool(torch.isfinite(out[which]).all()),
               f"{label} ({which}): non-finite")
     k1 = agreement(out["K1"], out["plain"])
@@ -6759,6 +6934,260 @@ def variant_fields(vrows, vmixes, uq_rows, uq_mix, variants):
     return out
 
 
+# -- phase 17: fp32 serving ------------------------------------------------
+# K1 f32 against its fp32 plain version on the same fp32 inputs: split TF32
+# drops only the small·small term (about 2^-22 of a product), but the
+# tensor cores' fp32 sums are not IEEE-rounded (at most 2.9e-5·max|plain|
+# at the paths' shapes on an NVIDIA H100 80GB HBM3, 700 W), so
+# |err| <= K1_F32_TOL·max|plain|; one-pass TF32 (2^-11 relative on each
+# operand; at least 3.4e-4·max|plain| there) must land outside it
+K1_F32_TOL = 1e-4
+# K4 f32 / K5 f32 (fp32 FMA, summed in another order) against their fp32
+# plain versions: |err| <= QUANT_F32_TOL·max|plain| (at most 4.9e-6 there,
+# K4's prefill over K = 14336 in one chain); the plain product in TF32
+# (at least 1.9e-4 there) must land outside it
+QUANT_F32_TOL = 2e-5
+# the --no-cast-bf16 worker's POSTs: two 896×896 images, a 384×1152, a text
+F32_POSTS = ((0, 896, 896), (1, 896, 896), (2, 384, 1152), (3, 0, 0))
+
+
+def f32_kernel_cases(lm_cfg, vis_cfg, projector, s_img, n_tiles):
+    """17a: K1 f32 at the fp32 paths' shapes: the 8B assembly's (its
+    prefill, padded to batch 2 with segments, SigLIP, the resampler), the
+    fp32 UNet's, SEED-X's D = 104 (Qwen-ViT-G) and D = 160 (the input
+    projector) from its YAML. → (rows, UNet rows, UNet mix)."""
+    H, Hkv, D = (lm_cfg.num_attention_heads, lm_cfg.num_key_value_heads,
+                 lm_cfg.head_dim)
+    vh, n_vis = vis_cfg.num_attention_heads, vis_cfg.num_patches
+    rh = projector.attn.num_heads
+    vis13, proj13 = seedx_specs()[:2]
+    P = vis13.num_patches
+    rows = [
+        kernel_case("llama_prefill", 1, s_img, s_img, H, Hkv, D, True,
+                    pad_rows={}, f32=True),
+        kernel_case("llama_prefill_padded_b2", 2, s_img, s_img, H, Hkv, D,
+                    True, pad_rows={1: s_img - 57}, f32=True),
+        kernel_case("siglip", n_tiles, n_vis, n_vis, vh, vh,
+                    vis_cfg.hidden_size // vh, False, f32=True),
+        kernel_case("resampler", n_tiles, projector.num_queries, n_vis, rh,
+                    rh, projector.embed_dim // rh, False, f32=True),
+        kernel_case("seedx_qwen_vit_d104", n_tiles, P, P, vis13.heads,
+                    vis13.heads, vis13.width // vis13.heads, False,
+                    f32=True),
+        kernel_case("seedx_input_projector_d160", n_tiles,
+                    proj13["num_queries"], vis13.n_queries,
+                    proj13["num_heads"], proj13["num_heads"],
+                    proj13["embed_dim"] // proj13["num_heads"], False,
+                    f32=True),
+    ]
+    unet_rows, unet_mix = unet_kernel_cases(f32=True)
+    return rows, unet_rows, unet_mix
+
+
+def f32_request(engine, q, b64, label, lm_cfg, quant="none"):
+    """One request through the fp32 single-request engine with every count
+    set to 0 before and read after: K1 f32 per attention (32 + the
+    image's), no bf16 kernel, and for a quantized Llama K4 f32 / K5 f32 225
+    a forward the host ran. → (ids, counts, timings, peak GiB)."""
+    import torch
+    counters = {**kernel_counters(), **f32_counters()}
+    zero_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    ids = engine.comprehension_ids(q, b64)
+    torch.cuda.synchronize()
+    got = read_all(counters)
+    tm = dict(engine.generator.last_timings)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    expect = dict.fromkeys(counters, 0)
+    expect["flash_fwd_f32"] = lm_cfg.num_hidden_layers + (
+        k1_per_image(engine.generator.model) if b64 else 0)
+    if quant != "none":
+        expect[f"{quant}_matmul_f32"] = (7 * lm_cfg.num_hidden_layers + 1) \
+            * (1 + tm["decode_steps"] - tm["graph_replays"]
+               + tm["graph_captured"])
+    print(f"[fp32] {label}: {len(ids)} ids; TTFT {tm['ttft_s'] * 1e3:.1f} "
+          f"ms (vision+projector {tm['embed_s'] * 1e3:.1f}, prefill "
+          f"{tm['prefill_s'] * 1e3:.1f}); decode {tm['decode_steps']} steps "
+          f"({tm['graph_replays']} replays"
+          + (f", captured in {tm['capture_s'] * 1e3:.1f} ms"
+             if tm["graph_captured"] else "")
+          + f"), {ms_per_token(tm):.2f} ms/token; peak {peak:.2f} GiB; "
+          f"launches {got}", flush=True)
+    check(got == expect, f"{label}: launches {got}, expected {expect}")
+    return ids, got, tm, peak
+
+
+def f32_worker_posts(engine, requests, label, lm_cfg):
+    """POSTs through the worker over the fp32 batched ``engine``, every
+    count set to 0 before: each answers code 0; the attentions ran K1 f32
+    alone, and a quantized Llama K4 f32 / K5 f32 alone. → (counts, wall
+    seconds)."""
+    import torch
+    served = ServedWorker(engine, model_name="mllm-8b-fp32")
+    counters = {**kernel_counters(), **f32_counters()}
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(requests)) as pool:
+        replies = list(pool.map(lambda r: post_worker(
+            served.url, {"input_text": r[0], "image": r[1]}), requests))
+    wall = time.perf_counter() - t0
+    served.close()
+    torch.cuda.synchronize()
+    got = read_all(counters)
+    quant = engine.generator.model.language_model.config.quantization
+    print(f"[fp32] {label}: {len(requests)} POSTs in {wall:.2f} s, codes "
+          f"{[[c['error_code'] for c in r] for r in replies]}; launches "
+          f"{got}", flush=True)
+    check(all([c["error_code"] for c in r] == [0] for r in replies),
+          f"{label}: a POST failed: {replies}")
+    want = {"flash_fwd_f32"} | ({f"{quant}_matmul_f32"}
+                                if quant != "none" else set())
+    check(all((n > 0) == (k in want) for k, n in got.items()),
+          f"{label}: launches {got}: expected only {sorted(want)}")
+    return got, wall
+
+
+def fp32_serving_phase(requests):
+    """Phase 17 (see the module's docstring). → summary, the counts of its
+    requests among them."""
+    import numpy as np
+    import torch
+
+    import mllm_npu_tpu_torch.ops as port_ops
+    from mllm_npu_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_f32_one_pass,
+        flash_attention_reference)
+    from mllm_npu_tpu_torch.serve.engine import BatchedInferenceEngine
+    from mllm_npu_tpu_torch.serve.worker import (load_engine_from_config,
+                                                 parse_worker_args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[fp32] TF32 {tf32_flags()}", flush=True)
+    args = parse_worker_args(["--model-config", LLAMA3_YAML, "--batched",
+                              "--no-cast-bf16", "--no-register", "--host",
+                              "127.0.0.1", "--port", "0"])
+    check(args.cast_bf16 is False, "--no-cast-bf16 did not parse")
+    t0 = time.perf_counter()
+    single = load_engine_from_config(
+        args.model_config, max_new_tokens=MAX_NEW_TOKENS, device="cuda",
+        seed=0, fake_tokenizer=True, cast_bf16=args.cast_bf16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    model = single.generator.model
+    lm_cfg = model.language_model.config
+    dtypes = {p.dtype for p in model.parameters()}
+    check(dtypes == {torch.float32}, f"the --no-cast-bf16 build holds "
+          f"{dtypes}")
+    check(model.language_model.lm_head.compute_dtype == torch.float32,
+          "the --no-cast-bf16 Llama does not compute in fp32")
+    gib = sum(p.numel() * 4 for p in model.parameters()) / 2**30
+    print(f"[fp32] the 8B assembly built in fp32 by the worker's "
+          f"load_engine_from_config(cast_bf16=False) in {build_s:.1f} s: "
+          f"{gib:.2f} GiB of fp32 weights; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident",
+          flush=True)
+    out = {"build_s": build_s, "weights_gib": gib}
+    total = dict.fromkeys(f32_counters(), 0)
+
+    def add(got):
+        for k in total:
+            total[k] += got[k]
+    # c. the 896×896 request: captures the decode step, then a graph hit,
+    #    then eager
+    q, b64 = requests[0]
+    runs = {}
+    for label, graphed in (("capture", True), ("graphed", True),
+                           ("eager", False)):
+        single.generator.cuda_graph = graphed
+        try:
+            runs[label] = f32_request(single, q, b64, f"896x896 {label}",
+                                      lm_cfg)
+        finally:
+            single.generator.cuda_graph = True
+        add(runs[label][1])
+    check(all(np.array_equal(runs["capture"][0], r[0])
+              for r in runs.values()), "fp32: graphed and eager ids differ")
+    out["request"] = {
+        "ttft_ms": runs["graphed"][2]["ttft_s"] * 1e3,
+        "first_call_ttft_ms": runs["capture"][2]["ttft_s"] * 1e3,
+        "capture_ms": runs["capture"][2]["capture_s"] * 1e3,
+        "graphed_ms_per_token": ms_per_token(runs["graphed"][2]),
+        "eager_ms_per_token": ms_per_token(runs["eager"][2]),
+        "peak_gib": max(r[3] for r in runs.values()),
+        "k1_f32_launches": runs["graphed"][1]["flash_fwd_f32"]}
+    # the greedy ids against the plain attention's under the logit rule;
+    # the control: the same stream with one-pass TF32 in every attention
+    # (each stream's rows go on through the bf16 cache, which rounds what
+    # each route wrote)
+    routes = {}
+    for which, fn in (("K1 f32", flash_attention),
+                      ("plain", flash_attention_reference),
+                      ("one-pass TF32", flash_attention_f32_one_pass)):
+        port_ops.flash_attention = fn
+        try:
+            routes[which] = single_stream(single, q, b64, CHECK_TOKENS)
+        finally:
+            port_ops.flash_attention = flash_attention
+    _, control, ctl_desc = logit_rule(
+        "fp32 one-pass TF32 vs plain attention (the control)",
+        *routes["one-pass TF32"], *routes["plain"], float("inf"))
+    same, worst, desc = logit_rule(
+        "fp32 K1 f32 vs plain attention", *routes["K1 f32"],
+        *routes["plain"], LOGIT_BOUND_FACTOR * control)
+    print(f"[fp32] 896x896 request, {CHECK_TOKENS} greedy ids with K1 f32 "
+          f"against plain attention: {desc}; the control, one-pass TF32 "
+          f"against plain: {ctl_desc}", flush=True)
+    out["logit_rule"] = {"identical": same, "worst": worst,
+                         "control": control, "desc": desc}
+    # d. the worker: the batched engine over the same fp32 model, 4 POSTs
+    posts = [(QUESTIONS[i], png_b64(w, h, 300 + i) if w else "")
+             for i, w, h in F32_POSTS]
+    kw = dict(model=model, tokenizer=single.tokenizer,
+              image_transform=single.image_transform,
+              num_img_in_tokens=single.num_img_in_tokens,
+              num_img_out_tokens=single.num_img_out_tokens,
+              max_new_tokens=MAX_NEW_TOKENS, device="cuda",
+              cast_params_bf16=False, **WORKER)
+    got, wall = f32_worker_posts(BatchedInferenceEngine(**kw), posts,
+                                 "the --no-cast-bf16 worker", lm_cfg)
+    add(got)
+    out["worker"] = {"posts": len(posts), "wall_s": wall, "launches": got}
+    # the same model quantized to int8 in place from its fp32 weights
+    # (LoRA merged in fp32 first): one POST through K4 f32
+    single.generator.drop_graphs()
+    t0 = time.perf_counter()
+    q8 = BatchedInferenceEngine(quantize_int8=True, **kw)
+    q8_s = time.perf_counter() - t0
+    check(model.language_model.config.quantization == "int8",
+          "the fp32 model was not quantized")
+    got, wall = f32_worker_posts(q8, posts[:1], "the --no-cast-bf16 "
+                                 "--quantize-int8 worker", lm_cfg)
+    add(got)
+    out["int8_worker"] = {"quantize_s": q8_s, "wall_s": wall,
+                          "launches": got}
+    del single, model, q8, kw, routes
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the worker's --no-cast-bf16 --quantize-int4 build: one request
+    t0 = time.perf_counter()
+    q4 = load_engine_from_config(
+        args.model_config, max_new_tokens=MAX_NEW_TOKENS, device="cuda",
+        seed=0, fake_tokenizer=True, cast_bf16=False, quantize_int4=True)
+    torch.cuda.synchronize()
+    q4_s = time.perf_counter() - t0
+    ids, got, tm, peak = f32_request(q4, q, b64, "int4 896x896", lm_cfg,
+                                     quant="int4")
+    add(got)
+    out["int4_request"] = {"build_s": q4_s, "ttft_ms": tm["ttft_s"] * 1e3,
+                           "ms_per_token": ms_per_token(tm),
+                           "peak_gib": peak, "launches": got}
+    del q4
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"] = total
+    return out
+
+
 def main():
     # the training phase runs near the card's memory: let the allocator grow
     # segments instead of fragmenting (read when CUDA initialises)
@@ -6801,7 +7230,8 @@ def main():
     t_build = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:
         building = pool.submit(build_all,
-                               ["flash_fwd", "flash_bwd", "quant_matmul"])
+                               ["flash_fwd", "flash_bwd", "quant_matmul",
+                                "flash_fwd_f32", "quant_matmul_f32"])
 
         print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 2",
               flush=True)
@@ -6854,6 +7284,9 @@ def main():
     n_queries = model.projector.num_queries
     res_heads = model.projector.attn.num_heads
     res_d = model.projector.embed_dim // res_heads
+    model_projector = types.SimpleNamespace(
+        num_queries=n_queries, embed_dim=model.projector.embed_dim,
+        attn=types.SimpleNamespace(num_heads=res_heads))
     cases = [
         kernel_case("llama_prefill", 1, s_img, s_img, H, Hkv, D, True,
                     pad_rows={}),
@@ -6894,8 +7327,8 @@ def main():
     print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 4",
           flush=True)
     # -- 4. the bf16 path, counts set to 0 before each request ---------
-    launches, quant_prefill, phase4_ids = serve(engine, requests, preps,
-                                                "bf16", lm_cfg)
+    launches, quant_prefill, _ = serve(engine, requests, preps, "bf16",
+                                       lm_cfg)
     single_graph = {"bf16": single_graph_check(engine, requests,
                                                "bf16 graphed vs eager")}
     single_graph["bf16_mix"] = graph_mix(
@@ -6963,7 +7396,6 @@ def main():
     # -- 7. the int8 and int4 paths: the image and the text request each,
     #       then the image prefill with K4 (K5) against the same forward
     #       with its plain version in every quantized linear
-    phase7_ids = {}
     for bits in (8, 4):
         label = f"int{bits}"
         t0 = time.perf_counter()
@@ -6976,7 +7408,7 @@ def main():
         print(f"[{label}] engine built and quantized in "
               f"{time.perf_counter() - t0:.1f} s: "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident")
-        got, got_prefill, phase7_ids[bits] = serve(
+        got, got_prefill, _ = serve(
             engine, [requests[0], requests[2]], [preps[0], preps[2]], label,
             lm_cfg)
         for k in launches:
@@ -7065,6 +7497,7 @@ def main():
     detok = detokenizer_phase()
     for k in launches:
         launches[k] += detok["launches"][k]
+    f32_launches = {k: detok["launches"][k] for k in f32_counters()}
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 12a",
           flush=True)
@@ -7089,8 +7522,7 @@ def main():
     # -- 14. the reference's checkpoints: phase 4's 8B assembly and phase
     #        11's de-tokenizer written in the reference's layouts and loaded
     #        back (bit for bit, phase 4's ids, K1's counts)
-    ckpt = checkpoint_phase(requests, preps, lm_cfg, phase4_ids,
-                            phase7_ids[8])
+    ckpt = checkpoint_phase(requests, preps)
     for k in launches:
         launches[k] += ckpt["launches"][k]
 
@@ -7101,6 +7533,24 @@ def main():
     variants = detokenizer_variants_phase(t_start)
     for k in launches:
         launches[k] += variants["launches"][k]
+
+    print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 17",
+          flush=True)
+    # -- 17. fp32 serving: K1 f32, K4 f32 and K5 f32 against their plain
+    #        versions, then the --no-cast-bf16 build, its request, its
+    #        worker and its quantized requests, counts set to 0 before each
+    #        request and read after
+    f32_cases, f32_unet, f32_unet_mix = f32_kernel_cases(
+        lm_cfg, vis_cfg, model_projector, s_img, n_tiles)
+    sub_stamp("17b")
+    # K4 f32 / K5 f32 at the 8B's decode (M = 1), a worker step (M = 8)
+    # and the image prefill
+    f32_qrows = quant_rows(lm_cfg, s_img, bucket, WORKER["num_slots"],
+                           regimes=("decode", "slots", "prefill"), f32=True)
+    sub_stamp("17c")
+    fp32 = fp32_serving_phase(requests)
+    for k in f32_launches:
+        f32_launches[k] += fp32["launches"][k]
     unet_forward = row_mix(unet_cases, unet_mix, "one SDXL UNet forward "
                           "(CFG batch 2, 1024x1024)")
     unet_image = {k: v * GEN_STEPS if k in ("ms", "plain_ms", "bound_ms",
@@ -7295,10 +7745,70 @@ def main():
             "shapes": qrows[bits],
             "seedx": seedx_quant(qrows13[bits], seedx_lm, s_img),
         })
+    f32_image = {"llama_prefill": lm_cfg.num_hidden_layers,
+                 "siglip": vis_cfg.num_hidden_layers, "resampler": 1}
+    f32_unet_forward = row_mix(f32_unet, f32_unet_mix, "one fp32 SDXL UNet "
+                               "forward (CFG batch 2, 1024x1024)",
+                               rate=H100_TF32_FLOPS)
+    rows.append({
+        "name": "flash_fwd_f32", "route": "cuda", "design": "mma.sync "
+        "m16n8k8 TF32, split in three (big·big + big·small + small·big), "
+        "64 query rows a block, 32-key cp.async double buffer",
+        "source": "mllm_npu_tpu_torch/csrc/flash_fwd_f32.cu",
+        "replaces": "mllm_npu_tpu/ops/flash_attention.py:100",
+        "launches": f32_launches["flash_fwd_f32"],
+        "max_abs_err": max(c["max_abs_err"] for c in f32_cases + f32_unet),
+        "tolerance": f"{K1_F32_TOL} x max|plain| per shape",
+        "one_pass_tf32_err_min": min(c["one_pass_tf32_err"]
+                                     for c in f32_cases + f32_unet),
+        **row_mix(f32_cases, f32_image, "one fp32 896x896 request",
+                  rate=H100_TF32_FLOPS),
+        "bound_rate": "494.7 TFLOP/s dense TF32, 3.35 TB/s",
+        "library": "SDPA on the fp32 tensors per shape (see shapes)",
+        "shapes": f32_cases,
+        "unet_forward": f32_unet_forward,
+        "unet_shapes": f32_unet,
+        "detokenizer_request_launches": detok["launches"]["flash_fwd_f32"],
+        "request_launches": fp32["request"]["k1_f32_launches"],
+    })
+    for bits, replaces in ((8, "mllm_npu_tpu/ops/quant.py:50"),
+                           (4, "mllm_npu_tpu/ops/quant.py:330")):
+        def of(regime):
+            return [r for r in f32_qrows[bits] if r["regime"] == regime]
+        dec = quant_row_mix(of("decode"), quant_mix(lm_cfg), H100_TF32_FLOPS)
+        pre = quant_row_mix(of("prefill"), quant_mix(lm_cfg, lm_head=False),
+                            H100_TF32_FLOPS)
+        slots = quant_row_mix(of("slots"), quant_mix(lm_cfg), H100_TF32_FLOPS)
+        rows.append({
+            "name": f"int{bits}_matmul_f32", "route": "cuda",
+            "design": "fp32 FMA: decode 16 weight rows a block streamed as "
+                      "words, X staged in shared memory; prefill 64x64 "
+                      "tiles, 4x4 outputs a thread",
+            "source": "mllm_npu_tpu_torch/csrc/quant_matmul_f32.cu",
+            "replaces": replaces,
+            "launches": f32_launches[f"int{bits}_matmul_f32"],
+            "max_abs_err": max(r["max_abs_err"] for r in f32_qrows[bits]),
+            "tolerance": f"{QUANT_F32_TOL} x max|plain| per shape",
+            **{k: dec[k] for k in ("ms", "plain_ms", "bound_ms",
+                                   "library_ms", "bound_by")},
+            "ms_basis": "one fp32 decode token (M=1): the launch mix "
+                        + dec["launch_mix"],
+            "bound_rate": "494.7 TFLOP/s dense TF32, 3.35 TB/s",
+            "prefill": {k: pre[k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms", "bound_by",
+                "bound_share", "launch_mix")},
+            "worker_decode": {k: slots[k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms", "bound_by",
+                "bound_share", "launch_mix")},
+            "library": "F.linear on the weight dequantized to fp32",
+            "shapes": f32_qrows[bits],
+        })
     extra = seedx_train_fields(seedtrain, seedx_lm)
     vfields = variant_fields(variant_cases, variant_mixes, unet_qrows,
                              unet_qmix, variants)
     for row in rows:
+        if row["name"].endswith("_f32"):
+            continue
         row.update(extra[row["name"]])
         more = dict(vfields[row["name"]])
         row["max_abs_err"] = max(row["max_abs_err"], more.pop("max_abs_err"))
@@ -7309,6 +7819,7 @@ def main():
     print("[single] summary " + json.dumps(single_graph))
     print("[seedx] summary " + json.dumps(seedx, default=str))
     print("[detok] summary " + json.dumps(detok, default=str))
+    print("[fp32] summary " + json.dumps(fp32, default=str))
     print("[detok-variants] summary " + json.dumps(
         {k: v for k, v in variants.items() if k != "train_kernel_shapes"},
         default=str))

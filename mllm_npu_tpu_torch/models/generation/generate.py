@@ -206,19 +206,23 @@ class DecodeStep:
 class MLLMGenerator:
     """Generation for one ``GeneralizedMultimodalModel`` or ``SEED``.
 
-    Every fp32 parameter is stored in bf16 (the modules still compute in
-    their own dtype), as the reference's serving default, and the KV cache
-    is ``cache_dtype`` (bf16 by default). ``quantize_int8`` /
-    ``quantize_int4`` serve the Llama's projections and ``lm_head`` in
-    int8 / int4. The model is changed in place, in the reference's order
-    (``generate.py:71-113``): LoRA adapters are merged in their dtype (fp32
-    where loaded so) when ``merge_lora``, ``fuse_projections`` or a
-    quantization asks for it, then q/k/v and gate/up are fused, then the
-    fp32 parameters are cast to bf16, then the Llama is quantized from
-    those bf16 values. The scales are fp32 buffers, which the cast does not
-    reach. ``speculative_k`` > 0 decodes a single greedy row by
-    prompt-lookup speculation (``speculative_ngram``-grams), the cache
-    given k of headroom; sampled calls and batches decode one token a
+    With ``cast_params_bf16`` every fp32 parameter is stored in bf16 (the
+    modules still compute in their own dtype), as the reference's serving
+    engines do; the generator's own default keeps the parameters as they
+    are, as the reference's ``MLLMGenerator`` does (``generate.py:62``), so
+    a model built in fp32 is served in fp32 (K1 f32, and K4 f32 / K5 f32
+    when quantized, on the GPU). The KV cache is ``cache_dtype`` (bf16 by
+    default). ``quantize_int8`` / ``quantize_int4`` serve the Llama's
+    projections and ``lm_head`` in int8 / int4. The model is changed in
+    place, in the reference's order (``generate.py:71-113``): LoRA adapters
+    are merged in their dtype (fp32 where loaded so) when ``merge_lora``,
+    ``fuse_projections`` or a quantization asks for it, then q/k/v and
+    gate/up are fused, then (with ``cast_params_bf16``) the fp32 parameters
+    are cast to bf16, then the Llama is quantized from those values. The
+    scales are fp32 buffers, which the cast does not reach.
+    ``speculative_k`` > 0 decodes a single greedy row by prompt-lookup
+    speculation (``speculative_ngram``-grams), the cache given k of
+    headroom; sampled calls and batches decode one token a
     step (:class:`DecodeStep`). On the GPU that step is a replayed CUDA
     graph unless ``cuda_graph`` is False: one per (batch, cache bucket,
     greedy or sampled, cache dtype), kept while the kept graphs hold at
@@ -239,6 +243,7 @@ class MLLMGenerator:
                  quantize_int8: bool = False, quantize_int4: bool = False,
                  merge_lora: bool = False, fuse_projections: bool = False,
                  cache_dtype: torch.dtype = CACHE_DTYPE,
+                 cast_params_bf16: bool = False,
                  speculative_k: int = 0, speculative_ngram: int = 3,
                  cuda_graph: bool = True):
         if quantize_int8 and quantize_int4:
@@ -252,9 +257,10 @@ class MLLMGenerator:
             merge_lora_(lm)
         if fuse_projections:
             fuse_llama_projections_(lm)
-        for p in model.parameters():
-            if p.dtype == torch.float32:
-                p.data = p.data.to(torch.bfloat16)
+        if cast_params_bf16:
+            for p in model.parameters():
+                if p.dtype == torch.float32:
+                    p.data = p.data.to(torch.bfloat16)
         if quantize_int8 or quantize_int4:
             quantize_llama_(lm, bits=4 if quantize_int4 else 8,
                             group_size=lm.config.quant_group_size)
@@ -290,9 +296,13 @@ class MLLMGenerator:
         if dg is None:
             B, max_len = key[:2]
             c = self.lm_config
-            need = (2 * c.num_hidden_layers * B * max_len
-                    * c.num_key_value_heads * c.head_dim
-                    * torch.empty((), dtype=self.cache_dtype).element_size())
+            size = lambda dt: torch.empty((), dtype=dt).element_size()
+            # its cache, and its hidden states in the Llama's compute dtype
+            # (fp32 when served in fp32)
+            need = B * max_len * (
+                2 * c.num_hidden_layers * c.num_key_value_heads * c.head_dim
+                * size(self.cache_dtype)
+                + c.hidden_size * size(kw["hidden_dtype"]))
             budget = (DECODE_GRAPH_MEMORY_SHARE * torch.cuda
                       .get_device_properties(kw["device"]).total_memory)
             while self._graphs and need + sum(

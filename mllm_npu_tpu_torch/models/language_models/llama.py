@@ -94,26 +94,29 @@ class LlamaConfig:
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
 
+    # the presets: ``kw`` adds fields or overrides theirs (a YAML may set
+    # ``num_hidden_layers`` to cut a model's depth)
     @classmethod
     def llama3_8b(cls, **kw) -> "LlamaConfig":
-        return cls(vocab_size=128256, hidden_size=4096,
-                   intermediate_size=14336, num_hidden_layers=32,
-                   num_attention_heads=32, num_key_value_heads=8,
-                   max_position_embeddings=8192, rope_theta=500000.0, **kw)
+        return cls(**{**dict(vocab_size=128256, hidden_size=4096,
+                             intermediate_size=14336, num_hidden_layers=32,
+                             num_attention_heads=32, num_key_value_heads=8,
+                             max_position_embeddings=8192,
+                             rope_theta=500000.0), **kw})
 
     @classmethod
     def llama2_13b(cls, **kw) -> "LlamaConfig":
-        return cls(vocab_size=32000, hidden_size=5120,
-                   intermediate_size=13824, num_hidden_layers=40,
-                   num_attention_heads=40, num_key_value_heads=40,
-                   max_position_embeddings=4096, **kw)
+        return cls(**{**dict(vocab_size=32000, hidden_size=5120,
+                             intermediate_size=13824, num_hidden_layers=40,
+                             num_attention_heads=40, num_key_value_heads=40,
+                             max_position_embeddings=4096), **kw})
 
     @classmethod
     def tiny(cls, vocab_size: int = 1024, **kw) -> "LlamaConfig":
-        return cls(vocab_size=vocab_size, hidden_size=128,
-                   intermediate_size=256, num_hidden_layers=2,
-                   num_attention_heads=4, num_key_value_heads=2,
-                   max_position_embeddings=2048, **kw)
+        return cls(**{**dict(vocab_size=vocab_size, hidden_size=128,
+                             intermediate_size=256, num_hidden_layers=2,
+                             num_attention_heads=4, num_key_value_heads=2,
+                             max_position_embeddings=2048), **kw})
 
 
 class LoRALinear(nn.Module):

@@ -40,6 +40,13 @@ computes the same function with its plain fp32 version
 (:func:`flash_attention_reference`, :func:`flash_bwd_dq_reference`,
 :func:`flash_bwd_dkv_reference`). There is no fallback for CUDA tensors: a
 shape or type a kernel does not take raises.
+
+K1 f32 (``csrc/flash_fwd_f32.cu``) is K1 for fp32 q/k/v, which the
+reference's kernel takes as it takes bf16 (it computes in the operands'
+dtype): both products in split TF32 on the tensor cores, accurate to
+fp32, the output fp32, no LSE. :func:`flash_attention` routes fp32
+operands to it and counts them in ``flash_attention.f32_launches``; an
+fp32 call that needs the LSE or the backward raises (``FP32_TRAINING``).
 """
 
 from __future__ import annotations
@@ -199,11 +206,11 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, *,
 
 
 def _check(q, k, v, segment_ids, name="flash_attention",
-           max_head_dim=MAX_HEAD_DIM):
+           max_head_dim=MAX_HEAD_DIM, dtype=torch.bfloat16):
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError(f"{name}: q, k, v must all be on the GPU")
     for nm, t in (("q", q), ("k", k), ("v", v)):
-        _check_bshd(t, nm, name)
+        _check_bshd(t, nm, name, dtype)
     B, Sq, Hq, D = q.shape
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"shape mismatch q{tuple(q.shape)} "
@@ -224,15 +231,19 @@ def _check_head_dim(D, max_head_dim, name):
                          f"{max_head_dim}")
 
 
-def _check_bshd(t, nm, name):
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"{name} kernel takes bf16, got {nm}.dtype={t.dtype}")
+def _check_bshd(t, nm, name, dtype=torch.bfloat16):
+    if t.dtype != dtype:
+        raise TypeError(f"{name} kernel takes {dtype}, got {nm}.dtype="
+                        f"{t.dtype}")
     if t.ndim != 4 or t.stride(3) != 1:
         raise ValueError(f"{nm} must be [B, S, H, D] with unit last stride, "
                          f"got {tuple(t.shape)} strides {t.stride()}")
-    if any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
-        raise ValueError(f"{nm}: strides must be multiples of 8 and the base "
-                         "16-byte aligned (16-byte loads, TMA tensor maps)")
+    # 16 bytes: 8 bf16 or 4 fp32 elements
+    per = 16 // t.element_size()
+    if any(s % per for s in t.stride()[:3]) or t.data_ptr() % 16:
+        raise ValueError(f"{nm}: strides must be multiples of {per} and the "
+                         "base 16-byte aligned (16-byte loads, TMA tensor "
+                         "maps)")
 
 
 def _segments(segment_ids, device):
@@ -378,6 +389,12 @@ def flash_attention(q, k, v, *, causal: bool = False,
         return flash_attention_reference(q, k, v, causal=causal,
                                          segment_ids=segment_ids,
                                          scale=scale, return_lse=return_lse)
+    if q.dtype == torch.float32:
+        if return_lse:
+            raise NotImplementedError(
+                f"flash_attention: the fp32 LSE (the fp32 backward's input) "
+                f"is not ported yet: {FP32_TRAINING} (ROADMAP)")
+        return _flash_f32(q, k, v, causal, segment_ids, scale, passes=3)
     _check(q, k, v, segment_ids)
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -407,6 +424,55 @@ def flash_attention(q, k, v, *, causal: bool = False,
 
 
 flash_attention.launches = 0
+flash_attention.f32_launches = 0   # K1 f32 (fp32 operands)
+
+F32_KERNEL = "flash_fwd_f32"
+_F32_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+             + [ctypes.c_longlong] * 12
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+# the ROADMAP item an fp32 call that needs the backward names
+FP32_TRAINING = "queue 1 item 10d, fp32 training (K1 with its LSE, K2 and " \
+                "K3 on fp32 operands)"
+
+
+def _flash_f32(q, k, v, causal, segment_ids, scale, *, passes: int):
+    """One launch of K1 f32 (``csrc/flash_fwd_f32.cu``) on CUDA tensors:
+    fp32 q/k/v [B, S, H, D] (strides multiples of 4, 16-byte aligned
+    bases) → fp32 [B, Sq, Hq, D]. ``passes`` 3 is split TF32, fp32-accurate
+    (the kernel); 1 is one-pass TF32, the control that ``chip_smoke.py``
+    and the card tests hold against the tolerance, never the serving
+    path, whose launches are not counted."""
+    _check(q, k, v, segment_ids, dtype=torch.float32)
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty((B, Sq, Hq, D), dtype=torch.float32, device=q.device)
+    if B and Sq and not Sk:         # no key: every row is fully masked
+        out.zero_()
+    elif B and Sq:
+        qseg, kseg = _segments(segment_ids, q.device)
+        err = _fn(F32_KERNEL, "flash_fwd_f32", _F32_ARGS)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _ptr(qseg), _ptr(kseg), B, Sq, Sk, Hq, Hkv, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], float(scale), int(bool(causal)), passes,
+            torch.cuda.current_stream(q.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"flash_fwd_f32 launch failed: CUDA error "
+                               f"{err}")
+        if passes == 3:
+            flash_attention.f32_launches += 1
+    return out
+
+
+def flash_attention_f32_one_pass(q, k, v, *, causal: bool = False,
+                                 segment_ids: Optional[SegmentIds] = None,
+                                 scale: Optional[float] = None):
+    """K1 f32 with one TF32 pass per product (big·big alone): the control
+    that shows the tolerance K1 f32 is held to has power. Never on a
+    serving path; not counted."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _flash_f32(q, k, v, causal, segment_ids, scale, passes=1)
 
 BWD_KERNEL = "flash_bwd"
 _BWD_DQ_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
@@ -623,4 +689,8 @@ def flash_attention_trainable(q, k, v, *, causal: bool = False,
     to ``D ** -0.5``."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if q.is_cuda and q.dtype == torch.float32:
+        raise NotImplementedError(
+            f"flash_attention_trainable: fp32 operands on the GPU need the "
+            f"fp32 backward, not ported yet: {FP32_TRAINING} (ROADMAP)")
     return FlashAttention.apply(q, k, v, causal, segment_ids, float(scale))

@@ -16,10 +16,12 @@ does not divide falls back to one group of G = K.
 
 :func:`int8_matmul` (K4, replaces ``quant.py:50 _matmul_kernel``) and
 :func:`int4_matmul` (K5, replaces ``quant.py:330 _matmul4_kernel``)
-launch ``csrc/quant_matmul.cu`` for CUDA tensors and count the launch
+launch ``csrc/quant_matmul.cu`` for bf16 x on CUDA and count the launch
 (``launches``; ``prefill_launches`` those with M > 16, which run the
-prefill kernel on the plan :func:`prefill_plan` makes); for CPU tensors
-they compute the same function with their plain versions.
+prefill kernel on the plan :func:`prefill_plan` makes), and for fp32 x
+K4 f32 / K5 f32 (``csrc/quant_matmul_f32.cu``: fp32 FMA, fp32 out,
+counted in ``f32_launches``), the reference's product in x's dtype; for
+CPU tensors they compute the same function with their plain versions.
 There is no shape fallback for CUDA tensors (the reference's ``aligned``
 tests were TPU tiling limits): what the kernel does not take raises.
 
@@ -46,6 +48,7 @@ from torch import nn
 from mllm_npu_tpu_torch.ops.flash_attention import _sms
 
 KERNEL = "quant_matmul"
+F32_KERNEL = "quant_matmul_f32"    # K4 f32 / K5 f32, fp32 x
 INT4_GROUP_MULTIPLE = 128   # the kernel's unit along K for int4 groups
 
 # The prefill regime (M > DECODE_MAX_M) of K4/K5: a block owns PREFILL_BN
@@ -250,8 +253,8 @@ def _check(name, x, values, scale, kw):
     if not (x.is_cuda and values.is_cuda and scale.is_cuda):
         raise ValueError(f"{name}: x, the weight and its scales must all be "
                          "on the GPU")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{name} kernel takes bf16 x, got {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name} kernel takes bf16 or fp32 x, got {x.dtype}")
     if values.dtype != torch.int8 or scale.dtype != torch.float32:
         raise TypeError(f"{name}: weight must be int8 and scales fp32, got "
                         f"{values.dtype}, {scale.dtype}")
@@ -268,10 +271,11 @@ def _check(name, x, values, scale, kw):
 def _rows(x: torch.Tensor) -> torch.Tensor:
     """x [..., K] → [M, K] with 16-byte aligned rows, or raise."""
     x2 = x.reshape(-1, x.shape[-1])
-    if x2.stride(1) != 1 or x2.stride(0) % 8 or x2.data_ptr() % 16:
+    per = 16 // x2.element_size()
+    if x2.stride(1) != 1 or x2.stride(0) % per or x2.data_ptr() % 16:
         raise ValueError("x rows must be contiguous, 16-byte aligned and a "
-                         "multiple of 8 elements apart (16-byte loads), got "
-                         f"strides {tuple(x2.stride())}")
+                         f"multiple of {per} elements apart (16-byte loads), "
+                         f"got strides {tuple(x2.stride())}")
     return x2
 
 
@@ -293,6 +297,34 @@ def _library(bits: int):
         fn.restype = ctypes.c_int
         _kernel_fns[bits] = fn
     return _kernel_fns[bits]
+
+
+def _library_f32(bits: int):
+    """K4 f32 / K5 f32's C entry point (``csrc/quant_matmul_f32.cu``), built,
+    loaded and typed on first use."""
+    key = ("f32", bits)
+    if key not in _kernel_fns:
+        from mllm_npu_tpu_torch.utils.cuda_build import load
+        fn = getattr(load(F32_KERNEL), f"int{bits}_matmul_f32")
+        # x, w, scale, y; M, N, K (and G); ldx; the stream
+        fn.argtypes = ([ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * (3 if bits == 8 else 4)
+                       + [ctypes.c_longlong, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _kernel_fns[key] = fn
+    return _kernel_fns[key]
+
+
+def _launch_f32(bits, x2, values, scale, y, M, N, K, G):
+    """One call of K4 f32 / K5 f32 (decode kernel for M <= DECODE_MAX_M,
+    else the tiled prefill kernel); raises on a refused launch."""
+    shape = [M, N, K] + ([G] if bits == 4 else [])
+    err = _library_f32(bits)(
+        x2.data_ptr(), values.data_ptr(), scale.data_ptr(), y.data_ptr(),
+        *shape, x2.stride(0), torch.cuda.current_stream(x2.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"int{bits}_matmul_f32 launch failed: CUDA error "
+                           f"{err}")
 
 
 def _launch(fn, bits, x2, values, scale, y, M, N, K, G):
@@ -322,7 +354,7 @@ def _launch(fn, bits, x2, values, scale, y, M, N, K, G):
 def int8_matmul(x: torch.Tensor, values: torch.Tensor,
                 scale: torch.Tensor) -> torch.Tensor:
     """x [..., K] @ int8 W [N, K] with per-N scales → [..., N] (x's dtype).
-    K4 on the GPU (bf16 x, K % 16 == 0)."""
+    K4 on the GPU (bf16 x, K % 16 == 0), K4 f32 for fp32 x."""
     if x.device.type == "cpu":
         return int8_matmul_reference(x, values, scale)
     *lead, K = x.shape
@@ -336,6 +368,10 @@ def int8_matmul(x: torch.Tensor, values: torch.Tensor,
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return y.reshape(*lead, N)
+    if x.dtype == torch.float32:
+        _launch_f32(8, x2, values, scale, y, M, N, K, 0)
+        int8_matmul.f32_launches += 1
+        return y.reshape(*lead, N)
     prefill = _launch(_library(8), 8, x2, values, scale, y, M, N, K, 0)
     int8_matmul.launches += 1
     int8_matmul.prefill_launches += prefill
@@ -344,13 +380,14 @@ def int8_matmul(x: torch.Tensor, values: torch.Tensor,
 
 int8_matmul.launches = 0
 int8_matmul.prefill_launches = 0   # of those, the prefill regime (M > 16)
+int8_matmul.f32_launches = 0       # K4 f32 (fp32 x)
 
 
 def int4_matmul(x: torch.Tensor, values: torch.Tensor,
                 scale: torch.Tensor) -> torch.Tensor:
     """x [..., K] @ packed-int4 W [N, K/2] with group scales [K/G, N] →
     [..., N] (x's dtype); G = K / scale.shape[0]. K5 on the GPU (bf16 x,
-    G a multiple of 128)."""
+    G a multiple of 128), K5 f32 for fp32 x."""
     if x.device.type == "cpu":
         return int4_matmul_reference(x, values, scale)
     *lead, K = x.shape
@@ -371,6 +408,10 @@ def int4_matmul(x: torch.Tensor, values: torch.Tensor,
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return y.reshape(*lead, N)
+    if x.dtype == torch.float32:
+        _launch_f32(4, x2, values, scale, y, M, N, K, G)
+        int4_matmul.f32_launches += 1
+        return y.reshape(*lead, N)
     prefill = _launch(_library(4), 4, x2, values, scale, y, M, N, K, G)
     int4_matmul.launches += 1
     int4_matmul.prefill_launches += prefill
@@ -379,6 +420,7 @@ def int4_matmul(x: torch.Tensor, values: torch.Tensor,
 
 int4_matmul.launches = 0
 int4_matmul.prefill_launches = 0   # of those, the prefill regime (M > 16)
+int4_matmul.f32_launches = 0       # K5 f32 (fp32 x)
 
 
 # -- the product with its gradient (QLoRA) ------------------------------------

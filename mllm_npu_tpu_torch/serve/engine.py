@@ -57,8 +57,10 @@ class InferenceEngine:
     weights and ``fuse_projections`` with fused q/k/v and gate/up products
     (``MLLMGenerator``, converted in place on ``device``); ``cache_dtype``
     is the KV cache's; ``speculative_k`` > 0 decodes a request by
-    prompt-lookup speculation. ``adapter`` is the de-tokenizer that
-    :meth:`generation` needs (None: it raises)."""
+    prompt-lookup speculation. ``cast_params_bf16`` (the reference's
+    serving default, True) stores the model's fp32 parameters in bf16;
+    False serves a model built in fp32 in fp32. ``adapter`` is the
+    de-tokenizer that :meth:`generation` needs (None: it raises)."""
 
     def __init__(self, *, model, tokenizer, image_transform, adapter=None,
                  resolution_grids=DEFAULT_RESOLUTION_GRIDS,
@@ -69,6 +71,7 @@ class InferenceEngine:
                  quantize_int8: bool = False, quantize_int4: bool = False,
                  fuse_projections: bool = False,
                  cache_dtype: torch.dtype = CACHE_DTYPE,
+                 cast_params_bf16: bool = True,
                  speculative_k: int = 0, speculative_ngram: int = 3):
         self.device = resolve_device(device)
         self.adapter = adapter
@@ -94,6 +97,7 @@ class InferenceEngine:
             ladder=ladder_from_tokenizer(tokenizer, num_img_out_tokens),
             quantize_int8=quantize_int8, quantize_int4=quantize_int4,
             fuse_projections=fuse_projections, cache_dtype=cache_dtype,
+            cast_params_bf16=cast_params_bf16,
             speculative_k=speculative_k, speculative_ngram=speculative_ngram)
 
     def _prepare_comprehension(self, input_text: str, image_b64: str):

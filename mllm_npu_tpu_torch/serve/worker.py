@@ -20,6 +20,7 @@ every device call.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import logging
 import threading
@@ -234,7 +235,7 @@ def load_engine_from_config(model_config_path: str,
                             kv_cache_dtype: str = "bf16",
                             generation_config=None, *, device=None,
                             seed: int = 0, fake_tokenizer: bool = False,
-                            params_checkpoint=None):
+                            params_checkpoint=None, cast_bf16: bool = True):
     """The worker's engine from a model YAML (the comprehension assembly or
     SEED), its weights from the checkpoints the YAML names (what none
     supplies drawn from ``seed``), or from ``params_checkpoint`` (the
@@ -249,7 +250,13 @@ def load_engine_from_config(model_config_path: str,
     ``generation_config`` (a YAML, ``configs/generation/sd_xl_resampler.
     yaml``) builds the SDXL de-tokenizer (``factory.build_sdxl_adapter``,
     from the UNet, VAE and de-tokenizer checkpoints it names) over the
-    SEED model's vision encoder, for ``image_gen`` requests."""
+    SEED model's vision encoder, for ``image_gen`` requests; it is built
+    and computes in fp32 whatever ``cast_bf16`` says, as the reference's
+    worker builds it (``factory.py:416``). ``cast_bf16`` False
+    (``--no-cast-bf16``) builds the assembly in fp32, every component's
+    parameters and compute (a checkpoint's bf16 tensors widened), and
+    serves it without the bf16 cast: fp32 activations through K1 f32, and
+    K4 f32 / K5 f32 when quantized."""
     from mllm_npu_tpu_torch.configs import instantiate, load_config
     from mllm_npu_tpu_torch.serve.engine import (BatchedInferenceEngine,
                                                  InferenceEngine)
@@ -257,9 +264,15 @@ def load_engine_from_config(model_config_path: str,
 
     device = resolve_device(device)
     cfg = load_config(model_config_path)["mllm"]
+    build = {}
+    if not cast_bf16:
+        cfg = dict(cfg, **{k: _with_dtype(cfg[k], torch.float32)
+                           for k in ("language_model", "mllm_model")})
+        build["param_dtype"] = torch.float32
     llm = instantiate(cfg["language_model"])
     model = instantiate(cfg["mllm_model"], language_model=llm, device=device,
-                        seed=seed, params_checkpoint=params_checkpoint)
+                        seed=seed, params_checkpoint=params_checkpoint,
+                        **build)
     if fake_tokenizer:
         from mllm_npu_tpu_torch.utils.fake_tokenizer import FakeTokenizer
         tokenizer = FakeTokenizer(vocab_size=llm.config.vocab_size)
@@ -271,7 +284,8 @@ def load_engine_from_config(model_config_path: str,
         from mllm_npu_tpu_torch.models.factory import build_sdxl_adapter
         adapter = build_sdxl_adapter(**load_config(generation_config),
                                      visual_encoder=model.vision_encoder,
-                                     device=device, seed=seed)
+                                     device=device, seed=seed,
+                                     param_dtype=torch.float32)
     common = dict(model=model, tokenizer=tokenizer, adapter=adapter,
                   image_transform=instantiate(cfg["processor"]),
                   num_img_in_tokens=nq, num_img_out_tokens=nq,
@@ -280,7 +294,8 @@ def load_engine_from_config(model_config_path: str,
                   fuse_projections=fuse_projections,
                   speculative_k=speculative_k,
                   speculative_ngram=speculative_ngram,
-                  cache_dtype=KV_CACHE_DTYPES[kv_cache_dtype])
+                  cache_dtype=KV_CACHE_DTYPES[kv_cache_dtype],
+                  cast_params_bf16=cast_bf16)
     if batched:
         return BatchedInferenceEngine(
             num_slots=num_slots, max_len=max_len, max_prompt=max_len // 2,
@@ -289,13 +304,26 @@ def load_engine_from_config(model_config_path: str,
     return InferenceEngine(**common)
 
 
+def _with_dtype(node, dtype):
+    """A copy of a YAML node with ``dtype`` given to every builder in it
+    that takes one (the components' compute dtype)."""
+    if isinstance(node, list):
+        return [_with_dtype(v, dtype) for v in node]
+    if not isinstance(node, dict):
+        return node
+    out = {k: _with_dtype(v, dtype) for k, v in node.items()}
+    if "_target_" in node:
+        from mllm_npu_tpu_torch.configs import resolve_target
+        if "dtype" in inspect.signature(
+                resolve_target(node["_target_"])).parameters:
+            out["dtype"] = dtype
+    return out
+
+
 # flags of the reference's worker this port does not serve yet: each
 # raises, naming its ROADMAP item, when set to anything but its default
 UNPORTED_FLAGS = {
     "tensor_parallel": (1, "tensor-parallel serving, queue 1 item 12"),
-    "cast_bf16": (True, "serving fp32 weights (--no-cast-bf16: fp32 "
-                        "serving needs K1 for fp32 operands), queue 1 "
-                        "item 10c"),
 }
 
 
@@ -348,8 +376,9 @@ def parse_worker_args(argv=None):
                              "GPU)")
     parser.add_argument("--cast-bf16", action=argparse.BooleanOptionalAction,
                         default=True, dest="cast_bf16",
-                        help="fp32 weights are cast to bf16 (--no-cast-bf16 "
-                             "is not ported yet and raises)")
+                        help="fp32 weights are cast to bf16 (default on; "
+                             "--no-cast-bf16 builds and serves the model in "
+                             "fp32)")
     parser.add_argument("--fuse-projections",
                         action=argparse.BooleanOptionalAction, default=False,
                         help="serve q/k/v and gate/up as one product each "
@@ -412,7 +441,8 @@ def main(argv=None):
         speculative_ngram=args.speculative_ngram,
         kv_cache_dtype=args.kv_cache_dtype,
         generation_config=args.generation_config, device=args.device,
-        seed=args.seed, params_checkpoint=args.params_checkpoint)
+        seed=args.seed, params_checkpoint=args.params_checkpoint,
+        cast_bf16=args.cast_bf16)
     if args.batched:
         args.limit_model_concurrency = max(args.limit_model_concurrency,
                                            args.num_slots)

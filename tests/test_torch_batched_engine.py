@@ -273,7 +273,8 @@ def test_bf16_engine_matches_port_generator():
     tm, _, _ = build_tiny_mllm(TinySpec(), device="cpu", seed=3)
     T = 8
     gen = MLLMGenerator(tm, sampling=SamplingConfig(max_new_tokens=T),
-                        ladder=_ladder(ImageTokenLadder))
+                        ladder=_ladder(ImageTokenLadder),
+                        cast_params_bf16=True)
     prompts = [[3, 17, 42, 9, 100, 7], [5, 1, 88, 200, 14, 3, 77, 21, 9],
                [250, 4, 4, 4, 10]]
     want = [gen.generate(torch.tensor([p]))["generate_ids"][0].tolist()

@@ -20,7 +20,10 @@ Tolerances on the same bf16 inputs:
   another order, so |kernel − plain| ≤ 1e-2·|plain| + 1e-3·max|plain|;
 - δ (``attention_delta``, one batched product with fp32 output on the
   card) sums exact fp32 products in another order than the fp32 formula,
-  so |err| ≤ 1e-5·Σ_d |o·dO|.
+  so |err| ≤ 1e-5·Σ_d |o·dO|;
+- K1 f32, K4 f32 and K5 f32 (fp32 operands) are held to fp32 accuracy:
+  ``K1_F32_TOL`` and ``QUANT_F32_TOL`` below, each beside a one-pass TF32
+  control that must fail it.
 """
 
 import pytest
@@ -55,21 +58,22 @@ def block_q(request, monkeypatch):
     return request.param
 
 
-def _k1_inputs(dev, B, Sq, Sk, Hq, Hkv, D, seg, layout="bshd", seed=0):
-    """q, k, v (``layout`` "fused": q, k and v strided views of one
-    [B, S, 3, H, D] tensor) and segment ids: None; an int n, the last row
-    right-padded from n (queries and keys of the padding in segments of
+def _k1_inputs(dev, B, Sq, Sk, Hq, Hkv, D, seg, layout="bshd", seed=0,
+               dtype=torch.bfloat16):
+    """q, k, v in ``dtype`` (``layout`` "fused": q, k and v strided views of
+    one [B, S, 3, H, D] tensor) and segment ids: None; an int n, the last
+    row right-padded from n (queries and keys of the padding in segments of
     their own, so those rows are fully masked); "packed", segments of 5 to
     40 tokens that change inside tiles and a padded tail."""
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     if layout == "fused":
-        qkv = torch.randn(B, Sq, 3, Hq, D, device=dev, generator=g).bfloat16()
+        qkv = torch.randn(B, Sq, 3, Hq, D, device=dev, generator=g).to(dtype)
         q, k, v = qkv.unbind(2)
     else:
-        q = torch.randn(B, Sq, Hq, D, device=dev, generator=g).bfloat16()
-        k = torch.randn(B, Sk, Hkv, D, device=dev, generator=g).bfloat16()
-        v = torch.randn(B, Sk, Hkv, D, device=dev, generator=g).bfloat16()
+        q = torch.randn(B, Sq, Hq, D, device=dev, generator=g).to(dtype)
+        k = torch.randn(B, Sk, Hkv, D, device=dev, generator=g).to(dtype)
+        v = torch.randn(B, Sk, Hkv, D, device=dev, generator=g).to(dtype)
     if seg is None:
         return q, k, v, None
     qs = torch.ones(B, Sq, dtype=torch.int32)
@@ -180,9 +184,9 @@ def test_k1_fully_masked_row_is_zero(cuda):
 
 def test_k1_rejects_what_it_does_not_take(cuda):
     n = flash_attention.launches
-    q = torch.randn(1, 8, 2, 64, device=cuda)
+    q = torch.randn(1, 8, 2, 64, device=cuda).half()
     with pytest.raises(TypeError):
-        flash_attention(q, q, q)                       # fp32
+        flash_attention(q, q, q)                       # fp16
     qb = torch.randn(1, 8, 2, 256, device=cuda).bfloat16()
     with pytest.raises(ValueError):
         flash_attention(qb, qb, qb)                    # D > 160
@@ -194,6 +198,80 @@ def test_k1_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         flash_attention(wide, wide, wide)              # stride 68, not 8k
     assert flash_attention.launches == n
+
+
+# K1 f32 (fp32 operands): the paths' shapes (the 8B prefill padded to batch
+# 2 with segments, SigLIP, the resampler, the fp32 UNet's self- and
+# cross-attention at D = 64, Qwen-ViT-G's D = 104 through its fused
+# in_proj, the input projector's D = 160), then the edges: one key, lengths
+# off the 64-row and 32-key tiles, causal with Sq != Sk, GQA 8/1, packed
+# segments, D = 8 and 24
+K1_F32_CASES = [
+    (2, 341, 341, 32, 8, 128, True, 284, "bshd"),
+    (5, 729, 729, 16, 16, 72, False, None, "bshd"),
+    (5, 64, 729, 32, 32, 128, False, None, "bshd"),
+    (2, 4096, 4096, 10, 10, 64, False, None, "bshd"),
+    (2, 1024, 1024, 20, 20, 64, False, None, "bshd"),
+    (2, 4096, 64, 10, 10, 64, False, None, "bshd"),
+    (2, 1024, 64, 20, 20, 64, False, None, "bshd"),
+    (5, 1024, 1024, 16, 16, 104, False, None, "fused"),
+    (5, 64, 256, 32, 32, 160, False, None, "bshd"),
+    (1, 1, 1, 4, 1, 128, True, None, "bshd"),
+    (2, 63, 65, 8, 2, 72, False, None, "bshd"),
+    (2, 65, 63, 8, 2, 128, True, None, "bshd"),
+    (1, 729, 129, 8, 1, 64, True, None, "bshd"),
+    (2, 600, 600, 32, 8, 128, True, "packed", "bshd"),
+    (2, 200, 200, 8, 8, 72, True, "packed", "fused"),
+    (1, 129, 129, 8, 1, 8, True, None, "bshd"),
+    (2, 65, 65, 8, 1, 24, True, 40, "bshd"),
+    (2, 65, 63, 8, 8, 160, True, None, "bshd"),
+]
+# K1 f32's tolerance against the fp32 plain version, |err| ≤ 1e-4·max|plain|:
+# split TF32 drops only the small·small term (about 2^-22 of a product),
+# and the tensor cores' fp32 sums are not IEEE-rounded (on an H100 80GB
+# HBM3, 700 W: at most 2.9e-5·max|plain| over the paths' shapes); one-pass
+# TF32 (2^-11 relative on each operand) lands outside it (at least
+# 3.4e-4·max|plain| there), which each case checks
+K1_F32_TOL = 1e-4
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,seg,layout", K1_F32_CASES)
+def test_k1_f32_matches_plain(cuda, B, Sq, Sk, Hq, Hkv, D, causal, seg,
+                              layout):
+    q, k, v, sids = _k1_inputs(cuda, B, Sq, Sk, Hq, Hkv, D, seg, layout,
+                               dtype=torch.float32)
+    before, bf16 = flash_attention.f32_launches, flash_attention.launches
+    kw = dict(causal=causal, segment_ids=sids)
+    out = flash_attention(q, k, v, **kw)
+    control = fa.flash_attention_f32_one_pass(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.f32_launches == before + 1
+    assert flash_attention.launches == bf16
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    ref = flash_attention_reference(q, k, v, **kw)
+    tol = K1_F32_TOL * ref.abs().max()
+    assert (out - ref).abs().max() <= tol
+    assert (control - ref).abs().max() > tol     # the tolerance has power
+    if isinstance(seg, int):
+        assert (out[-1, seg:] == 0).all()       # fully masked rows give 0
+
+
+def test_k1_f32_rejects_what_it_does_not_take(cuda):
+    n = flash_attention.f32_launches
+    q = torch.randn(1, 8, 2, 64, device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention(q, q.bfloat16(), q)            # mixed dtypes
+    with pytest.raises(NotImplementedError, match="item 10d"):
+        flash_attention(q, q, q, return_lse=True)      # the fp32 LSE
+    qg = q.clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="item 10d"):
+        port_ops.multi_head_attention(qg, qg, qg)      # the fp32 backward
+    wide = torch.randn(1, 8, 2, 66, device=cuda)[..., :64]
+    with pytest.raises(ValueError):
+        flash_attention(wide, wide, wide)              # stride 66, not 4k
+    with pytest.raises(ValueError):
+        flash_attention(*(torch.randn(1, 8, 2, 168, device=cuda),) * 3)
+    assert flash_attention.f32_launches == n
 
 
 @pytest.fixture(params=("planned", "mma_sync"))
@@ -638,9 +716,9 @@ def test_quant_kernels_reject_what_they_do_not_take(cuda):
     x = torch.randn(3, 256, device=cuda)
     n8, n4 = tq.int8_matmul.launches, tq.int4_matmul.launches
     with pytest.raises(TypeError):
-        tq.int8_matmul(x, *q8)                          # fp32 x
+        tq.int8_matmul(x.half(), *q8)                   # fp16 x
     with pytest.raises(TypeError):
-        tq.int4_matmul(x, *q4)
+        tq.int4_matmul(x.half(), *q4)
     xb = x.bfloat16()
     with pytest.raises(ValueError):                     # K % G != 0
         tq.int4_matmul(xb, q4.values, torch.ones(3, 64, device=cuda))
@@ -651,6 +729,68 @@ def test_quant_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):                     # odd K
         tq.int4_matmul(torch.zeros(3, 255, device=cuda).bfloat16(), *q4)
     assert (tq.int8_matmul.launches, tq.int4_matmul.launches) == (n8, n4)
+
+
+# K4 f32 / K5 f32 (fp32 x): the 8B's projections and lm_head at decode (1),
+# a worker step (8) and the image prefill (339), and a ragged small shape
+QUANT_F32_CASES = [
+    (bits, M, K, N, 256 if bits == 4 else None) for bits in (8, 4)
+    for K, N in ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+                 (4096, 128587))
+    for M in (1, 8, 339)
+] + [(8, 77, 256, 130, None), (4, 17, 256, 130, 128), (4, 3, 640, 320, 128)]
+# K4 f32 / K5 f32 against the fp32 plain products: fp32 FMA summed in
+# another order, so |err| ≤ 2e-5·max|plain| (at most 4.9e-6 on an H100
+# 80GB HBM3, 700 W: K4's prefill over K = 14336 in one chain); the plain
+# product in one-pass TF32 (cuBLAS with allow_tf32) lands outside it
+# (at least 1.9e-4·max|plain| there)
+QUANT_F32_TOL = 2e-5
+
+
+@pytest.mark.parametrize("bits,M,K,N,G", QUANT_F32_CASES)
+def test_quant_f32_kernels_match_plain(cuda, bits, M, K, N, G):
+    qt, kernel, plain = _quantized(bits, N, K, G, cuda)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(1)
+    x = torch.randn(M, K, device=cuda, generator=g)
+    before, bf16 = kernel.f32_launches, kernel.launches
+    out = kernel(x, *qt)
+    torch.cuda.synchronize()
+    assert (kernel.f32_launches, kernel.launches) == (before + 1, bf16)
+    assert out.shape == (M, N) and out.dtype == torch.float32
+    ref = plain(x, *qt)
+    tol = QUANT_F32_TOL * ref.abs().max()
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max() <= tol, (out - ref).abs().max().item()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        control = plain(x, *qt)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if M * K >= 4096 * 8:      # enough terms for TF32's rounding to show
+        assert (control - ref).abs().max() > tol
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_biased_quant_linear_f32_matches_plain(cuda, bits):
+    """``Int8Linear`` / ``Int4Linear`` computing in fp32 with a bias: one
+    K4 f32 / K5 f32 launch, the bias added in fp32, against the same module
+    on the CPU."""
+    g = torch.Generator().manual_seed(3)
+    w = torch.randn(320, 640, generator=g) * 0.02
+    b = torch.randn(320, generator=g)
+    x = torch.randn(2, 77, 640, generator=g)
+    if bits == 8:
+        m = tq.Int8Linear.from_weight(w, torch.float32, bias=b)
+    else:
+        m = tq.Int4Linear.from_weight(w, 128, torch.float32, bias=b)
+    kernel = tq.int8_matmul if bits == 8 else tq.int4_matmul
+    with torch.no_grad():
+        ref = m(x)
+        before = kernel.f32_launches
+        out = m.to(cuda)(x.to(cuda)).cpu()
+    assert kernel.f32_launches == before + 1 and out.dtype == torch.float32
+    assert (out - ref).abs().max() <= QUANT_F32_TOL * ref.abs().max()
 
 
 # -- the batched engine's decode block as a CUDA graph ---------------------
@@ -884,7 +1024,8 @@ def _generator(model, graphed, T=20):
                                   for i in range(4)]
         + [tok.special["</img>"]]))
     return MLLMGenerator(model, sampling=SamplingConfig(max_new_tokens=T),
-                         ladder=ladder, cuda_graph=graphed)
+                         ladder=ladder, cuda_graph=graphed,
+                         cast_params_bf16=True)
 
 
 @pytest.mark.parametrize("bits", [None, 8])

@@ -310,7 +310,7 @@ def test_generator_merge_lora_folds_adapters():
     want = (mod.weight.float() + (mod.lora_B.weight.float()
                                   @ mod.lora_A.weight.float()) * mod.scale
             ).to(torch.bfloat16)
-    gen = MLLMGenerator(tm, merge_lora=True)
+    gen = MLLMGenerator(tm, merge_lora=True, cast_params_bf16=True)
     lm = gen.model.language_model
     assert not any(isinstance(m, LoRALinear) for m in lm.modules())
     assert gen.lm_config.lora_rank == 0 and gen.lm_config is lm.config

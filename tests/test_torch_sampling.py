@@ -161,7 +161,8 @@ def test_generator_samples_reproducibly():
     another seed other ids, a batch row the ids it has alone under its
     (seed, row) stream, and do_sample False the greedy ids."""
     tm, _, _ = build_tiny_mllm(TinySpec(), device="cpu", seed=5)
-    gen = MLLMGenerator(tm, sampling=SamplingConfig(max_new_tokens=8))
+    gen = MLLMGenerator(tm, sampling=SamplingConfig(max_new_tokens=8),
+                        cast_params_bf16=True)
     hot = SamplingConfig(max_new_tokens=8, do_sample=True, temperature=1.5,
                          top_p=0.98)
     ids = torch.tensor([[3, 17, 42, 9, 100, 7]])

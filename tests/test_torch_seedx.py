@@ -227,7 +227,8 @@ def test_generate_with_projection_matches_reference(qwen_seed, k):
     ids = [tok.bos_token_id] + tok.encode(f"a red cat on a mat {BOI_TOKEN}")
     gen = MLLMGenerator(tm, sampling=SamplingConfig(max_new_tokens=T),
                         ladder=ladder_from_tokenizer(tok, NQ),
-                        cache_dtype=torch.float32, speculative_k=k)
+                        cache_dtype=torch.float32, speculative_k=k,
+                        cast_params_bf16=True)
     jgen = JGen(jm, jl, params,
                 sampling=jsampler.SamplingConfig(max_new_tokens=T),
                 ladder=jsampler.ladder_from_tokenizer(JTok(), NQ),

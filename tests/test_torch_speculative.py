@@ -130,10 +130,10 @@ def test_speculative_generate_matches_reference_and_plain(generators,
     jm, jl, params, tm = generators
     base = dict(max_new_tokens=12, eos_token_id=-1)
     plain = MLLMGenerator(tm, sampling=SamplingConfig(**base),
-                          cache_dtype=torch.float32)
+                          cache_dtype=torch.float32, cast_params_bf16=True)
     spec = MLLMGenerator(tm, sampling=SamplingConfig(**base),
                          cache_dtype=torch.float32, speculative_k=4,
-                         speculative_ngram=2)
+                         speculative_ngram=2, cast_params_bf16=True)
     jspec = JGen(jm, jl, params, sampling=jsampler.SamplingConfig(**base),
                  cache_dtype=jnp.float32, speculative_k=4,
                  speculative_ngram=2)
@@ -160,7 +160,8 @@ def test_speculative_generate_matches_reference_and_plain(generators,
 def test_sampled_or_batched_calls_do_not_speculate(generators):
     *_, tm = generators
     spec = MLLMGenerator(tm, sampling=SamplingConfig(max_new_tokens=4),
-                         cache_dtype=torch.float32, speculative_k=3)
+                         cache_dtype=torch.float32, speculative_k=3,
+                         cast_params_bf16=True)
     spec.generate(torch.tensor([PROMPTS[1], PROMPTS[1]]))
     assert spec.last_timings["speculative_k"] == 0
     spec.generate(torch.tensor([PROMPTS[1]]), sampling=SamplingConfig(

@@ -288,7 +288,6 @@ def test_worker_config_json_and_unknown_keys(tmp_path):
 
 @pytest.mark.parametrize("flags,item", [
     (["--tensor-parallel", "2"], "item 12"),
-    (["--no-cast-bf16"], "item 10c"),
 ])
 def test_unported_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=item):
