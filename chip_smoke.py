@@ -12,7 +12,8 @@ exits non-zero. Phases, in order:
    ``nvcc``, one process per source, all started together: K1
    (``flash_fwd.cu``), K2 and K3 (``flash_bwd.cu``), K4 and K5
    (``quant_matmul.cu``), and for fp32 operands K1 f32
-   (``flash_fwd_f32.cu``), K4 f32 and K5 f32 (``quant_matmul_f32.cu``);
+   (``flash_fwd_f32.cu``), K2 f32 and K3 f32 (``flash_bwd_f32.cu``), K4
+   f32 and K5 f32 (``quant_matmul_f32.cu``);
 2. the full-width model: the port's ``mllm_llama3_8b_siglip_vit.yaml``
    (Llama-3-8B with r32 LoRA, SigLIP-so400m, attention resampler), bf16,
    weights drawn from seed 0, ``FakeTokenizer`` at vocab 128587;
@@ -144,7 +145,7 @@ exits non-zero. Phases, in order:
    as the yardstick, per shape and per training step;
 10. SEED-X at full width, after the Llama-3 models are dropped: the port's
    ``seedx_llama2_13b_qwenvl_vitg.yaml`` through ``load_engine_from_config``
-   (Llama-2-13B with r32 LoRA, vocab 32330, at ``SEEDX_LAYERS`` = 20 of its
+   (Llama-2-13B with r32 LoRA, vocab 32330, at ``SEEDX_LAYERS`` = 10 of its
    40 layers in phases 10-13, a cut of depth; Qwen-ViT-G-448 and its
    attention pool; the input and output resamplers; bf16, weights from
    seed 0, ``FakeTokenizer``): its parameter count and resident memory;
@@ -207,9 +208,9 @@ exits non-zero. Phases, in order:
    within twice the bf16 control's largest reading and the ranking the
    same where the two lowest losses differ by more; then run.py's
    prefix-cache engine (2 slots, 2560 tokens, prompts to 2048 in buckets
-   of 512, 4 entries) over the same model on the four text benchmarks and
-   a synthetic subject whose preamble passes the 512-token alignment
-   (hits and tokens saved), its prompts alone through an eager twin
+   of 512, 4 entries) over the same model on two text benchmarks (mmlu,
+   bbh) and a synthetic subject whose preamble passes the 512-token
+   alignment (hits and tokens saved), its prompts alone through an eager twin
    against the single-request engine by the logit rule, and the graphed
    engine's answers equal to the twin's;
 13. SEED-X pretraining at full width, after phase 12a's model is dropped
@@ -245,7 +246,7 @@ exits non-zero. Phases, in order:
    of the 13B's projections and lm_head;
 14. the reference's checkpoints, after phase 13 (the counts set to 0
    before each request and forward, read after): phase 2's seeded 8B
-   assembly at ``CKPT_LAYERS`` = 8 of its 32 layers (a cut of depth; every
+   assembly at ``CKPT_LAYERS`` = 4 of its 32 layers (a cut of depth; every
    width full) built, serving phase 4's three requests and, quantized to
    int8, phase 7's two (the ids every load is held to), and written in
    the reference's layouts under a
@@ -348,7 +349,31 @@ exits non-zero. Phases, in order:
    and ``torch.backends.cudnn``): fp32 products and convolutions in full
    fp32, as printed beside phases 11 and 17.
 
-Phases 2 to 17 build from copies of the shipped configs with their
+18. fp32 training, last (every count set to 0 before each step and read
+   after): a. the SDXL de-tokenizer built as the reference's default,
+   ``build_sdxl_adapter(param_dtype=torch.float32)`` (the 2.57 B UNet at
+   1024², the ResamplerXLV2, the VAE; seed 0), trained over
+   ``adapter_trainable_patterns()`` (402.0 M) by the port's AdamW at lr
+   1e-5 on one repeated batch (VAE latents of seeded images, seeded
+   features of SEED-X's vision tower's shape) at the largest of 4, 2, 1
+   that fits, 4 steps: K1 f32 with its LSE 280, K2 f32 = K3 f32 = 140 a
+   step (the UNet's 70 blocks under remat), asserted; every later loss
+   below the first; s a step, s a sample, the peak; then one batch's
+   trainable gradients with the kernels against the plain attention's
+   (autograd through the fp32 plain forward; cos ≥ 0.9999) and closer to
+   them than the one-pass TF32 route's; b. one fp32 step of
+   ``IPAdapterSD.loss_fn`` over ``ip_adapter_trainable_patterns()`` on
+   SD-1.5 at 512² with 16 image tokens after 77 text tokens (D = 40, 80,
+   160), its counts asserted; c. K1 f32 with its LSE, K2 f32 and K3 f32
+   against their fp32 plain versions (within 1e-4·max|plain|, the LSE
+   within 1e-4·max(1, max|lse|)) at a.'s shapes at its batch (timed
+   beside their plain versions, SDPA's fp32 forward and backward and the
+   bound), at b.'s and over an edge sweep (head dims 8 to 160, lengths off
+   the tiles, causal Sq != Sk, GQA, segments, rows with no visible key,
+   fused strided q/k/v), each beside its one-pass TF32 control, which must
+   miss that bar at a.'s shapes, and for a bit-identical repeat.
+
+Phases 2 to 18 build from copies of the shipped configs with their
 checkpoint paths null (``use_seeded_configs``): the repository holds no
 weights, and a configured path that does not exist raises.
 
@@ -1078,10 +1103,15 @@ class _Count:
 
 
 def f32_counters():
-    """name → the counter of each fp32-operand kernel."""
+    """name → the counter of each fp32-operand kernel (K1 f32 without its
+    LSE and with it apart)."""
     from mllm_npu_tpu_torch.ops import quant as tq
-    from mllm_npu_tpu_torch.ops.flash_attention import flash_attention
+    from mllm_npu_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_bwd_dkv, flash_bwd_dq)
     return {"flash_fwd_f32": _Count(flash_attention, "f32_launches"),
+            "flash_fwd_f32_lse": _Count(flash_attention, "f32_lse_launches"),
+            "flash_bwd_dq_f32": _Count(flash_bwd_dq, "f32_launches"),
+            "flash_bwd_dkv_f32": _Count(flash_bwd_dkv, "f32_launches"),
             "int8_matmul_f32": _Count(tq.int8_matmul, "f32_launches"),
             "int4_matmul_f32": _Count(tq.int4_matmul, "f32_launches")}
 
@@ -3490,7 +3520,9 @@ def cache_dtype_check(single, plain_graphed, items, plain_ids, rule,
         torch.cuda.reset_peak_memory_stats()
         graphed = twin_of(plain_graphed, cache_dtype=dt)
         eager = twin_of(plain_graphed, cache_dtype=dt, cuda_graph=False)
-        g = timed_ticks(graphed, items, SPEC_TOKENS)
+        # a cut of depth for the 1200 s limit: the graphed run as long as
+        # the eager one, one request's logit rows
+        g = timed_ticks(graphed, items, BLOCK_TOKENS)
         e = timed_ticks(eager, items, BLOCK_TOKENS)
         check(all(a[:len(b)] == b for a, b in zip(g["ids"], e["ids"])),
               f"{name} cache: graphed and eager ids differ")
@@ -3498,7 +3530,7 @@ def cache_dtype_check(single, plain_graphed, items, plain_ids, rule,
         nbytes = 2 * graphed.state["k"].numel() \
             * graphed.state["k"].element_size()
         rule, identical = {}, 0
-        for lab in labels:
+        for lab in labels[:1]:
             ids, rows = recorded_stream(eager, preps[lab], C_TOKENS)
             same, d, desc = logit_rule(
                 f"{name} cache {lab} vs bf16 cache", ids, rows,
@@ -3689,7 +3721,7 @@ SEEDX_YAML = "mllm_npu_tpu_torch/configs/models/seedx_llama2_13b_qwenvl_vitg.yam
 # phases 10-13 run SEED-X's Llama-2-13B at this many of its 40 layers (a
 # cut of depth for the 1200 s limit; every width, the vocabulary, LoRA,
 # Qwen-ViT-G and both resamplers are full)
-SEEDX_LAYERS = 20
+SEEDX_LAYERS = 10
 SEEDX_WORKER = "mllm_npu_tpu_torch/configs/workers/seedx_worker.json"
 SEEDX_CAPTION = "A red bicycle leaning on a stone wall in the rain"
 # tokens of the caption → features request: the 64 forced image tokens,
@@ -4252,6 +4284,9 @@ EVAL_SETS = (("mmlu", "mmlu"), ("cmmlu", "cmmlu"), ("ceval", "ceval"),
              ("bbh", "bbh"), ("mme", "mme"), ("mm_vet", "mmvet"),
              ("seed_bench", "seed_bench2"))
 EVAL_TEXT_SETS = ("mmlu", "cmmlu", "ceval", "bbh")
+# those run.py's prefix-cache engine takes in phase 12a (a cut of depth
+# for the 1200 s limit)
+EVAL_PREFIX_SETS = ("mmlu", "bbh")
 # generate_with_image answers at the engine's max_new_tokens (run.py: 512;
 # random weights never emit EOS): cut to this many here
 EVAL_IMAGE_TOKENS = 32
@@ -4760,7 +4795,7 @@ def evaluator_phase():
     held, prefix_per = [], {}
     try:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
-            for ds in EVAL_TEXT_SETS + ("synthetic",):
+            for ds in EVAL_PREFIX_SETS + ("synthetic",):
                 wd = Path(tmp) / ds
                 wd.mkdir()
                 fx = EVAL_FIXTURES / ds
@@ -5395,7 +5430,7 @@ CKPT_SHARD_BYTES = 5 * 10 ** 9        # HF's shard size
 # 32 layers (a cut of depth for the 1200 s limit; every width, the
 # vocabulary, LoRA, SigLIP and the projector are full), and holds each
 # load to that seeded source's tensors and ids
-CKPT_LAYERS = 8
+CKPT_LAYERS = 4
 # what the phase holds on disk at once: the 8B assembly's files and the
 # converter's copy (the UNet's and the VAE's come after both are gone)
 CKPT_DISK_BYTES = 40e9
@@ -7188,6 +7223,647 @@ def fp32_serving_phase(requests):
     return out
 
 
+# -- phase 18: fp32 training -------------------------------------------------
+# 18a: the de-tokenizer trained in the reference's fp32 at the largest of
+# these batches that fits, its steps on one repeated batch
+F32_TRAIN_BATCHES = (4, 2, 1)
+F32_TRAIN_STEPS = 4
+# the trainable gradients with K1 f32 / K2 f32 / K3 f32 against the plain
+# attention's (autograd through the fp32 plain forward), at batch 1
+F32_GRAD_COS = 0.9999
+# 18b: one IP-Adapter step at this batch (SD-1.5 at 512²)
+IP_TRAIN_BATCH = 2
+# 18c: K1 f32's LSE is held to K1_F32_TOL·max(1, max|lse|) of the plain
+# LSE, its output and K2 f32 / K3 f32's to K1_F32_TOL·max|plain|, the bar
+# K1 f32 meets in phase 17; the one-pass control must miss it at the
+# training paths' shapes. The edges (``F32_BWD_EDGES``) are checked, not
+# timed: head dims 8 to 160, lengths off the 64-row blocks and 32-row
+# tiles, causal Sq != Sk, GQA 8/1 and 32/8, segments inside a tile, rows
+# with no visible key, fused strided q/k/v, one query row
+F32_BWD_EDGES = [  # B, Sq, Sk, Hq, Hkv, D, causal, segments, layout
+    (1, 129, 129, 8, 1, 8, True, None, "bshd"),
+    (2, 65, 65, 8, 1, 24, True, 40, "bshd"),
+    (2, 63, 65, 8, 2, 72, False, None, "bshd"),
+    (2, 65, 63, 8, 2, 128, True, None, "bshd"),
+    (1, 729, 129, 8, 1, 64, True, None, "bshd"),
+    (1, 100, 300, 4, 2, 96, True, None, "bshd"),
+    (2, 600, 600, 32, 8, 128, True, "packed", "bshd"),
+    (2, 200, 200, 8, 8, 72, True, "packed", "fused"),
+    (2, 300, 300, 16, 16, 104, False, "packed", "fused"),
+    (1, 129, 129, 8, 2, 136, True, None, "bshd"),
+    (2, 65, 63, 8, 8, 152, True, None, "bshd"),
+    (1, 1, 37, 4, 1, 128, False, None, "bshd"),
+]
+
+
+def flash_module():
+    """``mllm_npu_tpu_torch.ops.flash_attention`` (the package attribute
+    of that name is the function)."""
+    import importlib
+    return importlib.import_module("mllm_npu_tpu_torch.ops.flash_attention")
+
+
+def f32_train_counters():
+    """name → counter of every kernel, bf16 and fp32 (K1 f32 with its LSE
+    and without apart)."""
+    return {**kernel_counters(), **f32_counters()}
+
+
+def f32_inputs(B, Sq, Sk, Hq, Hkv, D, seg, layout, seed):
+    """Seeded fp32 q, k, v, dO on the card and segment ids: None; an int
+    n, the last row's queries from n in segment 0 and its keys from n in
+    -1 (rows with no visible key); "packed", segments of 5 to 40 tokens and
+    a padded tail. ``layout`` "fused": q, k, v views of one
+    [B, S, 3, H, D] tensor."""
+    import torch
+
+    from mllm_npu_tpu_torch.ops.flash_attention import SegmentIds
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    if layout == "fused":
+        q, k, v = torch.randn(B, Sq, 3, Hq, D, device=dev,
+                              generator=g).unbind(2)
+    else:
+        q = torch.randn(B, Sq, Hq, D, device=dev, generator=g)
+        k, v = (torch.randn(B, Sk, Hkv, D, device=dev, generator=g)
+                for _ in range(2))
+    do = torch.randn(B, Sq, Hq, D, device=dev, generator=g)
+    if seg is None:
+        return q, k, v, do, None
+    qs = torch.ones(B, Sq, dtype=torch.int32)
+    ks = torch.ones(B, Sk, dtype=torch.int32)
+    if seg == "packed":
+        gen = torch.Generator().manual_seed(seed)
+        for b in range(B):
+            lens = torch.randint(5, 41, (Sq,), generator=gen)
+            qs[b] = torch.repeat_interleave(torch.arange(1, Sq + 1),
+                                            lens)[:Sq]
+        qs[-1, Sq - Sq // 7:] = 0
+        ks = qs[:, :Sk].clone()
+    else:
+        qs[-1, seg:] = 0
+        ks[-1, seg:] = -1
+    return q, k, v, do, SegmentIds(q=qs.to(dev), kv=ks.to(dev))
+
+
+def f32_rel_err(got, ref) -> float:
+    """max|got − ref| / max|ref|."""
+    return ((got - ref).abs().max()
+            / ref.abs().max().clamp_min(1e-30)).item()
+
+
+def f32_bwd_case(name, B, Sq, Sk, Hq, Hkv, D, causal=False, seg=None,
+                 layout="bshd", power=True, timing=True, seed=0):
+    """K1 f32 with its LSE, K2 f32 and K3 f32 against their fp32 plain
+    versions at one shape, each beside its one-pass TF32 control (which
+    must miss the bar where ``power``); with ``timing`` each timed beside
+    its plain version, SDPA (K1: its fp32 forward; K2, K3: its fp32
+    backward, dq, dk and dv together, TF32 off) and its bound. Launches
+    made here are counted by the wrappers: the caller resets the counts
+    before the path it checks. → {"lse": row, kernel name: row}."""
+    import torch
+    import torch.nn.functional as F
+    fa = flash_module()
+    q, k, v, do, sids = f32_inputs(B, Sq, Sk, Hq, Hkv, D, seg, layout, seed)
+    kw = dict(causal=causal, segment_ids=sids)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    delta = fa.attention_delta(o, do)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    one_o, one_lse = fa.flash_attention_f32_one_pass(q, k, v,
+                                                      return_lse=True, **kw)
+    one = (fa.flash_bwd_dq_f32_one_pass(q, k, v, do, lse, delta, **kw),
+           *fa.flash_bwd_dkv_f32_one_pass(q, k, v, do, lse, delta, **kw))
+    torch.cuda.synchronize()
+    ro, rlse = fa.flash_attention_reference(q, k, v, return_lse=True, **kw)
+    lse_scale = max(1.0, rlse.abs().max().item())
+    errs = {"out": f32_rel_err(o, ro),
+            "lse": ((lse - rlse).abs().max() / lse_scale).item()}
+    ctl = {"out": f32_rel_err(one_o, ro),
+           "lse": ((one_lse - rlse).abs().max() / lse_scale).item()}
+    del ro, rlse, one_o, one_lse
+    refs = (fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw),
+            *fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, **kw))
+    for lab, got, c, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), one, refs):
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite {lab}")
+        errs[lab], ctl[lab] = f32_rel_err(got, ref), f32_rel_err(c, ref)
+    del refs, one
+    check(bool(torch.isfinite(lse).all() and torch.isfinite(o).all()),
+          f"{name}: non-finite output or LSE")
+    for lab, e in errs.items():
+        check(e <= K1_F32_TOL, f"{name}: {lab} off its fp32 plain version "
+              f"by {e:.3e} of its largest value, beyond {K1_F32_TOL}")
+    if power:
+        for lab in ("out", "dq", "dk", "dv"):
+            check(ctl[lab] > K1_F32_TOL, f"{name}: the one-pass control's "
+                  f"{lab} is within the bar ({ctl[lab]:.3e}): the check has "
+                  "no power here")
+    if isinstance(seg, int):
+        check(bool((o[-1, seg:] == 0).all() and (lse[-1, :, seg:] == 0).all()
+                   and (dq[-1, seg:] == 0).all()),
+              f"{name}: a row with no visible key is not 0")
+    again = (fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+             *fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    check(all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)),
+          f"{name}: K2 f32 / K3 f32 repeat differs")
+    del again
+    base = {"shape": name, "B": B, "Sq": Sq, "Sk": Sk, "Hq": Hq, "Hkv": Hkv,
+            "D": D, "causal": causal, "segments": sids is not None,
+            "tolerance": f"{K1_F32_TOL} x max|plain|"}
+    rows = {"lse": {**base, "max_abs_err": errs["out"],
+                    "lse_err": errs["lse"],
+                    "one_pass_tf32_err": ctl["out"],
+                    "one_pass_tf32_lse_err": ctl["lse"]},
+            "flash_bwd_dq_f32": {**base, "max_abs_err": errs["dq"],
+                                 "one_pass_tf32_err": ctl["dq"]},
+            "flash_bwd_dkv_f32": {**base,
+                                  "max_abs_err": max(errs["dk"], errs["dv"]),
+                                  "one_pass_tf32_err": min(ctl["dk"],
+                                                           ctl["dv"])}}
+    line = (f"[K1/K2/K3 f32] {name}: errors / max|plain| out {errs['out']:.2e}"
+            f" lse {errs['lse']:.2e} dq {errs['dq']:.2e} dk {errs['dk']:.2e} "
+            f"dv {errs['dv']:.2e}; one-pass TF32 out {ctl['out']:.2e} dq "
+            f"{ctl['dq']:.2e} dk {ctl['dk']:.2e} dv {ctl['dv']:.2e}")
+    if not timing:
+        print(line, flush=True)
+        return rows
+    mask = torch.ones(B, Sq, Sk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril()
+    if sids is not None:
+        mask &= sids.q[:, :, None] == sids.kv[:, None, :]
+    pairs = int(mask.sum().item()) * Hq
+    # bytes of q (or o, dq, dO) and of k (or v, dk, dv), of one [B, Hq, Sq]
+    # row vector and of the segment ids, each read or written once
+    nq, nk, row = 4 * B * Sq * Hq * D, 4 * B * Sk * Hkv * D, 4 * B * Hq * Sq
+    segb = 4 * B * (Sq + Sk) if sids is not None else 0
+    work = {  # flops: 4, 6 and 8·D a visible pair and head
+        "lse": (4 * D * pairs, 2 * nq + 2 * nk + row + segb),
+        "flash_bwd_dq_f32": (6 * D * pairs, 3 * nq + 2 * nk + 2 * row + segb),
+        "flash_bwd_dkv_f32": (8 * D * pairs,
+                              2 * nq + 4 * nk + 2 * row + segb)}
+    G = Hq // Hkv
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt = k.transpose(1, 2).repeat_interleave(G, 1).detach().requires_grad_()
+    vt = v.transpose(1, 2).repeat_interleave(G, 1).detach().requires_grad_()
+    sdpa_kw = (dict(attn_mask=mask[:, None]) if sids is not None
+               else dict(is_causal=causal))
+    times = {
+        "lse": (time_ms(lambda: fa.flash_attention(q, k, v, return_lse=True,
+                                                   **kw)),
+                time_ms(lambda: fa.flash_attention_reference(
+                    q, k, v, return_lse=True, **kw), iters=3),
+                time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, **sdpa_kw))),
+        "flash_bwd_dq_f32": (
+            time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)),
+            time_ms(lambda: fa.flash_bwd_dq_reference(q, k, v, do, lse,
+                                                      delta, **kw), iters=3)),
+        "flash_bwd_dkv_f32": (
+            time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)),
+            time_ms(lambda: fa.flash_bwd_dkv_reference(q, k, v, do, lse,
+                                                       delta, **kw),
+                    iters=3))}
+    out = F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), iters=5)
+    del out, qt, kt, vt, mask
+    for key, t in times.items():
+        flops, nbytes = work[key]
+        t_c, t_m = flops / H100_TF32_FLOPS, nbytes / H100_BYTES_PER_S
+        bound = max(t_c, t_m) * 1e3
+        rows[key].update({
+            "ms": t[0], "plain_ms": t[1],
+            "library_ms": t[2] if key == "lse" else sdpa_bwd,
+            "bound_ms": bound, "bound_by": "operations" if t_c >= t_m
+            else "bytes", "bound_share": bound / t[0],
+            "tflops": flops / t[0] / 1e9, "flops": flops, "bytes": nbytes})
+    print(line + "; ms: K1 f32 with its LSE "
+          f"{times['lse'][0]:.3f} (plain {times['lse'][1]:.3f}, SDPA fp32 "
+          f"forward {times['lse'][2]:.3f}), K2 f32 "
+          f"{times['flash_bwd_dq_f32'][0]:.3f} (plain "
+          f"{times['flash_bwd_dq_f32'][1]:.3f}), K3 f32 "
+          f"{times['flash_bwd_dkv_f32'][0]:.3f} (plain "
+          f"{times['flash_bwd_dkv_f32'][1]:.3f}), SDPA fp32 backward "
+          f"{sdpa_bwd:.3f}; bounds "
+          f"{rows['lse']['bound_ms']:.4f} / "
+          f"{rows['flash_bwd_dq_f32']['bound_ms']:.4f} / "
+          f"{rows['flash_bwd_dkv_f32']['bound_ms']:.4f} ms", flush=True)
+    return rows
+
+
+def f32_train_steps(ad, opt, batches, expect, label):
+    """One step of ``opt`` per batch over ``ad.parts``' trainable set, every
+    count set to 0 before each step and read after and held to ``expect``
+    (every other kernel 0). → (losses, seconds per step, counts per step,
+    peak GiB)."""
+    import torch
+
+    from mllm_npu_tpu_torch.train.train_state import make_train_step
+    step = make_train_step(ad.parts, lambda m, b: ad.loss_fn(b), opt)
+    counters = f32_train_counters()
+    losses, secs, counts, peak = [], [], [], 0.0
+    for batch in batches:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        loss, _ = step([batch])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
+        got = expect_counts(read_all(counters), f"{label} step", **expect)
+        check(bool(torch.isfinite(loss)), f"{label}: non-finite loss")
+        losses.append(float(loss))
+        counts.append(got)
+    return losses, secs, counts, peak
+
+
+class OnePassAttention:
+    """The fp32 attention route in one-pass TF32 (K1 f32's, K2 f32's and
+    K3 f32's controls): the forward and an autograd Function for the
+    training route, swapped in by ``f32_routes``; its launches are not
+    counted."""
+
+    @staticmethod
+    def forward(q, k, v, **kw):
+        return flash_module().flash_attention_f32_one_pass(q, k, v, **kw)
+
+    @staticmethod
+    def trainable(q, k, v, *, causal=False, segment_ids=None, scale=None):
+        import torch
+        fa = flash_module()
+        scale = q.shape[-1] ** -0.5 if scale is None else scale
+        kw = dict(causal=causal, segment_ids=segment_ids, scale=scale)
+
+        class Fn(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, q, k, v):
+                o, lse = fa.flash_attention_f32_one_pass(
+                    q, k, v, return_lse=True, **kw)
+                ctx.save_for_backward(q, k, v, o, lse)
+                return o
+
+            @staticmethod
+            def backward(ctx, do):
+                q, k, v, o, lse = ctx.saved_tensors
+                do = do.contiguous()
+                delta = fa.attention_delta(o, do)
+                dq = fa.flash_bwd_dq_f32_one_pass(q, k, v, do, lse, delta,
+                                                  **kw)
+                dk, dv = fa.flash_bwd_dkv_f32_one_pass(q, k, v, do, lse,
+                                                       delta, **kw)
+                return dq, dk, dv
+        return Fn.apply(q, k, v)
+
+
+@contextlib.contextmanager
+def f32_route(which):
+    """Inside the block the attentions take ``which``: "kernels" (K1 f32,
+    K2 f32, K3 f32), "plain" (autograd through the fp32 plain forward) or
+    "one-pass TF32"."""
+    import mllm_npu_tpu_torch.ops as port_ops
+    from mllm_npu_tpu_torch.ops.flash_attention import (
+        flash_attention_reference)
+    fns = (port_ops.flash_attention, port_ops.flash_attention_trainable)
+    if which == "plain":
+        port_ops.flash_attention = flash_attention_reference
+        port_ops.flash_attention_trainable = flash_attention_reference
+    elif which == "one-pass TF32":
+        port_ops.flash_attention = OnePassAttention.forward
+        port_ops.flash_attention_trainable = OnePassAttention.trainable
+    try:
+        yield
+    finally:
+        port_ops.flash_attention, port_ops.flash_attention_trainable = fns
+
+
+def f32_grad_check(ad, batch, n_k1):
+    """18a: one batch's trainable gradients through the three routes: the
+    kernels' against the plain attention's (cos ≥ F32_GRAD_COS) and closer
+    to them than the one-pass control's, for the UNet's tuned projections
+    and for the resampler; the kernels' route launches K1 f32 with its LSE
+    2·n_k1 times, K2 f32 and K3 f32 n_k1, the others none."""
+    import torch
+
+    from mllm_npu_tpu_torch.train.train_state import compute_grads
+    groups = {"unet attn2 to_k/to_v": lambda n: n.startswith("unet."),
+              "resampler": lambda n: n.startswith("resampler.")}
+    counters = f32_train_counters()
+    grads, out = {}, {"losses": {}, "launches": {}, "cos": {},
+                      "rel_dist": {}, "control_cos": {},
+                      "control_rel_dist": {}}
+    for route in ("kernels", "plain", "one-pass TF32"):
+        zero_counts(counters)
+        with f32_route(route):
+            loss, _ = compute_grads(ad.parts, lambda m, b: ad.loss_fn(b),
+                                    [batch])
+        torch.cuda.synchronize()
+        out["losses"][route] = float(loss)
+        out["launches"][route] = got = read_all(counters)
+        if route == "kernels":
+            expect_counts(got, "18a gradients (kernels)",
+                          flash_fwd_f32_lse=2 * n_k1,
+                          flash_bwd_dq_f32=n_k1, flash_bwd_dkv_f32=n_k1)
+        else:
+            expect_counts(got, f"18a gradients ({route})")
+        grads[route] = {g: torch.cat([p.grad.flatten() for n, p in
+                                      ad.parts.named_parameters()
+                                      if p.requires_grad and sel(n)])
+                        for g, sel in groups.items()}
+        for p in ad.parts.parameters():
+            p.grad = None
+    for g in groups:
+        ref = grads["plain"][g]
+
+        def cos(a):
+            return torch.nn.functional.cosine_similarity(a, ref,
+                                                         dim=0).item()
+
+        def dist(a):
+            return ((a - ref).norm() / ref.norm()).item()
+        a, c = grads["kernels"][g], grads["one-pass TF32"][g]
+        out["cos"][g], out["rel_dist"][g] = cos(a), dist(a)
+        out["control_cos"][g], out["control_rel_dist"][g] = cos(c), dist(c)
+        print(f"[check] 18a {g} gradients ({a.numel() / 1e6:.2f} M) against "
+              f"plain attention: kernels cos {cos(a):.9f}, relative "
+              f"distance {dist(a):.3e}; one-pass TF32 cos {cos(c):.9f}, "
+              f"{dist(c):.3e}", flush=True)
+        check(cos(a) >= F32_GRAD_COS, f"18a {g}: gradients cos {cos(a)} "
+              f"against plain attention, below {F32_GRAD_COS}")
+        check(dist(a) < dist(c), f"18a {g}: the kernels' gradients are no "
+              f"closer to plain attention's ({dist(a)}) than the one-pass "
+              f"control's ({dist(c)})")
+    return out
+
+
+def f32_detok_training(gen):
+    """18a: the SDXL de-tokenizer built in fp32 (``build_sdxl_adapter(
+    param_dtype=torch.float32)``, the reference's default) trained over
+    ``adapter_trainable_patterns()`` at 1024²: F32_TRAIN_STEPS AdamW steps
+    at lr DETOK_LR on one repeated batch at the largest of
+    F32_TRAIN_BATCHES that fits, then the gradient check at batch 1."""
+    import torch
+
+    from mllm_npu_tpu_torch.models.factory import build_sdxl_adapter
+    from mllm_npu_tpu_torch.models.generation.adapter_modules import (
+        adapter_trainable_patterns)
+    t0 = time.perf_counter()
+    ad = build_sdxl_adapter(**gen, device="cuda", seed=0,
+                            param_dtype=torch.float32)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check({p.dtype for p in ad.parts.parameters()} == {torch.float32},
+          "18a: the de-tokenizer is not fp32")
+    n_train = trainable_fp32(ad.parts, adapter_trainable_patterns())
+    n_k1 = attention_count(ad.unet)
+    vis13 = seedx_specs()[0]
+    feats_shape = (1, vis13.n_queries, vis13.output_dim)
+    print(f"[phase 18a] the fp32 SDXL adapter built in {build_s:.1f} s "
+          f"({sum(p.numel() for p in ad.parts.parameters()) / 1e9:.3f} B "
+          f"parameters, {n_train / 1e6:.1f} M trainable, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident); "
+          f"features {list(feats_shape)}; TF32 {tf32_flags()}", flush=True)
+    expect = dict(flash_fwd_f32_lse=2 * n_k1, flash_bwd_dq_f32=n_k1,
+                  flash_bwd_dkv_f32=n_k1)
+    out = {"build_s": build_s, "trainable": n_train, "tried": [],
+           "k1_per_forward": n_k1}
+    for B in F32_TRAIN_BATCHES:
+        out["tried"].append(B)
+        opt = adapter_optimizer(ad)
+        try:
+            batch = detok_batch(ad, feats_shape, B, 180)
+            losses, secs, counts, peak = f32_train_steps(
+                ad, opt, [batch], expect, f"18a batch {B}")
+            break
+        except torch.cuda.OutOfMemoryError:
+            del opt
+            batch = None
+            for p in ad.parts.parameters():
+                p.grad = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"[phase 18a] batch {B} does not fit", flush=True)
+    else:
+        fail("18a: not even batch 1 fits")
+    more = f32_train_steps(ad, opt, [batch] * (F32_TRAIN_STEPS - 1), expect,
+                           f"18a batch {B}")
+    losses += more[0]
+    secs += more[1]
+    counts += more[2]
+    peak = max(peak, more[3])
+    sec_step = sum(secs[1:]) / len(secs[1:])
+    print(f"[phase 18a] fp32 de-tokenizer training at 1024², batch {B} "
+          f"(tried {out['tried']}), {F32_TRAIN_STEPS} AdamW steps at lr "
+          f"{DETOK_LR} on one batch: losses {[round(x, 6) for x in losses]}, "
+          f"{sec_step:.3f} s a step (steps 2-{F32_TRAIN_STEPS}; the first "
+          f"{secs[0]:.3f} s), {sec_step / B:.3f} s a sample, peak "
+          f"{peak:.2f} GiB; launches a step {counts[0]}; {nvidia_smi()}",
+          flush=True)
+    check(max(losses[1:]) < losses[0], f"18a: the loss did not stay below "
+          f"its start on a repeated batch: {losses}")
+    del opt
+    for p in ad.parts.parameters():
+        p.grad = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    grad = f32_grad_check(ad, {k: v[:1] for k, v in batch.items()}, n_k1)
+    out.update(batch=B, losses=losses, sec_per_step=sec_step,
+               sec_per_sample=sec_step / B, first_step_s=secs[0],
+               peak_gib=peak, launches_per_step=counts[0],
+               step_counts=counts, grads=grad)
+    del ad, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def f32_ip_step(vis_width):
+    """18b: one AdamW step of ``IPAdapterSD.loss_fn`` in fp32 over
+    ``ip_adapter_trainable_patterns()`` (SD-1.5 with 16 image tokens after
+    77 text tokens at 512², batch IP_TRAIN_BATCH): every attention that
+    needs a gradient through K1 f32 with its LSE (twice under remat), K2
+    f32 and K3 f32; the one that needs none (the first transformer block's
+    self-attention) through K1 f32 without it."""
+    import torch
+
+    from mllm_npu_tpu_torch.models.factory import materialize
+    from mllm_npu_tpu_torch.models.generation.adapter_modules import (
+        IPAdapterSD, ip_adapter_trainable_patterns)
+    from mllm_npu_tpu_torch.models.generation.resampler import Resampler
+    from mllm_npu_tpu_torch.models.generation.unet import (
+        UNet2DConditionModel, UNetConfig)
+    dev, f32 = torch.device("cuda"), torch.float32
+    cfg = UNetConfig.sd15(ip_num_image_tokens=IP_TOKENS)
+    unet = materialize(lambda: UNet2DConditionModel(cfg, dtype=f32),
+                       device="cuda", seed=0, param_dtype=f32)
+    res = materialize(lambda: Resampler(
+        dim=cfg.cross_attention_dim, depth=4, dim_head=64, heads=12,
+        num_queries=IP_TOKENS, embedding_dim=vis_width,
+        output_dim=cfg.cross_attention_dim, dtype=f32), device="cuda",
+        seed=1, param_dtype=f32)
+    ip = IPAdapterSD.from_pretrained(unet, res)
+    n_train = trainable_fp32(ip.parts, ip_adapter_trainable_patterns())
+    n15 = attention_count(unet)
+    B, f = IP_TRAIN_BATCH, 8
+    batch = {"noisy_latents": seeded((B, 4, SD15_SIZE // f, SD15_SIZE // f),
+                                     40, dev),
+             "timesteps": torch.tensor([100.0, 700.0], device=dev)[:B],
+             "image_embeds": seeded((B, 256, vis_width), 41, dev),
+             "text_embeds": seeded((B, TEXT_TOKENS,
+                                    cfg.cross_attention_dim), 42, dev),
+             "noise": seeded((B, 4, SD15_SIZE // f, SD15_SIZE // f), 43,
+                             dev)}
+    # the first transformer block's self-attention runs on inputs that need
+    # no gradient (once, and again in the remat recompute); every other
+    # attention, its text attention among them (the text is sliced from a
+    # context that holds the trained image tokens), needs one
+    expect = dict(flash_fwd_f32=1 + cfg.remat,
+                  flash_fwd_f32_lse=(1 + cfg.remat) * (n15 - 1),
+                  flash_bwd_dq_f32=n15 - 1, flash_bwd_dkv_f32=n15 - 1)
+    losses, secs, counts, peak = f32_train_steps(
+        ip, adapter_optimizer(ip), [batch], expect, "18b IP-Adapter")
+    print(f"[phase 18b] one fp32 IP-Adapter step (SD-1.5, {SD15_SIZE}², "
+          f"batch {B}, {IP_TOKENS} image tokens after {TEXT_TOKENS} text "
+          f"tokens; {n_train / 1e6:.1f} M trainable; D = 40, 80, 160): loss "
+          f"{losses[0]:.6f}, {secs[0]:.3f} s, peak {peak:.2f} GiB, launches "
+          f"{counts[0]} ({n15} attentions a forward)", flush=True)
+    out = {"loss": losses[0], "step_s": secs[0], "peak_gib": peak,
+           "launches": counts[0], "trainable": n_train,
+           "attentions_per_forward": n15}
+    del ip, unet, res, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def f32_train_kernel_cases(B, ip_batch):
+    """18c: K1 f32 with its LSE, K2 f32 and K3 f32 at 18a's shapes (the
+    SDXL UNet at 1024² at 18a's batch, timed: → the per-step mix) and 18b's
+    (SD-1.5's IP UNet at 512², checked), each beside its one-pass control,
+    then over F32_BWD_EDGES (checked). → (SDXL rows, {name: launches a
+    step}, SD-1.5 rows, edge rows)."""
+    from mllm_npu_tpu_torch.models.generation.unet import UNetConfig
+    cfg, _, ctx = variant_configs()["edit"]
+    rows, mix = [], {}
+    for (S, H, D, Sk), n in unet_attention_mix(cfg, ctx).items():
+        name = f"unet_f32_train_s{S}_k{Sk}_b{B}"
+        rows.append(f32_bwd_case(name, B, S, Sk, H, H, D))
+        mix[name] = n
+    ip_rows = []
+    for (S, H, D, Sk), n in unet_attention_mix(
+            UNetConfig.sd15(ip_num_image_tokens=IP_TOKENS),
+            (TEXT_TOKENS, IP_TOKENS)).items():
+        ip_rows.append(f32_bwd_case(
+            f"sd15_ip_f32_s{S}_k{Sk}_d{D}_b{ip_batch}", ip_batch, S, Sk, H,
+            H, D, power=False, timing=False))
+    edges = [f32_bwd_case(
+        f"edge_b{c[0]}_q{c[1]}_k{c[2]}_h{c[3]}/{c[4]}_d{c[5]}"
+        + ("_causal" if c[6] else "") + (f"_seg{c[7]}" if c[7] else "")
+        + ("_fused" if c[8] == "fused" else ""), *c[:6], causal=c[6],
+        seg=c[7], layout=c[8], power=False, timing=False, seed=50 + i)
+        for i, c in enumerate(F32_BWD_EDGES)]
+    return rows, mix, ip_rows, edges
+
+
+def fp32_training_phase(t_start):
+    """Phase 18 (see the module's docstring). → summary, the path's
+    launches among them."""
+    import torch
+
+    from mllm_npu_tpu_torch.configs import load_config
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    check(not (torch.backends.cuda.matmul.allow_tf32
+               or torch.backends.cudnn.allow_tf32),
+          f"phase 18 needs TF32 off: {tf32_flags()}")
+    print(f"[phase 18] TF32 {tf32_flags()}", flush=True)
+    gen = load_config(ROOT / GEN_CONFIG)
+    out = {"train": f32_detok_training(gen)}
+    print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 18b",
+          flush=True)
+    out["ip"] = f32_ip_step(seedx_specs()[0].output_dim)
+    print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 18c",
+          flush=True)
+    out["cases"] = f32_train_kernel_cases(out["train"]["batch"],
+                                          IP_TRAIN_BATCH)
+    launches = dict.fromkeys(f32_train_counters(), 0)
+    for got in out["train"]["step_counts"] + [out["ip"]["launches"]]:
+        for k in launches:
+            launches[k] += got[k]
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[phase 18] done in {out['seconds']:.1f} s; the path's launches "
+          f"{launches}", flush=True)
+    return out
+
+
+def fp32_training_fields(fp32_train, f32_launches):
+    """Phase 18's fields of K1 f32's row in the JSON line: its launches
+    with the LSE, their time per training step and its LSE shapes."""
+    f32_rows, f32_mix, f32_ip_rows, f32_edges = fp32_train["cases"]
+    every = f32_rows + f32_ip_rows + f32_edges
+    return {
+        # the training paths' launches, twice an attention a step (remat)
+        "lse_launches": f32_launches["flash_fwd_f32_lse"],
+        "lse_launches_per_step": fp32_train["train"]["launches_per_step"][
+            "flash_fwd_f32_lse"],
+        "lse_train_step": row_mix([r["lse"] for r in f32_rows],
+                                  {k: 2 * n for k, n in f32_mix.items()},
+                                  f32_step_basis(fp32_train),
+                                  rate=H100_TF32_FLOPS),
+        "lse_shapes": [r["lse"] for r in every],
+        "lse_max_err": max(r["lse"]["lse_err"] for r in every),
+        "lse_one_pass_tf32_err_min": min(r["lse"]["one_pass_tf32_err"]
+                                         for r in f32_rows)}
+
+
+def f32_step_basis(fp32_train) -> str:
+    return (f"one fp32 de-tokenizer training step at batch "
+            f"{fp32_train['train']['batch']} (1024x1024)")
+
+
+def fp32_training_rows(fp32_train, f32_launches):
+    """The JSON line's rows of K2 f32 and K3 f32 (phase 18)."""
+    f32_rows, f32_mix, f32_ip_rows, f32_edges = fp32_train["cases"]
+    rows = []
+    for name, replaces in (
+            ("flash_bwd_dq_f32", "mllm_npu_tpu/ops/flash_attention.py:333"),
+            ("flash_bwd_dkv_f32",
+             "mllm_npu_tpu/ops/flash_attention.py:407")):
+        every = [r[name] for r in f32_rows + f32_ip_rows + f32_edges]
+        rows.append({
+            "name": name, "route": "cuda",
+            "design": "mma.sync m16n8k8 TF32, split in three, P and dS "
+                      "fp32 through a per-warp shared patch; K2: 64 query "
+                      "rows a block, 32-key cp.async double buffer; K3: 64 "
+                      "keys a block, 32-row (query tile, head) double "
+                      "buffer, dK and dV split between two warp sets above "
+                      "a padded 128",
+            "source": "mllm_npu_tpu_torch/csrc/flash_bwd_f32.cu",
+            "replaces": replaces,
+            "launches": f32_launches[name],
+            "launches_per_step": fp32_train["train"]["launches_per_step"][
+                name],
+            "max_abs_err": max(r["max_abs_err"] for r in every),
+            "tolerance": f"{K1_F32_TOL} x max|plain| per shape",
+            "one_pass_tf32_err_min": min(r[name]["one_pass_tf32_err"]
+                                         for r in f32_rows),
+            **row_mix([r[name] for r in f32_rows], f32_mix,
+                      f32_step_basis(fp32_train), rate=H100_TF32_FLOPS),
+            "bound_rate": "494.7 TFLOP/s dense TF32, 3.35 TB/s",
+            "library": "torch.autograd.grad of scaled_dot_product_attention "
+                       "on the fp32 tensors, TF32 off (dq, dk and dv "
+                       "together; the forward excluded)",
+            "shapes": [r[name] for r in f32_rows],
+            "ip_shapes": [r[name] for r in f32_ip_rows],
+            "edge_sweep": [r[name] for r in f32_edges],
+        })
+    return rows
+
+
 def main():
     # the training phase runs near the card's memory: let the allocator grow
     # segments instead of fragmenting (read when CUDA initialises)
@@ -7231,7 +7907,8 @@ def main():
     with ThreadPoolExecutor(1) as pool:
         building = pool.submit(build_all,
                                ["flash_fwd", "flash_bwd", "quant_matmul",
-                                "flash_fwd_f32", "quant_matmul_f32"])
+                                "flash_fwd_f32", "flash_bwd_f32",
+                                "quant_matmul_f32"])
 
         print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 2",
               flush=True)
@@ -7551,6 +8228,16 @@ def main():
     fp32 = fp32_serving_phase(requests)
     for k in f32_launches:
         f32_launches[k] += fp32["launches"][k]
+
+    print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 18",
+          flush=True)
+    # -- 18. fp32 training: the de-tokenizer in fp32 through K1 f32 with its
+    #        LSE, K2 f32 and K3 f32 (counts set to 0 before each step and
+    #        read after), an IP-Adapter step, then the three kernels against
+    #        their plain versions at the steps' shapes and over the edges
+    fp32_train = fp32_training_phase(t_start)
+    for k in f32_launches:
+        f32_launches[k] += fp32_train["launches"][k]
     unet_forward = row_mix(unet_cases, unet_mix, "one SDXL UNet forward "
                           "(CFG batch 2, 1024x1024)")
     unet_image = {k: v * GEN_STEPS if k in ("ms", "plain_ms", "bound_ms",
@@ -7770,7 +8457,9 @@ def main():
         "unet_shapes": f32_unet,
         "detokenizer_request_launches": detok["launches"]["flash_fwd_f32"],
         "request_launches": fp32["request"]["k1_f32_launches"],
+        **fp32_training_fields(fp32_train, f32_launches),
     })
+    rows += fp32_training_rows(fp32_train, f32_launches)
     for bits, replaces in ((8, "mllm_npu_tpu/ops/quant.py:50"),
                            (4, "mllm_npu_tpu/ops/quant.py:330")):
         def of(regime):
@@ -7820,6 +8509,8 @@ def main():
     print("[seedx] summary " + json.dumps(seedx, default=str))
     print("[detok] summary " + json.dumps(detok, default=str))
     print("[fp32] summary " + json.dumps(fp32, default=str))
+    print("[fp32-train] summary " + json.dumps(
+        {k: v for k, v in fp32_train.items() if k != "cases"}, default=str))
     print("[detok-variants] summary " + json.dumps(
         {k: v for k, v in variants.items() if k != "train_kernel_shapes"},
         default=str))

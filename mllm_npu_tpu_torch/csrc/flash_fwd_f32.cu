@@ -5,14 +5,18 @@
 // `_fwd_kernel` (launched by `_fwd` :211 through `pl.pallas_call` :282) for
 // fp32 q/k/v: the reference computes in the operands' dtype and writes
 // q.dtype, so the fp32 de-tokenizer and fp32 serving reach it with fp32
-// operands. The bf16 variant is flash_fwd.cu. Python wrapper and plain
-// PyTorch version: mllm_npu_tpu_torch/ops/flash_attention.py
-// (`flash_attention`, `flash_attention_reference`).
+// operands. The bf16 variant is flash_fwd.cu; the fp32 backward (K2 f32,
+// K3 f32) is flash_bwd_f32.cu. Python wrapper and plain PyTorch version:
+// mllm_npu_tpu_torch/ops/flash_attention.py (`flash_attention`,
+// `flash_attention_reference`).
 //
 // What it computes, per (batch b, query head h, KV head h·Hkv/Hq):
 //   O = softmax(scale·Q Kᵀ + mask) V, mask = top-left causal ∧ segment ids
 //   (q_seg == kv_seg) ∧ the keys that exist; a row with no visible key
-//   writes 0. No LSE (the fp32 backward is not ported).
+//   writes 0. Where the caller asks (training), also each row's
+//   natural-log LSE, fp32 [B, Hq, Sq], 0 for a row with no visible key:
+//   bf16 K1's and the reference's convention (:195-201), which K2 f32 and
+//   K3 f32 read.
 //
 // What bounds it on an H100 (495 TFLOP/s dense TF32, 67 TFLOP/s fp32 outside
 // the tensor cores, 3.35 TB/s). 4·D flops per visible (query, key) pair and
@@ -61,12 +65,14 @@ constexpr int WARPS = 4;        // 16 query rows each
 constexpr int THREADS = WARPS * 32;
 constexpr int PST = BN + 4;     // row stride of a warp's P patch
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
   const float* q;
   const float* k;
   const float* v;
   float* o;
+  float* lse;     // [B, Hq, Sq] or null
   const int* qseg;
   const int* kseg;
   int B, Sq, Sk, Hq, Hkv, D;
@@ -309,6 +315,9 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int ri = 0; ri < 2; ++ri) {
     if (row[ri] >= p.Sq) continue;
+    if (p.lse != nullptr && t4 == 0)   // m is in base-2 units of the logits
+      p.lse[(static_cast<long long>(b) * p.Hq + h) * p.Sq + row[ri]] =
+          l[ri] > 0.f ? (m[ri] + log2f(l[ri])) * LN2 : 0.f;
     const float inv = l[ri] > 0.f ? 1.f / l[ri] : 0.f;
     float* orow = p.o + b * p.o_sb + row[ri] * p.o_ss + h * p.o_sh;
 #pragma unroll
@@ -343,10 +352,12 @@ bool aligned(const void* ptr, long long sb, long long ss, long long sh) {
 
 // q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D], o [B, Sq, Hq, D], all fp32 with a
 // unit last stride, strides multiples of 4 elements and 16-byte aligned
-// bases; q_seg [B, Sq] and kv_seg [B, Sk] int32 contiguous, or both null.
-// passes: 3 (split TF32) or 1 (one-pass TF32, the control).
+// bases; lse fp32 [B, Hq, Sq] contiguous, or null (no LSE written); q_seg
+// [B, Sq] and kv_seg [B, Sk] int32 contiguous, or both null. passes: 3
+// (split TF32) or 1 (one-pass TF32, the control).
 extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
-                             void* o, const void* q_seg, const void* kv_seg,
+                             void* o, void* lse, const void* q_seg,
+                             const void* kv_seg,
                              int B, int Sq, int Sk, int Hq, int Hkv, int D,
                              long long q_sb, long long q_ss, long long q_sh,
                              long long k_sb, long long k_ss, long long k_sh,
@@ -365,6 +376,7 @@ extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
   p.k = static_cast<const float*>(k);
   p.v = static_cast<const float*>(v);
   p.o = static_cast<float*>(o);
+  p.lse = static_cast<float*>(lse);
   p.qseg = static_cast<const int*>(q_seg);
   p.kseg = static_cast<const int*>(kv_seg);
   p.B = B; p.Sq = Sq; p.Sk = Sk; p.Hq = Hq; p.Hkv = Hkv; p.D = D;

@@ -44,9 +44,18 @@ shape or type a kernel does not take raises.
 K1 f32 (``csrc/flash_fwd_f32.cu``) is K1 for fp32 q/k/v, which the
 reference's kernel takes as it takes bf16 (it computes in the operands'
 dtype): both products in split TF32 on the tensor cores, accurate to
-fp32, the output fp32, no LSE. :func:`flash_attention` routes fp32
-operands to it and counts them in ``flash_attention.f32_launches``; an
-fp32 call that needs the LSE or the backward raises (``FP32_TRAINING``).
+fp32, the output fp32, and with ``return_lse`` the same LSE as K1's.
+:func:`flash_attention` routes fp32 operands to it and counts them in
+``flash_attention.f32_launches`` (no LSE) and ``.f32_lse_launches`` (with
+it). K2 f32 and K3 f32 (``csrc/flash_bwd_f32.cu``) are K2 and K3 for fp32
+operands, every product in split TF32, P and dS in fp32, fp32 outputs:
+:func:`flash_bwd_dq` and :func:`flash_bwd_dkv` route fp32 operands to
+them and count them in ``.f32_launches``; their plan (shared memory,
+warps) is :func:`k23_f32_plan`, their walks :func:`k2_f32_kv_tiles` and
+:func:`k3_f32_q_tiles`. So :class:`FlashAttention` trains on fp32
+operands through K1 f32, K2 f32 and K3 f32. Each fp32 kernel has a
+one-pass TF32 control (``*_f32_one_pass``), never on a path and not
+counted.
 """
 
 from __future__ import annotations
@@ -390,11 +399,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
                                          segment_ids=segment_ids,
                                          scale=scale, return_lse=return_lse)
     if q.dtype == torch.float32:
-        if return_lse:
-            raise NotImplementedError(
-                f"flash_attention: the fp32 LSE (the fp32 backward's input) "
-                f"is not ported yet: {FP32_TRAINING} (ROADMAP)")
-        return _flash_f32(q, k, v, causal, segment_ids, scale, passes=3)
+        return _flash_f32(q, k, v, causal, segment_ids, scale,
+                          return_lse=return_lse, passes=3)
     _check(q, k, v, segment_ids)
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -424,55 +430,64 @@ def flash_attention(q, k, v, *, causal: bool = False,
 
 
 flash_attention.launches = 0
-flash_attention.f32_launches = 0   # K1 f32 (fp32 operands)
+flash_attention.f32_launches = 0       # K1 f32 (fp32 operands), no LSE
+flash_attention.f32_lse_launches = 0   # K1 f32 writing its LSE (training)
 
 F32_KERNEL = "flash_fwd_f32"
-_F32_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+_F32_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 12
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-# the ROADMAP item an fp32 call that needs the backward names
-FP32_TRAINING = "queue 1 item 10d, fp32 training (K1 with its LSE, K2 and " \
-                "K3 on fp32 operands)"
 
 
-def _flash_f32(q, k, v, causal, segment_ids, scale, *, passes: int):
+def _flash_f32(q, k, v, causal, segment_ids, scale, *, return_lse: bool,
+               passes: int):
     """One launch of K1 f32 (``csrc/flash_fwd_f32.cu``) on CUDA tensors:
     fp32 q/k/v [B, S, H, D] (strides multiples of 4, 16-byte aligned
-    bases) → fp32 [B, Sq, Hq, D]. ``passes`` 3 is split TF32, fp32-accurate
-    (the kernel); 1 is one-pass TF32, the control that ``chip_smoke.py``
-    and the card tests hold against the tolerance, never the serving
-    path, whose launches are not counted."""
+    bases) → fp32 [B, Sq, Hq, D], and with ``return_lse`` the fp32
+    [B, Hq, Sq] natural-log LSE (0 for a row with no visible key).
+    ``passes`` 3 is split TF32, fp32-accurate (the kernel); 1 is one-pass
+    TF32, the control that ``chip_smoke.py`` and the card tests hold
+    against the tolerance, never a serving or training path, whose
+    launches are not counted."""
     _check(q, k, v, segment_ids, dtype=torch.float32)
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, Hq, D), dtype=torch.float32, device=q.device)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if B and Sq and not Sk:         # no key: every row is fully masked
         out.zero_()
+        if lse is not None:
+            lse.zero_()
     elif B and Sq:
         qseg, kseg = _segments(segment_ids, q.device)
         err = _fn(F32_KERNEL, "flash_fwd_f32", _F32_ARGS)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _ptr(qseg), _ptr(kseg), B, Sq, Sk, Hq, Hkv, D,
+            _ptr(lse), _ptr(qseg), _ptr(kseg), B, Sq, Sk, Hq, Hkv, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], float(scale), int(bool(causal)), passes,
             torch.cuda.current_stream(q.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"flash_fwd_f32 launch failed: CUDA error "
                                f"{err}")
-        if passes == 3:
+        if passes == 3 and return_lse:
+            flash_attention.f32_lse_launches += 1
+        elif passes == 3:
             flash_attention.f32_launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def flash_attention_f32_one_pass(q, k, v, *, causal: bool = False,
                                  segment_ids: Optional[SegmentIds] = None,
-                                 scale: Optional[float] = None):
+                                 scale: Optional[float] = None,
+                                 return_lse: bool = False):
     """K1 f32 with one TF32 pass per product (big·big alone): the control
     that shows the tolerance K1 f32 is held to has power. Never on a
-    serving path; not counted."""
+    serving or training path; not counted."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return _flash_f32(q, k, v, causal, segment_ids, scale, passes=1)
+    return _flash_f32(q, k, v, causal, segment_ids, scale,
+                      return_lse=return_lse, passes=1)
 
 BWD_KERNEL = "flash_bwd"
 _BWD_DQ_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
@@ -564,9 +579,72 @@ def k3_needs_mask(key0: int, q0: int, Sq: int, causal: bool,
                 == int(q_ids.max()))
 
 
-def _check_bwd(q, k, v, do, lse, delta, segment_ids, name):
-    _check(q, k, v, segment_ids, name, K23_MAX_HEAD_DIM)
-    _check_bshd(do, "do", name)
+# K2 f32 / K3 f32 (``csrc/flash_bwd_f32.cu``): rows of a block (K2's query
+# rows, K3's keys), rows of a streamed tile (K2's keys, K3's query rows),
+# the row padding of every shared tile (floats), the least padded head dim
+# above which K3 f32 splits dK and dV between two sets of four warps
+K23_F32_BLOCK = 64
+K23_F32_TILE = 32
+K23_F32_PAD = 4
+K3_F32_SPLIT_ABOVE = 128
+
+
+class K23F32Plan(NamedTuple):
+    dp: int          # the head dim the kernels compute at (D rounded to 16)
+    k2_smem: int     # bytes of shared memory a K2 f32 block takes
+    k3_warps: int    # 4 (dK and dV in each warp) or 8 (split)
+    k3_smem: int     # bytes a K3 f32 block takes
+
+
+def k23_f32_plan(D: int) -> K23F32Plan:
+    """K2 f32's and K3 f32's plan for head dim D (a multiple of 8 up to
+    160, or raise), the mirror of ``k2_smem_floats`` / ``k3_smem_floats``
+    and ``launch_dkv``'s split in ``csrc/flash_bwd_f32.cu``: K2 keeps Q and
+    dO (64 rows each) and two stages of K and V (32 rows each), K3 K and V
+    (64) and two stages of Q and dO (32), every row D rounded to 16 plus 4
+    floats; a 16 × 36 patch a warp; K2 two stages of 32 key ids, K3 two of
+    32 LSEs, δs and query ids. The wrappers hand ``k2_smem`` / ``k3_smem``
+    to the kernels, which refuse a plan that differs from theirs."""
+    _check_head_dim(D, K23_MAX_HEAD_DIM, "flash_bwd (fp32)")
+    dp = -(-D // 16) * 16
+    rows = (2 * K23_F32_BLOCK + 4 * K23_F32_TILE) * (dp + K23_F32_PAD)
+    patch = 16 * (K23_F32_TILE + K23_F32_PAD)
+    warps = 8 if dp > K3_F32_SPLIT_ABOVE else 4
+    plan = K23F32Plan(dp, 4 * (rows + 4 * patch + 2 * K23_F32_TILE), warps,
+                      4 * (rows + warps * patch + 3 * 2 * K23_F32_TILE))
+    if max(plan.k2_smem, plan.k3_smem) > K1_MAX_SMEM:
+        raise ValueError(f"flash_bwd (fp32): head dim {D} needs "
+                         f"{max(plan.k2_smem, plan.k3_smem)} bytes of shared "
+                         f"memory a block, over {K1_MAX_SMEM}")
+    return plan
+
+
+def k2_f32_kv_tiles(q0: int, Sq: int, Sk: int, causal: bool) -> list:
+    """The 32-key K/V tiles (indices, in order) K2 f32 visits for the
+    query rows [q0, q0 + 64): all of them, or with ``causal`` up to the
+    one that holds the diagonal of the last row below Sq. The mirror of
+    ``n_kv`` in ``csrc/flash_bwd_f32.cu``; every tile is masked there."""
+    n = -(-Sk // K23_F32_TILE)
+    if causal:
+        n = min(n, (min(q0 + K23_F32_BLOCK, Sq) - 1) // K23_F32_TILE + 1)
+    return list(range(n))
+
+
+def k3_f32_q_tiles(k0: int, Sq: int, causal: bool) -> list:
+    """The 32-row query tiles (indices, in order) K3 f32 visits for the
+    keys [k0, k0 + 64), each once per query head of the group: all of
+    them, or with ``causal`` from the first whose last row reaches k0 (none
+    when no query row does). The mirror of ``qt0`` in
+    ``csrc/flash_bwd_f32.cu``."""
+    nq = -(-Sq // K23_F32_TILE)
+    first = min(k0 // K23_F32_TILE, nq) if causal else 0
+    return list(range(first, nq))
+
+
+def _check_bwd(q, k, v, do, lse, delta, segment_ids, name,
+               dtype=torch.bfloat16):
+    _check(q, k, v, segment_ids, name, K23_MAX_HEAD_DIM, dtype)
+    _check_bshd(do, "do", name, dtype)
     if do.shape != q.shape or not do.is_cuda:
         raise ValueError(f"{name}: do must be a GPU tensor shaped like q")
     B, Sq, Hq, _ = q.shape
@@ -577,8 +655,12 @@ def _check_bwd(q, k, v, do, lse, delta, segment_ids, name):
                              f"tensor [B, Hq, Sq] = {(B, Hq, Sq)}")
 
 
-def _bwd_launch(symbol, argtypes, wgmma, q, k, v, do, lse, delta, outs,
-                causal, segment_ids, scale):
+def _bwd_launch(library, symbol, argtypes, regime, q, k, v, do, lse, delta,
+                outs, causal, segment_ids, scale):
+    """One launch into ``outs`` of K2 or K3 (``library`` ``flash_bwd``,
+    ``regime`` (wgmma,)) or of K2 f32 or K3 f32 (``flash_bwd_f32``,
+    ``regime`` (passes, the plan's shared-memory bytes)); error 1 is
+    arguments the kernel refused."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     dq = outs[0] if len(outs) == 1 else None
@@ -587,78 +669,146 @@ def _bwd_launch(symbol, argtypes, wgmma, q, k, v, do, lse, delta, outs,
     for t in (q, k, v, do, dq, dk, dv):
         strides += list(t.stride()[:3]) if t is not None else [0, 0, 0]
     qseg, kseg = _segments(segment_ids, q.device)
-    err = _fn(BWD_KERNEL, symbol, argtypes)(
+    err = _fn(library, symbol, argtypes)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), _ptr(qseg), _ptr(kseg),
         *[t.data_ptr() for t in outs],
         B, Sq, Sk, Hq, Hkv, D, (ctypes.c_longlong * 21)(*strides),
-        float(scale), int(bool(causal)), int(wgmma),
+        float(scale), int(bool(causal)), *(int(x) for x in regime),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
+
+
+BWD_F32_KERNEL = "flash_bwd_f32"
+_BWD_F32_TAIL = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_BWD_F32_DQ_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + _BWD_F32_TAIL
+_BWD_F32_DKV_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                     + _BWD_F32_TAIL)
+
+
+def _dq(q, k, v, do, lse, delta, causal, segment_ids, scale, passes=3):
+    """K2 on CUDA tensors: bf16 operands to K2, fp32 to K2 f32 (with
+    ``passes`` 1 its uncounted one-pass control)."""
+    kw = dict(causal=causal, segment_ids=segment_ids, scale=scale)
+    f32 = q.dtype == torch.float32
+    if passes != 3 and not f32:
+        raise TypeError("flash_bwd_dq: the one-pass control takes fp32 "
+                        "operands")
+    _check_bwd(q, k, v, do, lse, delta, segment_ids, "flash_bwd_dq",
+               torch.float32 if f32 else torch.bfloat16)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if q.shape[0] and q.shape[1] and not k.shape[1]:
+        dq.zero_()                  # no key: every row is fully masked
+    elif q.shape[0] and q.shape[1] and f32:
+        _bwd_launch(BWD_F32_KERNEL, "flash_bwd_dq_f32", _BWD_F32_DQ_ARGS,
+                    (passes, k23_f32_plan(q.shape[3]).k2_smem), q, k, v, do,
+                    lse, delta, (dq,), **kw)
+        flash_bwd_dq.f32_launches += passes == 3
+    elif q.shape[0] and q.shape[1]:
+        wgmma = k23_regime(q.shape[3]) == "wgmma"
+        _bwd_launch(BWD_KERNEL, "flash_bwd_dq_bf16", _BWD_DQ_ARGS, (wgmma,),
+                    q, k, v, do, lse, delta, (dq,), **kw)
+        flash_bwd_dq.launches += 1
+        flash_bwd_dq.wgmma_launches += wgmma
+    return dq
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,
                  segment_ids: Optional[SegmentIds] = None,
                  scale: Optional[float] = None) -> torch.Tensor:
     """K2: dQ [B, Sq, Hq, D] from q, k, v, dO, the forward's LSE and
-    δ = rowsum(dO∘O) (fp32 [B, Hq, Sq] each)."""
+    δ = rowsum(dO∘O) (fp32 [B, Hq, Sq] each); bf16 operands to K2, fp32
+    ones to K2 f32 (``.f32_launches``)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    kw = dict(causal=causal, segment_ids=segment_ids, scale=scale)
     if q.device.type == "cpu":
-        return flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw)
-    _check_bwd(q, k, v, do, lse, delta, segment_ids, "flash_bwd_dq")
-    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    if q.shape[0] and q.shape[1] and not k.shape[1]:
-        dq.zero_()                  # no key: every row is fully masked
-    elif q.shape[0] and q.shape[1]:
-        wgmma = k23_regime(q.shape[3]) == "wgmma"
-        _bwd_launch("flash_bwd_dq_bf16", _BWD_DQ_ARGS, wgmma, q, k, v, do,
-                    lse, delta, (dq,), **kw)
-        flash_bwd_dq.launches += 1
-        flash_bwd_dq.wgmma_launches += wgmma
-    return dq
+        return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal=causal,
+                                      segment_ids=segment_ids, scale=scale)
+    return _dq(q, k, v, do, lse, delta, causal, segment_ids, scale)
 
 
 flash_bwd_dq.launches = 0
 flash_bwd_dq.wgmma_launches = 0
+flash_bwd_dq.f32_launches = 0      # K2 f32 (fp32 operands)
+
+
+def _dkv(q, k, v, do, lse, delta, causal, segment_ids, scale, passes=3):
+    """K3 on CUDA tensors: bf16 operands to K3, fp32 to K3 f32 (with
+    ``passes`` 1 its uncounted one-pass control)."""
+    kw = dict(causal=causal, segment_ids=segment_ids, scale=scale)
+    f32 = q.dtype == torch.float32
+    if passes != 3 and not f32:
+        raise TypeError("flash_bwd_dkv: the one-pass control takes fp32 "
+                        "operands")
+    _check_bwd(q, k, v, do, lse, delta, segment_ids, "flash_bwd_dkv",
+               torch.float32 if f32 else torch.bfloat16)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    if k.shape[0] and k.shape[1] and not q.shape[1]:
+        dk.zero_()                  # no query: no key is seen
+        dv.zero_()
+    elif k.shape[0] and k.shape[1] and f32:
+        _bwd_launch(BWD_F32_KERNEL, "flash_bwd_dkv_f32", _BWD_F32_DKV_ARGS,
+                    (passes, k23_f32_plan(q.shape[3]).k3_smem), q, k, v, do,
+                    lse, delta, (dk, dv), **kw)
+        flash_bwd_dkv.f32_launches += passes == 3
+    elif k.shape[0] and k.shape[1]:
+        wgmma = k23_regime(q.shape[3]) == "wgmma"
+        _bwd_launch(BWD_KERNEL, "flash_bwd_dkv_bf16", _BWD_DKV_ARGS,
+                    (wgmma,), q, k, v, do, lse, delta, (dk, dv), **kw)
+        flash_bwd_dkv.launches += 1
+        flash_bwd_dkv.wgmma_launches += wgmma
+    return dk, dv
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
                   segment_ids: Optional[SegmentIds] = None,
                   scale: Optional[float] = None):
     """K3: (dK, dV) [B, Sk, Hkv, D], each summed over the KV head's query
-    heads, from the same inputs as :func:`flash_bwd_dq`."""
+    heads, from the same inputs as :func:`flash_bwd_dq`; bf16 operands to
+    K3, fp32 ones to K3 f32 (``.f32_launches``)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    kw = dict(causal=causal, segment_ids=segment_ids, scale=scale)
     if q.device.type == "cpu":
-        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, **kw)
-    _check_bwd(q, k, v, do, lse, delta, segment_ids, "flash_bwd_dkv")
-    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
-    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    if k.shape[0] and k.shape[1]:
-        if q.shape[1]:
-            wgmma = k23_regime(q.shape[3]) == "wgmma"
-            _bwd_launch("flash_bwd_dkv_bf16", _BWD_DKV_ARGS, wgmma, q, k, v,
-                        do, lse, delta, (dk, dv), **kw)
-            flash_bwd_dkv.launches += 1
-            flash_bwd_dkv.wgmma_launches += wgmma
-        else:
-            dk.zero_()
-            dv.zero_()
-    return dk, dv
+        return flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                       causal=causal,
+                                       segment_ids=segment_ids, scale=scale)
+    return _dkv(q, k, v, do, lse, delta, causal, segment_ids, scale)
 
 
 flash_bwd_dkv.launches = 0
 flash_bwd_dkv.wgmma_launches = 0
+flash_bwd_dkv.f32_launches = 0     # K3 f32 (fp32 operands)
+
+
+def flash_bwd_dq_f32_one_pass(q, k, v, do, lse, delta, *,
+                              causal: bool = False,
+                              segment_ids: Optional[SegmentIds] = None,
+                              scale: Optional[float] = None):
+    """K2 f32 with one TF32 pass per product: the control of the
+    tolerance K2 f32 is held to. CUDA fp32 tensors only; never on a
+    training path; not counted."""
+    return _dq(q, k, v, do, lse, delta, causal, segment_ids,
+               q.shape[-1] ** -0.5 if scale is None else scale, passes=1)
+
+
+def flash_bwd_dkv_f32_one_pass(q, k, v, do, lse, delta, *,
+                               causal: bool = False,
+                               segment_ids: Optional[SegmentIds] = None,
+                               scale: Optional[float] = None):
+    """K3 f32 with one TF32 pass per product (see
+    :func:`flash_bwd_dq_f32_one_pass`)."""
+    return _dkv(q, k, v, do, lse, delta, causal, segment_ids,
+                q.shape[-1] ** -0.5 if scale is None else scale, passes=1)
 
 
 class FlashAttention(torch.autograd.Function):
     """Flash attention with its gradient (twin of ``_flash`` and its
     ``custom_vjp`` rules): K1 with the LSE forward, K2 and K3 backward on
-    CUDA tensors; the plain versions on CPU tensors."""
+    bf16 CUDA tensors, K1 f32 with the LSE, K2 f32 and K3 f32 on fp32 ones;
+    the plain versions on CPU tensors."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, segment_ids, scale):
@@ -689,8 +839,4 @@ def flash_attention_trainable(q, k, v, *, causal: bool = False,
     to ``D ** -0.5``."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.is_cuda and q.dtype == torch.float32:
-        raise NotImplementedError(
-            f"flash_attention_trainable: fp32 operands on the GPU need the "
-            f"fp32 backward, not ported yet: {FP32_TRAINING} (ROADMAP)")
     return FlashAttention.apply(q, k, v, causal, segment_ids, float(scale))

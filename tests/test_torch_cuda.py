@@ -23,7 +23,9 @@ Tolerances on the same bf16 inputs:
   so |err| ≤ 1e-5·Σ_d |o·dO|;
 - K1 f32, K4 f32 and K5 f32 (fp32 operands) are held to fp32 accuracy:
   ``K1_F32_TOL`` and ``QUANT_F32_TOL`` below, each beside a one-pass TF32
-  control that must fail it.
+  control that must fail it; K1 f32's LSE, K2 f32 and K3 f32 (the fp32
+  backward) too: ``K1_F32_TOL``·max|plain| (the LSE ·max(1, max|lse|)),
+  the one-pass control failing it at the training paths' shapes.
 """
 
 import pytest
@@ -257,21 +259,193 @@ def test_k1_f32_matches_plain(cuda, B, Sq, Sk, Hq, Hkv, D, causal, seg,
 
 
 def test_k1_f32_rejects_what_it_does_not_take(cuda):
-    n = flash_attention.f32_launches
+    n = (flash_attention.f32_launches, flash_attention.f32_lse_launches)
     q = torch.randn(1, 8, 2, 64, device=cuda)
     with pytest.raises(TypeError):
         flash_attention(q, q.bfloat16(), q)            # mixed dtypes
-    with pytest.raises(NotImplementedError, match="item 10d"):
-        flash_attention(q, q, q, return_lse=True)      # the fp32 LSE
-    qg = q.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="item 10d"):
-        port_ops.multi_head_attention(qg, qg, qg)      # the fp32 backward
+    with pytest.raises(TypeError):
+        flash_attention(q, q.bfloat16(), q, return_lse=True)
     wide = torch.randn(1, 8, 2, 66, device=cuda)[..., :64]
     with pytest.raises(ValueError):
         flash_attention(wide, wide, wide)              # stride 66, not 4k
     with pytest.raises(ValueError):
         flash_attention(*(torch.randn(1, 8, 2, 168, device=cuda),) * 3)
-    assert flash_attention.f32_launches == n
+    assert (flash_attention.f32_launches,
+            flash_attention.f32_lse_launches) == n
+
+
+# K1 f32 with its LSE, K2 f32 and K3 f32: the fp32 training paths' shapes
+# (the SDXL UNet at 1024² at batch 2: self-attention at 4096 and 1024
+# positions, cross-attention over the resampler's 64 tokens; SD-1.5's IP
+# UNet at 512²: D = 40, 80, 160 over 77 text and 16 image keys), marked
+# True where the one-pass control must miss the bar; then the edges: head
+# dims 8 to 160, lengths off the 64-row and 32-row tiles, causal with
+# Sq != Sk, GQA 8/1 and 32/8, packed segments that change inside a tile,
+# rows with no visible key, q, k, v as strided views of a fused tensor, one
+# query row. (Not a single key: with one visible key P = 1 and
+# dS = dP − δ = 0 but for rounding, so max|plain| is rounding noise.)
+F32_BWD_CASES = [  # B, Sq, Sk, Hq, Hkv, D, causal, seg, layout, power
+    (2, 4096, 4096, 10, 10, 64, False, None, "bshd", True),
+    (2, 1024, 1024, 20, 20, 64, False, None, "bshd", True),
+    (2, 4096, 64, 10, 10, 64, False, None, "bshd", True),
+    (2, 1024, 64, 20, 20, 64, False, None, "bshd", True),
+    (2, 4096, 4096, 8, 8, 40, False, None, "bshd", True),
+    (2, 1024, 77, 8, 8, 80, False, None, "bshd", True),
+    (2, 256, 256, 8, 8, 160, False, None, "bshd", True),
+    (2, 64, 16, 8, 8, 160, False, None, "bshd", False),
+    (1, 129, 129, 8, 1, 8, True, None, "bshd", False),
+    (2, 65, 65, 8, 1, 24, True, 40, "bshd", False),
+    (2, 63, 65, 8, 2, 72, False, None, "bshd", False),
+    (2, 65, 63, 8, 2, 128, True, None, "bshd", False),
+    (1, 729, 129, 8, 1, 64, True, None, "bshd", False),
+    (1, 100, 300, 4, 2, 96, True, None, "bshd", False),
+    (2, 600, 600, 32, 8, 128, True, "packed", "bshd", False),
+    (2, 200, 200, 8, 8, 72, True, "packed", "fused", False),
+    (2, 300, 300, 16, 16, 104, False, "packed", "fused", False),
+    (1, 129, 129, 8, 2, 136, True, None, "bshd", False),
+    (2, 65, 63, 8, 8, 152, True, None, "bshd", False),
+    (1, 1, 37, 4, 1, 128, False, None, "bshd", False),
+]
+
+
+def _f32_bwd_inputs(dev, B, Sq, Sk, Hq, Hkv, D, seg, layout, seed=0):
+    q, k, v, sids = _k1_inputs(dev, B, Sq, Sk, Hq, Hkv, D, seg, layout,
+                               seed=seed, dtype=torch.float32)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    do = torch.randn(B, Sq, Hq, D, device=dev, generator=g)
+    return q, k, v, do, sids
+
+
+def _f32_err(got, ref):
+    """max|got − ref| over max|ref| (0 for an all-zero ref)."""
+    return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,seg,layout,power",
+                         F32_BWD_CASES)
+def test_k1_f32_lse_matches_plain(cuda, B, Sq, Sk, Hq, Hkv, D, causal, seg,
+                                  layout, power):
+    q, k, v, _, sids = _f32_bwd_inputs(cuda, B, Sq, Sk, Hq, Hkv, D, seg,
+                                       layout)
+    kw = dict(causal=causal, segment_ids=sids)
+    n = (flash_attention.f32_launches, flash_attention.f32_lse_launches)
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert (flash_attention.f32_launches,
+            flash_attention.f32_lse_launches) == (n[0], n[1] + 1)
+    ref, rlse = flash_attention_reference(q, k, v, return_lse=True, **kw)
+    assert lse.shape == (B, Hq, Sq) and lse.dtype == torch.float32
+    assert torch.isfinite(lse).all() and torch.isfinite(out).all()
+    assert (lse - rlse).abs().max() <= K1_F32_TOL * max(
+        1.0, rlse.abs().max().item())
+    assert _f32_err(out, ref) <= K1_F32_TOL
+    if isinstance(seg, int):      # rows with no visible key: 0 and LSE 0
+        assert (out[-1, seg:] == 0).all() and (lse[-1, :, seg:] == 0).all()
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,seg,layout,power",
+                         F32_BWD_CASES)
+def test_k2_k3_f32_match_plain(cuda, B, Sq, Sk, Hq, Hkv, D, causal, seg,
+                               layout, power):
+    """K2 f32 and K3 f32 against their fp32 plain versions on K1 f32's
+    LSE, within K1_F32_TOL·max|plain|; beside them the one-pass control,
+    which must miss that bar at the training paths' shapes."""
+    q, k, v, do, sids = _f32_bwd_inputs(cuda, B, Sq, Sk, Hq, Hkv, D, seg,
+                                        layout)
+    kw = dict(causal=causal, segment_ids=sids)
+    o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    delta = attention_delta(o, do)
+    n = (flash_bwd_dq.f32_launches, flash_bwd_dkv.f32_launches,
+         flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    one = (fa.flash_bwd_dq_f32_one_pass(q, k, v, do, lse, delta, **kw),
+           *fa.flash_bwd_dkv_f32_one_pass(q, k, v, do, lse, delta, **kw))
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq.f32_launches, flash_bwd_dkv.f32_launches,
+            flash_bwd_dq.launches, flash_bwd_dkv.launches) == (
+        n[0] + 1, n[1] + 1, n[2], n[3])
+    refs = (flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw),
+            *flash_bwd_dkv_reference(q, k, v, do, lse, delta, **kw))
+    for name, got, ctl, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), one,
+                                   refs):
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        assert torch.isfinite(got).all(), name
+        assert _f32_err(got, ref) <= K1_F32_TOL, (name, _f32_err(got, ref))
+        if power:
+            assert _f32_err(ctl, ref) > K1_F32_TOL, (name, _f32_err(ctl, ref))
+    if isinstance(seg, int):      # rows with no visible key: zero gradients
+        assert (dq[-1, seg:] == 0).all()
+    again = (flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+             *flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
+
+
+@pytest.mark.parametrize("Sq,Sk", [(0, 64), (64, 0)])
+def test_k2_k3_f32_empty_lengths(cuda, Sq, Sk):
+    """Sk = 0: every row is fully masked, zero dQ; Sq = 0: no query sees a
+    key, zero dK and dV; neither launches a kernel."""
+    q, k, v, do, _ = _f32_bwd_inputs(cuda, 2, max(Sq, 1), max(Sk, 1), 4, 2,
+                                     64, None, "bshd")
+    q, do, k, v = q[:, :Sq], do[:, :Sq], k[:, :Sk], v[:, :Sk]
+    lse = torch.zeros(2, 4, Sq, device=cuda)
+    delta = torch.zeros(2, 4, Sq, device=cuda)
+    n = (flash_bwd_dq.f32_launches, flash_bwd_dkv.f32_launches)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta)
+    assert (flash_bwd_dq.f32_launches, flash_bwd_dkv.f32_launches) == n
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    for t in (dq, dk, dv):
+        assert (t == 0).all()
+
+
+def test_flash_function_f32_gradients_match_plain(cuda):
+    """FlashAttention on fp32 operands (K1 f32 with its LSE, K2 f32, K3
+    f32) through ``multi_head_attention``'s routing, against autograd
+    through the fp32 plain forward, on a strided dO."""
+    q, k, v, do, sids = _f32_bwd_inputs(cuda, 2, 300, 300, 8, 2, 64,
+                                        "packed", "bshd")
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    n = (flash_attention.f32_lse_launches, flash_bwd_dq.f32_launches,
+         flash_bwd_dkv.f32_launches, flash_attention.f32_launches)
+    o = port_ops.multi_head_attention(*leaves, causal=True, segment_ids=sids)
+    o.backward(do.transpose(1, 2).contiguous().transpose(1, 2))
+    torch.cuda.synchronize()
+    assert (flash_attention.f32_lse_launches, flash_bwd_dq.f32_launches,
+            flash_bwd_dkv.f32_launches, flash_attention.f32_launches) == (
+        n[0] + 1, n[1] + 1, n[2] + 1, n[3])
+    plain = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref = flash_attention_reference(*plain, causal=True, segment_ids=sids)
+    ref.backward(do)
+    assert _f32_err(o.detach(), ref.detach()) <= K1_F32_TOL
+    for a, b in zip(leaves, plain):
+        assert _f32_err(a.grad, b.grad) <= K1_F32_TOL
+
+
+def test_k2_k3_f32_reject_what_they_do_not_take(cuda):
+    q, k, v, do, _ = _f32_bwd_inputs(cuda, 1, 64, 64, 4, 2, 64, None,
+                                     "bshd")
+    o, lse = flash_attention_reference(q, k, v, return_lse=True)
+    delta = attention_delta(o, do)
+    n = (flash_bwd_dq.f32_launches, flash_bwd_dkv.f32_launches)
+    with pytest.raises(TypeError):
+        flash_bwd_dq(q, k.bfloat16(), v, do, lse, delta)    # mixed dtypes
+    with pytest.raises(TypeError):
+        flash_bwd_dkv(q, k, v, do.bfloat16(), lse, delta)   # bf16 dO
+    with pytest.raises(ValueError):
+        flash_bwd_dq(q, k, v, do, lse[:, :, :32], delta)    # short lse
+    with pytest.raises(TypeError):                          # bf16 control
+        fa.flash_bwd_dq_f32_one_pass(*(t.bfloat16() for t in (q, k, v, do)),
+                                     lse, delta)
+    d168 = torch.zeros(1, 64, 4, 168, device=cuda)
+    for fn in (flash_bwd_dq, flash_bwd_dkv):
+        with pytest.raises(ValueError, match="up to 160"):
+            fn(d168, d168, d168, d168, lse, delta)          # D > 160
+    wide = torch.randn(1, 64, 4, 66, device=cuda)[..., :64]
+    with pytest.raises(ValueError):
+        flash_bwd_dkv(wide, k, v, do, lse, delta)           # stride 66
+    assert (flash_bwd_dq.f32_launches, flash_bwd_dkv.f32_launches) == n
 
 
 @pytest.fixture(params=("planned", "mma_sync"))
@@ -674,6 +848,35 @@ def test_quant_matmul_function_matches_plain(cuda, bits, M, K, N, G):
         qt, torch.bfloat16)
     _close(xg.grad, gy.float() @ deq.float(), 1e-2, 1e-3)
     assert xg.grad.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("bits,M,K,N,G", [
+    (8, 2048, 640, 640, None), (4, 2048, 640, 640, 128),
+    (8, 77, 256, 130, None),
+])
+def test_quant_matmul_function_f32_matches_plain(cuda, bits, M, K, N, G):
+    """``QuantMatmul`` on fp32 x and g (fp32 training): the forward is K4
+    f32 / K5 f32, dx the fp32 product of g and the weight dequantized to
+    fp32, both within QUANT_F32_TOL·max|plain| of the fp32 plain products,
+    dx in fp32."""
+    qt, kernel, plain = _quantized(bits, N, K, G, cuda)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(8)
+    x = torch.randn(M, K, device=cuda, generator=g)
+    gy = torch.randn(M, N, device=cuda, generator=g)
+    xg = x.clone().requires_grad_()
+    n = (kernel.f32_launches, kernel.launches)
+    y = tq.quant_matmul(xg, *qt, bits)
+    y.backward(gy)
+    torch.cuda.synchronize()
+    assert (kernel.f32_launches, kernel.launches) == (n[0] + 1, n[1])
+    ref = plain(x, *qt)
+    assert (y - ref).abs().max() <= QUANT_F32_TOL * ref.abs().max()
+    deq = (tq.dequantize_int8 if bits == 8 else tq.dequantize_int4)(
+        qt, torch.float32)
+    rdx = gy @ deq
+    assert xg.grad.dtype == torch.float32
+    assert (xg.grad - rdx).abs().max() <= QUANT_F32_TOL * rdx.abs().max()
 
 
 @pytest.mark.parametrize("bits,K", [(8, 640), (4, 640), (4, 1280)])
