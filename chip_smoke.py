@@ -373,6 +373,22 @@ exits non-zero. Phases, in order:
    fused strided q/k/v), each beside its one-pass TF32 control, which must
    miss that bar at a.'s shapes, and for a bit-identical repeat.
 
+19. head dims above 160, last (every count set to 0 before each path and
+   read after): a. the port's twin of ``bench.py`` (``python -m
+   mllm_npu_tpu_torch.bench_flash``: K1 at B32 H8 S256 D256, non-causal,
+   bf16, chained and timed as ``bench.py`` times the reference's kernel,
+   beside SDPA in the same harness, the plain version and the bound), its
+   JSON line printed; b. K1 with and without its LSE over edges at D =
+   168, 192, 200, 240 and 256 (causal Sq != Sk, GQA 16/4, segments that
+   change inside a tile with a padded tail, fused strided q/k/v, one key),
+   and K2 and K3 over phase 13's edges at D = 168, 192, 200 and 256; c.
+   ``FlashAttention`` forward and backward at the bench shape and at B2
+   S1000 Hq16 Hkv8 D256, causal with packed segments: K1, K2 and K3 once
+   each, against autograd through the plain forward (the output within
+   K1's tolerance, dq, dk, dv within K2's and K3's), and a repeat bit for
+   bit; then the three kernels timed at those two shapes (the D = 256
+   basis of the kernels line).
+
 Phases 2 to 18 build from copies of the shipped configs with their
 checkpoint paths null (``use_seeded_configs``): the repository holds no
 weights, and a configured path that does not exist raises.
@@ -655,36 +671,42 @@ def kernel_case(name, B, Sq, Sk, Hq, Hkv, D, causal, pad_rows=None, seed=0,
     return row
 
 
-def k1_edge_sweep():
-    """K1 against its plain version (output and LSE) at the edges of its
-    Hopper design: head dims from 8 to 160 (TMA's zero fill past D, the
-    128-byte / 32-byte swizzle split, the 64-row tiles alone at D > 144), lengths below and off the tile,
-    causal with Sq != Sk, GQA 32/8 and 8/1, segments that change inside a
-    tile with right-padded rows that see no key, and q, k, v as strided
-    views of one fused [B, S, 3, H, D] tensor. Any disagreement fails."""
+# K1's edges (phase 3): B, Sq, Sk, Hq, Hkv, D, causal, segments, fused
+K1_EDGES = [
+    (1, 129, 129, 8, 1, 8, True, False, False),
+    (1, 129, 129, 8, 1, 16, False, False, False),
+    (2, 65, 65, 8, 1, 24, True, True, False),
+    (1, 729, 729, 4, 4, 72, False, False, False),
+    (2, 63, 65, 32, 8, 80, False, False, False),
+    (1, 1, 1, 4, 1, 128, True, False, False),
+    (2, 65, 63, 32, 8, 128, True, False, False),
+    (2, 129, 729, 32, 8, 128, True, False, False),
+    (1, 729, 129, 8, 1, 64, True, False, False),
+    (2, 300, 300, 32, 8, 128, True, True, False),
+    (2, 200, 200, 8, 8, 72, True, True, True),
+    (2, 300, 300, 16, 16, 104, False, True, True),
+    (1, 129, 129, 8, 2, 136, True, False, False),
+    (2, 65, 63, 8, 8, 152, True, False, False),
+    (1, 729, 729, 8, 8, 160, False, True, False),
+    (4, 64, 256, 32, 32, 160, False, False, False),
+]
+
+
+def k1_edge_sweep(cases=K1_EDGES, label="edge sweep"):
+    """K1 with and without its LSE against its plain version (output and
+    LSE; the two outputs bit-identical) at the edges of its Hopper design:
+    head dims from 8 to 256 (TMA's zero fill past D, the 128-byte / 32-byte
+    swizzle split, the 64-row tiles alone at D > 144, the instantiations at
+    192 and 256 above 160), lengths below and off the tile, causal with
+    Sq != Sk, GQA 32/8, 16/4 and 8/1, segments that change inside a tile
+    with right-padded rows that see no key, and q, k, v as strided views of
+    one fused [B, S, 3, H, D] tensor; each case's two launches counted.
+    Any disagreement fails."""
     import torch
 
     from mllm_npu_tpu_torch.ops.flash_attention import (
         SegmentIds, flash_attention, flash_attention_reference)
     dev = torch.device("cuda")
-    cases = [  # B, Sq, Sk, Hq, Hkv, D, causal, segments, fused
-        (1, 129, 129, 8, 1, 8, True, False, False),
-        (1, 129, 129, 8, 1, 16, False, False, False),
-        (2, 65, 65, 8, 1, 24, True, True, False),
-        (1, 729, 729, 4, 4, 72, False, False, False),
-        (2, 63, 65, 32, 8, 80, False, False, False),
-        (1, 1, 1, 4, 1, 128, True, False, False),
-        (2, 65, 63, 32, 8, 128, True, False, False),
-        (2, 129, 729, 32, 8, 128, True, False, False),
-        (1, 729, 129, 8, 1, 64, True, False, False),
-        (2, 300, 300, 32, 8, 128, True, True, False),
-        (2, 200, 200, 8, 8, 72, True, True, True),
-        (2, 300, 300, 16, 16, 104, False, True, True),
-        (1, 129, 129, 8, 2, 136, True, False, False),
-        (2, 65, 63, 8, 8, 152, True, False, False),
-        (1, 729, 729, 8, 8, 160, False, True, False),
-        (4, 64, 256, 32, 32, 160, False, False, False),
-    ]
     worst = 0.0
     for i, (B, Sq, Sk, Hq, Hkv, D, causal, segs, fused) in enumerate(cases):
         g = torch.Generator(device=dev)
@@ -712,13 +734,19 @@ def k1_edge_sweep():
             seg = SegmentIds(q=qs.to(dev, torch.int32),
                              kv=ks.to(dev, torch.int32))
         kw = dict(causal=causal, segment_ids=seg)
+        n = flash_attention.launches
         out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+        alone = flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         ref, rlse = flash_attention_reference(q, k, v, return_lse=True, **kw)
         diff = (out.float() - ref.float()).abs()
         name = (f"K1 edge B{B} Sq{Sq} Sk{Sk} H{Hq}/{Hkv} D{D}"
                 f"{' causal' if causal else ''}{' segments' if segs else ''}"
                 f"{' fused' if fused else ''}")
+        check(flash_attention.launches == n + 2, f"{name}: K1 launched "
+              f"{flash_attention.launches - n} times, not 2")
+        check(torch.equal(out, alone), f"{name}: the output without the "
+              "LSE differs from the one with it")
         check(bool(torch.isfinite(out.float()).all()), f"{name}: non-finite")
         check(bool((diff <= BF16_ATOL + BF16_RTOL * ref.float().abs()).all()),
               f"{name}: max abs err {diff.max().item()} beyond {BF16_ATOL} + "
@@ -729,9 +757,11 @@ def k1_edge_sweep():
             check(bool((out[-1, Sq - Sq // 5:] == 0).all()),
                   f"{name}: a row with no visible key is not 0")
         worst = max(worst, diff.max().item())
-    print(f"[K1] edge sweep: {len(cases)} shapes agree with the plain "
-          f"version, max abs err {worst:.3e}", flush=True)
-    return {"shapes": len(cases), "max_abs_err": worst}
+    dims = sorted({c[5] for c in cases})
+    print(f"[K1] {label}: {len(cases)} shapes (D {dims[0]} to {dims[-1]}) "
+          f"agree with the plain version with and without the LSE, max abs "
+          f"err {worst:.3e}", flush=True)
+    return {"shapes": len(cases), "head_dims": dims, "max_abs_err": worst}
 
 
 def quant_case(bits, M, K, N, group=256, seed=0, f32=False):
@@ -5140,9 +5170,10 @@ def seedx_grad_check(model, batch):
     return out
 
 
-def k23_wide_sweep():
-    """K2 and K3 against their plain versions at head dims 144 and 160 (one
-    block an SM; K3's two consumer warpgroups) across the edges the
+def k23_wide_sweep(dims=(144, 160)):
+    """K2 and K3 against their plain versions at head dims ``dims`` (144
+    and 160: one block an SM, K3's two consumer warpgroups; phase 19b's 168
+    to 256: the instantiations at 192 and 256) across the edges the
     training shapes hold: causal with GQA and packed segments, lengths off
     the tile, Sq != Sk both ways, rows whose keys are all masked, MHA;
     each in the Hopper regime."""
@@ -5162,7 +5193,7 @@ def k23_wide_sweep():
         (2, 600, 600, 40, 40, True, True),
     ]
     worst, n = 0.0, 0
-    for D in (144, 160):
+    for D in dims:
         for i, (B, Sq, Sk, Hq, Hkv, causal, segs) in enumerate(cases):
             q, k, v, do, seg = bench.inputs(B, Sq, Sk, Hq, Hkv, D, segs,
                                             seed=200 + i)
@@ -5192,10 +5223,10 @@ def k23_wide_sweep():
             n += 1
             del q, k, v, do, o, lse, delta, got, ref
     torch.cuda.empty_cache()
-    print(f"[K2/K3] head dims 144 and 160: {n} edge shapes agree with the "
-          f"plain versions in the Hopper regime, max abs err {worst:.3e}",
-          flush=True)
-    return {"shapes": n, "max_abs_err": worst}
+    print(f"[K2/K3] head dims {', '.join(map(str, dims))}: {n} edge shapes "
+          f"agree with the plain versions in the Hopper regime, max abs err "
+          f"{worst:.3e}", flush=True)
+    return {"shapes": n, "head_dims": list(dims), "max_abs_err": worst}
 
 
 def seedx_train_fields(seedtrain, lm):
@@ -7864,6 +7895,183 @@ def fp32_training_rows(fp32_train, f32_launches):
     return rows
 
 
+# -- phase 19: head dims above 160 and the bench.py twin ------------------
+# 19b: K1's edges above 160 (the kernel at 192 or 256): B, Sq, Sk, Hq, Hkv,
+# D, causal, segments, fused
+K1_WIDE_EDGES = [
+    (2, 129, 129, 8, 2, 168, True, True, False),
+    (2, 65, 63, 16, 4, 192, True, False, False),
+    (2, 300, 300, 16, 4, 200, False, True, True),
+    (1, 729, 129, 8, 1, 240, True, False, False),
+    (2, 63, 65, 16, 4, 256, True, False, False),
+    (2, 129, 129, 16, 4, 256, True, True, True),
+    (1, 1, 1, 4, 1, 256, True, False, False),
+    (4, 64, 256, 32, 32, 256, False, False, False),
+]
+# 19b: K2 and K3 over k23_wide_sweep's edges at these head dims
+K23_WIDE_DIMS = (168, 192, 200, 256)
+# 19c: FlashAttention forward and backward at the reference's bench shape
+# and at a causal GQA shape with packed segments at the head dim of wide
+# public models: name, B, S, Hq, Hkv, D, causal, segments
+FUNCTION_CASES = [
+    ("bench_d256", 32, 256, 8, 8, 256, False, False),
+    ("causal_gqa_d256", 2, 1000, 16, 8, 256, True, True),
+]
+
+
+def function_case(name, B, S, Hq, Hkv, D, causal, segments, seed=0):
+    """19c: ``FlashAttention`` (K1 with its LSE forward, K2 and K3
+    backward) at one shape, every count set to 0 before and read after,
+    against autograd through the plain forward
+    (``flash_attention_reference``) on the same bf16 inputs (the output
+    within BF16_ATOL + BF16_RTOL·|plain|, dq, dk, dv within
+    BWD_RTOL·|plain| + BWD_ATOL_FRAC·max|plain|) and a repeat bit for bit.
+    → (the row, the path's launches)."""
+    import torch
+
+    from mllm_npu_tpu_torch import bench_flash_bwd as bench
+    from mllm_npu_tpu_torch.ops.flash_attention import (
+        FlashAttention, flash_attention_reference)
+    q, k, v, do, seg = bench.inputs(B, S, S, Hq, Hkv, D, segments, seed)
+    scale = D ** -0.5
+
+    def run(fn):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        o = fn(*leaves)
+        o.backward(do)
+        torch.cuda.synchronize()
+        return [o.detach()] + [x.grad for x in leaves]
+    counters = kernel_counters()
+    zero_counts(counters)
+    got = run(lambda *a: FlashAttention.apply(*a, causal, seg, scale))
+    launches = read_all(counters)
+    check((launches["flash_fwd"], launches["flash_bwd_dq"],
+           launches["flash_bwd_dkv"]) == (1, 1, 1),
+          f"19c {name}: FlashAttention launched {launches}, not K1, K2 and "
+          "K3 once each")
+    again = run(lambda *a: FlashAttention.apply(*a, causal, seg, scale))
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"19c {name}: a repeat differs")
+    ref = run(lambda *a: flash_attention_reference(
+        *a, causal=causal, segment_ids=seg, scale=scale))
+    errs = {}
+    for label, g, r in zip(("o", "dq", "dk", "dv"), got, ref):
+        g, r = g.float(), r.float()
+        diff = (g - r).abs()
+        tol = (BF16_ATOL + BF16_RTOL * r.abs() if label == "o" else
+               BWD_RTOL * r.abs() + BWD_ATOL_FRAC * r.abs().max())
+        check(bool(torch.isfinite(g).all()) and bool((diff <= tol).all()),
+              f"19c {name} {label}: max abs err {diff.max().item()} beyond "
+              "its tolerance")
+        errs[label] = diff.max().item()
+    row = {"shape": name, "B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D,
+           "causal": causal, "segments": segments, "max_abs_err": errs,
+           "repeat_bit_identical": True, "launches": launches}
+    print(f"[phase 19c] FlashAttention {name} (B{B} S{S} H{Hq}/{Hkv} D{D}"
+          f"{' causal' if causal else ''}{' segments' if segments else ''})"
+          f": K1, K2, K3 once each; errors against plain autograd {errs}; "
+          "a repeat bit-identical", flush=True)
+    return row, launches
+
+
+def wide_head_phase():
+    """Phase 19 (see the module's docstring). → summary, the path's
+    launches among them."""
+    import torch
+
+    from mllm_npu_tpu_torch import bench_flash
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    counters = kernel_counters()
+    # 19a: the bench.py twin, its counts set to 0 before and read after
+    zero_counts(counters)
+    twin = bench_flash.main([])
+    got = read_all(counters)
+    check(got["flash_fwd"] == twin["launches"] > 0,
+          f"19a: the twin's K1 launches {got}, its own count "
+          f"{twin['launches']}")
+    check(twin["within_tolerance"], f"19a: K1 at the bench shape max abs "
+          f"err {twin['max_abs_err']} beyond its tolerance")
+    launches = dict(got)
+    print(f"[phase 19a] the bench.py twin: K1 {twin['value'] * 1e6:.2f} us "
+          f"a call (best {twin['best'] * 1e6:.2f}), SDPA "
+          f"{twin['sdpa_s'] * 1e6:.2f} us, plain {twin['plain_s'] * 1e6:.1f}"
+          f" us, bound {twin['bound_s'] * 1e6:.2f} us ({twin['bound_by']}, "
+          f"{100 * twin['bound_share']:.1f}% of it); vs the 910B "
+          f"{twin['vs_baseline']:.2f}x, the A100's flash-attn "
+          f"{twin['vs_a100_flash_attn']:.2f}x, xformers "
+          f"{twin['vs_a100_xformers']:.2f}x; {twin['launches']} launches; "
+          f"{twin['card']}", flush=True)
+    # 19b: K1 (with and without its LSE), then K2 and K3, over the edges
+    # at head dims 168 to 256
+    edges = k1_edge_sweep(K1_WIDE_EDGES, "edge sweep above 160")
+    k23_edges = k23_wide_sweep(K23_WIDE_DIMS)
+    # 19c: FlashAttention forward and backward, counted
+    cases = []
+    for case in FUNCTION_CASES:
+        row, got = function_case(*case)
+        cases.append(row)
+        for k in launches:
+            launches[k] += got[k]
+    # the kernels' times at those shapes (K1 with its LSE, K2, K3, SDPA's
+    # backward, the plain versions, the bounds; not counted)
+    bwd = {name: bwd_case(name, B, S, S, Hq, Hkv, D, causal,
+                          segments=segs)
+           for name, B, S, Hq, Hkv, D, causal, segs in FUNCTION_CASES}
+    out = {"twin": twin, "edges": edges, "k23_edges": k23_edges,
+           "function_cases": cases, "bwd": bwd, "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    print(f"[phase 19] done in {out['seconds']:.1f} s; the path's launches "
+          f"{launches}", flush=True)
+    return out
+
+
+def wide_head_fields(wide):
+    """Phase 19's fields of K1's, K2's and K3's rows in the JSON line: the
+    D = 256 basis (one call at the reference's bench shape), the edges and
+    19c's shapes."""
+    twin, bench_row = wide["twin"], wide["bwd"]["bench_d256"]
+    k1 = {"basis": "one call at the reference's bench shape (bench.py: B32 "
+                   "H8 S256 D256, bf16, non-causal), timed as bench.py "
+                   "times it (chained q <- K1(q, k, v), the slope between "
+                   "20 and 220 calls, the median of 15 reps)",
+          "ms": twin["value"] * 1e3, "best_ms": twin["best"] * 1e3,
+          "plain_ms": twin["plain_s"] * 1e3,
+          "library_ms": twin["sdpa_s"] * 1e3,
+          "library": "scaled_dot_product_attention in the same harness",
+          "bound_ms": twin["bound_s"] * 1e3, "bound_by": twin["bound_by"],
+          "bound_share": twin["bound_share"],
+          "vs_baseline": twin["vs_baseline"],
+          "vs_a100_flash_attn": twin["vs_a100_flash_attn"],
+          "vs_a100_xformers": twin["vs_a100_xformers"],
+          "launches": twin["launches"],
+          "function_launches": sum(r["launches"]["flash_fwd"]
+                                   for r in wide["function_cases"]),
+          "max_abs_err": twin["max_abs_err"],
+          "edge_sweep": wide["edges"],
+          "lse_shapes": [b["lse"] for b in wide["bwd"].values()]}
+    out = {"flash_fwd": {"d256": k1, "max_abs_err": max(
+        twin["max_abs_err"], wide["edges"]["max_abs_err"],
+        *(r["max_abs_err"]["o"] for r in wide["function_cases"]))}}
+    for name, grads in (("flash_bwd_dq", ("dq",)),
+                        ("flash_bwd_dkv", ("dk", "dv"))):
+        out[name] = {"max_abs_err": max(
+            wide["k23_edges"]["max_abs_err"],
+            *(b[name]["max_abs_err"] for b in wide["bwd"].values()),
+            *(r["max_abs_err"][g] for r in wide["function_cases"]
+              for g in grads)), "d256": {
+            **bench_row[name],
+            "basis": "one call at the reference's bench shape (B32 H8 S256 "
+                     "D256, bf16, non-causal)",
+            "launches": sum(r["launches"][name]
+                            for r in wide["function_cases"]),
+            "function_cases": wide["function_cases"],
+            "shapes": [b[name] for b in wide["bwd"].values()],
+            "edge_sweep": wide["k23_edges"]}}
+    return out
+
+
 def main():
     # the training phase runs near the card's memory: let the allocator grow
     # segments instead of fragmenting (read when CUDA initialises)
@@ -8238,6 +8446,16 @@ def main():
     fp32_train = fp32_training_phase(t_start)
     for k in f32_launches:
         f32_launches[k] += fp32_train["launches"][k]
+
+    print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 19",
+          flush=True)
+    # -- 19. head dims above 160: the bench.py twin (K1 at B32 H8 S256
+    #        D256), K1, K2 and K3 over the edges from 168 to 256, and
+    #        FlashAttention forward and backward at D = 256, counts set to
+    #        0 before each path and read after
+    wide = wide_head_phase()
+    for k in launches:
+        launches[k] += wide["launches"][k]
     unet_forward = row_mix(unet_cases, unet_mix, "one SDXL UNet forward "
                           "(CFG batch 2, 1024x1024)")
     unet_image = {k: v * GEN_STEPS if k in ("ms", "plain_ms", "bound_ms",
@@ -8495,10 +8713,14 @@ def main():
     extra = seedx_train_fields(seedtrain, seedx_lm)
     vfields = variant_fields(variant_cases, variant_mixes, unet_qrows,
                              unet_qmix, variants)
+    wfields = wide_head_fields(wide)
     for row in rows:
         if row["name"].endswith("_f32"):
             continue
         row.update(extra[row["name"]])
+        more = dict(wfields.get(row["name"], {"max_abs_err": 0.0}))
+        row["max_abs_err"] = max(row["max_abs_err"], more.pop("max_abs_err"))
+        row.update(more)
         more = dict(vfields[row["name"]])
         row["max_abs_err"] = max(row["max_abs_err"], more.pop("max_abs_err"))
         row.update(more)
@@ -8517,6 +8739,8 @@ def main():
     print("[ckpt] summary " + json.dumps(
         {k: v for k, v in ckpt.items() if k != "launches"}, default=str))
     print("[eval] summary " + json.dumps(evaluator, default=str))
+    print("[wide] summary " + json.dumps(
+        {k: v for k, v in wide.items() if k != "bwd"}, default=str))
     print("[seedx-train] summary " + json.dumps(
         {k: ({kk: vv for kk, vv in v.items() if kk != "profile"}
              if isinstance(v, dict) else v)

@@ -11,7 +11,8 @@ take the arguments of PR 4's, without the regime argument).
 Per shape: K2, K3 and the pair in the regime ``k23_regime`` picks, each
 checked against its plain version (2e-2·|plain| + 1e-2·max|plain|) and for
 a bit-identical repeat; the mma.sync regime (the first design of these
-kernels, whose code the regime keeps unchanged) forced at the same shape;
+kernels, whose code the regime keeps unchanged) forced at the same shape
+where it takes the head dim (up to 160; null above);
 δ = rowsum(dO∘O) as the wrapper computes it; the plain versions; SDPA's
 backward (autograd of
 ``scaled_dot_product_attention`` with K/V repeated for GQA: dq, dk and dv
@@ -48,13 +49,15 @@ LLAMA_LAYERS = 32
 def shapes(batch: int, images: int, tiles: int = 5):
     """name → (B, Sq, Sk, Hq, Hkv, D, causal, segments): the Llama training
     layer (two packed segments a row, the last row's tail padded), the
-    resampler over the batch's image slots, SigLIP's D = 72 and a tiny
-    D = 32 with segments."""
+    resampler over the batch's image slots, SigLIP's D = 72, a tiny
+    D = 32 with segments, and the reference's bench shape (``bench.py``:
+    B32 H8 S256 D256, non-causal)."""
     return {
         "llama_train": (batch, 600, 600, 32, 8, 128, True, True),
         "resampler_train": (images, 64, 729, 32, 32, 128, False, False),
         "siglip_d72": (tiles, 729, 729, 16, 16, 72, False, False),
         "tiny_d32": (1, 77, 77, 4, 2, 32, True, True),
+        "bench_d256": (32, 256, 256, 8, 8, 256, False, False),
     }
 
 
@@ -170,6 +173,10 @@ def baseline_fns(src):
     return (lambda *a: call(False, *a)), (lambda *a: call(True, *a))
 
 
+def _ms(t) -> str:
+    return "-" if t is None else f"{t:.4f}"
+
+
 def _close(got, ref):
     got, ref = got.float(), ref.float()
     diff = (got - ref).abs()
@@ -225,11 +232,15 @@ def bench_shape(name, B, Sq, Sk, Hq, Hkv, D, causal, segments, baseline=None,
            "pair_ms": time_ms(pair),
            "delta_ms": time_ms(lambda: fa.attention_delta(o, do)),
            "pair_delta_ms": time_ms(pair_delta)}
-    # the first design (mma.sync), forced at this shape
-    with forced_regime("mma_sync"):
-        row["mma_sync_k2_ms"] = time_ms(k2)
-        row["mma_sync_k3_ms"] = time_ms(k3)
-    row["mma_sync_pair_ms"] = row["mma_sync_k2_ms"] + row["mma_sync_k3_ms"]
+    # the first design (mma.sync), forced at this shape where it takes D
+    row["mma_sync_k2_ms"] = row["mma_sync_k3_ms"] = None
+    row["mma_sync_pair_ms"] = None
+    if D <= fa.MMA_SYNC_MAX_HEAD_DIM:
+        with forced_regime("mma_sync"):
+            row["mma_sync_k2_ms"] = time_ms(k2)
+            row["mma_sync_k3_ms"] = time_ms(k3)
+        row["mma_sync_pair_ms"] = (row["mma_sync_k2_ms"]
+                                   + row["mma_sync_k3_ms"])
     row["plain_k2_ms"] = time_ms(lambda: fa.flash_bwd_dq_reference(
         q, k, v, do, lse, delta, **kw), iters=3)
     row["plain_k3_ms"] = time_ms(lambda: fa.flash_bwd_dkv_reference(
@@ -279,7 +290,7 @@ def bench_shape(name, B, Sq, Sk, Hq, Hkv, D, causal, segments, baseline=None,
           f"{row['pair_delta_ms']:.4f} (delta {row['delta_ms']:.4f}); SDPA "
           f"backward {row['sdpa_bwd_ms']:.4f} (pair/SDPA "
           f"{row['pair_vs_sdpa']:.3f}); mma.sync K2 "
-          f"{row['mma_sync_k2_ms']:.4f} K3 {row['mma_sync_k3_ms']:.4f}"
+          f"{_ms(row['mma_sync_k2_ms'])} K3 {_ms(row['mma_sync_k3_ms'])}"
           + (f"; baseline K2 {row['baseline_k2_ms']:.4f} K3 "
              f"{row['baseline_k3_ms']:.4f}" if baseline else "")
           + f"; err "

@@ -34,7 +34,7 @@
 // resampler needs K and V read, and dK and dV written, at the memory's
 // rate.
 //
-// Design (the Hopper regime, head dims 32 to 160):
+// Design (the Hopper regime, head dims 32 to 256):
 //  * Persistent blocks of 256 threads, two per SM, as many as fit (at most
 //    one per work tile), each walking work tiles i, i + gridDim.x, ... K2's
 //    work tile is 64 query rows of one (batch, query head); causal, the
@@ -115,6 +115,17 @@
 //    The cost: Sᵀ = K·Qᵀ is computed twice, five products a pair instead
 //    of four, and the second warpgroup does three of them.
 //
+//  * Head dims above 160 (the reference's bench shape's 256): computed at
+//    192 or 256 (padded_dp in hopper.cuh; TMA zero-fills the columns past
+//    D, as the reference pads D to 256), in 64-column boxes, the register-A
+//    products one m64n192k16 or m64n256k16. Six tiles of 64 × 256 bf16
+//    take 192 KB (K2: Q, dO and a 2-stage K/V ring; K3: K, V and a 2-stage
+//    Q/dO ring), so one block per SM. K2 keeps one consumer warpgroup: dQ
+//    (128 fp32 a thread at 256) with S, dP and dS fits the 255 registers
+//    every thread of a one-block launch may hold, so K2 runs no setmaxnreg
+//    there. K3 keeps its dV / dK split, the consumers raised to 232
+//    registers and the producer cut to 32 (of the launch bounds' 168).
+//
 // The mma.sync regime (namespace mma_sync, the first design of these
 // kernels, unchanged): head dims below 32, chosen by shape in k23_regime.
 // mma.sync m16n8k16 from cp.async double-buffered shared tiles, 4 warps a
@@ -129,7 +140,9 @@
 // spilled 32 bytes; at 40 / 216 K3's consumers spilled and ran slower.)
 // K3 above DP 128: 168 at the launch bounds (one block of 384 threads),
 // producer 40 and consumers 208, 8 bytes spilled; K2 at DP 144 none, at
-// 160 8 bytes.
+// 160 8 bytes. DP 192 / 256: K2 213 / 241 registers (one block, no
+// setmaxnreg), no spill; K3 producer 32 and consumers 232, no spill at
+// 192, 16 bytes at 256; no C7513.
 
 // Develop with MLLM_NVCC_EXTRA=-DMBAR_TRAP_CYCLES=... (csrc/hopper.cuh):
 // a lost mbarrier arrival then traps instead of hanging the card.
@@ -323,6 +336,11 @@ struct Cfg2 {
   static constexpr int SMEM = BAR_OFF + 8 * (2 + 2 * STAGES) + 1024;
   static_assert(BYTES % 1024 == 0,
                 "buffers stay 1024-byte aligned for the 128-byte swizzle");
+  // DP 192 and 256: one block per SM (shared memory), whose threads all
+  // keep the 255 registers a thread may hold (dQ is 96 or 128 fp32 a
+  // consumer thread beside S and dP), so no setmaxnreg
+  static constexpr bool WIDE = DP > 160;
+  static constexpr int MIN_BLOCKS = WIDE ? 1 : 2;
 };
 
 // K2's work tiles in the order the persistent blocks take them. Causal:
@@ -351,7 +369,7 @@ struct Work2 {
 };
 
 template <int DP>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, Cfg2<DP>::MIN_BLOCKS)
     flash_bwd_dq_kernel(const __grid_constant__ Params p) {
   using C = Cfg2<DP>;
   constexpr int HI = C::HI, LO = C::LO;
@@ -379,7 +397,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 
   if (warp >= 4) {
     // ---- producer: its first warp loads Q, dO, K, V and the kv ids ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 32;\n" ::: "memory");
+    if constexpr (!C::WIDE)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 32;\n" ::: "memory");
     if (warp > 4) return;
     if (lane == 0) {
       if (HI) {
@@ -468,7 +487,8 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 
   // ---- the consumer warpgroup: 64 query rows, 16 a warp ----------------
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+  if constexpr (!C::WIDE)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
   const int g = lane / 4, t4 = lane % 4;
   const float sl2 = p.scale_log2;
   float dq_hi[HI ? HI / 2 : 1], dq_lo[LO ? LO / 2 : 1];
@@ -609,6 +629,12 @@ struct Cfg3 {
   // recomputes Sᵀ for it, the other dK (dk_dv_split below)
   static constexpr int CW = DP > 128 ? 2 : 1;
   static constexpr int THREADS = 128 * (CW + 1);
+  // setmaxnreg from the launch bounds' 168 (384 threads) or 128 (256):
+  // at DP 192 and 256 (dV or dK 96 or 128 fp32 a thread beside Sᵀ, dPᵀ and
+  // dSᵀ) the consumers take 232 and the producer 32, else 208 and 40; one
+  // consumer warpgroup 224 and the producer 32
+  static constexpr int CONSUMER_REGS = CW == 1 ? 224 : DP > 160 ? 232 : 208;
+  static constexpr int PRODUCER_REGS = CW == 1 || DP > 160 ? 32 : 40;
 };
 
 // K3's work tiles in the order the persistent blocks take them. Causal:
@@ -789,10 +815,8 @@ __global__ void __launch_bounds__(Cfg3<DP>::THREADS, 3 - Cfg3<DP>::CW)
   if (warp >= 4 * CW) {
     // ---- producer: its first warp loads K, V, then Q, dO, the LSE, δ and
     // the q ids of every pair ------------------------------------------
-    if constexpr (CW == 1)
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 32;\n" ::: "memory");
-    else
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+                     C::PRODUCER_REGS) : "memory");
     if (warp > 4 * CW) return;
     if (lane == 0) {
       if (HI) {
@@ -890,7 +914,8 @@ __global__ void __launch_bounds__(Cfg3<DP>::THREADS, 3 - Cfg3<DP>::CW)
 
   if constexpr (CW == 2) {
     // ---- two consumer warpgroups: dV (warps 0-3) and dK (4-7) ----------
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 208;\n" ::: "memory");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+                     C::CONSUMER_REGS) : "memory");
     if (warp < 4)
       dk_dv_split<DP, false>(p, work, n_tiles, base, meta, bar_kf, bar_ke,
                              bar_qf, bar_qe, warp, lane);
@@ -901,7 +926,8 @@ __global__ void __launch_bounds__(Cfg3<DP>::THREADS, 3 - Cfg3<DP>::CW)
   }
 
   // ---- the consumer warpgroup: 64 keys, 16 a warp ----------------------
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+                   C::CONSUMER_REGS) : "memory");
   const int g = lane / 4, t4 = lane % 4;
   const float sl2 = p.scale_log2;
   float dk_hi[HI ? HI / 2 : 1], dk_lo[LO ? LO / 2 : 1];
@@ -1071,20 +1097,24 @@ cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
 
 template <bool DKV>
 cudaError_t launch_dp(const Params& p, cudaStream_t stream) {
-  switch ((p.D + 15) / 16) {
-    case 2: return DKV ? launch_dkv<32>(p, stream) : launch_dq<32>(p, stream);
-    case 3: return DKV ? launch_dkv<48>(p, stream) : launch_dq<48>(p, stream);
-    case 4: return DKV ? launch_dkv<64>(p, stream) : launch_dq<64>(p, stream);
-    case 5: return DKV ? launch_dkv<80>(p, stream) : launch_dq<80>(p, stream);
-    case 6: return DKV ? launch_dkv<96>(p, stream) : launch_dq<96>(p, stream);
-    case 7:
+  switch (padded_dp(p.D)) {
+    case 32: return DKV ? launch_dkv<32>(p, stream) : launch_dq<32>(p, stream);
+    case 48: return DKV ? launch_dkv<48>(p, stream) : launch_dq<48>(p, stream);
+    case 64: return DKV ? launch_dkv<64>(p, stream) : launch_dq<64>(p, stream);
+    case 80: return DKV ? launch_dkv<80>(p, stream) : launch_dq<80>(p, stream);
+    case 96: return DKV ? launch_dkv<96>(p, stream) : launch_dq<96>(p, stream);
+    case 112:
       return DKV ? launch_dkv<112>(p, stream) : launch_dq<112>(p, stream);
-    case 8:
+    case 128:
       return DKV ? launch_dkv<128>(p, stream) : launch_dq<128>(p, stream);
-    case 9:
+    case 144:
       return DKV ? launch_dkv<144>(p, stream) : launch_dq<144>(p, stream);
-    case 10:
+    case 160:
       return DKV ? launch_dkv<160>(p, stream) : launch_dq<160>(p, stream);
+    case 192:
+      return DKV ? launch_dkv<192>(p, stream) : launch_dq<192>(p, stream);
+    case 256:
+      return DKV ? launch_dkv<256>(p, stream) : launch_dq<256>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1099,7 +1129,7 @@ bool make_params(Params& p, const void* q, const void* k,
                  int causal) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const int dp = (D + 15) / 16 * 16, hi = dp / 64 * 64;
+  const int dp = padded_dp(D), hi = dp / 64 * 64;
   const struct {
     CUtensorMap *m128, *m32;
     const void* ptr;
@@ -1703,7 +1733,7 @@ cudaError_t dkv(const Params& p, cudaStream_t st) {
 // dk, dv in that order (dq or dk/dv unused by one entry point); q_seg and
 // kv_seg may be null. lse (natural log) and delta are fp32 [B, Hq, Sq],
 // contiguous. wgmma picks the regime: 1 the Hopper kernels (head dims 32
-// to 160), 0 the mma.sync ones (8 to 160).
+// to 256), 0 the mma.sync ones (8 to 160).
 extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, const void* q_seg,
@@ -1720,7 +1750,7 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
   }
   Params p;
   if ((q_seg == nullptr) != (kv_seg == nullptr) || D % 8 != 0 || D < 32 ||
-      D > 160 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || B <= 0 ||
+      D > 256 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || B <= 0 ||
       wgmma != 1 ||
       !make_params(p, q, k, v, dout, lse, delta, q_seg, kv_seg, dq, nullptr,
                    nullptr, B, Sq, Sk, Hq, Hkv, D, strides, scale, causal))
@@ -1745,7 +1775,7 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k,
   }
   Params p;
   if ((q_seg == nullptr) != (kv_seg == nullptr) || D % 8 != 0 || D < 32 ||
-      D > 160 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || B <= 0 ||
+      D > 256 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || B <= 0 ||
       wgmma != 1 ||
       !make_params(p, q, k, v, dout, lse, delta, q_seg, kv_seg, nullptr, dk,
                    dv, B, Sq, Sk, Hq, Hkv, D, strides, scale, causal))

@@ -89,14 +89,21 @@
 //    D = 72 → 64 + 16 (cols 72–79 zero-filled), 128 → 128, 32 → 0 + 32,
 //    104 → 64 + 48 (Qwen-ViT-G), 160 → 128 + 32 (the SEED-X input
 //    projector): no wgmma shape beyond those D ≤ 128 already uses.
+//    Above 160 the head dim is computed at 192 or 256 (padded_dp in
+//    hopper.cuh: 168 and 176 → 192, 200 to 256 → 256, TMA zero-filling the
+//    columns past D as the reference pads D to 256), all in 64-column
+//    boxes, and PV is one m64n192k16 or m64n256k16 (the widest wgmma).
+//    Two instantiations, not one per multiple of 16, keep the build short.
 //  * Shared memory above D = 128. Q (2 stages) and K and V (2 stages
 //    each) take 6·BQ·DP·2 bytes: at BQ = 128 that is 168 KB at DP = 112
 //    and 216 KB at DP = 144, within the 227 KB a block may use, but 240 KB
 //    at DP = 160. So DP = 160 takes only the 64-row tiles (120 KB, one
-//    block per SM); the wrapper's plan (`k1_block_q`, `k1_smem_bytes`)
-//    mirrors Cfg::SMEM and never asks for a shape that does not fit, and
-//    the host entry refuses one. Registers: O at DP = 160 is 80 fp32 a
-//    consumer thread (o_hi 64 + o_lo 16), beside S (BK/2) and P (BK/4).
+//    block per SM), as DP = 192 (144 KB) and 256 (192 KB; 194 KB with the
+//    ids, barriers and alignment); the wrapper's plan (`k1_block_q`,
+//    `k1_smem_bytes`) mirrors Cfg::SMEM and never asks for a shape that
+//    does not fit, and the host entry refuses one. Registers: O at DP =
+//    160 is 80 fp32 a consumer thread (o_hi 64 + o_lo 16), at 256 128,
+//    beside S (BK/2) and P (BK/4).
 //  * The P fragment layout. The m64nNk16 fp32 accumulator gives each
 //    thread, per 8-column slice, (row g, cols 2t, 2t+1) and (row g+8, same
 //    cols) of its warp's 16 rows; the register A operand of m64nNk16 wants
@@ -121,7 +128,12 @@
 //  * The LSE is unchanged: natural log, 0 for a row with no visible key.
 //  * Registers. setmaxnreg needs the entry count fixed by the launch
 //    bounds: 384 threads at 168 (producer 40, consumers 232) or 256 threads
-//    at two blocks per SM, 128 (producer 32, consumers 224).
+//    at two blocks per SM, 128 (producer 32, consumers 224). At DP 192 and
+//    256 one block of 256 threads fills an SM's shared memory, so the
+//    launch bounds ask for one block and every thread may hold 255
+//    registers: O (96 or 128 fp32), S (32) and P (16) fit a consumer
+//    thread with no setmaxnreg (ptxas, sm_90a: 215 and 255 registers, no
+//    spill).
 
 #include <limits.h>
 #include <math.h>
@@ -171,6 +183,10 @@ struct Cfg {
                 "buffers stay 1024-byte aligned for the 128-byte swizzle");
   // what one block may use on an H100 (227 KB)
   static constexpr bool FITS = SMEM <= 232448;
+  // DP 192 and 256: one block per SM (shared memory), whose threads all
+  // keep the 255 registers a thread may hold, so no setmaxnreg
+  static constexpr bool WIDE = DP > 160;
+  static constexpr int MIN_BLOCKS = NWG == 1 && !WIDE ? 2 : 1;
 };
 
 // The work of one call: tiles of BQ query rows of one (head, batch), in
@@ -200,7 +216,7 @@ struct Work {
 };
 
 template <int NWG, int DP>
-__global__ void __launch_bounds__(128 * (NWG + 1), NWG == 1 ? 2 : 1)
+__global__ void __launch_bounds__(128 * (NWG + 1), Cfg<NWG, DP>::MIN_BLOCKS)
     flash_fwd_kernel(const __grid_constant__ Params p) {
   using C = Cfg<NWG, DP>;
   constexpr int BQ = C::BQ, BK = C::BK, HI = C::HI, LO = C::LO;
@@ -235,8 +251,9 @@ __global__ void __launch_bounds__(128 * (NWG + 1), NWG == 1 ? 2 : 1)
   if (warp >= 4 * NWG) {
     // ---- producer warpgroup: warp 0 loads Q, K and the kv segment ids,
     // warp 1 (one lane) loads V; the other warps leave ------------------
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(NWG == 1 ? 32
-                                                                      : 40));
+    if constexpr (!C::WIDE)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+          NWG == 1 ? 32 : 40));
     const int pw = warp - 4 * NWG;
     if (pw > 1 || (pw == 1 && lane != 0)) return;
     if (lane == 0) {
@@ -331,8 +348,9 @@ __global__ void __launch_bounds__(128 * (NWG + 1), NWG == 1 ? 2 : 1)
   }
 
   // ---- consumer warpgroups: 64 query rows each, 16 per warp ------------
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(NWG == 1 ? 224
-                                                                      : 232));
+  if constexpr (!C::WIDE)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        NWG == 1 ? 224 : 232));
   const int wg = warp / 4, g = lane / 4, t4 = lane % 4;
   const float sl2 = p.scale_log2;
   float o_hi[HI ? HI / 2 : 1], o_lo[LO ? LO / 2 : 1];
@@ -649,17 +667,19 @@ cudaError_t launch_fit(const Params& p, cudaStream_t stream) {
 
 template <int NWG>
 cudaError_t launch_dp(const Params& p, cudaStream_t stream) {
-  switch ((p.D + 15) / 16) {
-    case 1: return launch<NWG, 16>(p, stream);
-    case 2: return launch<NWG, 32>(p, stream);
-    case 3: return launch<NWG, 48>(p, stream);
-    case 4: return launch<NWG, 64>(p, stream);
-    case 5: return launch<NWG, 80>(p, stream);
-    case 6: return launch<NWG, 96>(p, stream);
-    case 7: return launch<NWG, 112>(p, stream);
-    case 8: return launch<NWG, 128>(p, stream);
-    case 9: return launch_fit<NWG, 144>(p, stream);
-    case 10: return launch_fit<NWG, 160>(p, stream);
+  switch (padded_dp(p.D)) {
+    case 16: return launch<NWG, 16>(p, stream);
+    case 32: return launch<NWG, 32>(p, stream);
+    case 48: return launch<NWG, 48>(p, stream);
+    case 64: return launch<NWG, 64>(p, stream);
+    case 80: return launch<NWG, 80>(p, stream);
+    case 96: return launch<NWG, 96>(p, stream);
+    case 112: return launch<NWG, 112>(p, stream);
+    case 128: return launch<NWG, 128>(p, stream);
+    case 144: return launch_fit<NWG, 144>(p, stream);
+    case 160: return launch_fit<NWG, 160>(p, stream);
+    case 192: return launch_fit<NWG, 192>(p, stream);
+    case 256: return launch_fit<NWG, 256>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -668,7 +688,7 @@ cudaError_t launch_dp(const Params& p, cudaStream_t stream) {
 
 // Returns 0 on success, else a CUDA error code (cudaGetLastError() after
 // the launch, or cudaErrorInvalidValue for arguments or tensor maps the
-// kernel does not take, a head dim above 160 or a tile shape whose shared
+// kernel does not take, a head dim above 256 or a tile shape whose shared
 // memory does not fit among them). Pointers are device pointers, strides
 // are in elements, lse and q_seg/kv_seg may be null. block_q (64 or 128)
 // picks the tile shape: query rows per block, which is also the keys per
@@ -684,13 +704,13 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               float scale, int causal, int block_q,
                               void* stream) {
   if ((q_seg == nullptr) != (kv_seg == nullptr) || D % 8 != 0 || D < 8 ||
-      D > 160 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || B <= 0 ||
+      D > 256 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || B <= 0 ||
       (block_q != 64 && block_q != 128))
     return cudaErrorInvalidValue;
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorInvalidValue;
   Params p;
-  const int dp = (D + 15) / 16 * 16, hi = dp / 64 * 64;
+  const int dp = padded_dp(D), hi = dp / 64 * 64;
   const struct {
     CUtensorMap *m128, *m32;
     const void* ptr;

@@ -26,9 +26,10 @@ the Hopper helpers they share in ``csrc/hopper.cuh``); their design notes
 each file. All three are Hopper kernels (TMA into mbarrier rings, wgmma, a
 producer warp and consumer warpgroups); the Python side of their design is
 here: K1's tile shape and its shared memory (:func:`k1_plan`,
-:func:`k1_block_q`, :func:`k1_smem_bytes`), the split of the head dim
-between the two swizzles of the tensor maps (:func:`k1_head_split`), K2's
-and K3's regime (:func:`k23_regime`; head dims 8 to 160) and, mirrored
+:func:`k1_block_q`, :func:`k1_smem_bytes`), the head dim the kernels
+compute at (:func:`padded_head_dim`) and its split between the two
+swizzles of the tensor maps (:func:`k1_head_split`), K2's and K3's regime
+(:func:`k23_regime`; head dims 8 to 256) and, mirrored
 for the tests, which
 tiles each kernel visits and which of them it masks (:func:`k1_kv_tiles`,
 :func:`k1_needs_mask`, :func:`k2_kv_tiles`, :func:`k3_q_tiles`,
@@ -44,11 +45,13 @@ shape or type a kernel does not take raises.
 K1 f32 (``csrc/flash_fwd_f32.cu``) is K1 for fp32 q/k/v, which the
 reference's kernel takes as it takes bf16 (it computes in the operands'
 dtype): both products in split TF32 on the tensor cores, accurate to
-fp32, the output fp32, and with ``return_lse`` the same LSE as K1's.
+fp32, the output fp32, and with ``return_lse`` the same LSE as K1's; head
+dims up to 160 (``F32_MAX_HEAD_DIM``).
 :func:`flash_attention` routes fp32 operands to it and counts them in
 ``flash_attention.f32_launches`` (no LSE) and ``.f32_lse_launches`` (with
 it). K2 f32 and K3 f32 (``csrc/flash_bwd_f32.cu``) are K2 and K3 for fp32
-operands, every product in split TF32, P and dS in fp32, fp32 outputs:
+operands (head dims up to 160, as K1 f32), every product in split TF32,
+P and dS in fp32, fp32 outputs:
 :func:`flash_bwd_dq` and :func:`flash_bwd_dkv` route fp32 operands to
 them and count them in ``.f32_launches``; their plan (shared memory,
 warps) is :func:`k23_f32_plan`, their walks :func:`k2_f32_kv_tiles` and
@@ -67,9 +70,24 @@ import torch
 
 KERNEL = "flash_fwd"
 # K1, K2 and K3 take head dims in multiples of 8 up to this (Qwen-ViT-G's
-# 104, the SEED-X input projector's 160)
-MAX_HEAD_DIM = 160
-K23_MAX_HEAD_DIM = 160
+# 104, the SEED-X input projector's 160, the reference's bench shape's 256)
+MAX_HEAD_DIM = 256
+K23_MAX_HEAD_DIM = 256
+# up to a padded 160 the kernels compute at D rounded up to 16; above it
+# at 192 or 256, their only instantiations there (TMA fills the columns
+# past D with zeros, as the reference pads D to 256)
+NARROW_HEAD_DIM = 160
+WIDE_HEAD_DIMS = (192, 256)
+# K1 f32, K2 f32 and K3 f32 (fp32 operands) take head dims up to this
+F32_MAX_HEAD_DIM = 160
+# K2's and K3's first (mma.sync) design takes head dims up to this (its C
+# entry refuses more)
+MMA_SYNC_MAX_HEAD_DIM = 160
+# what a head dim above each limit is, in ROADMAP.md
+BF16_GAP = ("head dims above 256 (the reference's kernel takes any "
+            "multiple of 128) are ROADMAP.md queue 2's domain gap 2")
+F32_GAP = ("fp32 operands at head dims above 160 are ROADMAP.md queue 2's "
+           "domain gap 1")
 
 
 class SegmentIds(NamedTuple):
@@ -214,8 +232,17 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, *,
     return dq, dk, dv
 
 
+def padded_head_dim(D: int) -> int:
+    """The head dim K1, K2 and K3 compute at for D (a multiple of 8): D
+    rounded up to 16, the wgmma k-granule, up to 160; above, 192 or 256
+    (the mirror of ``padded_dp`` in ``csrc/hopper.cuh``)."""
+    if D <= NARROW_HEAD_DIM:
+        return -(-D // 16) * 16
+    return next(w for w in WIDE_HEAD_DIMS if D <= w)
+
+
 def _check(q, k, v, segment_ids, name="flash_attention",
-           max_head_dim=MAX_HEAD_DIM, dtype=torch.bfloat16):
+           dtype=torch.bfloat16):
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError(f"{name}: q, k, v must all be on the GPU")
     for nm, t in (("q", q), ("k", k), ("v", v)):
@@ -227,17 +254,21 @@ def _check(q, k, v, segment_ids, name="flash_attention",
     if Hq % k.shape[2]:
         raise ValueError(f"GQA requires Hq % Hkv == 0, got {Hq} % "
                          f"{k.shape[2]}")
-    _check_head_dim(D, max_head_dim, name)
+    if dtype == torch.float32:
+        _check_head_dim(D, F32_MAX_HEAD_DIM, name, F32_GAP)
+    else:
+        _check_head_dim(D, MAX_HEAD_DIM, name, BF16_GAP)
     if segment_ids is not None:
         if (segment_ids.q.shape != (B, Sq)
                 or segment_ids.kv.shape != (B, k.shape[1])):
             raise ValueError("segment ids must be [B, Sq] and [B, Sk]")
 
 
-def _check_head_dim(D, max_head_dim, name):
+def _check_head_dim(D, max_head_dim, name, gap):
     if D % 8 or not 8 <= D <= max_head_dim:
         raise ValueError(f"head dim {D}: {name} takes multiples of 8 up to "
-                         f"{max_head_dim}")
+                         f"{max_head_dim}" + (f"; {gap}" if D > max_head_dim
+                                              else ""))
 
 
 def _check_bshd(t, nm, name, dtype=torch.bfloat16):
@@ -297,11 +328,11 @@ K1_MAX_SMEM = 232448
 def k1_smem_bytes(block_q: int, D: int) -> int:
     """Shared memory of one K1 block (the mirror of ``Cfg::SMEM`` in
     ``csrc/flash_fwd.cu``): two Q stages and two stages each of K and V,
-    ``block_q`` rows of D rounded up to 16 in bf16, then each K stage's
-    segment ids and their min and max, the mbarriers, and 1024 bytes to
-    align the base for the 128-byte swizzle."""
-    dp = -(-D // 16) * 16
-    tile = block_q * dp * 2
+    ``block_q`` rows of the padded head dim (:func:`padded_head_dim`) in
+    bf16, then each K stage's segment ids and their min and max, the
+    mbarriers, and 1024 bytes to align the base for the 128-byte
+    swizzle."""
+    tile = block_q * padded_head_dim(D) * 2
     seg = (2 * (block_q + 2) * 4 + 7) // 8 * 8
     return 2 * tile + 4 * tile + seg + 8 * (4 + 4 * 2) + 1024
 
@@ -322,7 +353,7 @@ def k1_plan(B: int, Sq: int, Hq: int, D: int, num_sms: int):
     """K1's plan for a call: (query rows a block, shared memory a block in
     bytes). Raises for a head dim the kernel does not take and for a tile
     shape whose shared memory does not fit."""
-    _check_head_dim(D, MAX_HEAD_DIM, "flash_attention")
+    _check_head_dim(D, MAX_HEAD_DIM, "flash_attention", BF16_GAP)
     block_q = k1_block_q(B, Sq, Hq, num_sms, D)
     smem = k1_smem_bytes(block_q, D)
     if smem > K1_MAX_SMEM:
@@ -335,9 +366,9 @@ def k1_plan(B: int, Sq: int, Hq: int, D: int, num_sms: int):
 def k1_head_split(D: int):
     """(hi, lo): the head-dim columns K1 loads in 64-column boxes under the
     128-byte swizzle and in 16-column boxes under the 32-byte swizzle.
-    ``hi + lo`` is D rounded up to 16, the wgmma k-granule; TMA fills the
-    columns past D with zeros (72 → 64 + 16)."""
-    dp = -(-D // 16) * 16
+    ``hi + lo`` is the padded head dim (:func:`padded_head_dim`); TMA
+    fills the columns past D with zeros (72 → 64 + 16, 168 → 192 + 0)."""
+    dp = padded_head_dim(D)
     return dp // 64 * 64, dp % 64
 
 
@@ -505,13 +536,14 @@ K23_MIN_HEAD_DIM = 32
 
 
 def k23_regime(D: int) -> str:
-    """K2's and K3's regime for head dim D (a multiple of 8 up to 160, or
+    """K2's and K3's regime for head dim D (a multiple of 8 up to 256, or
     raise): ``"wgmma"``, the Hopper kernels (TMA rings, wgmma, one consumer
     warpgroup of 64 rows, two blocks per SM where their shared memory
     allows; above a padded 128, K3 with two consumer warpgroups, one for dV
-    and one for dK), from 32 on; ``"mma_sync"``, their first design,
+    and one for dK; above 160 at :func:`padded_head_dim`'s 192 or 256), from
+    32 on; ``"mma_sync"``, their first design (head dims up to 160),
     below."""
-    _check_head_dim(D, K23_MAX_HEAD_DIM, "flash_bwd")
+    _check_head_dim(D, K23_MAX_HEAD_DIM, "flash_bwd", BF16_GAP)
     return "wgmma" if D >= K23_MIN_HEAD_DIM else "mma_sync"
 
 
@@ -605,7 +637,7 @@ def k23_f32_plan(D: int) -> K23F32Plan:
     floats; a 16 × 36 patch a warp; K2 two stages of 32 key ids, K3 two of
     32 LSEs, δs and query ids. The wrappers hand ``k2_smem`` / ``k3_smem``
     to the kernels, which refuse a plan that differs from theirs."""
-    _check_head_dim(D, K23_MAX_HEAD_DIM, "flash_bwd (fp32)")
+    _check_head_dim(D, F32_MAX_HEAD_DIM, "flash_bwd (fp32)", F32_GAP)
     dp = -(-D // 16) * 16
     rows = (2 * K23_F32_BLOCK + 4 * K23_F32_TILE) * (dp + K23_F32_PAD)
     patch = 16 * (K23_F32_TILE + K23_F32_PAD)
@@ -643,7 +675,7 @@ def k3_f32_q_tiles(k0: int, Sq: int, causal: bool) -> list:
 
 def _check_bwd(q, k, v, do, lse, delta, segment_ids, name,
                dtype=torch.bfloat16):
-    _check(q, k, v, segment_ids, name, K23_MAX_HEAD_DIM, dtype)
+    _check(q, k, v, segment_ids, name, dtype)
     _check_bshd(do, "do", name, dtype)
     if do.shape != q.shape or not do.is_cuda:
         raise ValueError(f"{name}: do must be a GPU tensor shaped like q")

@@ -151,9 +151,25 @@ K1_CASES = [
     (2, 256, 77, 8, 8, 160, False, None, "bshd"),
     (2, 64, 64, 8, 8, 160, False, None, "bshd"),
 ]
+# head dims above 160, which the kernel computes at 192 or 256 (TMA
+# zero-filling the columns past D): every multiple of 8 from 168 to 256
+# causal with segments that change inside a tile and a padded tail, then
+# the reference's bench shape (B32 H8 S256 D256), a causal GQA 16/8 shape
+# with packed segments, causal Sq != Sk with GQA 16/4, a right-padded row,
+# q, k, v as views of a fused tensor, and one key
+K1_WIDE_CASES = [(2, 129, 129, 8, 2, D, True, "packed", "bshd")
+                 for D in range(168, 257, 8)] + [
+    (32, 256, 256, 8, 8, 256, False, None, "bshd"),
+    (2, 1000, 1000, 16, 8, 256, True, "packed", "bshd"),
+    (2, 65, 63, 16, 4, 192, True, None, "bshd"),
+    (2, 63, 65, 16, 4, 256, True, 40, "bshd"),
+    (1, 300, 300, 4, 4, 200, False, None, "fused"),
+    (1, 1, 1, 4, 1, 256, True, None, "bshd"),
+]
 
 
-@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,seg,layout", K1_CASES)
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,seg,layout",
+                         K1_CASES + K1_WIDE_CASES)
 def test_k1_matches_plain(cuda, block_q, B, Sq, Sk, Hq, Hkv, D, causal, seg,
                           layout):
     q, k, v, sids = _k1_inputs(cuda, B, Sq, Sk, Hq, Hkv, D, seg, layout)
@@ -189,9 +205,9 @@ def test_k1_rejects_what_it_does_not_take(cuda):
     q = torch.randn(1, 8, 2, 64, device=cuda).half()
     with pytest.raises(TypeError):
         flash_attention(q, q, q)                       # fp16
-    qb = torch.randn(1, 8, 2, 256, device=cuda).bfloat16()
-    with pytest.raises(ValueError):
-        flash_attention(qb, qb, qb)                    # D > 160
+    qb = torch.randn(1, 8, 2, 264, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="up to 256"):
+        flash_attention(qb, qb, qb)                    # D > 256
     flat = torch.randn(2 * 8 * 2 * 64 + 8, device=cuda).bfloat16()
     shifted = flat[1:1 + 2 * 8 * 2 * 64].view(2, 8, 2, 64)
     with pytest.raises(ValueError):
@@ -268,8 +284,9 @@ def test_k1_f32_rejects_what_it_does_not_take(cuda):
     wide = torch.randn(1, 8, 2, 66, device=cuda)[..., :64]
     with pytest.raises(ValueError):
         flash_attention(wide, wide, wide)              # stride 66, not 4k
-    with pytest.raises(ValueError):
-        flash_attention(*(torch.randn(1, 8, 2, 168, device=cuda),) * 3)
+    for D in (168, 256):        # bf16 takes these; fp32 stops at 160
+        with pytest.raises(ValueError, match="up to 160; fp32 .*gap 1"):
+            flash_attention(*(torch.randn(1, 8, 2, D, device=cuda),) * 3)
     assert (flash_attention.f32_launches,
             flash_attention.f32_lse_launches) == n
 
@@ -528,8 +545,25 @@ UNET_BWD_CASES = [
 ]
 
 
+# head dims above 160 (the kernels at 192 or 256; one block per SM, K2
+# without setmaxnreg, K3 split with 232-register consumers): the
+# reference's bench shape, a causal GQA 16/8 shape with packed segments at
+# wide public models' head dims, and the edges at 168, 192, 200 and 256
+ABOVE_160_BWD_CASES = [
+    (32, 256, 256, 8, 8, 256, False, None),
+    (2, 1000, 1000, 16, 8, 256, True, "packed"),
+    (2, 600, 600, 32, 8, 192, True, "packed"),
+    (2, 100, 130, 8, 2, 192, False, None),
+    (1, 70, 70, 8, 1, 256, True, "masked_row"),
+    (2, 300, 300, 8, 2, 256, True, "nonmonotone"),
+    (2, 130, 100, 4, 4, 168, True, None),
+    (2, 64, 256, 8, 8, 200, False, None),
+]
+
+
 @pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,seg_kind",
-                         BWD_CASES + WIDE_BWD_CASES + UNET_BWD_CASES)
+                         BWD_CASES + WIDE_BWD_CASES + UNET_BWD_CASES
+                         + ABOVE_160_BWD_CASES)
 def test_k1_lse_matches_plain(cuda, block_q, B, Sq, Sk, Hq, Hkv, D, causal,
                               seg_kind):
     q, k, v, _, seg = _bwd_inputs(cuda, B, Sq, Sk, Hq, Hkv, D, seg_kind)
@@ -578,6 +612,41 @@ def test_k2_k3_match_plain(cuda, k23_regime, B, Sq, Sk, Hq, Hkv, D, causal,
         _close(got, ref, 2e-2, 1e-2)
     if seg_kind == "masked_row":
         assert (dq[0, 1] == 0).all() and (dq[0, Sq // 2] == 0).all()
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,seg_kind",
+                         ABOVE_160_BWD_CASES)
+def test_k2_k3_above_160_match_plain(cuda, B, Sq, Sk, Hq, Hkv, D, causal,
+                                     seg_kind):
+    """K2 and K3 at head dims above 160, where only the Hopper kernels
+    run (the mma.sync design refuses them), against their plain versions,
+    and a repeat bit-identical."""
+    q, k, v, do, seg = _bwd_inputs(cuda, B, Sq, Sk, Hq, Hkv, D, seg_kind)
+    kw = dict(causal=causal, segment_ids=seg)
+    o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    delta = attention_delta(o, do)
+    w2, w3 = flash_bwd_dq.wgmma_launches, flash_bwd_dkv.wgmma_launches
+    first = (flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+             *flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    second = (flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+              *flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq.wgmma_launches, flash_bwd_dkv.wgmma_launches) == (
+        w2 + 2, w3 + 2)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    rdq = flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw)
+    rdk, rdv = flash_bwd_dkv_reference(q, k, v, do, lse, delta, **kw)
+    for got, ref in zip(first, (rdq, rdk, rdv)):
+        _close(got, ref, 2e-2, 1e-2)
+    if seg_kind == "masked_row":
+        assert (first[0][0, 1] == 0).all()
+    with pytest.MonkeyPatch.context() as mp:     # mma.sync stops at 160
+        mp.setattr(fa, "k23_regime", lambda D: "mma_sync")
+        n = flash_bwd_dq.launches
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+        assert flash_bwd_dq.launches == n
 
 
 @pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,seg_kind", [
@@ -660,14 +729,14 @@ def test_k2_k3_reject_what_they_do_not_take(cuda):
         flash_bwd_dkv(q, k, v, do, lse.double(), delta)     # fp64 lse
     with pytest.raises(ValueError):
         flash_bwd_dq(q, k, v, do, lse[:, :, :32], delta)    # short lse
-    wide = torch.zeros(1, 64, 4, 256, device=cuda).bfloat16()
+    wide = torch.zeros(1, 64, 4, 512, device=cuda).bfloat16()
     with pytest.raises(ValueError):
         flash_bwd_dkv(wide, wide[:, :, :2], wide[:, :, :2], wide,
-                      lse, delta)                           # D > 160
-    d168 = torch.zeros(1, 64, 4, 168, device=cuda).bfloat16()
+                      lse, delta)                           # D > 256
+    d264 = torch.zeros(1, 64, 4, 264, device=cuda).bfloat16()
     for fn in (flash_bwd_dq, flash_bwd_dkv):
-        with pytest.raises(ValueError, match="up to 160"):
-            fn(d168, d168, d168, d168, lse, delta)          # D > 160
+        with pytest.raises(ValueError, match="up to 256"):
+            fn(d264, d264, d264, d264, lse, delta)          # D > 256
     assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == n
 
 

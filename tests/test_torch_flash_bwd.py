@@ -118,16 +118,17 @@ def test_flash_gradients_with_segment_ids(hq, hkv):
         np.testing.assert_allclose(a, b, atol=ATOL, err_msg=f"d{name}")
 
 
-@pytest.mark.parametrize("D", [144, 160])
+@pytest.mark.parametrize("D", [144, 160, 192, 256])
 @pytest.mark.parametrize("shape", ["resampler", "causal_segments"])
 def test_wide_head_gradients_match_reference(shape, D):
-    """Head dims 144 and 160 (SEED-X's input projector attends at 160; K2
-    and K3 take them on the card): the plain backward of
-    :class:`FlashAttention` against ``jax.vjp`` of the reference's
-    ``flash_attention_padded`` (the head dim zero-padded to 256, the
-    Pallas kernels in interpret mode), at the input projector's shape (64
-    queries over 256 keys) and causal with GQA, two packed segments and a
-    padded tail."""
+    """Head dims 144 to 256 (SEED-X's input projector attends at 160, the
+    reference's bench shape at 256; K2 and K3 take them on the card, at
+    192 and 256 in the kernels' widest instantiations): the plain
+    backward of :class:`FlashAttention` against ``jax.vjp`` of the
+    reference's ``flash_attention_padded`` (the head dim zero-padded to
+    256, the Pallas kernels in interpret mode), at the input projector's
+    shape (64 queries over 256 keys) and causal with GQA, two packed
+    segments and a padded tail."""
     from mllm_npu_tpu.ops import flash_attention_padded as j_padded
     if shape == "resampler":
         B, Sq, Sk, hq, hkv, causal, sid = 2, 64, 256, 4, 4, False, None
@@ -152,6 +153,41 @@ def test_wide_head_gradients_match_reference(shape, D):
     o.backward(_t(do))
     np.testing.assert_allclose(o.detach().numpy(), np.asarray(jo),
                                atol=ATOL)
+    for a, b, name in zip((qt.grad, kt.grad, vt.grad), jg, "qkv"):
+        np.testing.assert_allclose(a.numpy(), b, atol=ATOL,
+                                   err_msg=f"d{name}")
+
+
+def test_head_dim_256_matches_unpadded_reference():
+    """D = 256, a multiple of 128 that the reference's ``flash_attention``
+    takes unpadded: the plain forward with its LSE against ``_fwd(...,
+    save_lse=True)`` in interpret mode, and :class:`FlashAttention`'s
+    plain gradients against ``jax.vjp`` of ``flash_attention(...,
+    interpret=True)``, causal with GQA 4/2 and two packed segments, at
+    B1 S128."""
+    B, S, Hq, Hkv, D = 1, 128, 4, 2, 256
+    q, k, v, do = _inputs(B, S, Hq, Hkv, D=D, seed=7)
+    sid = np.ones((B, S), np.int32)
+    sid[:, 50:] = 2
+    ids = JSeg(jnp.asarray(sid), jnp.asarray(sid))
+    jo, jl = j_fwd(*(jnp.asarray(x).transpose(0, 2, 1, 3) for x in (q, k, v)),
+                   ids, D ** -0.5, True, 128, 128, True, save_lse=True)
+    ts = SegmentIds(_t(sid), _t(sid))
+    o, lse = flash_attention(_t(q), _t(k), _t(v), causal=True,
+                             segment_ids=ts, return_lse=True)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jl)[..., 0],
+                               atol=ATOL)
+    np.testing.assert_allclose(o.numpy(),
+                               np.asarray(jo).transpose(0, 2, 1, 3),
+                               atol=ATOL)
+
+    def f(q, k, v):
+        return j_flash(q, k, v, causal=True, segment_ids=ids,
+                       interpret=True, block_q=128, block_k=128)
+    _, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    jg = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    qt, kt, vt = (_t(x).requires_grad_() for x in (q, k, v))
+    FlashAttention.apply(qt, kt, vt, True, ts, D ** -0.5).backward(_t(do))
     for a, b, name in zip((qt.grad, kt.grad, vt.grad), jg, "qkv"):
         np.testing.assert_allclose(a.numpy(), b, atol=ATOL,
                                    err_msg=f"d{name}")

@@ -1,6 +1,7 @@
 """The Python side of K1's Hopper design (``ops/flash_attention.py``): the
-tile shape a call gets and its shared memory (head dims to 160), the split
-of the head dim between the two swizzles of its tensor maps, and the
+tile shape a call gets and its shared memory (head dims to 256; above 160
+at 192 or 256), the split of the head dim between the two swizzles of its
+tensor maps, and the
 mirror of the kernel's rule for which K/V tiles it loads and which of them
 it masks, held against the dense mask of the plain version on seeded
 shapes. Runs on the CPU."""
@@ -78,10 +79,36 @@ def test_k1_smem_bytes_mirrors_the_kernel():
     assert fa.K1_MAX_SMEM == 227 * 1024
 
 
-@pytest.mark.parametrize("D", [168, 256, 100, 4])
+@pytest.mark.parametrize("D", [264, 512, 100, 4])
 def test_k1_plan_refuses_head_dims_it_does_not_take(D):
     with pytest.raises(ValueError, match="head dim"):
         fa.k1_plan(5, 1024, 16, D, num_sms=132)
+
+
+@pytest.mark.parametrize("D", range(168, 257, 8))
+def test_k1_takes_head_dims_above_160(D):
+    """168 to 256 run at a padded 192 or 256 (the kernel's two
+    instantiations there), in 64-column boxes under the 128-byte swizzle,
+    on 64-row tiles alone (128 rows would need 288 KB at 192): at the
+    bench shape, on a grid that fills the card, and on one that does
+    not. The plan's shared memory is Cfg::SMEM of csrc/flash_fwd.cu."""
+    dp = 192 if D <= 192 else 256
+    assert fa.padded_head_dim(D) == dp
+    assert fa.k1_head_split(D) == (dp, 0)
+    assert fa.k1_smem_bytes(128, D) > fa.K1_MAX_SMEM
+    for B, Sq, Hq in ((32, 256, 8), (2, 1000, 16), (1, 64, 4)):
+        block_q, smem = fa.k1_plan(B, Sq, Hq, D, num_sms=132)
+        assert block_q == 64 == fa.k1_block_q(B, Sq, Hq, 132, D)
+        assert smem == 6 * 64 * dp * 2 + 528 + 96 + 1024 <= fa.K1_MAX_SMEM
+
+
+@pytest.mark.parametrize("D", [168, 256])
+def test_fp32_keeps_its_head_dim_limit(D):
+    """The fp32 kernels take head dims up to 160 (their shared memory at
+    fp32 will not hold today's tiles above it): a wider fp32 call raises,
+    naming the limit and ROADMAP.md's gap."""
+    with pytest.raises(ValueError, match="up to 160; fp32 .*domain gap 1"):
+        fa.k23_f32_plan(D)
 
 
 def test_k1_plan_refuses_a_tile_that_does_not_fit(monkeypatch):

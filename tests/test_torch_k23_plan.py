@@ -30,19 +30,21 @@ LOG2E = 1.4426950408889634
 ATOL = 1e-4
 
 
-@pytest.mark.parametrize("D", range(8, 161, 8))
+@pytest.mark.parametrize("D", range(8, 257, 8))
 def test_k23_regime_by_head_dim(D):
-    """The Hopper regime takes every head dim from 32 to 160 (the training
-    shapes' 128, 72 and SEED-X's 160 among them) with K1's swizzle split;
-    below 32 the mma.sync one."""
+    """The Hopper regime takes every head dim from 32 to 256 (the training
+    shapes' 128, 72, SEED-X's 160 and the reference's bench shape's 256
+    among them) with K1's swizzle split, D rounded up to 16 up to 160 and
+    to 192 or 256 above; below 32 the mma.sync one."""
     assert fa.k23_regime(D) == ("wgmma" if D >= 32 else "mma_sync")
     hi, lo = fa.k1_head_split(D)
-    assert hi + lo == -(-D // 16) * 16 and lo in (0, 16, 32, 48)
+    dp = -(-D // 16) * 16 if D <= 160 else 192 if D <= 192 else 256
+    assert hi + lo == dp == fa.padded_head_dim(D) and lo in (0, 16, 32, 48)
 
 
-@pytest.mark.parametrize("D", [4, 12, 168, 256])
+@pytest.mark.parametrize("D", [4, 12, 264, 512])
 def test_k23_regime_refuses_other_head_dims(D):
-    with pytest.raises(ValueError, match="up to 160"):
+    with pytest.raises(ValueError, match="up to 256"):
         fa.k23_regime(D)
 
 
@@ -350,6 +352,7 @@ ARITH_CASES = [
     (2, 64, 256, 4, 4, 160, False, None),     # SEED-X's input projector
     (2, 200, 200, 4, 2, 160, True, "packed"),
     (1, 130, 100, 2, 1, 144, True, "runs"),
+    (1, 130, 100, 2, 1, 256, True, "runs"),   # the widest instantiation
 ]
 
 
