@@ -12,8 +12,8 @@ exits non-zero. Phases, in order:
    ``nvcc``, one process per source, all started together: K1
    (``flash_fwd.cu``), K2 and K3 (``flash_bwd.cu``), K4 and K5
    (``quant_matmul.cu``), and for fp32 operands K1 f32
-   (``flash_fwd_f32.cu``), K2 f32 and K3 f32 (``flash_bwd_f32.cu``), K4
-   f32 and K5 f32 (``quant_matmul_f32.cu``);
+   (``flash_fwd_f32.cu``), K2 f32 (``flash_bwd_f32.cu``), K3 f32
+   (``flash_bwd_dkv_f32.cu``), K4 f32 and K5 f32 (``quant_matmul_f32.cu``);
 2. the full-width model: the port's ``mllm_llama3_8b_siglip_vit.yaml``
    (Llama-3-8B with r32 LoRA, SigLIP-so400m, attention resampler), bf16,
    weights drawn from seed 0, ``FakeTokenizer`` at vocab 128587;
@@ -373,7 +373,7 @@ exits non-zero. Phases, in order:
    fused strided q/k/v), each beside its one-pass TF32 control, which must
    miss that bar at a.'s shapes, and for a bit-identical repeat.
 
-19. head dims above 160, last (every count set to 0 before each path and
+19. head dims above 160 (every count set to 0 before each path and
    read after): a. the port's twin of ``bench.py`` (``python -m
    mllm_npu_tpu_torch.bench_flash``: K1 at B32 H8 S256 D256, non-causal,
    bf16, chained and timed as ``bench.py`` times the reference's kernel,
@@ -388,6 +388,29 @@ exits non-zero. Phases, in order:
    K1's tolerance, dq, dk, dv within K2's and K3's), and a repeat bit for
    bit; then the three kernels timed at those two shapes (the D = 256
    basis of the kernels line).
+
+20. fp32 head dims above 160, last (every count set to 0 before each path
+   and read after; TF32 off): a. K1 f32 (with and without its LSE), K2 f32
+   and K3 f32 at the reference's bench shape in fp32 (B32 H8 S256 D256,
+   non-causal), each against its plain version (within
+   ``K1_F32_TOL``·max|plain|, its one-pass TF32 control outside), then
+   chained and timed as ``bench_flash.py`` times K1, beside SDPA on the
+   fp32 tensors (its forward; its backward's dq, dk, dv together), the
+   plain versions and the bounds (the D = 256 fp32 basis of the kernels
+   line); b. the four kernels over edges at D = 168, 192, 200, 240 and 256
+   (causal Sq != Sk both ways, GQA 16/4, packed segments inside a tile with
+   a padded tail, rows with no visible key, fused strided q/k/v, one key),
+   each beside its one-pass control, K2 f32 / K3 f32 repeated bit for bit;
+   c. ``FlashAttention`` on fp32 at B2 S1000 Hq16 Hkv8 D256, causal with
+   packed segments: K1 f32 with its LSE, K2 f32 and K3 f32 once each, the
+   output and gradients against autograd through the plain forward
+   (within the bar and closer than the one-pass route), a repeat bit for
+   bit; d. the 8B assembly's resampler at full width in fp32 with heads of
+   256 (64 queries × 4096, 16 heads, 5 × 729 SigLIP features, seeded): a
+   served forward (K1 f32 once), then forward and backward (K1 f32 with
+   its LSE, K2 f32, K3 f32 once each), the output and every gradient
+   against the plain route's (cos ≥ 0.9999, closer than the one-pass
+   route's).
 
 Phases 2 to 18 build from copies of the shipped configs with their
 checkpoint paths null (``use_seeded_configs``): the repository holds no
@@ -7338,10 +7361,33 @@ def f32_inputs(B, Sq, Sk, Hq, Hkv, D, seg, layout, seed):
     return q, k, v, do, SegmentIds(q=qs.to(dev), kv=ks.to(dev))
 
 
-def f32_rel_err(got, ref) -> float:
-    """max|got − ref| / max|ref|."""
-    return ((got - ref).abs().max()
-            / ref.abs().max().clamp_min(1e-30)).item()
+def f32_rel_err(got, ref, size: float = 0.0) -> float:
+    """max|got − ref| / max(max|ref|, size)."""
+    return ((got - ref).abs().max().item()
+            / max(ref.abs().max().item(), size, 1e-30))
+
+
+def f32_work(B, Sq, Sk, Hq, Hkv, D, pairs, seg_bytes=0):
+    """(flops, bytes) a call of each fp32 kernel needs at one shape:
+    4, 6 and 8·D flops a visible (query, key) pair and query head (K1 f32,
+    K2 f32, K3 f32); q (or o, dq, dO), k (or v, dk, dv), the [B, Hq, Sq]
+    LSE and δ and the segment ids (``seg_bytes``), each read or written
+    once."""
+    nq, nk, row = 4 * B * Sq * Hq * D, 4 * B * Sk * Hkv * D, 4 * B * Hq * Sq
+    return {"flash_fwd_f32": (4 * D * pairs, 2 * nq + 2 * nk + seg_bytes),
+            "flash_fwd_f32_lse": (4 * D * pairs,
+                                  2 * nq + 2 * nk + row + seg_bytes),
+            "flash_bwd_dq_f32": (6 * D * pairs,
+                                 3 * nq + 2 * nk + 2 * row + seg_bytes),
+            "flash_bwd_dkv_f32": (8 * D * pairs,
+                                  2 * nq + 4 * nk + 2 * row + seg_bytes)}
+
+
+def f32_bound(flops, nbytes):
+    """(ms, "operations" or "bytes"): the card's floor for the work, at
+    the dense TF32 rate (the bound counts one TF32 product per product)."""
+    t_c, t_m = flops / H100_TF32_FLOPS, nbytes / H100_BYTES_PER_S
+    return max(t_c, t_m) * 1e3, "operations" if t_c >= t_m else "bytes"
 
 
 def f32_bwd_case(name, B, Sq, Sk, Hq, Hkv, D, causal=False, seg=None,
@@ -7350,15 +7396,21 @@ def f32_bwd_case(name, B, Sq, Sk, Hq, Hkv, D, causal=False, seg=None,
     versions at one shape, each beside its one-pass TF32 control (which
     must miss the bar where ``power``); with ``timing`` each timed beside
     its plain version, SDPA (K1: its fp32 forward; K2, K3: its fp32
-    backward, dq, dk and dv together, TF32 off) and its bound. Launches
-    made here are counted by the wrappers: the caller resets the counts
-    before the path it checks. → {"lse": row, kernel name: row}."""
+    backward, dq, dk and dv together, TF32 off) and its bound. K1 f32
+    without its LSE must give the same bits as with it. Over one key P is
+    1 and dS = P∘(dP − δ) is 0 but for rounding, so dQ and dK are held to
+    the bar times the size they would have (scale·max|dP|·max|k|, ·max|q|,
+    max|dP| ≤ max Σ|dO|·max|v|) and only dV and the output to the
+    control. Launches made here are counted by the wrappers: the caller
+    resets the counts before the path it checks. → {"lse": row, kernel
+    name: row}."""
     import torch
     import torch.nn.functional as F
     fa = flash_module()
     q, k, v, do, sids = f32_inputs(B, Sq, Sk, Hq, Hkv, D, seg, layout, seed)
     kw = dict(causal=causal, segment_ids=sids)
     o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    alone = fa.flash_attention(q, k, v, **kw)
     delta = fa.attention_delta(o, do)
     dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
@@ -7367,6 +7419,9 @@ def f32_bwd_case(name, B, Sq, Sk, Hq, Hkv, D, causal=False, seg=None,
     one = (fa.flash_bwd_dq_f32_one_pass(q, k, v, do, lse, delta, **kw),
            *fa.flash_bwd_dkv_f32_one_pass(q, k, v, do, lse, delta, **kw))
     torch.cuda.synchronize()
+    check(torch.equal(o, alone), f"{name}: K1 f32's output without its LSE "
+          "differs from the one with it")
+    del alone
     ro, rlse = fa.flash_attention_reference(q, k, v, return_lse=True, **kw)
     lse_scale = max(1.0, rlse.abs().max().item())
     errs = {"out": f32_rel_err(o, ro),
@@ -7376,9 +7431,15 @@ def f32_bwd_case(name, B, Sq, Sk, Hq, Hkv, D, causal=False, seg=None,
     del ro, rlse, one_o, one_lse
     refs = (fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw),
             *fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, **kw))
+    size = {}
+    if Sk == 1:
+        dp = (do.abs().sum(-1).max() * v.abs().max()).item()
+        size = {"dq": D ** -0.5 * dp * k.abs().max().item(),
+                "dk": D ** -0.5 * dp * q.abs().max().item()}
     for lab, got, c, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), one, refs):
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite {lab}")
-        errs[lab], ctl[lab] = f32_rel_err(got, ref), f32_rel_err(c, ref)
+        errs[lab] = f32_rel_err(got, ref, size.get(lab, 0.0))
+        ctl[lab] = f32_rel_err(c, ref, size.get(lab, 0.0))
     del refs, one
     check(bool(torch.isfinite(lse).all() and torch.isfinite(o).all()),
           f"{name}: non-finite output or LSE")
@@ -7387,6 +7448,8 @@ def f32_bwd_case(name, B, Sq, Sk, Hq, Hkv, D, causal=False, seg=None,
               f"by {e:.3e} of its largest value, beyond {K1_F32_TOL}")
     if power:
         for lab in ("out", "dq", "dk", "dv"):
+            if lab in size:
+                continue
             check(ctl[lab] > K1_F32_TOL, f"{name}: the one-pass control's "
                   f"{lab} is within the bar ({ctl[lab]:.3e}): the check has "
                   "no power here")
@@ -7425,15 +7488,9 @@ def f32_bwd_case(name, B, Sq, Sk, Hq, Hkv, D, causal=False, seg=None,
     if sids is not None:
         mask &= sids.q[:, :, None] == sids.kv[:, None, :]
     pairs = int(mask.sum().item()) * Hq
-    # bytes of q (or o, dq, dO) and of k (or v, dk, dv), of one [B, Hq, Sq]
-    # row vector and of the segment ids, each read or written once
-    nq, nk, row = 4 * B * Sq * Hq * D, 4 * B * Sk * Hkv * D, 4 * B * Hq * Sq
-    segb = 4 * B * (Sq + Sk) if sids is not None else 0
-    work = {  # flops: 4, 6 and 8·D a visible pair and head
-        "lse": (4 * D * pairs, 2 * nq + 2 * nk + row + segb),
-        "flash_bwd_dq_f32": (6 * D * pairs, 3 * nq + 2 * nk + 2 * row + segb),
-        "flash_bwd_dkv_f32": (8 * D * pairs,
-                              2 * nq + 4 * nk + 2 * row + segb)}
+    work = f32_work(B, Sq, Sk, Hq, Hkv, D, pairs,
+                    4 * B * (Sq + Sk) if sids is not None else 0)
+    work["lse"] = work.pop("flash_fwd_f32_lse")
     G = Hq // Hkv
     qt = q.transpose(1, 2).detach().requires_grad_()
     kt = k.transpose(1, 2).repeat_interleave(G, 1).detach().requires_grad_()
@@ -7462,13 +7519,11 @@ def f32_bwd_case(name, B, Sq, Sk, Hq, Hkv, D, causal=False, seg=None,
     del out, qt, kt, vt, mask
     for key, t in times.items():
         flops, nbytes = work[key]
-        t_c, t_m = flops / H100_TF32_FLOPS, nbytes / H100_BYTES_PER_S
-        bound = max(t_c, t_m) * 1e3
+        bound, by = f32_bound(flops, nbytes)
         rows[key].update({
             "ms": t[0], "plain_ms": t[1],
             "library_ms": t[2] if key == "lse" else sdpa_bwd,
-            "bound_ms": bound, "bound_by": "operations" if t_c >= t_m
-            else "bytes", "bound_share": bound / t[0],
+            "bound_ms": bound, "bound_by": by, "bound_share": bound / t[0],
             "tflops": flops / t[0] / 1e9, "flops": flops, "bytes": nbytes})
     print(line + "; ms: K1 f32 with its LSE "
           f"{times['lse'][0]:.3f} (plain {times['lse'][1]:.3f}, SDPA fp32 "
@@ -7865,6 +7920,8 @@ def fp32_training_rows(fp32_train, f32_launches):
             ("flash_bwd_dkv_f32",
              "mllm_npu_tpu/ops/flash_attention.py:407")):
         every = [r[name] for r in f32_rows + f32_ip_rows + f32_edges]
+        source = ("flash_bwd_f32.cu" if name == "flash_bwd_dq_f32"
+                  else "flash_bwd_dkv_f32.cu")
         rows.append({
             "name": name, "route": "cuda",
             "design": "mma.sync m16n8k8 TF32, split in three, P and dS "
@@ -7872,8 +7929,9 @@ def fp32_training_rows(fp32_train, f32_launches):
                       "rows a block, 32-key cp.async double buffer; K3: 64 "
                       "keys a block, 32-row (query tile, head) double "
                       "buffer, dK and dV split between two warp sets above "
-                      "a padded 128",
-            "source": "mllm_npu_tpu_torch/csrc/flash_bwd_f32.cu",
+                      "a padded 128; at a padded 256 16-row streamed "
+                      "tiles",
+            "source": f"mllm_npu_tpu_torch/csrc/{source}",
             "replaces": replaces,
             "launches": f32_launches[name],
             "launches_per_step": fp32_train["train"]["launches_per_step"][
@@ -8072,6 +8130,351 @@ def wide_head_fields(wide):
     return out
 
 
+# -- phase 20: fp32 head dims above 160 -------------------------------------
+# 20a: K1 f32, K2 f32 and K3 f32 at the reference's bench shape in fp32
+# (B, S, H, D: B32 H8 S256 D256, non-causal), chained as bench_flash.py
+# chains K1 (the slope between chains of F32_CHAIN[0] and F32_CHAIN[1]
+# calls, the median of F32_CHAIN[2] reps), the plain versions over
+# F32_PLAIN_CHAIN
+F32_BENCH = (32, 256, 8, 256)
+F32_CHAIN = (20, 120, 5)
+F32_PLAIN_CHAIN = (2, 12, 2)
+# 20b: the edges at the padded 192 (168, 192) and 256 (200, 240, 256):
+# causal with Sq != Sk both ways, GQA 16/4, packed segments that change
+# inside a tile with a padded tail, rows with no visible key, q, k, v as
+# views of a fused tensor, one key (B, Sq, Sk, Hq, Hkv, causal, segments,
+# layout; the card tests' F32_WIDE_EDGES)
+F32_WIDE_DIMS = (168, 192, 200, 240, 256)
+F32_WIDE_EDGES = [
+    (2, 65, 63, 8, 2, True, None, "bshd"),
+    (1, 63, 130, 8, 2, True, None, "bshd"),
+    (2, 129, 129, 16, 4, True, "packed", "bshd"),
+    (2, 100, 100, 8, 8, False, 40, "bshd"),
+    (2, 200, 200, 8, 8, True, "packed", "fused"),
+    (2, 65, 1, 8, 2, False, None, "bshd"),
+]
+# 20c: FlashAttention at a causal GQA shape with packed segments (B, S, Hq,
+# Hkv, D)
+F32_FUNCTION_CASE = (2, 1000, 16, 8, 256)
+# 20d: the 8B assembly's resampler (grid 8, width 4096, SigLIP's 1152
+# in) with heads of 256, over an 896x896 request's 5 tiles of 729 patches
+F32_RESAMPLER = dict(grid_size=8, embed_dim=4096, num_heads=16,
+                     kv_dim=1152)
+F32_RESAMPLER_TILES = 5
+
+
+def f32_bench_case():
+    """20a: K1 f32 (with and without its LSE), K2 f32 and K3 f32 at the
+    bench shape in fp32: each against its plain version and beside its
+    one-pass control (``f32_bwd_case``), then chained and timed as
+    bench_flash.py times K1, beside SDPA on the fp32 tensors (TF32 off:
+    its forward, and its backward's dq, dk and dv together), the plain
+    versions and the bounds. Not counted: the caller resets the counts
+    before the path. → {kernel name: row}."""
+    import torch
+    import torch.nn.functional as F
+
+    from mllm_npu_tpu_torch import bench_flash
+    fa = flash_module()
+    B, S, H, D = F32_BENCH
+    checked = f32_bwd_case(f"20a bench_d256_f32 (B{B} H{H} S{S} D{D})", B, S,
+                           S, H, H, D, timing=False)
+    errs = {"flash_fwd_f32": checked["lse"]["max_abs_err"],
+            **{n: checked[n]["max_abs_err"]
+               for n in ("flash_bwd_dq_f32", "flash_bwd_dkv_f32")}}
+    ctl = {"flash_fwd_f32": checked["lse"]["one_pass_tf32_err"],
+           **{n: checked[n]["one_pass_tf32_err"]
+              for n in ("flash_bwd_dq_f32", "flash_bwd_dkv_f32")}}
+    q, k, v, do, _ = f32_inputs(B, S, S, H, H, D, None, "bshd", seed=0)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    delta = fa.attention_delta(o, do)
+    short, long, reps = F32_CHAIN
+    ps, pl, preps = F32_PLAIN_CHAIN
+
+    def slope(step, x0, plain=False):
+        if plain:
+            return bench_flash.slope(step, x0, ps, pl, preps, True)[0]
+        return bench_flash.slope(step, x0, short, long, reps, True)[0]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    out = F.scaled_dot_product_attention(qg, kg, vg)
+    sdpa_bwd = slope(lambda x: torch.autograd.grad(
+        out, (qg, kg, vg), x, retain_graph=True)[0], do.transpose(1, 2))
+    del out, qg, kg, vg
+    times = {
+        "flash_fwd_f32": (
+            slope(lambda x: fa.flash_attention(x, k, v), q),
+            slope(lambda x: fa.flash_attention_reference(x, k, v), q, True),
+            slope(lambda x: F.scaled_dot_product_attention(x, kt, vt), qt)),
+        "flash_fwd_f32_lse": (
+            slope(lambda x: fa.flash_attention(x, k, v,
+                                               return_lse=True)[0], q),
+            slope(lambda x: fa.flash_attention_reference(
+                x, k, v, return_lse=True)[0], q, True), None),
+        "flash_bwd_dq_f32": (
+            slope(lambda x: fa.flash_bwd_dq(x, k, v, do, lse, delta), q),
+            slope(lambda x: fa.flash_bwd_dq_reference(x, k, v, do, lse,
+                                                      delta), q, True),
+            sdpa_bwd),
+        "flash_bwd_dkv_f32": (
+            slope(lambda x: fa.flash_bwd_dkv(q, x, v, do, lse, delta)[0], k),
+            slope(lambda x: fa.flash_bwd_dkv_reference(q, x, v, do, lse,
+                                                       delta)[0], k, True),
+            sdpa_bwd)}
+    work = f32_work(B, S, S, H, H, D, B * H * S * S)
+    rows = {}
+    for name, (t, plain, lib) in times.items():
+        flops, nbytes = work[name]
+        bound, by = f32_bound(flops, nbytes)
+        of = "flash_fwd_f32" if name.startswith("flash_fwd") else name
+        rows[name] = {
+            "shape": "bench_d256_f32", "B": B, "Sq": S, "Sk": S, "Hq": H,
+            "Hkv": H, "D": D, "causal": False,
+            "ms": t * 1e3, "plain_ms": plain * 1e3,
+            "library_ms": None if lib is None else lib * 1e3,
+            "bound_ms": bound, "bound_by": by,
+            "bound_share": bound / (t * 1e3),
+            "flops": flops, "bytes": nbytes, "tflops": flops / t / 1e12,
+            "max_abs_err": errs[of], "one_pass_tf32_err": ctl[of],
+            "tolerance": f"{K1_F32_TOL} x max|plain|"}
+    rows["flash_fwd_f32_lse"]["lse_err"] = checked["lse"]["lse_err"]
+    del q, k, v, do, o, lse, delta, qt, kt, vt
+    torch.cuda.empty_cache()
+    print(f"[phase 20a] fp32 at the bench shape (B{B} H{H} S{S} D{D}, "
+          "non-causal), us a call: " + "; ".join(
+              f"{n} {r['ms'] * 1e3:.1f} (plain {r['plain_ms'] * 1e3:.1f}"
+              + (f", SDPA {r['library_ms'] * 1e3:.1f}"
+                 if r["library_ms"] is not None else "")
+              + f", bound {r['bound_ms'] * 1e3:.1f} {r['bound_by']}, "
+              f"{100 * r['bound_share']:.1f}% of it)"
+              for n, r in rows.items()), flush=True)
+    return rows
+
+
+def f32_wide_edge_sweep():
+    """20b: ``f32_bwd_case`` (untimed) at every edge of F32_WIDE_EDGES and
+    every head dim of F32_WIDE_DIMS. → summary."""
+    import torch
+    worst = {"out": 0.0, "lse": 0.0, "dq": 0.0, "dkv": 0.0}
+    n = 0
+    for D in F32_WIDE_DIMS:
+        for i, (B, Sq, Sk, Hq, Hkv, causal, seg, layout) in enumerate(
+                F32_WIDE_EDGES):
+            name = (f"20b B{B} Sq{Sq} Sk{Sk} H{Hq}/{Hkv} D{D}"
+                    f"{' causal' if causal else ''}"
+                    f"{f' segments {seg}' if seg is not None else ''} "
+                    f"{layout}")
+            got = f32_bwd_case(name, B, Sq, Sk, Hq, Hkv, D, causal, seg,
+                               layout, timing=False, seed=300 + i)
+            for key, e in (("out", got["lse"]["max_abs_err"]),
+                           ("lse", got["lse"]["lse_err"]),
+                           ("dq", got["flash_bwd_dq_f32"]["max_abs_err"]),
+                           ("dkv", got["flash_bwd_dkv_f32"]["max_abs_err"])):
+                worst[key] = max(worst[key], e)
+            n += 1
+    torch.cuda.empty_cache()
+    print(f"[phase 20b] {n} edges at D {', '.join(map(str, F32_WIDE_DIMS))}"
+          f": K1 f32 with and without its LSE, K2 f32 and K3 f32 within "
+          f"{K1_F32_TOL} x max|plain| (worst: {worst}), each one-pass "
+          "control outside, K2/K3 repeats bit-identical", flush=True)
+    return {"shapes": n, "head_dims": list(F32_WIDE_DIMS),
+            "max_abs_err": worst, "tolerance": f"{K1_F32_TOL} x max|plain|"}
+
+
+def f32_function_case():
+    """20c: ``FlashAttention`` on fp32 at F32_FUNCTION_CASE, causal with
+    packed segments, every count set to 0 before and read after (K1 f32
+    with its LSE, K2 f32, K3 f32 once each, nothing else); the output and
+    gradients against autograd through the fp32 plain forward, within
+    K1_F32_TOL·max|plain| and closer to it than the one-pass route's; a
+    repeat bit for bit. → (row, the path's launches)."""
+    import torch
+    fa = flash_module()
+    B, S, Hq, Hkv, D = F32_FUNCTION_CASE
+    q, k, v, do, sids = f32_inputs(B, S, S, Hq, Hkv, D, "packed", "bshd",
+                                   seed=20)
+    kw = dict(causal=True, segment_ids=sids, scale=D ** -0.5)
+
+    def run(fn):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        o = fn(*leaves)
+        o.backward(do)
+        torch.cuda.synchronize()
+        return [o.detach()] + [x.grad for x in leaves]
+    counters = f32_train_counters()
+    zero_counts(counters)
+    got = run(lambda *a: fa.flash_attention_trainable(*a, **kw))
+    launches = read_all(counters)
+    expect_counts(launches, "20c FlashAttention fp32",
+                  flash_fwd_f32_lse=1, flash_bwd_dq_f32=1,
+                  flash_bwd_dkv_f32=1)
+    again = run(lambda *a: fa.flash_attention_trainable(*a, **kw))
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "20c: a repeat differs")
+    del again
+    ref = run(lambda *a: fa.flash_attention_reference(*a, **kw))
+    one = run(lambda *a: OnePassAttention.trainable(*a, **kw))
+    errs, ctl = {}, {}
+    for lab, g, r, c in zip(("o", "dq", "dk", "dv"), got, ref, one):
+        check(bool(torch.isfinite(g).all()), f"20c {lab}: non-finite")
+        errs[lab], ctl[lab] = f32_rel_err(g, r), f32_rel_err(c, r)
+        check(errs[lab] <= K1_F32_TOL, f"20c {lab}: off autograd through "
+              f"the plain forward by {errs[lab]:.3e} of its largest value")
+        check(errs[lab] < ctl[lab], f"20c {lab}: no closer to the plain "
+              f"route ({errs[lab]:.3e}) than the one-pass route "
+              f"({ctl[lab]:.3e})")
+    print(f"[phase 20c] FlashAttention fp32 (B{B} S{S} H{Hq}/{Hkv} D{D} "
+          f"causal, packed segments): K1 f32 with its LSE, K2 f32, K3 f32 "
+          f"once each; errors / max|plain| {errs}, one-pass route {ctl}; a "
+          "repeat bit-identical", flush=True)
+    row = {"shape": "causal_gqa_d256_f32", "B": B, "S": S, "Hq": Hq,
+           "Hkv": Hkv, "D": D, "causal": True, "segments": True,
+           "max_abs_err": errs, "one_pass_tf32_err": ctl,
+           "repeat_bit_identical": True, "launches": launches}
+    return row, launches
+
+
+def f32_resampler_case():
+    """20d: the 8B assembly's resampler at full width in fp32 with heads of
+    256 (F32_RESAMPLER, seeded), over F32_RESAMPLER_TILES tiles of seeded
+    SigLIP features: a no-grad forward (K1 f32 once), then forward and
+    backward (K1 f32 with its LSE, K2 f32, K3 f32 once each), every count
+    set to 0 before each and read after; the output and every gradient
+    against the plain attention route's, the input's and the parameters'
+    (all together: out_proj's bias does not see the attention, and the key
+    bias only through rounding) each at cos ≥ F32_GRAD_COS and closer than
+    the one-pass route's. → (row, the path's launches)."""
+    import torch
+
+    from mllm_npu_tpu_torch.models.factory import (build_attention_resampler,
+                                                   init_random_)
+    spec = build_attention_resampler(dtype=torch.float32, **F32_RESAMPLER)
+    res = init_random_(spec.make().cuda(), seed=0)
+    check(res.embed_dim // res.attn.num_heads == 256,
+          "20d: the resampler's heads are not 256 wide")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(21)
+    x = torch.randn(F32_RESAMPLER_TILES, 729, F32_RESAMPLER["kv_dim"],
+                    device="cuda", generator=g)
+    gout = torch.randn(F32_RESAMPLER_TILES, res.num_queries, res.embed_dim,
+                       device="cuda", generator=g)
+    counters = f32_train_counters()
+    zero_counts(counters)
+    with torch.no_grad():
+        served = res(x)
+    torch.cuda.synchronize()
+    launches = read_all(counters)
+    expect_counts(launches, "20d resampler forward", flash_fwd_f32=1)
+    out, grads = {}, {}
+    for route in ("kernels", "plain", "one-pass TF32"):
+        zero_counts(counters)
+        xr = x.clone().requires_grad_()
+        with f32_route(route):
+            o = res(xr)
+            o.backward(gout)
+        torch.cuda.synchronize()
+        got = read_all(counters)
+        if route == "kernels":
+            expect_counts(got, "20d resampler training", flash_fwd_f32_lse=1,
+                          flash_bwd_dq_f32=1, flash_bwd_dkv_f32=1)
+            for key in launches:
+                launches[key] += got[key]
+            check(torch.equal(o.detach(), served), "20d: the training "
+                  "forward's output differs from the no-grad forward's")
+        else:
+            expect_counts(got, f"20d resampler ({route})")
+        grads[route] = {"out": o.detach().flatten(),
+                        "x": xr.grad.flatten(),
+                        "parameters": torch.cat([
+                            p.grad.flatten() for p in res.parameters()])}
+        res.zero_grad(set_to_none=True)
+    cos, dist, ctl = {}, {}, {}
+    for key, ref in grads["plain"].items():
+        a, c = grads["kernels"][key], grads["one-pass TF32"][key]
+        cos[key] = torch.nn.functional.cosine_similarity(a, ref,
+                                                         dim=0).item()
+        dist[key] = ((a - ref).norm() / ref.norm()).item()
+        ctl[key] = ((c - ref).norm() / ref.norm()).item()
+        check(cos[key] >= F32_GRAD_COS, f"20d {key}: cos {cos[key]} against "
+              f"the plain route, below {F32_GRAD_COS}")
+        check(dist[key] < ctl[key], f"20d {key}: no closer to the plain "
+              f"route ({dist[key]:.3e}) than the one-pass route "
+              f"({ctl[key]:.3e})")
+    print(f"[phase 20d] the fp32 resampler ({res.num_queries} queries x "
+          f"{res.embed_dim}, {res.attn.num_heads} heads of 256, "
+          f"{F32_RESAMPLER_TILES} x 729 keys): K1 f32 once served, K1 f32 "
+          "with its LSE, K2 f32, K3 f32 once in training; against the "
+          "plain route: relative distance " + ", ".join(
+              f"{k} {dist[k]:.2e} (one-pass {ctl[k]:.2e})" for k in dist),
+          flush=True)
+    del res, grads
+    torch.cuda.empty_cache()
+    return {"rel_dist": dist, "cos_min": min(cos.values()),
+            "one_pass_rel_dist": ctl, "launches": dict(launches)}, launches
+
+
+def f32_wide_phase():
+    """Phase 20 (see the module's docstring). → summary, the path's
+    launches among them."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    check(not (torch.backends.cuda.matmul.allow_tf32
+               or torch.backends.cudnn.allow_tf32),
+          f"phase 20 needs TF32 off: {tf32_flags()}")
+    bench = f32_bench_case()
+    edges = f32_wide_edge_sweep()
+    function, got = f32_function_case()
+    launches = dict(got)
+    resampler, got = f32_resampler_case()
+    for key in launches:
+        launches[key] += got[key]
+    out = {"bench": bench, "edges": edges, "function_case": function,
+           "resampler": resampler, "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    print(f"[phase 20] done in {out['seconds']:.1f} s; the path's launches "
+          f"{launches}", flush=True)
+    return out
+
+
+def f32_wide_fields(f32wide):
+    """Phase 20's fields of K1 f32's, K2 f32's and K3 f32's rows in the
+    JSON line: the D = 256 basis (one call at the bench shape in fp32), the
+    edges, 20c and 20d."""
+    bench, edges = f32wide["bench"], f32wide["edges"]
+    fn, res = f32wide["function_case"], f32wide["resampler"]
+    B, S, H, D = F32_BENCH
+    basis = (f"one call at the reference's bench shape in fp32 (B{B} H{H} "
+             f"S{S} D{D}, non-causal), timed as bench_flash.py times K1 "
+             f"(chained x <- kernel(x), the slope between {F32_CHAIN[0]} and "
+             f"{F32_CHAIN[1]} calls, the median of {F32_CHAIN[2]} reps; "
+             "the plain versions between "
+             f"{F32_PLAIN_CHAIN[0]} and {F32_PLAIN_CHAIN[1]}), TF32 off")
+    out = {}
+    for name, errs, grads in (
+            ("flash_fwd_f32", ("out",), ("o",)),
+            ("flash_bwd_dq_f32", ("dq",), ("dq",)),
+            ("flash_bwd_dkv_f32", ("dkv",), ("dk", "dv"))):
+        row = {**bench[name], "basis": basis,
+               "library": ("scaled_dot_product_attention on the fp32 "
+                           "tensors in the same harness" if name ==
+                           "flash_fwd_f32" else "torch.autograd.grad of "
+                           "scaled_dot_product_attention on the fp32 "
+                           "tensors (dq, dk and dv together; the forward "
+                           "excluded), chained on dO"),
+               "bound_rate": "494.7 TFLOP/s dense TF32, 3.35 TB/s",
+               "function_case": fn, "resampler": res,
+               "edge_sweep": edges}
+        if name == "flash_fwd_f32":
+            row["with_lse"] = bench["flash_fwd_f32_lse"]
+        out[name] = {"d256": row, "max_abs_err": max(
+            bench[name]["max_abs_err"],
+            *(edges["max_abs_err"][e] for e in errs),
+            *(fn["max_abs_err"][g] for g in grads))}
+    return out
+
+
 def main():
     # the training phase runs near the card's memory: let the allocator grow
     # segments instead of fragmenting (read when CUDA initialises)
@@ -8116,7 +8519,7 @@ def main():
         building = pool.submit(build_all,
                                ["flash_fwd", "flash_bwd", "quant_matmul",
                                 "flash_fwd_f32", "flash_bwd_f32",
-                                "quant_matmul_f32"])
+                                "flash_bwd_dkv_f32", "quant_matmul_f32"])
 
         print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 2",
               flush=True)
@@ -8456,6 +8859,16 @@ def main():
     wide = wide_head_phase()
     for k in launches:
         launches[k] += wide["launches"][k]
+
+    print(f"[time] {time.perf_counter() - t_start:.1f} s: phase 20",
+          flush=True)
+    # -- 20. fp32 head dims above 160: K1 f32, K2 f32 and K3 f32 at the
+    #        bench shape in fp32 and over the edges from 168 to 256, then
+    #        FlashAttention and the resampler at D = 256, counts set to 0
+    #        before each path and read after
+    f32wide = f32_wide_phase()
+    for k in f32_launches:
+        f32_launches[k] += f32wide["launches"][k]
     unet_forward = row_mix(unet_cases, unet_mix, "one SDXL UNet forward "
                           "(CFG batch 2, 1024x1024)")
     unet_image = {k: v * GEN_STEPS if k in ("ms", "plain_ms", "bound_ms",
@@ -8714,7 +9127,13 @@ def main():
     vfields = variant_fields(variant_cases, variant_mixes, unet_qrows,
                              unet_qmix, variants)
     wfields = wide_head_fields(wide)
+    f32wfields = f32_wide_fields(f32wide)
     for row in rows:
+        if row["name"] in f32wfields:
+            more = dict(f32wfields[row["name"]])
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     more.pop("max_abs_err"))
+            row.update(more)
         if row["name"].endswith("_f32"):
             continue
         row.update(extra[row["name"]])
@@ -8741,6 +9160,8 @@ def main():
     print("[eval] summary " + json.dumps(evaluator, default=str))
     print("[wide] summary " + json.dumps(
         {k: v for k, v in wide.items() if k != "bwd"}, default=str))
+    print("[f32-wide] summary " + json.dumps(
+        {k: v for k, v in f32wide.items() if k != "bench"}, default=str))
     print("[seedx-train] summary " + json.dumps(
         {k: ({kk: vv for kk, vv in v.items() if kk != "profile"}
              if isinstance(v, dict) else v)

@@ -50,8 +50,21 @@
 //    The mask runs only on tiles that hold keys past Sk, cross the
 //    diagonal of the warp's rows, or with segment ids.
 //  * GQA reads KV head h·Hkv/Hq directly; [B, S, H, D] through strides.
-//  * Head dims: multiples of 8 up to 160, computed at D rounded up to 16
-//    (one instantiation per rounded width; the padded columns are zeros).
+//  * Head dims: multiples of 8 up to 256, computed at `padded_dp(D)`: D
+//    rounded up to 16 up to 160, above it 192 or 256 (the reference pads D
+//    to 256 there), one instantiation per width; the cp.async loads
+//    zero-fill the columns past D, so the padded columns add nothing.
+//    ops/flash_attention.py k1_f32_plan mirrors the shared memory and the
+//    warps, and the wrapper hands its byte count in: a launch whose plan
+//    differs from the kernel's is refused.
+//  * Above 160: a block takes 157 KB at DP 192 and 205 KB at DP 256 (one
+//    block an SM), and O is 16 × DP fp32 a warp, 128 accumulators a thread
+//    at 256. The four warps keep the whole of O each: ptxas fits that in
+//    the 255 registers a thread of `__launch_bounds__(128)` with no spill
+//    (the registers below), so O's columns are not split between warps.
+//
+// Registers (ptxas, sm_90a, 128 threads): 64 to 168 a thread up to DP
+// 192, 224 at 256; no spills.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -331,9 +344,16 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// the head dim the kernel computes at for D (a multiple of 8 up to 256);
+// the mirror of ops/flash_attention.py padded_head_dim
+constexpr int padded_dp(int D) {
+  return D <= 160 ? (D + 15) / 16 * 16 : D <= 192 ? 192 : 256;
+}
+
 template <int DP>
-int launch(const Params& p, cudaStream_t stream) {
+int launch(const Params& p, int smem, cudaStream_t stream) {
   const int bytes = smem_floats<DP>() * 4;
+  if (smem != bytes) return cudaErrorInvalidValue;   // the plan differs
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_f32_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
@@ -354,7 +374,10 @@ bool aligned(const void* ptr, long long sb, long long ss, long long sh) {
 // unit last stride, strides multiples of 4 elements and 16-byte aligned
 // bases; lse fp32 [B, Hq, Sq] contiguous, or null (no LSE written); q_seg
 // [B, Sq] and kv_seg [B, Sk] int32 contiguous, or both null. passes: 3
-// (split TF32) or 1 (one-pass TF32, the control).
+// (split TF32) or 1 (one-pass TF32, the control). smem: the wrapper's plan
+// of the block's shared memory in bytes, which must be the kernel's.
+// Returns 0 on success, else a CUDA error code (cudaErrorInvalidValue for
+// arguments it does not take).
 extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
                              void* o, void* lse, const void* q_seg,
                              const void* kv_seg,
@@ -364,9 +387,9 @@ extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
                              long long v_sb, long long v_ss, long long v_sh,
                              long long o_sb, long long o_ss, long long o_sh,
                              float scale, int causal, int passes,
-                             void* stream) {
+                             int smem, void* stream) {
   if ((q_seg == nullptr) != (kv_seg == nullptr) || D % 8 != 0 || D < 8 ||
-      D > 160 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || B <= 0 ||
+      D > 256 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || B <= 0 ||
       Hq > 65535 || B > 65535 || (passes != 1 && passes != 3) ||
       !aligned(q, q_sb, q_ss, q_sh) || !aligned(k, k_sb, k_ss, k_sh) ||
       !aligned(v, v_sb, v_ss, v_sh))
@@ -391,17 +414,19 @@ extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
   p.causal = causal;
   p.three = passes == 3;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch ((D + 15) / 16 * 16) {
-    case 16: return launch<16>(p, st);
-    case 32: return launch<32>(p, st);
-    case 48: return launch<48>(p, st);
-    case 64: return launch<64>(p, st);
-    case 80: return launch<80>(p, st);
-    case 96: return launch<96>(p, st);
-    case 112: return launch<112>(p, st);
-    case 128: return launch<128>(p, st);
-    case 144: return launch<144>(p, st);
-    case 160: return launch<160>(p, st);
+  switch (padded_dp(D)) {
+    case 16: return launch<16>(p, smem, st);
+    case 32: return launch<32>(p, smem, st);
+    case 48: return launch<48>(p, smem, st);
+    case 64: return launch<64>(p, smem, st);
+    case 80: return launch<80>(p, smem, st);
+    case 96: return launch<96>(p, smem, st);
+    case 112: return launch<112>(p, smem, st);
+    case 128: return launch<128>(p, smem, st);
+    case 144: return launch<144>(p, smem, st);
+    case 160: return launch<160>(p, smem, st);
+    case 192: return launch<192>(p, smem, st);
+    case 256: return launch<256>(p, smem, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -46,14 +46,17 @@ K1 f32 (``csrc/flash_fwd_f32.cu``) is K1 for fp32 q/k/v, which the
 reference's kernel takes as it takes bf16 (it computes in the operands'
 dtype): both products in split TF32 on the tensor cores, accurate to
 fp32, the output fp32, and with ``return_lse`` the same LSE as K1's; head
-dims up to 160 (``F32_MAX_HEAD_DIM``).
+dims up to 256 (``F32_MAX_HEAD_DIM``), computed at
+:func:`padded_head_dim` as bf16 K1's; its plan (shared memory, warps) is
+:func:`k1_f32_plan`.
 :func:`flash_attention` routes fp32 operands to it and counts them in
 ``flash_attention.f32_launches`` (no LSE) and ``.f32_lse_launches`` (with
-it). K2 f32 and K3 f32 (``csrc/flash_bwd_f32.cu``) are K2 and K3 for fp32
-operands (head dims up to 160, as K1 f32), every product in split TF32,
-P and dS in fp32, fp32 outputs:
-:func:`flash_bwd_dq` and :func:`flash_bwd_dkv` route fp32 operands to
-them and count them in ``.f32_launches``; their plan (shared memory,
+it). K2 f32 and K3 f32 (``csrc/flash_bwd_f32.cu`` and
+``csrc/flash_bwd_dkv_f32.cu``, sharing ``csrc/flash_bwd_f32.cuh``) are K2
+and K3 for fp32 operands (head dims up to 256, as K1 f32), every product
+in split TF32, P and dS in fp32, fp32 outputs: :func:`flash_bwd_dq` and
+:func:`flash_bwd_dkv` route fp32 operands to them and count them in
+``.f32_launches``; their plan (shared memory, the streamed tile's rows,
 warps) is :func:`k23_f32_plan`, their walks :func:`k2_f32_kv_tiles` and
 :func:`k3_f32_q_tiles`. So :class:`FlashAttention` trains on fp32
 operands through K1 f32, K2 f32 and K3 f32. Each fp32 kernel has a
@@ -79,15 +82,16 @@ K23_MAX_HEAD_DIM = 256
 NARROW_HEAD_DIM = 160
 WIDE_HEAD_DIMS = (192, 256)
 # K1 f32, K2 f32 and K3 f32 (fp32 operands) take head dims up to this
-F32_MAX_HEAD_DIM = 160
+F32_MAX_HEAD_DIM = 256
 # K2's and K3's first (mma.sync) design takes head dims up to this (its C
 # entry refuses more)
 MMA_SYNC_MAX_HEAD_DIM = 160
 # what a head dim above each limit is, in ROADMAP.md
 BF16_GAP = ("head dims above 256 (the reference's kernel takes any "
             "multiple of 128) are ROADMAP.md queue 2's domain gap 2")
-F32_GAP = ("fp32 operands at head dims above 160 are ROADMAP.md queue 2's "
-           "domain gap 1")
+F32_GAP = ("fp32 operands at head dims above 256 (the reference's kernel "
+           "takes any multiple of 128) are ROADMAP.md queue 2's domain gap "
+           "2")
 
 
 class SegmentIds(NamedTuple):
@@ -467,7 +471,44 @@ flash_attention.f32_lse_launches = 0   # K1 f32 writing its LSE (training)
 F32_KERNEL = "flash_fwd_f32"
 _F32_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 12
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p])
+
+# K1 f32 (``csrc/flash_fwd_f32.cu``): query rows a block, keys a K/V tile,
+# warps a block (16 query rows each, the whole of O's columns), the row
+# padding of its Q and K tiles and of its V tiles (floats)
+K1_F32_BLOCK = 64
+K1_F32_TILE = 32
+K1_F32_WARPS = 4
+K1_F32_PAD = 4
+K1_F32_V_PAD = 8
+
+
+class K1F32Plan(NamedTuple):
+    dp: int          # the head dim the kernel computes at
+    warps: int       # warps a block
+    smem: int        # bytes of shared memory a block takes
+
+
+def k1_f32_plan(D: int) -> K1F32Plan:
+    """K1 f32's plan for head dim D (a multiple of 8 up to 256, or
+    raise), the mirror of ``smem_floats`` in ``csrc/flash_fwd_f32.cu``:
+    Q (64 rows) resident, two stages of K (32 rows, D padded plus 4 floats)
+    and of V (plus 8), a 16 × 36 patch of P a warp and two stages of 32 key
+    ids, at :func:`padded_head_dim`. The wrapper hands ``smem`` to the
+    kernel, which refuses a plan that differs from its own."""
+    _check_head_dim(D, F32_MAX_HEAD_DIM, "flash_attention (fp32)", F32_GAP)
+    dp = padded_head_dim(D)
+    floats = ((K1_F32_BLOCK + 2 * K1_F32_TILE) * (dp + K1_F32_PAD)
+              + 2 * K1_F32_TILE * (dp + K1_F32_V_PAD)
+              + K1_F32_WARPS * 16 * (K1_F32_TILE + K1_F32_PAD)
+              + 2 * K1_F32_TILE)
+    plan = K1F32Plan(dp, K1_F32_WARPS, 4 * floats)
+    if plan.smem > K1_MAX_SMEM:
+        raise ValueError(f"flash_attention (fp32): head dim {D} needs "
+                         f"{plan.smem} bytes of shared memory a block, over "
+                         f"{K1_MAX_SMEM}")
+    return plan
 
 
 def _flash_f32(q, k, v, causal, segment_ids, scale, *, return_lse: bool,
@@ -497,6 +538,7 @@ def _flash_f32(q, k, v, causal, segment_ids, scale, *, return_lse: bool,
             _ptr(lse), _ptr(qseg), _ptr(kseg), B, Sq, Sk, Hq, Hkv, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], float(scale), int(bool(causal)), passes,
+            k1_f32_plan(D).smem,
             torch.cuda.current_stream(q.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"flash_fwd_f32 launch failed: CUDA error "
@@ -611,18 +653,23 @@ def k3_needs_mask(key0: int, q0: int, Sq: int, causal: bool,
                 == int(q_ids.max()))
 
 
-# K2 f32 / K3 f32 (``csrc/flash_bwd_f32.cu``): rows of a block (K2's query
+# K2 f32 / K3 f32 (``csrc/flash_bwd_f32.cuh``): rows of a block (K2's query
 # rows, K3's keys), rows of a streamed tile (K2's keys, K3's query rows),
-# the row padding of every shared tile (floats), the least padded head dim
-# above which K3 f32 splits dK and dV between two sets of four warps
+# and above which padded head dim the streamed tile is K23_F32_WIDE_TILE
+# rows instead (at 256 two stages of 32-row tiles do not fit), the row
+# padding of every shared tile (floats), the least padded head dim above
+# which K3 f32 splits dK and dV between two sets of four warps
 K23_F32_BLOCK = 64
 K23_F32_TILE = 32
+K23_F32_WIDE_TILE = 16
+K23_F32_WIDE_TILE_ABOVE = 192
 K23_F32_PAD = 4
 K3_F32_SPLIT_ABOVE = 128
 
 
 class K23F32Plan(NamedTuple):
-    dp: int          # the head dim the kernels compute at (D rounded to 16)
+    dp: int          # the head dim the kernels compute at
+    tile: int        # rows of a streamed tile (K2's keys, K3's queries)
     k2_smem: int     # bytes of shared memory a K2 f32 block takes
     k3_warps: int    # 4 (dK and dV in each warp) or 8 (split)
     k3_smem: int     # bytes a K3 f32 block takes
@@ -630,20 +677,25 @@ class K23F32Plan(NamedTuple):
 
 def k23_f32_plan(D: int) -> K23F32Plan:
     """K2 f32's and K3 f32's plan for head dim D (a multiple of 8 up to
-    160, or raise), the mirror of ``k2_smem_floats`` / ``k3_smem_floats``
-    and ``launch_dkv``'s split in ``csrc/flash_bwd_f32.cu``: K2 keeps Q and
-    dO (64 rows each) and two stages of K and V (32 rows each), K3 K and V
-    (64) and two stages of Q and dO (32), every row D rounded to 16 plus 4
-    floats; a 16 × 36 patch a warp; K2 two stages of 32 key ids, K3 two of
-    32 LSEs, δs and query ids. The wrappers hand ``k2_smem`` / ``k3_smem``
-    to the kernels, which refuse a plan that differs from theirs."""
+    256, or raise), the mirror of ``tile_rows``, ``k2_smem_floats`` and
+    ``k3_smem_floats`` in ``csrc/flash_bwd_f32.cuh`` and of
+    ``launch_dkv``'s split in ``csrc/flash_bwd_dkv_f32.cu``: K2 keeps Q
+    and dO (64 rows each) and two stages of K and V (``tile`` rows each:
+    32, 16 at a padded 256), K3 K and V (64) and two stages of Q and dO
+    (``tile``), every row :func:`padded_head_dim` plus 4 floats; a
+    16 × (tile + 4) patch a warp; K2 two stages of ``tile`` key ids, K3 two
+    of ``tile`` LSEs, δs and query ids. The wrappers hand ``k2_smem`` /
+    ``k3_smem`` to the kernels, which refuse a plan that differs from
+    theirs."""
     _check_head_dim(D, F32_MAX_HEAD_DIM, "flash_bwd (fp32)", F32_GAP)
-    dp = -(-D // 16) * 16
-    rows = (2 * K23_F32_BLOCK + 4 * K23_F32_TILE) * (dp + K23_F32_PAD)
-    patch = 16 * (K23_F32_TILE + K23_F32_PAD)
+    dp = padded_head_dim(D)
+    tile = (K23_F32_WIDE_TILE if dp > K23_F32_WIDE_TILE_ABOVE
+            else K23_F32_TILE)
+    rows = (2 * K23_F32_BLOCK + 4 * tile) * (dp + K23_F32_PAD)
+    patch = 16 * (tile + K23_F32_PAD)
     warps = 8 if dp > K3_F32_SPLIT_ABOVE else 4
-    plan = K23F32Plan(dp, 4 * (rows + 4 * patch + 2 * K23_F32_TILE), warps,
-                      4 * (rows + warps * patch + 3 * 2 * K23_F32_TILE))
+    plan = K23F32Plan(dp, tile, 4 * (rows + 4 * patch + 2 * tile), warps,
+                      4 * (rows + warps * patch + 3 * 2 * tile))
     if max(plan.k2_smem, plan.k3_smem) > K1_MAX_SMEM:
         raise ValueError(f"flash_bwd (fp32): head dim {D} needs "
                          f"{max(plan.k2_smem, plan.k3_smem)} bytes of shared "
@@ -651,25 +703,28 @@ def k23_f32_plan(D: int) -> K23F32Plan:
     return plan
 
 
-def k2_f32_kv_tiles(q0: int, Sq: int, Sk: int, causal: bool) -> list:
-    """The 32-key K/V tiles (indices, in order) K2 f32 visits for the
-    query rows [q0, q0 + 64): all of them, or with ``causal`` up to the
-    one that holds the diagonal of the last row below Sq. The mirror of
-    ``n_kv`` in ``csrc/flash_bwd_f32.cu``; every tile is masked there."""
-    n = -(-Sk // K23_F32_TILE)
+def k2_f32_kv_tiles(q0: int, Sq: int, Sk: int, causal: bool,
+                    tile: int = K23_F32_TILE) -> list:
+    """The ``tile``-key K/V tiles (indices, in order; the plan's
+    ``tile``) K2 f32 visits for the query rows [q0, q0 + 64): all of them,
+    or with ``causal`` up to the one that holds the diagonal of the last
+    row below Sq. The mirror of ``n_kv`` in ``csrc/flash_bwd_f32.cu``;
+    every tile is masked there."""
+    n = -(-Sk // tile)
     if causal:
-        n = min(n, (min(q0 + K23_F32_BLOCK, Sq) - 1) // K23_F32_TILE + 1)
+        n = min(n, (min(q0 + K23_F32_BLOCK, Sq) - 1) // tile + 1)
     return list(range(n))
 
 
-def k3_f32_q_tiles(k0: int, Sq: int, causal: bool) -> list:
-    """The 32-row query tiles (indices, in order) K3 f32 visits for the
-    keys [k0, k0 + 64), each once per query head of the group: all of
-    them, or with ``causal`` from the first whose last row reaches k0 (none
-    when no query row does). The mirror of ``qt0`` in
-    ``csrc/flash_bwd_f32.cu``."""
-    nq = -(-Sq // K23_F32_TILE)
-    first = min(k0 // K23_F32_TILE, nq) if causal else 0
+def k3_f32_q_tiles(k0: int, Sq: int, causal: bool,
+                   tile: int = K23_F32_TILE) -> list:
+    """The ``tile``-row query tiles (indices, in order; the plan's
+    ``tile``) K3 f32 visits for the keys [k0, k0 + 64), each once per query
+    head of the group: all of them, or with ``causal`` from the first whose
+    last row reaches k0 (none when no query row does). The mirror of
+    ``qt0`` in ``csrc/flash_bwd_dkv_f32.cu``."""
+    nq = -(-Sq // tile)
+    first = min(k0 // tile, nq) if causal else 0
     return list(range(first, nq))
 
 
@@ -691,7 +746,8 @@ def _bwd_launch(library, symbol, argtypes, regime, q, k, v, do, lse, delta,
                 outs, causal, segment_ids, scale):
     """One launch into ``outs`` of K2 or K3 (``library`` ``flash_bwd``,
     ``regime`` (wgmma,)) or of K2 f32 or K3 f32 (``flash_bwd_f32``,
-    ``regime`` (passes, the plan's shared-memory bytes)); error 1 is
+    ``flash_bwd_dkv_f32``, ``regime`` (passes, the plan's shared-memory
+    bytes)); error 1 is
     arguments the kernel refused."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -712,7 +768,8 @@ def _bwd_launch(library, symbol, argtypes, regime, q, k, v, do, lse, delta,
         raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
 
 
-BWD_F32_KERNEL = "flash_bwd_f32"
+BWD_F32_KERNEL = "flash_bwd_f32"          # K2 f32
+BWD_DKV_F32_KERNEL = "flash_bwd_dkv_f32"  # K3 f32
 _BWD_F32_TAIL = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _BWD_F32_DQ_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + _BWD_F32_TAIL
@@ -782,7 +839,8 @@ def _dkv(q, k, v, do, lse, delta, causal, segment_ids, scale, passes=3):
         dk.zero_()                  # no query: no key is seen
         dv.zero_()
     elif k.shape[0] and k.shape[1] and f32:
-        _bwd_launch(BWD_F32_KERNEL, "flash_bwd_dkv_f32", _BWD_F32_DKV_ARGS,
+        _bwd_launch(BWD_DKV_F32_KERNEL, "flash_bwd_dkv_f32",
+                    _BWD_F32_DKV_ARGS,
                     (passes, k23_f32_plan(q.shape[3]).k3_smem), q, k, v, do,
                     lse, delta, (dk, dv), **kw)
         flash_bwd_dkv.f32_launches += passes == 3

@@ -25,7 +25,8 @@ Tolerances on the same bf16 inputs:
   ``K1_F32_TOL`` and ``QUANT_F32_TOL`` below, each beside a one-pass TF32
   control that must fail it; K1 f32's LSE, K2 f32 and K3 f32 (the fp32
   backward) too: ``K1_F32_TOL``·max|plain| (the LSE ·max(1, max|lse|)),
-  the one-pass control failing it at the training paths' shapes.
+  the one-pass control failing it at the training paths' shapes and at
+  every edge above D = 160.
 """
 
 import pytest
@@ -284,8 +285,8 @@ def test_k1_f32_rejects_what_it_does_not_take(cuda):
     wide = torch.randn(1, 8, 2, 66, device=cuda)[..., :64]
     with pytest.raises(ValueError):
         flash_attention(wide, wide, wide)              # stride 66, not 4k
-    for D in (168, 256):        # bf16 takes these; fp32 stops at 160
-        with pytest.raises(ValueError, match="up to 160; fp32 .*gap 1"):
+    for D in (264, 512):        # the reference takes 512; fp32 stops at 256
+        with pytest.raises(ValueError, match="up to 256; fp32 .*gap 2"):
             flash_attention(*(torch.randn(1, 8, 2, D, device=cuda),) * 3)
     assert (flash_attention.f32_launches,
             flash_attention.f32_lse_launches) == n
@@ -299,8 +300,7 @@ def test_k1_f32_rejects_what_it_does_not_take(cuda):
 # dims 8 to 160, lengths off the 64-row and 32-row tiles, causal with
 # Sq != Sk, GQA 8/1 and 32/8, packed segments that change inside a tile,
 # rows with no visible key, q, k, v as strided views of a fused tensor, one
-# query row. (Not a single key: with one visible key P = 1 and
-# dS = dP − δ = 0 but for rounding, so max|plain| is rounding noise.)
+# query row; then F32_WIDE_CASES above D = 160
 F32_BWD_CASES = [  # B, Sq, Sk, Hq, Hkv, D, causal, seg, layout, power
     (2, 4096, 4096, 10, 10, 64, False, None, "bshd", True),
     (2, 1024, 1024, 20, 20, 64, False, None, "bshd", True),
@@ -325,6 +325,26 @@ F32_BWD_CASES = [  # B, Sq, Sk, Hq, Hkv, D, causal, seg, layout, power
 ]
 
 
+# above D = 160, at the padded 192 (168, 192) and 256 (200, 240, 256; K2
+# f32's and K3 f32's streamed tiles 16 rows there): causal with Sq != Sk
+# both ways, GQA 16/4, packed segments that change inside a tile with a
+# padded tail, rows with no visible key, q, k, v as strided views of a
+# fused tensor, and one key; the one-pass control must miss the bar in
+# each (over one key, in dV alone: see _one_key_sizes)
+F32_WIDE_EDGES = [  # B, Sq, Sk, Hq, Hkv, causal, seg, layout
+    (2, 65, 63, 8, 2, True, None, "bshd"),
+    (1, 63, 130, 8, 2, True, None, "bshd"),
+    (2, 129, 129, 16, 4, True, "packed", "bshd"),
+    (2, 100, 100, 8, 8, False, 40, "bshd"),
+    (2, 200, 200, 8, 8, True, "packed", "fused"),
+    (2, 65, 1, 8, 2, False, None, "bshd"),
+]
+F32_WIDE_CASES = [(B, Sq, Sk, Hq, Hkv, D, causal, seg, layout, True)
+                  for D in (168, 192, 200, 240, 256)
+                  for B, Sq, Sk, Hq, Hkv, causal, seg, layout
+                  in F32_WIDE_EDGES]
+
+
 def _f32_bwd_inputs(dev, B, Sq, Sk, Hq, Hkv, D, seg, layout, seed=0):
     q, k, v, sids = _k1_inputs(dev, B, Sq, Sk, Hq, Hkv, D, seg, layout,
                                seed=seed, dtype=torch.float32)
@@ -334,15 +354,30 @@ def _f32_bwd_inputs(dev, B, Sq, Sk, Hq, Hkv, D, seg, layout, seed=0):
     return q, k, v, do, sids
 
 
-def _f32_err(got, ref):
-    """max|got − ref| over max|ref| (0 for an all-zero ref)."""
-    return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+def _f32_err(got, ref, size=0.0):
+    """max|got − ref| over max(max|ref|, size) (0 for an all-zero ref)."""
+    return (got - ref).abs().max().item() / max(ref.abs().max().item(),
+                                                 size, 1e-30)
+
+
+def _one_key_sizes(q, k, v, do):
+    """Over one key P is 1 and dS = P∘(dP − δ) is 0 but for rounding, so
+    dQ and dK are rounding noise: the sizes they would have
+    (scale·max|dP|·max|k|, ·max|q|, with max|dP| ≤ max Σ|dO|·max|v|), which
+    their errors are measured against, and no control is held to them."""
+    dp = (do.abs().sum(-1).max() * v.abs().max()).item()
+    scale = q.shape[-1] ** -0.5
+    return {"dq": scale * dp * k.abs().max().item(),
+            "dk": scale * dp * q.abs().max().item()}
 
 
 @pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,seg,layout,power",
-                         F32_BWD_CASES)
+                         F32_BWD_CASES + F32_WIDE_CASES)
 def test_k1_f32_lse_matches_plain(cuda, B, Sq, Sk, Hq, Hkv, D, causal, seg,
                                   layout, power):
+    """K1 f32 with its LSE against the fp32 plain version, its output the
+    same bits as without the LSE; where ``power``, the one-pass control
+    misses the bar."""
     q, k, v, _, sids = _f32_bwd_inputs(cuda, B, Sq, Sk, Hq, Hkv, D, seg,
                                        layout)
     kw = dict(causal=causal, segment_ids=sids)
@@ -351,23 +386,27 @@ def test_k1_f32_lse_matches_plain(cuda, B, Sq, Sk, Hq, Hkv, D, causal, seg,
     torch.cuda.synchronize()
     assert (flash_attention.f32_launches,
             flash_attention.f32_lse_launches) == (n[0], n[1] + 1)
+    assert torch.equal(out, flash_attention(q, k, v, **kw))
     ref, rlse = flash_attention_reference(q, k, v, return_lse=True, **kw)
     assert lse.shape == (B, Hq, Sq) and lse.dtype == torch.float32
     assert torch.isfinite(lse).all() and torch.isfinite(out).all()
     assert (lse - rlse).abs().max() <= K1_F32_TOL * max(
         1.0, rlse.abs().max().item())
     assert _f32_err(out, ref) <= K1_F32_TOL
+    if power:
+        control = fa.flash_attention_f32_one_pass(q, k, v, **kw)
+        assert _f32_err(control, ref) > K1_F32_TOL
     if isinstance(seg, int):      # rows with no visible key: 0 and LSE 0
         assert (out[-1, seg:] == 0).all() and (lse[-1, :, seg:] == 0).all()
 
 
 @pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,seg,layout,power",
-                         F32_BWD_CASES)
+                         F32_BWD_CASES + F32_WIDE_CASES)
 def test_k2_k3_f32_match_plain(cuda, B, Sq, Sk, Hq, Hkv, D, causal, seg,
                                layout, power):
     """K2 f32 and K3 f32 against their fp32 plain versions on K1 f32's
     LSE, within K1_F32_TOL·max|plain|; beside them the one-pass control,
-    which must miss that bar at the training paths' shapes."""
+    which must miss that bar where ``power``; a repeat bit-identical."""
     q, k, v, do, sids = _f32_bwd_inputs(cuda, B, Sq, Sk, Hq, Hkv, D, seg,
                                         layout)
     kw = dict(causal=causal, segment_ids=sids)
@@ -385,12 +424,14 @@ def test_k2_k3_f32_match_plain(cuda, B, Sq, Sk, Hq, Hkv, D, causal, seg,
         n[0] + 1, n[1] + 1, n[2], n[3])
     refs = (flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw),
             *flash_bwd_dkv_reference(q, k, v, do, lse, delta, **kw))
+    sizes = _one_key_sizes(q, k, v, do) if Sk == 1 else {}
     for name, got, ctl, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), one,
                                    refs):
         assert got.dtype == torch.float32 and got.shape == ref.shape
         assert torch.isfinite(got).all(), name
-        assert _f32_err(got, ref) <= K1_F32_TOL, (name, _f32_err(got, ref))
-        if power:
+        err = _f32_err(got, ref, sizes.get(name, 0.0))
+        assert err <= K1_F32_TOL, (name, err)
+        if power and name not in sizes:
             assert _f32_err(ctl, ref) > K1_F32_TOL, (name, _f32_err(ctl, ref))
     if isinstance(seg, int):      # rows with no visible key: zero gradients
         assert (dq[-1, seg:] == 0).all()
@@ -455,10 +496,10 @@ def test_k2_k3_f32_reject_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):                          # bf16 control
         fa.flash_bwd_dq_f32_one_pass(*(t.bfloat16() for t in (q, k, v, do)),
                                      lse, delta)
-    d168 = torch.zeros(1, 64, 4, 168, device=cuda)
+    d264 = torch.zeros(1, 64, 4, 264, device=cuda)
     for fn in (flash_bwd_dq, flash_bwd_dkv):
-        with pytest.raises(ValueError, match="up to 160"):
-            fn(d168, d168, d168, d168, lse, delta)          # D > 160
+        with pytest.raises(ValueError, match="up to 256; fp32 .*gap 2"):
+            fn(d264, d264, d264, d264, lse, delta)          # D > 256
     wide = torch.randn(1, 64, 4, 66, device=cuda)[..., :64]
     with pytest.raises(ValueError):
         flash_bwd_dkv(wide, k, v, do, lse, delta)           # stride 66

@@ -11,9 +11,10 @@ its LSE, K2 f32, K3 f32 there) against the reference:
   reference), at the UNet's D = 64 (self-attention, and over 64 keys) and
   SD-1.5's D = 40, 80 and 160: atol 1e-5 (fp32 sums in other orders, the
   reference's softmax in base 2 on q pre-scaled by scale·log2 e);
-- K2 f32's and K3 f32's plans for every head dim from 8 to 160
+- K2 f32's and K3 f32's plans for every head dim from 8 to 256
   (``k23_f32_plan``: the shared memory of ``csrc/flash_bwd_f32.cu``, under
-  the card's 227 KB, K3 split above a padded 128) and their walks
+  the card's 227 KB, K3 split above a padded 128, 16-row streamed tiles at
+  a padded 256) and their walks
   (``k2_f32_kv_tiles``, ``k3_f32_q_tiles``) against the dense mask, and run
   with the plain arithmetic tile by tile against the plain backward
   (1e-5);
@@ -83,25 +84,30 @@ def test_fp32_backward_matches_reference_kernels(B, Sq, Sk, H, D):
                                    atol=ATOL, err_msg=f"d{name}")
 
 
-@pytest.mark.parametrize("D", range(8, 161, 8))
+@pytest.mark.parametrize("D", range(8, 257, 8))
 def test_k23_f32_plan_fits_for_every_head_dim(D):
     plan = fa.k23_f32_plan(D)
-    assert plan.dp == -(-D // 16) * 16 and plan.dp >= D
+    assert plan.dp == fa.padded_head_dim(D) and plan.dp >= D
+    assert plan.dp == (-(-D // 16) * 16 if D <= 160 else
+                       192 if D <= 192 else 256)
     assert plan.k3_warps == (8 if plan.dp > 128 else 4)
+    T = plan.tile
+    assert T == (fa.K23_F32_WIDE_TILE if plan.dp == 256 else fa.K23_F32_TILE)
     row = 4 * (plan.dp + fa.K23_F32_PAD)
-    patch = 4 * 16 * (fa.K23_F32_TILE + fa.K23_F32_PAD)
-    # K2: Q and dO resident, two stages of K and V, 4 patches, 2×32 ids
-    assert plan.k2_smem == (2 * 64 + 4 * 32) * row + 4 * patch + 2 * 32 * 4
+    patch = 4 * 16 * (T + fa.K23_F32_PAD)
+    # K2: Q and dO resident, two stages of K and V, 4 patches, 2×T ids
+    assert plan.k2_smem == (2 * 64 + 4 * T) * row + 4 * patch + 2 * T * 4
     # K3: K and V resident, two stages of Q and dO, a patch a warp, two
-    # stages of 32 LSEs, δs and query ids
-    assert plan.k3_smem == (2 * 64 + 4 * 32) * row \
-        + plan.k3_warps * patch + 3 * 2 * 32 * 4
+    # stages of T LSEs, δs and query ids
+    assert plan.k3_smem == (2 * 64 + 4 * T) * row \
+        + plan.k3_warps * patch + 3 * 2 * T * 4
     assert max(plan.k2_smem, plan.k3_smem) <= fa.K1_MAX_SMEM
 
 
-@pytest.mark.parametrize("D", [0, 4, 12, 168, 256])
+@pytest.mark.parametrize("D", [0, 4, 12, 264, 512])
 def test_k23_f32_plan_refuses_other_head_dims(D):
-    with pytest.raises(ValueError, match="multiples of 8 up to 160"):
+    gap = "; fp32 .*gap 2" if D > 256 else ""
+    with pytest.raises(ValueError, match="multiples of 8 up to 256" + gap):
         fa.k23_f32_plan(D)
 
 

@@ -102,12 +102,12 @@ def test_k1_takes_head_dims_above_160(D):
         assert smem == 6 * 64 * dp * 2 + 528 + 96 + 1024 <= fa.K1_MAX_SMEM
 
 
-@pytest.mark.parametrize("D", [168, 256])
+@pytest.mark.parametrize("D", [264, 512])
 def test_fp32_keeps_its_head_dim_limit(D):
-    """The fp32 kernels take head dims up to 160 (their shared memory at
-    fp32 will not hold today's tiles above it): a wider fp32 call raises,
-    naming the limit and ROADMAP.md's gap."""
-    with pytest.raises(ValueError, match="up to 160; fp32 .*domain gap 1"):
+    """The fp32 kernels take head dims up to 256 (at a padded 192 or 256
+    above 160, as bf16's): a wider fp32 call raises, naming the limit and
+    ROADMAP.md's gap."""
+    with pytest.raises(ValueError, match="up to 256; fp32 .*domain gap 2"):
         fa.k23_f32_plan(D)
 
 
