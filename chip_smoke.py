@@ -334,8 +334,13 @@ exits non-zero. Phases, in order:
    2 with segments, SigLIP, the resampler, the fp32 UNet's self- and
    cross-attention, D = 104 and 160), each beside one-pass TF32 (the same
    kernel with big·big alone), which must fail the tolerance the kernel
-   passes; b. K4 f32 and K5 f32 against theirs at the 8B's shapes at
-   M = 1, 8 and 339, beside the plain product in TF32; c. the 8B assembly
+   passes; b. K4 f32 and K5 f32 (fp32 x as three bf16 parts on the
+   tensor cores) against theirs at the 8B's shapes at M = 1, 8 and 339,
+   beside the plain product in TF32, each repeated bit for bit; the
+   prefill's pre-split kernel (``split_x3``) against ``split_bf16x3`` bit
+   for bit at the prefill's x, timed; both routes of K4 f32 and K5 f32 at
+   gate_proj over M = 8, 16, 17, 32 and 64 (the decode route up to 16),
+   which sets ``F32_DECODE_MAX_M``; c. the 8B assembly
    built in fp32 by the worker's ``load_engine_from_config(cast_bf16=
    False)`` (about 32 GiB, never touched by a bf16 engine), its 896×896
    request through ``InferenceEngine(cast_params_bf16=False)``: K1 f32's
@@ -387,7 +392,12 @@ exits non-zero. Phases, in order:
    each, against autograd through the plain forward (the output within
    K1's tolerance, dq, dk, dv within K2's and K3's), and a repeat bit for
    bit; then the three kernels timed at those two shapes (the D = 256
-   basis of the kernels line).
+   basis of the kernels line); d. ``multi_head_attention`` at head dims
+   off a multiple of 8 (D = 4, 36, 100; B2 S300 Hq8 Hkv2, causal with
+   packed segments), which it pads into the kernels: the no-grad forward
+   one K1, the trainable route K1, K2 and K3 once each, the output and
+   q/k/v gradients against autograd through the plain forward at the true
+   D.
 
 20. fp32 head dims above 160, last (every count set to 0 before each path
    and read after; TF32 off): a. K1 f32 (with and without its LSE), K2 f32
@@ -410,7 +420,8 @@ exits non-zero. Phases, in order:
    served forward (K1 f32 once), then forward and backward (K1 f32 with
    its LSE, K2 f32, K3 f32 once each), the output and every gradient
    against the plain route's (cos ≥ 0.9999, closer than the one-pass
-   route's).
+   route's); e. 19d's head dims in fp32 (K1 f32 once, then K1 f32 with
+   its LSE, K2 f32 and K3 f32 once each; within ``K1_F32_TOL``·max|plain|).
 
 Phases 2 to 18 build from copies of the shipped configs with their
 checkpoint paths null (``use_seeded_configs``): the repository holds no
@@ -820,11 +831,13 @@ def quant_case(bits, M, K, N, group=256, seed=0, f32=False):
     ref = plain(x, *qt).float()
     diff = (out.float() - ref).abs()
     err = diff.max().item()
+    rel = err / max(ref.abs().max().item(), 1e-30)
     check(torch.isfinite(out.float()).all().item(), f"{name}: non-finite")
     control = None
     if f32:
         check(out.dtype == torch.float32 and kernel.f32_launches
               == before + 1, f"{name}: not one K4/K5 f32 launch")
+        check(torch.equal(out, kernel(x, *qt)), f"{name}: a repeat differs")
         tol = QUANT_F32_TOL * ref.abs().max().item()
         check(err <= tol, f"{name}: max abs err {err} beyond "
               f"{QUANT_F32_TOL}·max|plain| = {tol}")
@@ -856,7 +869,9 @@ def quant_case(bits, M, K, N, group=256, seed=0, f32=False):
         "shape": name, "M": M, "K": K, "N": N,
         "group": group if bits == 4 else None,
         "max_abs_err": err,
-        **({"tf32_control_err": control,
+        **({"tf32_control_err": control, "repeat_bit_identical": True,
+            "err_over_max_plain": rel,
+            "route": "prefill" if tq.f32_prefill_route(M) else "decode",
             "tolerance": f"{QUANT_F32_TOL} x max|plain|"} if f32 else {}),
         "ms": time_ms(cycling([lambda c=c: kernel(x, *c) for c in copies])),
         "plain_ms": time_ms(cycling([lambda c=c: plain(x, *c)
@@ -871,7 +886,8 @@ def quant_case(bits, M, K, N, group=256, seed=0, f32=False):
         "flops": flops, "bytes": nbytes,
     }
     print(f"[K{4 if bits == 8 else 5}] {name}: err {err:.3e}"
-          + (f" (TF32 control {control:.3e})" if f32 else "") + "  kernel "
+          + (f" ({rel:.2e} of max|plain|; TF32 control {control:.3e})"
+             if f32 else "") + "  kernel "
           f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  F.linear on "
           f"the dequantized weight {row['library_ms']:.4f} ms  bound "
           f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
@@ -7031,10 +7047,11 @@ def variant_fields(vrows, vmixes, uq_rows, uq_mix, variants):
 # |err| <= K1_F32_TOL·max|plain|; one-pass TF32 (2^-11 relative on each
 # operand; at least 3.4e-4·max|plain| there) must land outside it
 K1_F32_TOL = 1e-4
-# K4 f32 / K5 f32 (fp32 FMA, summed in another order) against their fp32
-# plain versions: |err| <= QUANT_F32_TOL·max|plain| (at most 4.9e-6 there,
-# K4's prefill over K = 14336 in one chain); the plain product in TF32
-# (at least 1.9e-4 there) must land outside it
+# K4 f32 / K5 f32 (x in three bf16 parts over the exact integer weights,
+# summed in the tensor cores' fp32, each stage or chunk added in IEEE fp32)
+# against their fp32 plain versions: |err| <= QUANT_F32_TOL·max|plain|;
+# the plain product in TF32 (at least 1.9e-4·max|plain| at the paths'
+# shapes on an NVIDIA H100 80GB HBM3, 700 W) must land outside it
 QUANT_F32_TOL = 2e-5
 # the --no-cast-bf16 worker's POSTs: two 896×896 images, a 384×1152, a text
 F32_POSTS = ((0, 896, 896), (1, 896, 896), (2, 384, 1152), (3, 0, 0))
@@ -7071,6 +7088,114 @@ def f32_kernel_cases(lm_cfg, vis_cfg, projector, s_img, n_tiles):
     ]
     unet_rows, unet_mix = unet_kernel_cases(f32=True)
     return rows, unet_rows, unet_mix
+
+
+# 17b: K4 f32 / K5 f32 at gate_proj by both routes over these rows (the
+# decode route up to DECODE_MAX_M): where they cross is F32_DECODE_MAX_M
+F32_SWEEP_M = (8, 16, 17, 32, 64)
+
+
+def f32_presplit_cases(lm_cfg, s_img):
+    """17b: the pre-split of K4 f32 / K5 f32's prefill (``split_x3``: x
+    into its three bf16 parts) against ``split_bf16x3`` bit for bit on the
+    image prefill's x at K = hidden and intermediate, timed beside its plain
+    version and its byte bound (x read once, the parts written once); it
+    runs inside every prefill call, so the prefill rows' times hold it."""
+    import torch
+
+    from mllm_npu_tpu_torch.ops import quant as tq
+    g = torch.Generator(device="cuda")
+    g.manual_seed(17)
+    rows = []
+    for K in (lm_cfg.hidden_size, lm_cfg.intermediate_size):
+        x = torch.randn(s_img, K, device="cuda", generator=g)
+        x[0, :4] = torch.tensor([0.0, -0.0, 1e38, -1e-40])
+        same = torch.equal(tq.split_x3(x).view(torch.int16),
+                           tq.split_bf16x3(x).view(torch.int16))
+        check(same, f"split_x3 M{s_img} K{K}: the pre-split kernel differs "
+              "from split_bf16x3")
+        nbytes = 10 * s_img * K
+        row = {"shape": f"split_x3 M{s_img} K{K}", "M": s_img, "K": K,
+               "bit_identical": True,
+               "ms": time_ms(lambda: tq.split_x3(x)),
+               "plain_ms": time_ms(lambda: tq.split_bf16x3(x)),
+               "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
+               "bound_by": "bytes", "bytes": nbytes}
+        print(f"[K4/K5 f32] {row['shape']}: bit-identical to split_bf16x3; "
+              f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+              f"bound {row['bound_ms']:.4f} ms (bytes)", flush=True)
+        rows.append(row)
+    L = lm_cfg.num_hidden_layers
+    per_prefill = L * (6 * rows[0]["ms"] + rows[1]["ms"])
+    print(f"[K4/K5 f32] the pre-split over one image prefill ({7 * L} "
+          f"products): {per_prefill:.3f} ms", flush=True)
+    return {"shapes": rows, "per_prefill_ms": per_prefill}
+
+
+def f32_route_sweep(lm_cfg):
+    """17b: K4 f32 and K5 f32 at gate_proj (K hidden, N intermediate) for M
+    in F32_SWEEP_M by the decode route (M <= DECODE_MAX_M) and the prefill
+    route (the pre-split and the prefill kernel), forced through
+    F32_DECODE_MAX_M, each within QUANT_F32_TOL·max|plain|, the weights
+    cold; the largest M whose decode is no slower than its prefill. Not a
+    count of the main path (its counts are set to 0 where it starts)."""
+    import math
+
+    import torch
+
+    from mllm_npu_tpu_torch.ops import quant as tq
+    K, N = lm_cfg.hidden_size, lm_cfg.intermediate_size
+    saved = tq.F32_DECODE_MAX_M
+    out = {}
+    for bits in (8, 4):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(bits)
+        w = (torch.randn(N, K, device="cuda", generator=g) * 0.02).bfloat16()
+        if bits == 8:
+            qt, kernel = tq.quantize_int8(w), tq.int8_matmul
+            plain = tq.int8_matmul_reference
+        else:
+            qt = tq.quantize_int4(w, lm_cfg.quant_group_size)
+            kernel, plain = tq.int4_matmul, tq.int4_matmul_reference
+        del w
+        w_bytes = qt.values.numel() + 4 * qt.scale.numel()
+        copies = [qt] + [type(qt)(qt.values.clone(), qt.scale.clone())
+                         for _ in range(math.ceil(COLD_BYTES / w_bytes) - 1)]
+        rows = []
+        for M in F32_SWEEP_M:
+            x = torch.randn(M, K, device="cuda", generator=g)
+            ref = plain(x, *qt)
+            tol = QUANT_F32_TOL * ref.abs().max().item()
+            row = {"M": M}
+            for route, limit in (("decode", tq.DECODE_MAX_M),
+                                 ("prefill", 0)):
+                if route == "decode" and M > tq.DECODE_MAX_M:
+                    continue
+                tq.F32_DECODE_MAX_M = limit
+                try:
+                    err = (kernel(x, *qt) - ref).abs().max().item()
+                    check(err <= tol, f"K{4 if bits == 8 else 5} f32 M{M} "
+                          f"{route} route: max abs err {err} beyond {tol}")
+                    row[f"{route}_ms"] = time_ms(cycling(
+                        [lambda c=c: kernel(x, *c) for c in copies]))
+                finally:
+                    tq.F32_DECODE_MAX_M = saved
+            rows.append(row)
+        decode_wins = [r["M"] for r in rows if "decode_ms" in r
+                       and r["decode_ms"] <= r["prefill_ms"]]
+        out[bits] = {"shape": f"K{K} N{N}", "rows": rows,
+                     "decode_no_slower_up_to": max(decode_wins, default=0),
+                     "F32_DECODE_MAX_M": saved}
+        print(f"[K{4 if bits == 8 else 5} f32] routes at gate_proj (K{K} "
+              f"N{N}), ms decode / prefill: " + "  ".join(
+                  f"M{r['M']} {r.get('decode_ms', float('nan')):.4f} / "
+                  f"{r['prefill_ms']:.4f}" for r in rows)
+              + f"; decode no slower up to M "
+              f"{out[bits]['decode_no_slower_up_to']} (F32_DECODE_MAX_M "
+              f"{saved})", flush=True)
+        del copies
+        torch.cuda.empty_cache()
+    return out
 
 
 def f32_request(engine, q, b64, label, lm_cfg, quant="none"):
@@ -8032,6 +8157,97 @@ def function_case(name, B, S, Hq, Hkv, D, causal, segments, seed=0):
     return row, launches
 
 
+# 19d / 20e: head dims the kernels do not take (D % 8 != 0 or D < 8),
+# which multi_head_attention pads into them (ROADMAP queue 2, gap 3), at a
+# causal GQA shape with packed segments: B, S, Hq, Hkv
+ODD_HEAD_DIMS = (4, 36, 100)
+ODD_HEAD_SHAPE = (2, 300, 8, 2)
+
+
+def odd_head_dim_case(D, f32):
+    """19d (bf16) / 20e (fp32, ``f32``): ``multi_head_attention`` at head
+    dim D, every count set to 0 before each call and read after: the
+    no-grad forward one K1 (K1 f32) at the padded D, the trainable route K1
+    with its LSE, K2 and K3 once each; the output and the q/k/v gradients
+    against autograd through the plain forward at the true D on fp32
+    copies (bf16: the output within BF16_ATOL + BF16_RTOL·|plain|, the
+    gradients within BWD_RTOL·|plain| + BWD_ATOL_FRAC·max|plain|; fp32:
+    K1_F32_TOL·max|plain|). → (row, the path's launches)."""
+    import torch
+
+    import mllm_npu_tpu_torch.ops as port_ops
+    from mllm_npu_tpu_torch import bench_flash_bwd as bench
+    from mllm_npu_tpu_torch.ops.flash_attention import (
+        flash_attention_reference)
+    B, S, Hq, Hkv = ODD_HEAD_SHAPE
+    if f32:
+        q, k, v, do, seg = f32_inputs(B, S, S, Hq, Hkv, D, "packed", "bshd",
+                                      seed=D)
+        counters = f32_train_counters()
+        fwd, train = {"flash_fwd_f32": 1}, {
+            "flash_fwd_f32_lse": 1, "flash_bwd_dq_f32": 1,
+            "flash_bwd_dkv_f32": 1}
+    else:
+        q, k, v, do, seg = bench.inputs(B, S, S, Hq, Hkv, D, True, seed=D)
+        counters = kernel_counters()
+        fwd, train = {"flash_fwd": 1}, {
+            "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    kw = dict(causal=True, segment_ids=seg)
+    label = f"{'20e' if f32 else '19d'} D{D}"
+    zero_counts(counters)
+    with torch.no_grad():
+        served = port_ops.multi_head_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    launches = expect_counts(read_all(counters), f"{label} forward", **fwd)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    zero_counts(counters)
+    o = port_ops.multi_head_attention(*leaves, **kw)
+    o.backward(do)
+    torch.cuda.synchronize()
+    got = expect_counts(read_all(counters), f"{label} trainable", **train)
+    launches = {key: launches[key] + got[key] for key in launches}
+    plain = [x.clone().float().requires_grad_() for x in (q, k, v)]
+    ref = flash_attention_reference(*plain, **kw)
+    ref.backward(do.float())
+    errs = {}
+    for lab, g, r in (("served", served, ref), ("o", o.detach(), ref),
+                      *((f"d{n}", a.grad, b.grad)
+                        for n, a, b in zip("qkv", leaves, plain))):
+        g, r = g.float(), r.detach().float()
+        check(g.shape == r.shape and bool(torch.isfinite(g).all()),
+              f"{label} {lab}: shape {tuple(g.shape)} or non-finite")
+        diff = (g - r).abs()
+        if f32:
+            errs[lab] = f32_rel_err(g, r)
+            ok = errs[lab] <= K1_F32_TOL
+        else:
+            errs[lab] = diff.max().item()
+            tol = (BF16_ATOL + BF16_RTOL * r.abs() if lab in ("served", "o")
+                   else BWD_RTOL * r.abs() + BWD_ATOL_FRAC * r.abs().max())
+            ok = bool((diff <= tol).all())
+        check(ok, f"{label} {lab}: error {errs[lab]} beyond its tolerance")
+    print(f"[phase {label[:3]}] multi_head_attention at D = {D} "
+          f"({'fp32' if f32 else 'bf16'}, B{B} S{S} H{Hq}/{Hkv} causal, "
+          f"packed segments), padded to {port_ops.kernel_head_dim(D)}: "
+          f"launches {dict((k, n) for k, n in launches.items() if n)}; "
+          f"{'errors / max|plain|' if f32 else 'max abs errors'} against "
+          f"plain autograd {errs}", flush=True)
+    return {"D": D, "padded_to": port_ops.kernel_head_dim(D), "B": B, "S": S,
+            "Hq": Hq, "Hkv": Hkv, "max_abs_err": errs,
+            "launches": launches}, launches
+
+
+def odd_head_dim_cases(f32):
+    """19d / 20e over ODD_HEAD_DIMS. → (rows, the path's launches)."""
+    rows, total = [], None
+    for D in ODD_HEAD_DIMS:
+        row, got = odd_head_dim_case(D, f32)
+        rows.append(row)
+        total = got if total is None else {k: total[k] + got[k]
+                                           for k in total}
+    return rows, total
+
+
 def wide_head_phase():
     """Phase 19 (see the module's docstring). → summary, the path's
     launches among them."""
@@ -8072,13 +8288,18 @@ def wide_head_phase():
         cases.append(row)
         for k in launches:
             launches[k] += got[k]
+    # 19d: head dims off a multiple of 8 through multi_head_attention
+    odd, got = odd_head_dim_cases(f32=False)
+    for k in launches:
+        launches[k] += got[k]
     # the kernels' times at those shapes (K1 with its LSE, K2, K3, SDPA's
     # backward, the plain versions, the bounds; not counted)
     bwd = {name: bwd_case(name, B, S, S, Hq, Hkv, D, causal,
                           segments=segs)
            for name, B, S, Hq, Hkv, D, causal, segs in FUNCTION_CASES}
     out = {"twin": twin, "edges": edges, "k23_edges": k23_edges,
-           "function_cases": cases, "bwd": bwd, "launches": launches,
+           "function_cases": cases, "odd_head_dims": odd, "bwd": bwd,
+           "launches": launches,
            "seconds": time.perf_counter() - t0}
     print(f"[phase 19] done in {out['seconds']:.1f} s; the path's launches "
           f"{launches}", flush=True)
@@ -8109,16 +8330,20 @@ def wide_head_fields(wide):
           "max_abs_err": twin["max_abs_err"],
           "edge_sweep": wide["edges"],
           "lse_shapes": [b["lse"] for b in wide["bwd"].values()]}
-    out = {"flash_fwd": {"d256": k1, "max_abs_err": max(
+    odd = wide["odd_head_dims"]
+    out = {"flash_fwd": {"d256": k1, "odd_head_dims": odd,
+                         "max_abs_err": max(
         twin["max_abs_err"], wide["edges"]["max_abs_err"],
-        *(r["max_abs_err"]["o"] for r in wide["function_cases"]))}}
+        *(r["max_abs_err"]["o"] for r in wide["function_cases"]),
+        *(r["max_abs_err"][e] for r in odd for e in ("served", "o")))}}
     for name, grads in (("flash_bwd_dq", ("dq",)),
                         ("flash_bwd_dkv", ("dk", "dv"))):
-        out[name] = {"max_abs_err": max(
+        out[name] = {"odd_head_dims": odd, "max_abs_err": max(
             wide["k23_edges"]["max_abs_err"],
             *(b[name]["max_abs_err"] for b in wide["bwd"].values()),
             *(r["max_abs_err"][g] for r in wide["function_cases"]
-              for g in grads)), "d256": {
+              for g in grads),
+            *(r["max_abs_err"][g] for r in odd for g in grads)), "d256": {
             **bench_row[name],
             "basis": "one call at the reference's bench shape (B32 H8 S256 "
                      "D256, bf16, non-causal)",
@@ -8430,8 +8655,13 @@ def f32_wide_phase():
     resampler, got = f32_resampler_case()
     for key in launches:
         launches[key] += got[key]
+    # 20e: head dims off a multiple of 8 through multi_head_attention
+    odd, got = odd_head_dim_cases(f32=True)
+    for key in launches:
+        launches[key] += got[key]
     out = {"bench": bench, "edges": edges, "function_case": function,
-           "resampler": resampler, "launches": launches,
+           "resampler": resampler, "odd_head_dims": odd,
+           "launches": launches,
            "seconds": time.perf_counter() - t0}
     print(f"[phase 20] done in {out['seconds']:.1f} s; the path's launches "
           f"{launches}", flush=True)
@@ -8468,10 +8698,13 @@ def f32_wide_fields(f32wide):
                "edge_sweep": edges}
         if name == "flash_fwd_f32":
             row["with_lse"] = bench["flash_fwd_f32_lse"]
-        out[name] = {"d256": row, "max_abs_err": max(
+        odd = f32wide["odd_head_dims"]
+        odd_keys = ("served", "o") if name == "flash_fwd_f32" else grads
+        out[name] = {"d256": row, "odd_head_dims": odd, "max_abs_err": max(
             bench[name]["max_abs_err"],
             *(edges["max_abs_err"][e] for e in errs),
-            *(fn["max_abs_err"][g] for g in grads))}
+            *(fn["max_abs_err"][g] for g in grads),
+            *(r["max_abs_err"][g] for r in odd for g in odd_keys))}
     return out
 
 
@@ -8835,6 +9068,10 @@ def main():
     # and the image prefill
     f32_qrows = quant_rows(lm_cfg, s_img, bucket, WORKER["num_slots"],
                            regimes=("decode", "slots", "prefill"), f32=True)
+    # the prefill's pre-split against its plain twin, and both routes over
+    # F32_SWEEP_M at gate_proj
+    f32_split = f32_presplit_cases(lm_cfg, s_img)
+    f32_sweep = f32_route_sweep(lm_cfg)
     sub_stamp("17c")
     fp32 = fp32_serving_phase(requests)
     for k in f32_launches:
@@ -9101,9 +9338,13 @@ def main():
         slots = quant_row_mix(of("slots"), quant_mix(lm_cfg), H100_TF32_FLOPS)
         rows.append({
             "name": f"int{bits}_matmul_f32", "route": "cuda",
-            "design": "fp32 FMA: decode 16 weight rows a block streamed as "
-                      "words, X staged in shared memory; prefill 64x64 "
-                      "tiles, 4x4 outputs a thread",
+            "design": "fp32 x as three bf16 parts (h + m + l) on the bf16 "
+                      "tensor cores over the exact integer weights, "
+                      "quant_matmul.cu's bodies (quant_matmul.cuh): decode "
+                      "mma.sync, x split in registers; prefill a pre-split "
+                      "kernel into a [3, M, K] workspace, then TMA (one 3-D "
+                      "box a run) + three wgmmas per converted weight "
+                      "fragment, split-K",
             "source": "mllm_npu_tpu_torch/csrc/quant_matmul_f32.cu",
             "replaces": replaces,
             "launches": f32_launches[f"int{bits}_matmul_f32"],
@@ -9122,6 +9363,9 @@ def main():
                 "bound_share", "launch_mix")},
             "library": "F.linear on the weight dequantized to fp32",
             "shapes": f32_qrows[bits],
+            "pre_split": f32_split,
+            "route_sweep": f32_sweep[bits],
+            "decode_max_m": tq.F32_DECODE_MAX_M,
         })
     extra = seedx_train_fields(seedtrain, seedx_lm)
     vfields = variant_fields(variant_cases, variant_mixes, unet_qrows,

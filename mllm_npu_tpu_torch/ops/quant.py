@@ -19,9 +19,12 @@ does not divide falls back to one group of G = K.
 launch ``csrc/quant_matmul.cu`` for bf16 x on CUDA and count the launch
 (``launches``; ``prefill_launches`` those with M > 16, which run the
 prefill kernel on the plan :func:`prefill_plan` makes), and for fp32 x
-K4 f32 / K5 f32 (``csrc/quant_matmul_f32.cu``: fp32 FMA, fp32 out,
-counted in ``f32_launches``), the reference's product in x's dtype; for
-CPU tensors they compute the same function with their plain versions.
+K4 f32 / K5 f32 (``csrc/quant_matmul_f32.cu``: x split into three bf16
+parts, :func:`split_bf16x3`, on the tensor cores over the exact integer
+weights; the prefill kernel's body shared through
+``csrc/quant_matmul.cuh``, a decode kernel of its own; fp32 out; counted
+in ``f32_launches``), the reference's product in x's dtype; for CPU
+tensors they compute the same function with their plain versions.
 There is no shape fallback for CUDA tensors (the reference's ``aligned``
 tests were TPU tiling limits): what the kernel does not take raises.
 
@@ -55,10 +58,16 @@ INT4_GROUP_MULTIPLE = 128   # the kernel's unit along K for int4 groups
 # weight rows (two consumer warpgroups of 64) and one tile of ``bx`` rows
 # of X, and walks K in ring stages of 64 weight bytes a row (64 k for
 # int8, 128 for int4). The kernel instantiates the tile widths in
-# PREFILL_BX.
+# PREFILL_BX, per x dtype: fp32 x brings three bf16 parts a stage, so only
+# the widths whose ring keeps 4 stages in the card's 227 KB.
 DECODE_MAX_M = 16
+# K4 f32 / K5 f32 run the decode kernel up to this M (at most
+# DECODE_MAX_M) and the prefill kernel above it: the crossing of the two
+# routes at gate_proj (K 4096, N 14336) in chip_smoke.py phase 17b's sweep
+F32_DECODE_MAX_M = 16
 PREFILL_BN = 128
-PREFILL_BX = {8: (64, 128, 176, 256), 4: (64, 128)}
+PREFILL_BX = {torch.bfloat16: {8: (64, 128, 176, 256), 4: (64, 128)},
+              torch.float32: {8: (64, 128), 4: (64,)}}
 PREFILL_MAX_SPLITS = 8
 PREFILL_MIN_SPLIT_STAGES = 4    # a split walks at least this many stages
 # The plan's cost model. One ring stage of a unit takes a fixed time (the
@@ -66,12 +75,21 @@ PREFILL_MIN_SPLIT_STAGES = 4    # a split walks at least this many stages
 # its products) plus a time per X row of the tile (the products and the
 # X bytes streamed from L2): seconds, fitted to the prefill kernel's
 # stage times on an H100 80GB HBM3 at 700 W (bench_quant_prefill.py
-# --sweep times the plans around the chosen one). The split sums pay the
+# --sweep times the plans around the chosen one; ``--f32`` the fp32
+# kernel's, whose stage carries three X parts). The split sums pay the
 # workspace's bytes at the memory rate and a second launch.
-_STAGE_S = {8: (0.35e-6, 0.0019e-6), 4: (0.50e-6, 0.0035e-6)}
+_STAGE_S = {torch.bfloat16: {8: (0.35e-6, 0.0019e-6),
+                             4: (0.50e-6, 0.0035e-6)},
+            torch.float32: {8: (0.36e-6, 0.0054e-6),
+                            4: (1.25e-6, 0.0)}}   # one width: all fixed
 _BYTES_PER_S = 3.35e12
 _FILL_STAGES = 2
 _REDUCE_LAUNCH_S = 2e-6
+# the card's shared memory for one block (227 KB), and the prefill ring's
+# budget of it per x dtype (PCfg's SMEM_BUDGET in csrc/quant_matmul.cuh)
+SMEM_MAX = 232448
+_RING_BUDGET = {torch.bfloat16: 200 * 1024,
+                torch.float32: SMEM_MAX - 1024 - 16 * 8}
 
 
 class QuantizedTensor(NamedTuple):
@@ -174,6 +192,22 @@ def int4_matmul_reference(x: torch.Tensor, values: torch.Tensor,
     return y.reshape(*lead, -1).to(x.dtype)
 
 
+def split_bf16x3(x: torch.Tensor) -> torch.Tensor:
+    """fp32 x → its three bf16 parts [3, *x.shape]: h = bf16(x), m =
+    bf16(x − h), l = bf16(x − h − m), each rounded to nearest even, the
+    differences exact in fp32. For a finite x below bf16's largest
+    (3.39e38) h + m + l == x exactly, down to bf16's subnormal spacing
+    (2^-133): a subnormal x loses what lies below it. The plain twin of
+    ``csrc/quant_matmul_f32.cu``'s pre-split kernel (:func:`split_x3`),
+    bit for bit; the fp32 kernels multiply each part with the integer
+    weights, which bf16 holds exactly."""
+    x = x.float()
+    h = x.to(torch.bfloat16)
+    r = x - h.float()
+    m = r.to(torch.bfloat16)
+    return torch.stack([h, m, (r - m.float()).to(torch.bfloat16)])
+
+
 # -- the prefill plan --------------------------------------------------------
 
 class PrefillPlan(NamedTuple):
@@ -192,6 +226,7 @@ class PrefillPlan(NamedTuple):
     stages: int
     splits: int
     split_stages: int
+    dtype: torch.dtype = torch.bfloat16   # x's: fp32 for K4 f32 / K5 f32
 
     @property
     def units(self) -> int:
@@ -208,15 +243,34 @@ class PrefillPlan(NamedTuple):
                 min(self.stages, c0 + self.split_stages))
 
 
+def prefill_ring(bits: int, bx: int, dtype=torch.bfloat16):
+    """(stages, shared-memory bytes) of the prefill kernel's instantiation
+    for ``bits``, tile width ``bx`` and x's dtype, as ``PCfg`` computes
+    them: a stage holds the weight box (128 rows × 64 bytes) and one X run
+    (int8) or two (int4) of [bx rows × 64 bf16] boxes, one a part (fp32 x:
+    three); up to 8 stages fill the ring's budget, then the barriers and
+    the 1024-byte alignment."""
+    parts = 3 if dtype == torch.float32 else 1
+    stage = (1 if bits == 8 else 2) * parts * bx * 128 + PREFILL_BN * 64
+    stages = min(8, _RING_BUDGET[dtype] // stage)
+    return stages, stages * stage + 16 * stages + 1024
+
+
 def prefill_plan(bits: int, M: int, N: int, K: int, G: int = 0,
-                 num_sms: int = 132) -> PrefillPlan:
-    """The tile width, x tiles and split of K for a prefill call, chosen by
-    a cost model: the units the busiest of ``num_sms`` persistent blocks
-    walks × (stages a unit walks + the ring's fill) × one stage's time,
-    plus, with splits, the workspace traffic of the split sums and their
-    launch. Splits fall on int4 group boundaries and walk at least
-    PREFILL_MIN_SPLIT_STAGES stages."""
-    if M <= DECODE_MAX_M:
+                 num_sms: int = 132,
+                 dtype: torch.dtype = torch.bfloat16) -> PrefillPlan:
+    """The tile width, x tiles and split of K for a prefill call on x of
+    ``dtype`` (bf16, or fp32 for K4 f32 / K5 f32), chosen by a cost model:
+    the units the busiest of ``num_sms`` persistent blocks walks × (stages
+    a unit walks + the ring's fill) × one stage's time, plus, with splits,
+    the workspace traffic of the split sums and their launch. Splits fall
+    on int4 group boundaries and walk at least PREFILL_MIN_SPLIT_STAGES
+    stages. bf16 x has no plan at M <= DECODE_MAX_M (its C entry runs the
+    decode kernel there); fp32 x has one at any M, the route being
+    F32_DECODE_MAX_M's."""
+    if dtype not in PREFILL_BX:
+        raise TypeError(f"no prefill kernel for {dtype} x")
+    if M < 1 or (dtype == torch.bfloat16 and M <= DECODE_MAX_M):
         raise ValueError(f"M={M} is the decode regime (M <= {DECODE_MAX_M})")
     if bits == 8:
         stages, step = -(-K // 64), 1
@@ -226,9 +280,9 @@ def prefill_plan(bits: int, M: int, N: int, K: int, G: int = 0,
                              f"== 0, got K={K}, G={G}")
         stages, step = K // 128, G // 128
     n_tiles = -(-N // PREFILL_BN)
-    fixed, per_row = _STAGE_S[bits]
+    fixed, per_row = _STAGE_S[dtype][bits]
     best = None
-    for bx in PREFILL_BX[bits]:
+    for bx in PREFILL_BX[dtype][bits]:
         x_tiles = -(-M // bx)
         stage_s = fixed + per_row * bx
         for s in range(1, PREFILL_MAX_SPLITS + 1):
@@ -243,7 +297,7 @@ def prefill_plan(bits: int, M: int, N: int, K: int, G: int = 0,
                 t += (8 * s + 2) * M * N / _BYTES_PER_S + _REDUCE_LAUNCH_S
             if best is None or t < best[0]:
                 best = (t, PrefillPlan(bits, bx, x_tiles, n_tiles, stages,
-                                       s, per))
+                                       s, per, dtype))
     return best[1]
 
 
@@ -301,30 +355,82 @@ def _library(bits: int):
 
 def _library_f32(bits: int):
     """K4 f32 / K5 f32's C entry point (``csrc/quant_matmul_f32.cu``), built,
-    loaded and typed on first use."""
+    loaded and typed on first use; ``bits`` 0: the pre-split alone."""
     key = ("f32", bits)
     if key not in _kernel_fns:
         from mllm_npu_tpu_torch.utils.cuda_build import load
-        fn = getattr(load(F32_KERNEL), f"int{bits}_matmul_f32")
-        # x, w, scale, y; M, N, K (and G); ldx; the stream
-        fn.argtypes = ([ctypes.c_void_p] * 4
-                       + [ctypes.c_int] * (3 if bits == 8 else 4)
-                       + [ctypes.c_longlong, ctypes.c_void_p])
+        lib = load(F32_KERNEL)
+        if bits == 0:
+            fn = lib.split_bf16x3_f32
+            # x, xs; M, K; ldx; the stream
+            fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                           + [ctypes.c_longlong, ctypes.c_void_p])
+        else:
+            fn = getattr(lib, f"int{bits}_matmul_f32")
+            # x, w, scale, y, xs, ws; M, N, K (and G); ldx; the route and
+            # the plan; the stream
+            fn.argtypes = ([ctypes.c_void_p] * 6
+                           + [ctypes.c_int] * (3 if bits == 8 else 4)
+                           + [ctypes.c_longlong] + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _kernel_fns[key] = fn
     return _kernel_fns[key]
 
 
+def f32_prefill_route(M: int) -> bool:
+    """Whether K4 f32 / K5 f32 take the prefill kernel at M rows."""
+    return M > min(F32_DECODE_MAX_M, DECODE_MAX_M)
+
+
 def _launch_f32(bits, x2, values, scale, y, M, N, K, G):
-    """One call of K4 f32 / K5 f32 (decode kernel for M <= DECODE_MAX_M,
-    else the tiled prefill kernel); raises on a refused launch."""
+    """One call of K4 f32 / K5 f32: the pre-split of x into a bf16
+    workspace [3, M, K], then the decode kernel or (above F32_DECODE_MAX_M)
+    the prefill kernel on its plan, the workspaces allocated here. Raises on
+    a refused launch."""
+    plan_args, ws = [0, 0, 0, 0], None
+    prefill = f32_prefill_route(M)
+    if prefill:
+        plan = prefill_plan(bits, M, N, K, G, _sms(x2.device),
+                            dtype=torch.float32)
+        plan_args = [plan.bx, plan.x_tiles, plan.splits, plan.split_stages]
+        if plan.splits > 1:
+            ws = torch.empty(plan.splits * M * N, dtype=torch.float32,
+                             device=x2.device)
+    xs = torch.empty(3 * M * K, dtype=torch.bfloat16, device=x2.device)
     shape = [M, N, K] + ([G] if bits == 4 else [])
     err = _library_f32(bits)(
         x2.data_ptr(), values.data_ptr(), scale.data_ptr(), y.data_ptr(),
-        *shape, x2.stride(0), torch.cuda.current_stream(x2.device).cuda_stream)
+        xs.data_ptr(), None if ws is None else ws.data_ptr(), *shape,
+        x2.stride(0),
+        int(prefill), *plan_args,
+        torch.cuda.current_stream(x2.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int{bits}_matmul_f32 launch failed: CUDA error "
                            f"{err}")
+
+
+def split_x3(x: torch.Tensor) -> torch.Tensor:
+    """The pre-split of K4 f32 / K5 f32 alone: fp32 x [..., K]
+    → [3, M, K] bf16 (h, m, l), the kernel on a CUDA tensor (K % 8 == 0,
+    rows 16-byte aligned), :func:`split_bf16x3` on a CPU one. Not counted:
+    it runs inside every call of the two kernels."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.device.type == "cpu":
+        return split_bf16x3(x2)
+    if x.dtype != torch.float32:
+        raise TypeError(f"split_x3 takes fp32 x, got {x.dtype}")
+    x2 = _rows(x2)
+    M, K = x2.shape
+    xs = torch.empty((3, M, K), dtype=torch.bfloat16, device=x.device)
+    if M and K:
+        err = _library_f32(0)(x2.data_ptr(), xs.data_ptr(), M, K,
+                              x2.stride(0),
+                              torch.cuda.current_stream(x.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"split_bf16x3_f32 launch failed: CUDA error "
+                               f"{err}")
+    return xs
 
 
 def _launch(fn, bits, x2, values, scale, y, M, N, K, G):

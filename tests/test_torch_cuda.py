@@ -1052,11 +1052,12 @@ QUANT_F32_CASES = [
                  (4096, 128587))
     for M in (1, 8, 339)
 ] + [(8, 77, 256, 130, None), (4, 17, 256, 130, 128), (4, 3, 640, 320, 128)]
-# K4 f32 / K5 f32 against the fp32 plain products: fp32 FMA summed in
-# another order, so |err| ≤ 2e-5·max|plain| (at most 4.9e-6 on an H100
-# 80GB HBM3, 700 W: K4's prefill over K = 14336 in one chain); the plain
-# product in one-pass TF32 (cuBLAS with allow_tf32) lands outside it
-# (at least 1.9e-4·max|plain| there)
+# K4 f32 / K5 f32 against the fp32 plain products: x in three bf16 parts
+# times the exact integer weights, summed in the tensor cores' fp32 (not
+# IEEE-rounded) over a 16-k chunk or a ring stage, then in IEEE fp32, so
+# |err| ≤ 2e-5·max|plain|; the plain product in one-pass TF32 (cuBLAS
+# with allow_tf32) lands outside it (at least 1.9e-4·max|plain| on an
+# H100 80GB HBM3, 700 W)
 QUANT_F32_TOL = 2e-5
 
 
@@ -1104,6 +1105,124 @@ def test_biased_quant_linear_f32_matches_plain(cuda, bits):
         out = m.to(cuda)(x.to(cuda)).cpu()
     assert kernel.f32_launches == before + 1 and out.dtype == torch.float32
     assert (out - ref).abs().max() <= QUANT_F32_TOL * ref.abs().max()
+
+
+@pytest.mark.parametrize("M,K", [(339, 4096), (8, 14336), (3, 640),
+                                 (17, 256)])
+def test_quant_f32_split_kernel_is_the_plain_split(cuda, M, K):
+    """The pre-split kernel of K4 f32 / K5 f32's prefill against
+    ``split_bf16x3`` bit for bit, on seeded x over many magnitudes (zeros,
+    subnormals, up to 1e38) and on rows with a stride."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(M + K)
+    x = (torch.randn(M, K + 8, device=cuda, generator=g)
+         * torch.exp2(torch.randint(-140, 126, (M, K + 8), device=cuda,
+                                    generator=g).float()))
+    x[0, :4] = torch.tensor([0.0, -0.0, 1e38, -1e-40])
+    x = x[:, 4:K + 4]                       # rows K + 8 apart
+    got = tq.split_x3(x)
+    assert got.shape == (3, M, K) and got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16),
+                       tq.split_bf16x3(x).view(torch.int16))
+
+
+# both routes of K4 f32 / K5 f32 at the rows where either may run, the
+# 8B's gate_proj and down_proj
+@pytest.mark.parametrize("bits,M,K,N", [
+    (bits, M, K, N) for bits in (8, 4) for M in (1, 8, 16)
+    for K, N in ((4096, 14336), (14336, 4096))])
+def test_quant_f32_routes_match_plain(cuda, monkeypatch, bits, M, K, N):
+    G = 256 if bits == 4 else None
+    qt, kernel, plain = _quantized(bits, N, K, G, cuda)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(5)
+    x = torch.randn(M, K, device=cuda, generator=g)
+    ref = plain(x, *qt)
+    outs = []
+    for limit in (tq.DECODE_MAX_M, 0):      # the decode route, the prefill
+        monkeypatch.setattr(tq, "F32_DECODE_MAX_M", limit)
+        assert tq.f32_prefill_route(M) == (limit == 0)
+        outs.append(kernel(x, *qt))
+    torch.cuda.synchronize()
+    for out in outs:
+        assert (out - ref).abs().max() <= QUANT_F32_TOL * ref.abs().max()
+
+
+@pytest.mark.parametrize("bits,M,K,N", [
+    (8, 1, 4096, 14336), (8, 339, 4096, 1024), (8, 339, 14336, 4096),
+    (4, 1, 14336, 4096), (4, 8, 4096, 14336), (4, 339, 4096, 1024),
+    (4, 339, 14336, 4096)])
+def test_quant_f32_repeats_bit_identical(cuda, bits, M, K, N):
+    """Repeated launches give the same bits (the parts and the split-K
+    sums in a fixed order), the prefill shapes with splits of K among them;
+    between launches the memory the parts' workspace is cut from is filled
+    with NaN, so a decode that read the parts before the pre-split wrote
+    them would show it."""
+    G = 256 if bits == 4 else None
+    qt, kernel, plain = _quantized(bits, N, K, G, cuda)
+    x = torch.randn(M, K, device=cuda)
+    before = kernel.f32_launches
+    outs = []
+    for _ in range(4):
+        torch.full((3 * M * K,), float("nan"), dtype=torch.bfloat16,
+                   device=cuda)
+        outs.append(kernel(x, *qt))
+    torch.cuda.synchronize()
+    assert kernel.f32_launches == before + 4
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    ref = plain(x, *qt)
+    assert (outs[0] - ref).abs().max() <= QUANT_F32_TOL * ref.abs().max()
+
+
+# -- head dims the flash kernels do not take: multi_head_attention pads --
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("D", [4, 36, 100])
+def test_head_dim_padded_attention_matches_plain(cuda, D, dtype):
+    """``multi_head_attention`` at a head dim off a multiple of 8: the
+    forward (one K1 / K1 f32 launch at the padded D) and the trainable
+    route (K1 with its LSE, K2, K3 once each), output and q/k/v gradients
+    against autograd through the plain forward at the true D, within K1's
+    and K2/K3's bf16 tolerances or K1_F32_TOL·max|plain|."""
+    f32 = dtype == torch.float32
+    if f32:
+        q, k, v, do, seg = _f32_bwd_inputs(cuda, 2, 300, 300, 8, 2, D,
+                                           "packed", "bshd")
+    else:
+        q, k, v, do, seg = _bwd_inputs(cuda, 2, 300, 300, 8, 2, D, "packed")
+    fwd = "f32_launches" if f32 else "launches"
+    fwd_lse = "f32_lse_launches" if f32 else "launches"
+    bwd = "f32_launches" if f32 else "launches"
+    kw = dict(causal=True, segment_ids=seg)
+    n = getattr(flash_attention, fwd)
+    with torch.no_grad():
+        served = port_ops.multi_head_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert getattr(flash_attention, fwd) == n + 1
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    n = (getattr(flash_attention, fwd_lse), getattr(flash_bwd_dq, bwd),
+         getattr(flash_bwd_dkv, bwd))
+    o = port_ops.multi_head_attention(*leaves, **kw)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert (getattr(flash_attention, fwd_lse), getattr(flash_bwd_dq, bwd),
+            getattr(flash_bwd_dkv, bwd)) == (n[0] + 1, n[1] + 1, n[2] + 1)
+    plain = [x.clone().float().requires_grad_() for x in (q, k, v)]
+    ref = flash_attention_reference(*plain, **kw)
+    ref.backward(do.float())
+    assert served.shape == o.shape == q.shape
+    assert all(a.grad.shape == a.shape for a in leaves)
+    if f32:
+        for got in (served, o.detach()):
+            assert _f32_err(got, ref.detach()) <= K1_F32_TOL
+        for a, b in zip(leaves, plain):
+            assert _f32_err(a.grad, b.grad) <= K1_F32_TOL
+    else:
+        _close(served, ref.detach(), 1e-2, 1e-2)
+        _close(o.detach(), ref.detach(), 1e-2, 1e-2)
+        for a, b in zip(leaves, plain):
+            _close(a.grad, b.grad, 2e-2, 1e-2)
 
 
 # -- the batched engine's decode block as a CUDA graph ---------------------
@@ -1251,6 +1370,34 @@ def test_quant_kernels_under_graph_capture(cuda, bits, M, N):
         ref = plain(x, *qt).float()
         assert ((y.float() - ref).abs()
                 <= 1e-2 * ref.abs() + 1e-3 * ref.abs().max()).all()
+
+
+@pytest.mark.parametrize("bits,M,N", [(8, 1, 14336), (4, 8, 14336),
+                                      (8, 40, 6144), (4, 40, 1024)])
+def test_quant_f32_under_graph_capture(cuda, bits, M, N):
+    """K4 f32 / K5 f32 captured in a CUDA graph (the fp32 engines' decode
+    step and verify tick): the pre-split, then the decode kernel launched
+    to overlap it (M <= 16) or the prefill kernel, the workspaces from the
+    graph's pool; replays on new inputs give the eager launch's bits."""
+    qt, kernel, plain = _quantized(bits, N, 4096, 256, cuda)
+    x = torch.zeros(M, 4096, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernel(x, *qt)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = kernel(x, *qt)
+    for seed in (4, 5):
+        g = torch.Generator(device=cuda)
+        g.manual_seed(seed)
+        x.copy_(torch.randn(M, 4096, device=cuda, generator=g))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, kernel(x, *qt))
+        ref = plain(x, *qt)
+        assert (y - ref).abs().max() <= QUANT_F32_TOL * ref.abs().max()
 
 
 def test_fp8_cast_and_scatter_match_the_cpu(cuda):

@@ -49,7 +49,7 @@ def _check_cover(plan, M, N, K, G):
     splits walk the stages of K once, in runs that start on int4 group
     boundaries."""
     assert plan.stages == _stages(plan.bits, K)
-    assert plan.bx in tq.PREFILL_BX[plan.bits]
+    assert plan.bx in tq.PREFILL_BX[plan.dtype][plan.bits]
     rows = sorted((x * plan.bx, min(M, (x + 1) * plan.bx))
                   for x in range(plan.x_tiles))
     cols = sorted((n * tq.PREFILL_BN, min(N, (n + 1) * tq.PREFILL_BN))
