@@ -8049,13 +8049,15 @@ def fp32_training_rows(fp32_train, f32_launches):
                   else "flash_bwd_dkv_f32.cu")
         rows.append({
             "name": name, "route": "cuda",
-            "design": "mma.sync m16n8k8 TF32, split in three, P and dS "
-                      "fp32 through a per-warp shared patch; K2: 64 query "
-                      "rows a block, 32-key cp.async double buffer; K3: 64 "
-                      "keys a block, 32-row (query tile, head) double "
-                      "buffer, dK and dV split between two warp sets above "
-                      "a padded 128; at a padded 256 16-row streamed "
-                      "tiles",
+            "design": "split TF32 (small-big, big-small, big-big a "
+                      "k-step); up to a padded 128 wgmma m64nNk8 .tf32 on "
+                      "one or two consumer warpgroups, each streamed tile "
+                      "split once by a split pass into K-major and "
+                      "permuted-transposed shared tiles, the resident pair "
+                      "split at the block's start, dS / Pt / dSt straight "
+                      "from the accumulators into register A fragments; "
+                      "above, mma.sync m16n8k8 TF32 with per-warp patches "
+                      "(K3 eight warps, 16-row tiles at a padded 256)",
             "source": f"mllm_npu_tpu_torch/csrc/{source}",
             "replaces": replaces,
             "launches": f32_launches[name],

@@ -15,18 +15,204 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// K3 f32: dK and dV
+// K3 f32 on wgmma (padded head dims up to 128)
 // ---------------------------------------------------------------------------
 
-// SPLIT: eight warps, 0-3 dV and 4-7 dK over the same 16-key rows
-template <int DP, bool SPLIT>
-__global__ void __launch_bounds__(SPLIT ? 256 : 128)
-    flash_bwd_dkv_f32_kernel(const Params p) {
-  constexpr int NTH = SPLIT ? 256 : 128;
+template <int DP>
+__global__ void __launch_bounds__(128 * K3W<DP>::G, 1)
+    flash_bwd_dkv_f32_wg(const Params p) {
+  constexpr int G = K3W<DP>::G, T = K3W<DP>::T;
+  constexpr int NTH = 128 * G, ROWS = 64 * G, RST = DP + 4, NK = T / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* Kb = smem;                     // K and V resident, split
+  float* Ks = Kb + ROWS * DP;
+  float* Vb = Ks + ROWS * DP;
+  float* Vs = Vb + ROWS * DP;
+  float* Qb = Vs + ROWS * DP;           // the tile's Q and dO (K-major) and
+  float* Qs = Qb + T * DP;              // their permuted transposes, split
+  float* Ob = Qs + T * DP;
+  float* Os = Ob + T * DP;
+  float* Qtb = Os + T * DP;
+  float* Qts = Qtb + T * DP;
+  float* Otb = Qts + T * DP;
+  float* Ots = Otb + T * DP;
+  float* Qr = Ots + T * DP;             // the raw Q and dO tile
+  float* Or = Qr + T * RST;
+  float* Ls = Or + T * RST;             // two stages of T LSEs (natural log)
+  float* Dl = Ls + 2 * T;               // two stages of δ
+  int* qid = reinterpret_cast<int*>(Dl + 2 * T);   // two stages
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int g = (tid & 31) >> 2, t4 = tid & 3;
+  const int k0 = blockIdx.x * ROWS, hk = blockIdx.y, b = blockIdx.z;
+  const int GH = p.Hq / p.Hkv;
+  const bool three = p.three != 0;
+
+  const int nq = (p.Sq + T - 1) / T;
+  // causal: a query tile whose last row is before k0 sees none of the keys
+  const int qt0 = p.causal ? min(k0 / T, nq) : 0;
+  const int per_head = nq - qt0;
+  const int n_it = per_head * GH;
+
+  auto load_q = [&](int it) {
+    const int h = hk * GH + it / per_head;
+    const int r0 = (qt0 + it % per_head) * T;
+    load_rows<T, DP, RST, NTH>(Qr, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, r0,
+                               p.Sq, p.D, tid);
+    load_rows<T, DP, RST, NTH>(Or, p.dout + b * p.do_sb + h * p.do_sh,
+                               p.do_ss, r0, p.Sq, p.D, tid);
+    if (tid < T) {
+      const int s = (it & 1) * T + tid, r = r0 + tid, rc = min(r, p.Sq - 1);
+      const bool ok = r < p.Sq;
+      const long long rb = (static_cast<long long>(b) * p.Hq + h) * p.Sq;
+      cp4(Ls + s, p.lse + rb + rc, ok);
+      cp4(Dl + s, p.delta + rb + rc, ok);
+      if (p.qseg != nullptr)
+        cp4(qid + s, p.qseg + static_cast<long long>(b) * p.Sq + rc, ok);
+    }
+  };
+
+  if (n_it > 0) load_q(0);
+  cp_commit();
+  split_resident<ROWS, DP, NTH>(Kb, Ks, p.k + b * p.k_sb + hk * p.k_sh,
+                                p.k_ss, k0, p.Sk, p.D, tid, three);
+  split_resident<ROWS, DP, NTH>(Vb, Vs, p.v + b * p.v_sb + hk * p.v_sh,
+                                p.v_ss, k0, p.Sk, p.D, tid, three);
+
+  const int key0 = k0 + 64 * wg + 16 * warp + g;
+  const int key[2] = {key0, key0 + 8};
+  int kid[2] = {0, 0};
+  if (p.kseg != nullptr)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (key[i] < p.Sk)
+        kid[i] = p.kseg[static_cast<long long>(b) * p.Sk + key[i]];
+  float dv[DP / 2], dk[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dv[i] = dk[i] = 0.f;
+  // this warpgroup's 64 keys of K and V, the tile's operands
+  const uint64_t kB = kdesc<DP>(Kb + 64 * wg * DP);
+  const uint64_t kS = kdesc<DP>(Ks + 64 * wg * DP);
+  const uint64_t vB = kdesc<DP>(Vb + 64 * wg * DP);
+  const uint64_t vS = kdesc<DP>(Vs + 64 * wg * DP);
+  const uint64_t qB = kdesc<DP>(Qb), qS = kdesc<DP>(Qs);
+  const uint64_t oB = kdesc<DP>(Ob), oS = kdesc<DP>(Os);
+  const uint64_t qtB = kdesc<T>(Qtb), qtS = kdesc<T>(Qts);
+  const uint64_t otB = kdesc<T>(Otb), otS = kdesc<T>(Ots);
+
+  for (int it = 0; it < n_it; ++it) {
+    const int r0 = (qt0 + it % per_head) * T, s = (it & 1) * T;
+    cp_wait_all();
+    __syncthreads();    // pair it landed; every product of pair it - 1 ended
+    split_rows<T, DP, NTH>(Qr, Qb, Qs, tid, three);
+    split_rows<T, DP, NTH>(Or, Ob, Os, tid, three);
+    split_cols<T, DP, NTH>(Qr, Qtb, Qts, tid, three);
+    split_cols<T, DP, NTH>(Or, Otb, Ots, tid, three);
+    fence_proxy_async();
+    __syncthreads();    // the split tile is visible to wgmma; raw is free
+    if (it + 1 < n_it) load_q(it + 1);
+    cp_commit();
+
+    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, 64 keys × T queries a warpgroup, in two
+    // groups: Pᵀ and dV's products run while dPᵀ's finish
+    float st[T / 2], dpt[T / 2];
+#pragma unroll
+    for (int i = 0; i < T / 2; ++i) st[i] = dpt[i] = 0.f;
+    wg_fence();
+    mma3_ss<T, DP / 8>(st, kB, kS, qB, qS);
+    wg_commit();
+    mma3_ss<T, DP / 8>(dpt, vB, vS, oB, oS);
+    wg_commit();
+    wg_wait<1>();
+    fence_regs(st);
+
+    // Pᵀ from each query column's LSE in st; the mask (P 0) only where the
+    // tile holds rows past Sq, keys past Sk, the causal diagonal or segment
+    // ids
+    if (r0 + T > p.Sq || k0 + ROWS > p.Sk || p.kseg != nullptr ||
+        (p.causal && k0 + ROWS - 1 > r0)) {
+#pragma unroll
+      for (int i = 0; i < T / 2; ++i) {
+        const int ki = (i >> 1) & 1, c = (i >> 2) * 8 + 2 * t4 + (i & 1);
+        const int col = r0 + c;
+        const bool vis =
+            col < p.Sq && key[ki] < p.Sk && (!p.causal || key[ki] <= col) &&
+            (p.kseg == nullptr || kid[ki] == qid[s + c]);
+        st[i] = vis ? exp2f(st[i] * p.scale_log2 - Ls[s + c] * LOG2E) : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < T / 2; ++i) {
+        const int c = (i >> 2) * 8 + 2 * t4 + (i & 1);
+        st[i] = exp2f(st[i] * p.scale_log2 - Ls[s + c] * LOG2E);
+      }
+    }
+    // dV += Pᵀ·dO, Pᵀ straight from the accumulator into A fragments
+    uint32_t pb[NK][4], ps[NK][4], db[NK][4], ds[NK][4];
+    a_frag<NK>(st, pb, ps, three);
+    wg_fence();
+    mma3_rs<DP, NK>(dv, pb, ps, otB, otS);
+    wg_commit();
+    // dSᵀ = Pᵀ ∘ (dPᵀ − δ) once dPᵀ's group has ended; dK += dSᵀ·Q
+    wg_wait<1>();
+    fence_regs(dpt);
+#pragma unroll
+    for (int i = 0; i < T / 2; ++i)
+      dpt[i] = st[i] * (dpt[i] - Dl[s + (i >> 2) * 8 + 2 * t4 + (i & 1)]);
+    a_frag<NK>(dpt, db, ds, three);
+    wg_fence();
+    mma3_rs<DP, NK>(dk, db, ds, qtB, qtS);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(pb);
+    fence_regs(ps);
+    fence_regs(db);
+    fence_regs(ds);
+  }
+  cp_wait_all();        // with no pair to visit, nothing is in flight
+
+  float* dkb = p.dk + b * p.dk_sb + hk * p.dk_sh;
+  float* dvb = p.dv + b * p.dv_sb + hk * p.dv_sh;
+#pragma unroll
+  for (int ki = 0; ki < 2; ++ki) {
+    if (key[ki] >= p.Sk) continue;
+    float* rk = dkb + key[ki] * p.dk_ss;
+    float* rv = dvb + key[ki] * p.dv_ss;
+#pragma unroll
+    for (int dn = 0; dn < DP / 8; ++dn) {
+      const int col = dn * 8 + 2 * t4;
+      if (col < p.D) {
+        rv[col] = dv[4 * dn + 2 * ki];
+        rv[col + 1] = dv[4 * dn + 2 * ki + 1];
+        rk[col] = dk[4 * dn + 2 * ki] * p.scale;
+        rk[col + 1] = dk[4 * dn + 2 * ki + 1] * p.scale;
+      }
+    }
+  }
+}
+
+template <int DP>
+int launch_dkv_wg(const Params& p, int smem, cudaStream_t st) {
+  if (smem != K3W<DP>::BYTES) return cudaErrorInvalidValue;  // plan differs
+  return launch(flash_bwd_dkv_f32_wg<DP>,
+                dim3((p.Sk + 64 * K3W<DP>::G - 1) / (64 * K3W<DP>::G), p.Hkv,
+                     p.B),
+                128 * K3W<DP>::G, K3W<DP>::BYTES, p, st);
+}
+
+// ---------------------------------------------------------------------------
+// K3 f32 on mma.sync (padded head dims above 128)
+// ---------------------------------------------------------------------------
+
+// eight warps, 0-3 dV and 4-7 dK over the same 16-key rows
+template <int DP>
+__global__ void __launch_bounds__(256) flash_bwd_dkv_f32_kernel(const Params p) {
+  constexpr int NTH = 256;
   constexpr int NC = DP / 8;
   constexpr int ST = DP + 4;
   constexpr int T = tile_rows<DP>(), NT = T / 8, PST = T + 4;
-  constexpr int NACC = SPLIT ? 1 : 2;   // [0] dV (or this warp's), [NACC-1] dK
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
   float* Vs = Ks + BM * ST;
@@ -42,8 +228,8 @@ __global__ void __launch_bounds__(SPLIT ? 256 : 128)
   const int k0 = blockIdx.x * BM, hk = blockIdx.y, b = blockIdx.z;
   const int G = p.Hq / p.Hkv;
   const bool three = p.three != 0;
-  const bool want_dv = !SPLIT || warp < 4;
-  const bool want_dk = !SPLIT || warp >= 4;
+  const bool want_dv = warp < 4;
+  const bool want_dk = warp >= 4;
   const int kw = warp & 3;              // the warp's 16 keys
 
   const int nq = (p.Sq + T - 1) / T;
@@ -88,12 +274,10 @@ __global__ void __launch_bounds__(SPLIT ? 256 : 128)
     for (int i = 0; i < 2; ++i)
       if (key[i] < p.Sk)
         kid[i] = p.kseg[static_cast<long long>(b) * p.Sk + key[i]];
-  float acc[NACC][NC][4];
+  float acc[NC][4];     // this warp's dV or dK
 #pragma unroll
-  for (int a = 0; a < NACC; ++a)
-#pragma unroll
-    for (int dn = 0; dn < NC; ++dn)
-      acc[a][dn][0] = acc[a][dn][1] = acc[a][dn][2] = acc[a][dn][3] = 0.f;
+  for (int dn = 0; dn < NC; ++dn)
+    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
   const float* Kw = Ks + kw * 16 * ST;
   const float* Vw = Vs + kw * 16 * ST;
   float* Pw = Ps + warp * 16 * PST;
@@ -136,13 +320,13 @@ __global__ void __launch_bounds__(SPLIT ? 256 : 128)
     if (want_dv) {      // dV += Pᵀ·dO
       to_patch<NT>(Pw, st, g, t4);
       __syncwarp();
-      patch_by_tile<T, NC, ST>(acc[0], Pw, Ot, g, t4, three);
+      patch_by_tile<T, NC, ST>(acc, Pw, Ot, g, t4, three);
       __syncwarp();
     }
     if (want_dk) {      // dK += dSᵀ·Q
       to_patch<NT>(Pw, dpt, g, t4);
       __syncwarp();
-      patch_by_tile<T, NC, ST>(acc[NACC - 1], Pw, Qt, g, t4, three);
+      patch_by_tile<T, NC, ST>(acc, Pw, Qt, g, t4, three);
       __syncwarp();
     }
   }
@@ -160,12 +344,12 @@ __global__ void __launch_bounds__(SPLIT ? 256 : 128)
       const int col = dn * 8 + 2 * t4;
       if (col < p.D) {
         if (want_dv) {
-          rv[col] = acc[0][dn][2 * ki];
-          rv[col + 1] = acc[0][dn][2 * ki + 1];
+          rv[col] = acc[dn][2 * ki];
+          rv[col + 1] = acc[dn][2 * ki + 1];
         }
         if (want_dk) {
-          rk[col] = acc[NACC - 1][dn][2 * ki] * p.scale;
-          rk[col + 1] = acc[NACC - 1][dn][2 * ki + 1] * p.scale;
+          rk[col] = acc[dn][2 * ki] * p.scale;
+          rk[col + 1] = acc[dn][2 * ki + 1] * p.scale;
         }
       }
     }
@@ -174,12 +358,10 @@ __global__ void __launch_bounds__(SPLIT ? 256 : 128)
 
 template <int DP>
 int launch_dkv(const Params& p, int smem, cudaStream_t st) {
-  constexpr bool SPLIT = DP > 128;
-  const int bytes = k3_smem_floats<DP, SPLIT ? 8 : 4>() * 4;
+  const int bytes = k3_smem_floats<DP>() * 4;
   if (smem != bytes) return cudaErrorInvalidValue;
-  return launch(flash_bwd_dkv_f32_kernel<DP, SPLIT>,
-                dim3((p.Sk + BM - 1) / BM, p.Hkv, p.B), SPLIT ? 256 : 128,
-                bytes, p, st);
+  return launch(flash_bwd_dkv_f32_kernel<DP>,
+                dim3((p.Sk + BM - 1) / BM, p.Hkv, p.B), 256, bytes, p, st);
 }
 
 }  // namespace
@@ -208,14 +390,14 @@ extern "C" int flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (padded_dp(D)) {
-    case 16: return launch_dkv<16>(p, smem, st);
-    case 32: return launch_dkv<32>(p, smem, st);
-    case 48: return launch_dkv<48>(p, smem, st);
-    case 64: return launch_dkv<64>(p, smem, st);
-    case 80: return launch_dkv<80>(p, smem, st);
-    case 96: return launch_dkv<96>(p, smem, st);
-    case 112: return launch_dkv<112>(p, smem, st);
-    case 128: return launch_dkv<128>(p, smem, st);
+    case 16: return launch_dkv_wg<16>(p, smem, st);
+    case 32: return launch_dkv_wg<32>(p, smem, st);
+    case 48: return launch_dkv_wg<48>(p, smem, st);
+    case 64: return launch_dkv_wg<64>(p, smem, st);
+    case 80: return launch_dkv_wg<80>(p, smem, st);
+    case 96: return launch_dkv_wg<96>(p, smem, st);
+    case 112: return launch_dkv_wg<112>(p, smem, st);
+    case 128: return launch_dkv_wg<128>(p, smem, st);
     case 144: return launch_dkv<144>(p, smem, st);
     case 160: return launch_dkv<160>(p, smem, st);
     case 192: return launch_dkv<192>(p, smem, st);

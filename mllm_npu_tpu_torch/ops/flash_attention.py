@@ -56,7 +56,8 @@ it). K2 f32 and K3 f32 (``csrc/flash_bwd_f32.cu`` and
 and K3 for fp32 operands (head dims up to 256, as K1 f32), every product
 in split TF32, P and dS in fp32, fp32 outputs: :func:`flash_bwd_dq` and
 :func:`flash_bwd_dkv` route fp32 operands to them and count them in
-``.f32_launches``; their plan (shared memory, the streamed tile's rows,
+``.f32_launches``; their plan (the route by padded head dim: wgmma up to
+128, mma.sync above; shared memory, a block's and a streamed tile's rows,
 warps) is :func:`k23_f32_plan`, their walks :func:`k2_f32_kv_tiles` and
 :func:`k3_f32_q_tiles`. So :class:`FlashAttention` trains on fp32
 operands through K1 f32, K2 f32 and K3 f32. Each fp32 kernel has a
@@ -653,49 +654,94 @@ def k3_needs_mask(key0: int, q0: int, Sq: int, causal: bool,
                 == int(q_ids.max()))
 
 
-# K2 f32 / K3 f32 (``csrc/flash_bwd_f32.cuh``): rows of a block (K2's query
-# rows, K3's keys), rows of a streamed tile (K2's keys, K3's query rows),
-# and above which padded head dim the streamed tile is K23_F32_WIDE_TILE
-# rows instead (at 256 two stages of 32-row tiles do not fit), the row
-# padding of every shared tile (floats), the least padded head dim above
-# which K3 f32 splits dK and dV between two sets of four warps
+# K2 f32 / K3 f32 (``csrc/flash_bwd_f32.cuh``). Their route by padded head
+# dim: wgmma up to K23_F32_WGMMA_MAX_DP, mma.sync above. The mma.sync
+# route's rows of a block (K2's query rows, K3's keys), rows of a streamed
+# tile (K2's keys, K3's query rows), and above which padded head dim the
+# streamed tile is K23_F32_WIDE_TILE rows instead (at 256 two stages of
+# 32-row tiles do not fit), the row padding of every shared tile (floats)
+# and K3's warps there (four for dV, four for dK). The wgmma route's rows a
+# consumer warpgroup, and its tiles: 32 rows, 16 where 32 do not fit.
 K23_F32_BLOCK = 64
 K23_F32_TILE = 32
 K23_F32_WIDE_TILE = 16
 K23_F32_WIDE_TILE_ABOVE = 192
 K23_F32_PAD = 4
-K3_F32_SPLIT_ABOVE = 128
+K3_F32_WARPS = 8
+K23_F32_WGMMA_MAX_DP = 128
+K23_F32_GROUP_ROWS = 64
 
 
 class K23F32Plan(NamedTuple):
     dp: int          # the head dim the kernels compute at
-    tile: int        # rows of a streamed tile (K2's keys, K3's queries)
+    route: str       # "wgmma" (padded head dim up to 128) or "mma_sync"
+    k2_rows: int     # query rows a K2 f32 block
+    k2_tile: int     # keys a streamed K/V tile
     k2_smem: int     # bytes of shared memory a K2 f32 block takes
-    k3_warps: int    # 4 (dK and dV in each warp) or 8 (split)
+    k3_rows: int     # keys a K3 f32 block
+    k3_tile: int     # query rows a streamed Q/dO tile
+    k3_warps: int    # warps a K3 f32 block
     k3_smem: int     # bytes a K3 f32 block takes
+
+
+def _k2_wgmma_floats(dp: int, groups: int, tile: int) -> int:
+    # Q and dO resident, split; K, V and the permuted Kᵀ of a tile, split;
+    # the raw K and V tile; two stages of key ids
+    return (4 * K23_F32_GROUP_ROWS * groups * dp + 6 * tile * dp
+            + 2 * tile * (dp + K23_F32_PAD) + 2 * tile)
+
+
+def _k3_wgmma_floats(dp: int, groups: int, tile: int) -> int:
+    # K and V resident, split; Q, dO, Qᵀ and dOᵀ of a tile, split; the raw
+    # Q and dO tile; two stages of LSEs, δs and query ids
+    return (4 * K23_F32_GROUP_ROWS * groups * dp + 8 * tile * dp
+            + 2 * tile * (dp + K23_F32_PAD) + 3 * 2 * tile)
+
+
+def _wgmma_choice(floats, dp: int):
+    """(groups, tile, bytes): two consumer warpgroups and 32-row tiles
+    where they fit, else one warpgroup, else 16-row tiles (``K2W`` /
+    ``K3W`` in ``csrc/flash_bwd_f32.cuh``)."""
+    groups = 2 if 4 * floats(dp, 2, K23_F32_TILE) <= K1_MAX_SMEM else 1
+    tile = (K23_F32_TILE if 4 * floats(dp, groups, K23_F32_TILE)
+            <= K1_MAX_SMEM else K23_F32_WIDE_TILE)
+    return groups, tile, 4 * floats(dp, groups, tile)
 
 
 def k23_f32_plan(D: int) -> K23F32Plan:
     """K2 f32's and K3 f32's plan for head dim D (a multiple of 8 up to
-    256, or raise), the mirror of ``tile_rows``, ``k2_smem_floats`` and
-    ``k3_smem_floats`` in ``csrc/flash_bwd_f32.cuh`` and of
-    ``launch_dkv``'s split in ``csrc/flash_bwd_dkv_f32.cu``: K2 keeps Q
-    and dO (64 rows each) and two stages of K and V (``tile`` rows each:
-    32, 16 at a padded 256), K3 K and V (64) and two stages of Q and dO
-    (``tile``), every row :func:`padded_head_dim` plus 4 floats; a
-    16 × (tile + 4) patch a warp; K2 two stages of ``tile`` key ids, K3 two
-    of ``tile`` LSEs, δs and query ids. The wrappers hand ``k2_smem`` /
-    ``k3_smem`` to the kernels, which refuse a plan that differs from
-    theirs."""
+    256, or raise), the mirror of ``csrc/flash_bwd_f32.cuh``.
+
+    Up to a padded head dim of 128 the wgmma route (``K2W``, ``K3W``):
+    blocks of one or two consumer warpgroups of 64 rows (two where their
+    shared memory fits), K2 keeping Q and dO and K3 K and V resident as
+    TF32 big and small parts, streaming tiles of ``k2_tile`` keys /
+    ``k3_tile`` query rows (32, or 16 where 32 do not fit) through one raw
+    cp.async stage that each tile's split pass turns into the layouts its
+    products read. Above, the mma.sync route (``tile_rows``,
+    ``k2_smem_floats``, ``k3_smem_floats``): K2 keeps Q and dO (64 rows
+    each) and two stages of K and V (32 rows, 16 at a padded 256), K3 K and
+    V and two stages of Q and dO, every row :func:`padded_head_dim` plus 4
+    floats; a 16 × (tile + 4) patch a warp; K2 two stages of key ids, K3
+    two of LSEs, δs and query ids; K3 eight warps. The wrappers hand
+    ``k2_smem`` / ``k3_smem`` to the kernels, which refuse a plan that
+    differs from theirs."""
     _check_head_dim(D, F32_MAX_HEAD_DIM, "flash_bwd (fp32)", F32_GAP)
     dp = padded_head_dim(D)
-    tile = (K23_F32_WIDE_TILE if dp > K23_F32_WIDE_TILE_ABOVE
-            else K23_F32_TILE)
-    rows = (2 * K23_F32_BLOCK + 4 * tile) * (dp + K23_F32_PAD)
-    patch = 16 * (tile + K23_F32_PAD)
-    warps = 8 if dp > K3_F32_SPLIT_ABOVE else 4
-    plan = K23F32Plan(dp, tile, 4 * (rows + 4 * patch + 2 * tile), warps,
-                      4 * (rows + warps * patch + 3 * 2 * tile))
+    if dp <= K23_F32_WGMMA_MAX_DP:
+        g2, t2, s2 = _wgmma_choice(_k2_wgmma_floats, dp)
+        g3, t3, s3 = _wgmma_choice(_k3_wgmma_floats, dp)
+        plan = K23F32Plan(dp, "wgmma", K23_F32_GROUP_ROWS * g2, t2, s2,
+                          K23_F32_GROUP_ROWS * g3, t3, 4 * g3, s3)
+    else:
+        tile = (K23_F32_WIDE_TILE if dp > K23_F32_WIDE_TILE_ABOVE
+                else K23_F32_TILE)
+        rows = (2 * K23_F32_BLOCK + 4 * tile) * (dp + K23_F32_PAD)
+        patch = 16 * (tile + K23_F32_PAD)
+        plan = K23F32Plan(
+            dp, "mma_sync", K23_F32_BLOCK, tile,
+            4 * (rows + 4 * patch + 2 * tile), K23_F32_BLOCK, tile,
+            K3_F32_WARPS, 4 * (rows + K3_F32_WARPS * patch + 3 * 2 * tile))
     if max(plan.k2_smem, plan.k3_smem) > K1_MAX_SMEM:
         raise ValueError(f"flash_bwd (fp32): head dim {D} needs "
                          f"{max(plan.k2_smem, plan.k3_smem)} bytes of shared "
@@ -703,26 +749,38 @@ def k23_f32_plan(D: int) -> K23F32Plan:
     return plan
 
 
+def k23_f32_tile_perm(tile: int) -> list:
+    """The rows of a streamed tile in the order the wgmma route's
+    transposed copies hold them (``split_cols`` in
+    ``csrc/flash_bwd_f32.cuh``): within each group of 8, slot s < 4 holds
+    row 2s and slot s >= 4 row 2(s − 4) + 1. With it an accumulator's
+    columns 2t and 2t + 1 of a chunk are the next product's A fragment at
+    k = t and t + 4."""
+    return [8 * (s // 8) + (2 * (s % 8) if s % 8 < 4 else 2 * (s % 8 - 4) + 1)
+            for s in range(tile)]
+
+
 def k2_f32_kv_tiles(q0: int, Sq: int, Sk: int, causal: bool,
-                    tile: int = K23_F32_TILE) -> list:
+                    tile: int = K23_F32_TILE,
+                    rows: int = K23_F32_BLOCK) -> list:
     """The ``tile``-key K/V tiles (indices, in order; the plan's
-    ``tile``) K2 f32 visits for the query rows [q0, q0 + 64): all of them,
-    or with ``causal`` up to the one that holds the diagonal of the last
-    row below Sq. The mirror of ``n_kv`` in ``csrc/flash_bwd_f32.cu``;
-    every tile is masked there."""
+    ``k2_tile``) K2 f32 visits for the query rows [q0, q0 + rows) (the
+    plan's ``k2_rows``): all of them, or with ``causal`` up to the one that
+    holds the diagonal of the last row below Sq. The mirror of ``n_kv`` in
+    ``csrc/flash_bwd_f32.cu``; every tile is masked there."""
     n = -(-Sk // tile)
     if causal:
-        n = min(n, (min(q0 + K23_F32_BLOCK, Sq) - 1) // tile + 1)
+        n = min(n, (min(q0 + rows, Sq) - 1) // tile + 1)
     return list(range(n))
 
 
 def k3_f32_q_tiles(k0: int, Sq: int, causal: bool,
                    tile: int = K23_F32_TILE) -> list:
     """The ``tile``-row query tiles (indices, in order; the plan's
-    ``tile``) K3 f32 visits for the keys [k0, k0 + 64), each once per query
-    head of the group: all of them, or with ``causal`` from the first whose
-    last row reaches k0 (none when no query row does). The mirror of
-    ``qt0`` in ``csrc/flash_bwd_dkv_f32.cu``."""
+    ``k3_tile``) K3 f32 visits for the keys of a block from k0 on, each
+    once per query head of the group: all of them, or with ``causal`` from
+    the first whose last row reaches k0 (none when no query row does). The
+    mirror of ``qt0`` in ``csrc/flash_bwd_dkv_f32.cu``."""
     nq = -(-Sq // tile)
     first = min(k0 // tile, nq) if causal else 0
     return list(range(first, nq))
@@ -877,8 +935,9 @@ def flash_bwd_dq_f32_one_pass(q, k, v, do, lse, delta, *,
                               causal: bool = False,
                               segment_ids: Optional[SegmentIds] = None,
                               scale: Optional[float] = None):
-    """K2 f32 with one TF32 pass per product: the control of the
-    tolerance K2 f32 is held to. CUDA fp32 tensors only; never on a
+    """K2 f32 with one TF32 pass per product (big·big; on the wgmma route
+    through the same sequence with the small parts zeroed): the control of
+    the tolerance K2 f32 is held to. CUDA fp32 tensors only; never on a
     training path; not counted."""
     return _dq(q, k, v, do, lse, delta, causal, segment_ids,
                q.shape[-1] ** -0.5 if scale is None else scale, passes=1)

@@ -440,6 +440,33 @@ def test_k2_k3_f32_match_plain(cuda, B, Sq, Sk, Hq, Hkv, D, causal, seg,
     assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
 
 
+# K2 f32 and K3 f32 on their wgmma route (padded head dims up to 128): the
+# IP UNet's D = 40 and 80, the SDXL UNet's 64 and 128, over 64, 77 and 1000
+# keys with Sq off a multiple of 64, causal with Sq != Sk, GQA 8/2, packed
+# segments with a padded tail, and q, k, v as strided views of a fused
+# tensor
+F32_WGMMA_CASES = [  # B, Sq, Sk, Hq, Hkv, D, causal, seg, layout
+    (B, Sq, Sk, Hq, Hkv, D, causal, seg, layout)
+    for D in (40, 64, 80, 128)
+    for B, Sq, Sk, Hq, Hkv, causal, seg, layout in (
+        (2, 200, 64, 8, 2, False, None, "bshd"),
+        (2, 130, 77, 8, 2, True, None, "bshd"),
+        (1, 1000, 1000, 8, 2, True, "packed", "bshd"),
+        (2, 1000, 1000, 4, 4, False, None, "fused"))]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,seg,layout",
+                         F32_WGMMA_CASES)
+def test_k2_k3_f32_wgmma_route_matches_plain(cuda, B, Sq, Sk, Hq, Hkv, D,
+                                             causal, seg, layout):
+    """The wgmma route within K1_F32_TOL·max|plain|, its one-pass control
+    outside, a repeat bit-identical, one ``f32_launches`` a call (the body
+    of :func:`test_k2_k3_f32_match_plain`)."""
+    assert fa.k23_f32_plan(D).route == "wgmma"
+    test_k2_k3_f32_match_plain(cuda, B, Sq, Sk, Hq, Hkv, D, causal, seg,
+                               layout, True)
+
+
 @pytest.mark.parametrize("Sq,Sk", [(0, 64), (64, 0)])
 def test_k2_k3_f32_empty_lengths(cuda, Sq, Sk):
     """Sk = 0: every row is fully masked, zero dQ; Sq = 0: no query sees a

@@ -103,13 +103,20 @@ def test_k1_f32_plan_fits_for_every_head_dim(D):
 
 @pytest.mark.parametrize("D", range(8, 257, 8))
 def test_k23_f32_plan_covers_every_head_dim_to_256(D):
-    """K2 f32 / K3 f32: 32-row streamed tiles up to a padded 192, 16-row
-    ones at 256 (32 would need 275,712 / 285,440 bytes there), K3 split
-    above a padded 128, each block under 227 KB."""
+    """K2 f32 / K3 f32 on mma.sync above a padded 128 (the wgmma route
+    below, ``test_k23_f32_plan_fits_for_every_head_dim``): 32-row streamed
+    tiles up to a padded 192, 16-row ones at 256 (32 would need 275,712 /
+    285,440 bytes there), K3 split into eight warps, each block under 227
+    KB."""
     plan = fa.k23_f32_plan(D)
     assert plan.dp == fa.padded_head_dim(D) == fa.k1_f32_plan(D).dp
-    assert plan.tile == (16 if plan.dp == 256 else 32)
-    T, row = plan.tile, 4 * (plan.dp + 4)
+    if plan.dp <= 128:
+        assert plan.route == "wgmma"
+        return
+    assert plan.route == "mma_sync"
+    assert plan.k2_tile == plan.k3_tile == (16 if plan.dp == 256 else 32)
+    assert plan.k2_rows == plan.k3_rows == 64 and plan.k3_warps == 8
+    T, row = plan.k2_tile, 4 * (plan.dp + 4)
     patch = 4 * 16 * (T + 4)
     assert plan.k2_smem == (2 * 64 + 4 * T) * row + 4 * patch + 2 * T * 4
     assert plan.k3_smem == (2 * 64 + 4 * T) * row \
@@ -157,7 +164,7 @@ def test_k23_f32_wide_walks_cover_the_dense_mask(Sq, Sk, causal, segs):
     tile K2 f32 visits for its 64-row block and in a 16-row query tile K3
     f32 visits for its 64-key block; a tile K3 skips ends before the
     block's first key."""
-    T, Bk = fa.k23_f32_plan(256).tile, fa.K23_F32_BLOCK
+    T, Bk = fa.k23_f32_plan(256).k2_tile, fa.K23_F32_BLOCK
     qs = ks = None
     if segs:
         qs, ks = _segments(Sq, Sk, Sq + Sk)
@@ -199,7 +206,7 @@ def test_k23_f32_wide_walks_with_plain_arithmetic_match_the_plain_backward(
     o, lse = fa.flash_attention_reference(q, k, v, return_lse=True, **kw)
     delta = fa.attention_delta(o, do)
     p, ds = fa._dscores(q, k, v, do, lse, delta, causal, seg, D ** -0.5)
-    T, Bk, G = fa.k23_f32_plan(D).tile, fa.K23_F32_BLOCK, Hq // Hkv
+    T, Bk, G = fa.k23_f32_plan(D).k2_tile, fa.K23_F32_BLOCK, Hq // Hkv
     kf = k.reshape(B, Sk, Hkv, 1, D)
     dq = torch.zeros(B, Hkv, G, Sq, D)
     for q0 in range(0, Sq, Bk):

@@ -12,12 +12,16 @@ its LSE, K2 f32, K3 f32 there) against the reference:
   SD-1.5's D = 40, 80 and 160: atol 1e-5 (fp32 sums in other orders, the
   reference's softmax in base 2 on q pre-scaled by scale·log2 e);
 - K2 f32's and K3 f32's plans for every head dim from 8 to 256
-  (``k23_f32_plan``: the shared memory of ``csrc/flash_bwd_f32.cu``, under
-  the card's 227 KB, K3 split above a padded 128, 16-row streamed tiles at
-  a padded 256) and their walks
-  (``k2_f32_kv_tiles``, ``k3_f32_q_tiles``) against the dense mask, and run
-  with the plain arithmetic tile by tile against the plain backward
-  (1e-5);
+  (``k23_f32_plan``: the route by padded head dim, wgmma up to 128 and
+  mma.sync above, and the shared memory of ``csrc/flash_bwd_f32.cuh``,
+  under the card's 227 KB) and their walks (``k2_f32_kv_tiles``,
+  ``k3_f32_q_tiles``) at every plan's block and tile rows against the
+  dense mask, and run with the plain arithmetic tile by tile against the
+  plain backward (1e-5);
+- the wgmma route's permuted transposed tiles (``k23_f32_tile_perm``):
+  an accumulator fragment of dS, Pᵀ or dSᵀ read as the next product's A
+  fragment against the permuted Kᵀ, dOᵀ or Qᵀ gives dS·K, Pᵀ·dO or dSᵀ·Q
+  (seeded numpy, float64);
 - one AdamW step of the port's ``build_sdxl_adapter(param_dtype=
   torch.float32)`` against the reference's ``build_sdxl_adapter()`` (its
   default, fp32), both tiny under ``DEBUG_FLAG``, the reference's weights
@@ -84,24 +88,54 @@ def test_fp32_backward_matches_reference_kernels(B, Sq, Sk, H, D):
                                    atol=ATOL, err_msg=f"d{name}")
 
 
+def _wgmma_bytes(dp, groups, T, k3):
+    # the resident pair, split (4 parts of 64·groups rows); the tile's
+    # split copies (K2: K, V, Kᵀ; K3: Q, dO, Qᵀ, dOᵀ; two parts each); the
+    # raw tile (two tensors, rows padded by 4); two stages of T ids (K3:
+    # LSEs, δs and ids)
+    return 4 * (4 * 64 * groups * dp + (8 if k3 else 6) * T * dp
+                + 2 * T * (dp + fa.K23_F32_PAD) + (3 if k3 else 1) * 2 * T)
+
+
 @pytest.mark.parametrize("D", range(8, 257, 8))
 def test_k23_f32_plan_fits_for_every_head_dim(D):
     plan = fa.k23_f32_plan(D)
     assert plan.dp == fa.padded_head_dim(D) and plan.dp >= D
     assert plan.dp == (-(-D // 16) * 16 if D <= 160 else
                        192 if D <= 192 else 256)
-    assert plan.k3_warps == (8 if plan.dp > 128 else 4)
-    T = plan.tile
-    assert T == (fa.K23_F32_WIDE_TILE if plan.dp == 256 else fa.K23_F32_TILE)
-    row = 4 * (plan.dp + fa.K23_F32_PAD)
-    patch = 4 * 16 * (T + fa.K23_F32_PAD)
-    # K2: Q and dO resident, two stages of K and V, 4 patches, 2×T ids
-    assert plan.k2_smem == (2 * 64 + 4 * T) * row + 4 * patch + 2 * T * 4
-    # K3: K and V resident, two stages of Q and dO, a patch a warp, two
-    # stages of T LSEs, δs and query ids
-    assert plan.k3_smem == (2 * 64 + 4 * T) * row \
-        + plan.k3_warps * patch + 3 * 2 * T * 4
     assert max(plan.k2_smem, plan.k3_smem) <= fa.K1_MAX_SMEM
+    if plan.dp > 128:
+        assert plan.route == "mma_sync" and plan.k3_warps == 8
+        T = plan.k2_tile
+        assert T == plan.k3_tile == (fa.K23_F32_WIDE_TILE if plan.dp == 256
+                                     else fa.K23_F32_TILE)
+        row = 4 * (plan.dp + fa.K23_F32_PAD)
+        patch = 4 * 16 * (T + fa.K23_F32_PAD)
+        # K2: Q and dO resident, two stages of K and V, 4 patches, 2×T ids
+        assert plan.k2_smem == (2 * 64 + 4 * T) * row + 4 * patch + 2 * T * 4
+        # K3: K and V resident, two stages of Q and dO, a patch a warp,
+        # two stages of T LSEs, δs and query ids
+        assert plan.k3_smem == (2 * 64 + 4 * T) * row \
+            + plan.k3_warps * patch + 3 * 2 * T * 4
+        return
+    # the wgmma route: two consumer warpgroups with 32-row tiles where
+    # they fit, else one, else 16-row tiles (the UNet's D = 64 takes two
+    # in both kernels)
+    assert plan.route == "wgmma"
+    for k3, rows, T, smem in ((False, plan.k2_rows, plan.k2_tile,
+                               plan.k2_smem),
+                              (True, plan.k3_rows, plan.k3_tile,
+                               plan.k3_smem)):
+        groups = rows // 64
+        assert rows in (64, 128) and T in (16, 32)
+        assert smem == _wgmma_bytes(plan.dp, groups, T, k3)
+        wider = ([(2, 32)] if groups == 1 else []) \
+            + ([(groups, 32)] if T == 16 else [])
+        assert all(_wgmma_bytes(plan.dp, g, t, k3) > fa.K1_MAX_SMEM
+                   for g, t in wider)
+    assert plan.k3_warps == plan.k3_rows // 16
+    if plan.dp <= 64:
+        assert plan.k2_rows == plan.k3_rows == 128
 
 
 @pytest.mark.parametrize("D", [0, 4, 12, 264, 512])
@@ -128,11 +162,17 @@ WALKS = [(1, 1, True, False), (64, 64, False, False), (65, 63, True, False),
          (100, 37, False, False)]
 
 
+# (K2 rows, K2 tile, K3 rows, K3 tile) of every plan from 8 to 256
+BLOCKINGS = sorted({(p.k2_rows, p.k2_tile, p.k3_rows, p.k3_tile)
+                    for p in map(fa.k23_f32_plan, range(8, 257, 8))})
+
+
 @pytest.mark.parametrize("Sq,Sk,causal,segs", WALKS)
 def test_k23_f32_walks_cover_the_dense_mask(Sq, Sk, causal, segs):
-    """Every visible (query, key) pair lies in a tile each kernel visits:
-    K2 f32's 32-key tiles per 64-row block, K3 f32's 32-row query tiles per
-    64-key block; every tile either skips holds no visible pair."""
+    """Every visible (query, key) pair lies in a tile each kernel visits,
+    at every plan's blocking: K2 f32's key tiles per block of query rows,
+    K3 f32's query tiles per block of keys; every tile either skips holds
+    no visible pair."""
     rs = np.random.RandomState(Sq + Sk)
     qs = ks = None
     if segs:
@@ -140,24 +180,23 @@ def test_k23_f32_walks_cover_the_dense_mask(Sq, Sk, causal, segs):
         ks = qs[:Sk].copy()
         qs[Sq - Sq // 5:] = -1
     mask = _dense_mask(Sq, Sk, causal, qs, ks)
-    T, Bk = fa.K23_F32_TILE, fa.K23_F32_BLOCK
-    for q0 in range(0, Sq, Bk):
-        tiles = fa.k2_f32_kv_tiles(q0, Sq, Sk, causal)
-        seen = np.zeros(Sk, bool)
-        for j in tiles:
-            seen[j * T:(j + 1) * T] = True
-        rows = mask[q0:q0 + Bk]
-        assert not rows[:, ~seen].any()
-        assert tiles == sorted(set(tiles))
-    for k0 in range(0, Sk, Bk):
-        tiles = fa.k3_f32_q_tiles(k0, Sq, causal)
-        seen = np.zeros(Sq, bool)
-        for i in tiles:
-            seen[i * T:(i + 1) * T] = True
-        assert not mask[~seen, k0:k0 + Bk].any()
-        if causal:      # a skipped tile ends before the block's first key
-            assert all(min((i + 1) * T, Sq) - 1 < k0
-                       for i in range(-(-Sq // T)) if i not in tiles)
+    for R2, T2, R3, T3 in BLOCKINGS:
+        for q0 in range(0, Sq, R2):
+            tiles = fa.k2_f32_kv_tiles(q0, Sq, Sk, causal, T2, R2)
+            seen = np.zeros(Sk, bool)
+            for j in tiles:
+                seen[j * T2:(j + 1) * T2] = True
+            assert not mask[q0:q0 + R2][:, ~seen].any()
+            assert tiles == sorted(set(tiles))
+        for k0 in range(0, Sk, R3):
+            tiles = fa.k3_f32_q_tiles(k0, Sq, causal, T3)
+            seen = np.zeros(Sq, bool)
+            for i in tiles:
+                seen[i * T3:(i + 1) * T3] = True
+            assert not mask[~seen, k0:k0 + R3].any()
+            if causal:  # a skipped tile ends before the block's first key
+                assert all(min((i + 1) * T3, Sq) - 1 < k0
+                           for i in range(-(-Sq // T3)) if i not in tiles)
 
 
 @pytest.mark.parametrize("Sq,Sk,causal,segs", WALKS)
@@ -181,36 +220,81 @@ def test_k23_f32_walks_with_plain_arithmetic_match_the_plain_backward(
     o, lse = fa.flash_attention_reference(q, k, v, return_lse=True, **kw)
     delta = fa.attention_delta(o, do)
     p, ds = fa._dscores(q, k, v, do, lse, delta, causal, seg, D ** -0.5)
-    G, T, Bk = Hq // Hkv, fa.K23_F32_TILE, fa.K23_F32_BLOCK
+    G = Hq // Hkv
     kf = k.reshape(B, Sk, Hkv, 1, D)
-    dq = torch.zeros(B, Hkv, G, Sq, D)
-    for q0 in range(0, Sq, Bk):
-        for j in fa.k2_f32_kv_tiles(q0, Sq, Sk, causal):
-            cols = slice(j * T, (j + 1) * T)
-            dq[..., q0:q0 + Bk, :] += torch.einsum(
-                "bhgqk,bkhgd->bhgqd", ds[..., q0:q0 + Bk, cols],
-                kf[:, cols].expand(-1, -1, -1, G, -1))
-    dk = torch.zeros(B, Hkv, Sk, D)
-    dv = torch.zeros(B, Hkv, Sk, D)
     qf = q.reshape(B, Sq, Hkv, G, D)
     dof = do.reshape(B, Sq, Hkv, G, D)
-    for k0 in range(0, Sk, Bk):
-        for i in fa.k3_f32_q_tiles(k0, Sq, causal):
-            rows, keys = slice(i * T, (i + 1) * T), slice(k0, k0 + Bk)
-            dk[:, :, keys] += torch.einsum("bhgqk,bqhgd->bhkd",
-                                           ds[..., rows, keys], qf[:, rows])
-            dv[:, :, keys] += torch.einsum("bhgqk,bqhgd->bhkd",
-                                           p[..., rows, keys], dof[:, rows])
     scale = D ** -0.5
     ref_dq = fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw)
     ref_dk, ref_dv = fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
                                                 **kw)
-    got_dq = (dq * scale).permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
-    np.testing.assert_allclose(got_dq.numpy(), ref_dq.numpy(), atol=ATOL)
-    np.testing.assert_allclose((dk * scale).transpose(1, 2).numpy(),
-                               ref_dk.numpy(), atol=ATOL)
-    np.testing.assert_allclose(dv.transpose(1, 2).numpy(), ref_dv.numpy(),
-                               atol=ATOL)
+    for R2, T2, R3, T3 in BLOCKINGS:
+        dq = torch.zeros(B, Hkv, G, Sq, D)
+        for q0 in range(0, Sq, R2):
+            for j in fa.k2_f32_kv_tiles(q0, Sq, Sk, causal, T2, R2):
+                cols = slice(j * T2, (j + 1) * T2)
+                dq[..., q0:q0 + R2, :] += torch.einsum(
+                    "bhgqk,bkhgd->bhgqd", ds[..., q0:q0 + R2, cols],
+                    kf[:, cols].expand(-1, -1, -1, G, -1))
+        dk = torch.zeros(B, Hkv, Sk, D)
+        dv = torch.zeros(B, Hkv, Sk, D)
+        for k0 in range(0, Sk, R3):
+            for i in fa.k3_f32_q_tiles(k0, Sq, causal, T3):
+                rows, keys = slice(i * T3, (i + 1) * T3), slice(k0, k0 + R3)
+                dk[:, :, keys] += torch.einsum(
+                    "bhgqk,bqhgd->bhkd", ds[..., rows, keys], qf[:, rows])
+                dv[:, :, keys] += torch.einsum(
+                    "bhgqk,bqhgd->bhkd", p[..., rows, keys], dof[:, rows])
+        got_dq = (dq * scale).permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
+        np.testing.assert_allclose(got_dq.numpy(), ref_dq.numpy(),
+                                   atol=ATOL)
+        np.testing.assert_allclose((dk * scale).transpose(1, 2).numpy(),
+                                   ref_dk.numpy(), atol=ATOL)
+        np.testing.assert_allclose(dv.transpose(1, 2).numpy(),
+                                   ref_dv.numpy(), atol=ATOL)
+
+
+def _fragment_product(acc, y, perm):
+    """acc (64 × T, the accumulator of S, Pᵀ or dSᵀ) times y (T × D) the
+    way the wgmma route takes it: each thread's accumulator registers of
+    an 8-wide chunk become its TF32 A fragment (c0 → a0, c2 → a1, c1 → a2,
+    c3 → a3; a0 at row g, k = t, a1 at row g + 8, a2 at k = t + 4, a3 at
+    both), against B = the permuted transpose, slot s holding row perm[s]
+    of y. → (the A operand as the tensor cores see it, the product)."""
+    M, T = acc.shape
+    a = np.full((M, T), np.nan)
+    for warp in range(M // 16):
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            r = 16 * warp + g
+            for kk in range(T // 8):
+                c = [acc[r, 8 * kk + 2 * t], acc[r, 8 * kk + 2 * t + 1],
+                     acc[r + 8, 8 * kk + 2 * t],
+                     acc[r + 8, 8 * kk + 2 * t + 1]]
+                frag = (c[0], c[2], c[1], c[3])
+                a[r, 8 * kk + t] = frag[0]
+                a[r + 8, 8 * kk + t] = frag[1]
+                a[r, 8 * kk + t + 4] = frag[2]
+                a[r + 8, 8 * kk + t + 4] = frag[3]
+    return a, a @ y[perm]
+
+
+@pytest.mark.parametrize("product", ["dS·K", "Pᵀ·dO", "dSᵀ·Q"])
+@pytest.mark.parametrize("T", [16, 32])
+def test_k23_f32_tile_perm_feeds_the_a_fragment(product, T):
+    """The permuted transposed tile (``k23_f32_tile_perm``, the mirror of
+    ``split_cols``) makes the accumulator's registers the A fragment of the
+    next product: read that way, dS against the permuted Kᵀ gives dS·K (K2
+    f32), Pᵀ against dOᵀ gives Pᵀ·dO and dSᵀ against Qᵀ gives dSᵀ·Q (K3
+    f32), every term once."""
+    rs = np.random.RandomState(T + len(product))
+    acc = rs.randn(64, T)           # 64 rows (queries or keys) × T
+    y = rs.randn(T, 64)             # the tile: K, dO or Q rows × D
+    perm = fa.k23_f32_tile_perm(T)
+    assert sorted(perm) == list(range(T))
+    a, got = _fragment_product(acc, y, perm)
+    np.testing.assert_array_equal(a, acc[:, perm])
+    np.testing.assert_allclose(got, acc @ y, rtol=1e-12, atol=1e-12)
 
 
 def _adapter_batch(cfg, B=2, L=6, seed=11):

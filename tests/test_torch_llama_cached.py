@@ -293,7 +293,11 @@ def test_cached_steps_with_other_cache_dtypes(model_dtype, cache_dtype,
     reads a 1-byte cache in bf16, as the reference's; logits within
     ``atol`` (fp32 model: summation order; bf16 model: every product
     rounded to bf16 in another order, up to ~10 bf16 steps at the tiny
-    model's |logit| <= 2), the written bytes equal (fp32 model)."""
+    model's |logit| <= 2), the written bytes equal (fp32 model). The fp32
+    model's per-row step over a 1-byte cache is held to one bf16 step of
+    its bf16 operands (:func:`_one_bf16_step_tolerance`; its fp32 inputs
+    differ in summation order, so a rounding may flip), and row 0 reading
+    one masked column as valid must land outside that."""
     jcfg = _tiny(JConfig, kv_heads, vocab_size=512, rope_theta=500000.0)
     jm = JLlama(jcfg, dtype=getattr(jnp, model_dtype))
     tree = jm.init(jax.random.PRNGKey(0), jnp.ones((1, 8), jnp.int32))
@@ -333,13 +337,120 @@ def test_cached_steps_with_other_cache_dtypes(model_dtype, cache_dtype,
     jl, _, jc2 = jm.apply({"params": tree}, input_ids=jnp.asarray(tok),
                           cache={"k": jc["k"], "v": jc["v"],
                                  "pos": jnp.asarray(pos)})
+    ck, cv = tc["k"].clone(), tc["v"].clone()
     with torch.no_grad():
         h, tc = tm(torch.from_numpy(tok).long(),
                    cache={"k": tc["k"], "v": tc["v"],
                           "pos": torch.from_numpy(pos).long()})
         tl = tm.logits(h)
-    np.testing.assert_allclose(tl.float().numpy(),
-                               np.asarray(jl, np.float32), atol=atol)
+    jl = np.asarray(jl, np.float32)
+    if model_dtype == "float32" and tdt.itemsize == 1:
+        # bf16 products in an fp32 model: one bf16 step, not ATOL
+        atol = _one_bf16_step_tolerance(tm, jcfg, tok, ck, cv, pos)
+        assert atol > ATOL
+        # the control: row 0 reading one masked cache column as valid
+        # lands outside the tolerance
+        with torch.no_grad():
+            h, _ = tm(torch.from_numpy(tok).long(),
+                      cache={"k": ck.clone(), "v": cv.clone(),
+                             "pos": torch.from_numpy(pos + [1, 0]).long()})
+            fault = np.abs(tm.logits(h).numpy() - jl).max()
+        assert fault > atol, (fault, atol)
+    np.testing.assert_allclose(tl.float().numpy(), jl, atol=atol)
+
+
+def _bf16_step(x):
+    """The spacing of bf16 values at |x| (x a bf16 value in fp32): the
+    most one rounding decision moves it."""
+    e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
+    return torch.where(x == 0, torch.zeros_like(x), 2.0 ** (e - 7))
+
+
+def _one_bf16_step_tolerance(tm, cfg, tok, ck, cv, pos):
+    """The largest move of the per-row step's logits that one bf16 step of
+    one operand of ``decode_attention``'s products makes, in an fp32 model
+    over a 1-byte cache.
+
+    There both sides compute the step in bf16: they round q·scale, the
+    current token's k and v, and P to bf16 before the products (the
+    reference's ``decode_attention``, ``mllm_npu_tpu/ops/attention.py``;
+    the cache's bytes are equal on both sides and widen exactly). Those
+    fp32 values come from sums taken in another order on each side (about
+    1e-6 apart at the tiny model), so a value that close to a bf16
+    rounding boundary rounds to neighbouring bf16 values on the two sides:
+    one bf16 step u(x) = 2^(floor(log2|x|) - 7). (At the test's seed it is
+    one element of layer 1's current v.) One step moves layer l's
+    attention output o (q·scale = g, keys K and values V with the current
+    column appended, P = softmax(g·Kᵀ) over the visible ones), to first
+    order:
+
+    - a step in P_j:  do = u(P_j)·V_j;
+    - in the current v (head hk, dim d):  do[h, d] = P_h,cur·u for each
+      query head h of hk;
+    - in g (head h, dim d):  ds_j = u·K_jd, dP = P∘(ds − P·ds),
+      do[h] = dP·V;
+    - in the current k (head hk, dim d):  ds_cur = u·g_hd for each h of
+      hk, dP and do as above.
+
+    The logits move by J_l·do, J_l the Jacobian of the logits with respect
+    to layer l's attention output (autograd through the rest of the
+    port's fp32 step, rounding taken as the identity). The tolerance is
+    the largest such move over every element of every operand and layer.
+    """
+    from mllm_npu_tpu_torch import ops
+    real = ops.decode_attention
+    seen = []
+    Hq, D = cfg.num_attention_heads, cfg.head_dim
+    shape = (tok.shape[0], 1, Hq, D)
+
+    def step(*moves):
+        it = iter(moves)
+
+        def moved(q, k, v, am, k_cur=None, v_cur=None):
+            if len(seen) < len(moves):
+                seen.append([x.detach() for x in (q, k, v, am, k_cur,
+                                                  v_cur)])
+            return real(q, k, v, am, k_cur=k_cur, v_cur=v_cur) + next(it)
+        ops.decode_attention = moved
+        try:
+            h, _ = tm(torch.from_numpy(tok).long(),
+                      cache={"k": ck.clone(), "v": cv.clone(),
+                             "pos": torch.from_numpy(pos).long()})
+        finally:
+            ops.decode_attention = real
+        return tm.logits(h)
+
+    zeros = tuple(torch.zeros(shape) for _ in range(cfg.num_hidden_layers))
+    # vectorize: one batched backward, not one per logit (1024 of them took
+    # minutes when the parallel test workers oversubscribe the CPU)
+    jac = torch.autograd.functional.jacobian(step, zeros, vectorize=True)
+    bf = lambda x: x.to(torch.bfloat16).float()
+    worst = 0.0
+    for (q, k, v, am, k_cur, v_cur), J in zip(seen, jac):
+        B, Hkv = q.shape[0], k.shape[2]
+        J = J.reshape(-1, B, Hkv, Hq // Hkv, D)        # [logit, b, hk, g, d]
+        g = bf(q.float() * D ** -0.5).reshape(B, Hkv, -1, D)
+        K = torch.cat([bf(k.float()), bf(k_cur)], 1).transpose(1, 2)
+        V = torch.cat([bf(v.float()), bf(v_cur)], 1).transpose(1, 2)
+        vis = torch.cat([am.reshape(B, 1, 1, -1).expand(B, Hkv, 1, -1),
+                         torch.ones(B, Hkv, 1, 1, dtype=torch.bool)], -1)
+        P = torch.softmax(torch.einsum("bhgd,bhjd->bhgj", g, K)
+                          .masked_fill(~vis, -1e30), -1)
+        Kbar = torch.einsum("bhgj,bhjd->bhgd", P, K)
+        Vbar = torch.einsum("bhgj,bhjd->bhgd", P, V)
+        JV = torch.einsum("lbhge,bhje->bhgjl", J, V)
+        moves = [
+            _bf16_step(bf(P))[..., None] * JV,                     # P_j
+            _bf16_step(V[:, :, -1])[..., None] * torch.einsum(     # v cur
+                "lbhgd,bhg->bhdl", J, P[..., -1]),
+            _bf16_step(g)[..., None] * torch.einsum(               # g
+                "lbhge,bhgj,bhgjd,bhje->bhgdl", J, P,
+                K[:, :, None] - Kbar[:, :, :, None], V),
+            _bf16_step(K[:, :, -1])[..., None] * torch.einsum(     # k cur
+                "lbhge,bhgd,bhg,bhge->bhdl", J, g, P[..., -1],
+                V[:, :, None, -1] - Vbar)]
+        worst = max(worst, *(m.abs().max().item() for m in moves))
+    return worst
 
 
 def _fused_tree(tree):
